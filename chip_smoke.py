@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Serve PathNet ``predict`` with the PyTorch/CUDA port on one CUDA card.
+"""Serve and train PathNet with the PyTorch/CUDA port on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (no arguments,
 one card). Phases, each with a start and an end line:
 
 0. device: the card's name, ``nvidia-smi`` name and power limit, versions;
-1. build: ``nvcc`` compiles ``pathnet_tpu_torch/csrc/*.cu`` into
-   ``build/pathnet_tpu_torch/<hash>/lib.so`` (ptxas registers and spills shown);
+1. build: ``nvcc`` compiles ``pathnet_tpu_torch/csrc/*.cu`` (one process per
+   source, all at once) into ``build/pathnet_tpu_torch/<hash>/lib.so``
+   (ptxas registers and spills shown);
 2. kernels: K1 ``cdf_walk``, K2 ``membership_dists`` and K3
    ``pagg_encode_fwd`` against their plain PyTorch versions on one
    8192-target request of the bgp stand-in (K1, K2 exact; K3 within
@@ -19,9 +20,23 @@ one card). Phases, each with a start and an end line:
    launch counts must be what the path makes;
 4. cornell at full width (F = 1703, D = 190): one request over all nodes, the
    kernels against their plain versions at its shapes, and ``predict`` on
-   the card against ``predict`` on the host with the same draws.
+   the card against ``predict`` on the host with the same draws;
+5. training kernels on one 8192-target bgp microbatch with a seeded dropout
+   mask: K3 in training mode (atol = rtol = 1e-4), K4 ``pagg_encode_bwd``
+   (every gradient within 1e-4 of its plain version's largest entry;
+   ``dattw``, ``dattb``, sums that cancel, of ``dh``'s if larger), K5
+   ``row_gather`` (exact) and ``row_gather_bwd`` (1e-5), K5 also at the
+   gather probe's shape; timed as in phase 2, with the PyTorch calls
+   ``index_select`` and ``index_add_`` as K5's library yardsticks;
+6. train: ``run_round`` on the bgp stand-in for 3 epochs (microbatch 8192,
+   dropout 0.7, Adam, best-on-validation) with the launch counts of the path;
+7. cornell at full width in training: one step on the card and on the host
+   with the same walks and masks; logits and every gradient within 1e-4 of
+   the host's largest entry (``attw.bias``, a sum that cancels to near 0,
+   within 1e-4 of the largest entry of ``attw.weight``'s gradient).
 
-The line before the last is the kernels' JSON record; the last is
+The line before the last is the kernels' JSON record (launches from phase 6,
+the training path, which runs every kernel); the last is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero and prints no
 result. Without a CUDA card, or outside a checkout, it exits non-zero.
 """
@@ -42,8 +57,13 @@ BGP = os.path.join(ROOT, "data", "bench_cache", "bgp_standin_63977.npz")
 CORNELL = os.path.join(ROOT, "data", "edge_input", "cornell.in")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
-NW, WL, HIDDEN, REQUEST = 40, 4, 64, 8192
+NW, WL, HIDDEN, REQUEST, EPOCHS = 40, 4, 64, 8192, 3
 K3_TOL = 1e-4
+K4_TOL = 1e-4      # of each gradient's largest plain entry
+K5_BWD_TOL = 1e-5  # of the largest plain entry (atomics order the sums)
+KERNELS = ("cdf_walk", "membership_dists", "pagg_encode_fwd", "pagg_encode_bwd",
+           "row_gather", "row_gather_bwd")
+K4_GRADS = ("dh", "dwd", "dbd", "dw_ih", "dw_hh", "db_ih", "db_hh", "dattw", "dattb")
 
 
 def say(msg: str) -> None:
@@ -199,6 +219,126 @@ def check_kernels(tag, ps, model, X, idx, u, rec, timed):
             f"by {bound_by}: {b / 1e6:.1f} MB, {o / 1e9:.3f} G ops)")
 
 
+def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None):
+    """Time a kernel per launch in a CUDA graph and per eager call, its plain
+    version and (if given) the library call per eager call; record them."""
+    ms = graph_ms(kern_graph or kern, iters)
+    call_ms = time_ms(kern, max(2, iters // 3))
+    plain_ms = time_ms(plain, 3)
+    lib_ms = time_ms(library, 20) if library is not None else None
+    bound_ms, bound_by = bound(b, o)
+    rec[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=lib_ms)
+    say(f"  {name}: {ms:.4f} ms per launch in a CUDA graph, {call_ms:.4f} ms per "
+        f"eager wrapper call (plain {plain_ms:.4f} ms eager, library "
+        + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms") +
+        f", bound {bound_ms:.4f} ms by {bound_by}: {b / 1e6:.1f} MB, {o / 1e9:.3f} G ops)")
+
+
+def record_err(rec, name, err):
+    rec[name]["max_abs_err"] = max(rec[name].get("max_abs_err", 0.0), err)
+
+
+def check_k4(tag, got, want):
+    """Each K4 gradient within K4_TOL of its plain version's largest entry;
+    ``dattw`` and ``dattb`` (sums over all walks that cancel) against the
+    larger of that and ``dh``'s largest entry. Returns the max abs error."""
+    dh_max = float(want[0].abs().max())
+    worst = 0.0
+    parts = []
+    for name, a, b in zip(K4_GRADS, got, want):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if name in ("dattw", "dattb"):
+            scale = max(scale, dh_max)
+        parts.append(f"{name} {err / max(float(b.abs().max()), 1e-30):.1e}")
+        if not err <= K4_TOL * scale:
+            raise AssertionError(f"{tag}: pagg_encode_bwd {name} max abs err {err} "
+                                 f"beyond {K4_TOL} x {scale}")
+        worst = max(worst, err)
+    say(f"  {tag}: pagg_encode_bwd within {K4_TOL} (error over each plain max: "
+        + ", ".join(parts) + ")")
+    return worst
+
+
+def check_training_kernels(ps, model, X, idx, u, gen, rec):
+    """K3 with a mask, K4, K5 against their plain versions on one training
+    microbatch, then the probe's shape for K5; time each."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.models import draw_dropout_masks
+
+    paths, dists = ps.sample(idx, u=u)
+    T, nw, wl = paths.shape
+    h, w = model.encode_inputs(X)
+    H = h.shape[1]
+    keep = 1.0 - model.spec.dropout
+    m1, _ = draw_dropout_masks(model.spec, T, nw, gen, X.device)
+    agg = K.pagg_encode_fwd(h, paths, dists, *w, keep_mask=m1, keep=keep)
+    agg_p = K.pagg_encode_fwd_plain(h, paths, dists, *w, m1, keep)
+    torch.cuda.synchronize()
+    err3 = float((agg - agg_p).abs().max())
+    if not torch.allclose(agg, agg_p, atol=K3_TOL, rtol=K3_TOL):
+        raise AssertionError(f"pagg_encode_fwd (training) max abs err {err3}")
+    record_err(rec, "pagg_encode_fwd", err3)
+    say(f"  bgp microbatch: pagg_encode_fwd with the keep mask max abs err {err3:.3e} "
+        f"within atol = rtol = {K3_TOL} (T={T}, nw={nw}, wl={wl}, H={H}, keep={keep:.2f})")
+    g = torch.randn((T, H), generator=gen, device=X.device)
+    bwd_args = (g, h, paths, dists, *w, m1, keep)
+    got = K.pagg_encode_bwd(*bwd_args)
+    want = K.pagg_encode_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    record_err(rec, "pagg_encode_bwd", check_k4("bgp microbatch", got, want))
+    del got, want
+
+    n = h.shape[0]
+    probe_tbl = torch.randn((512, 128), generator=gen, device=X.device)
+    probe_idx = torch.randint(0, 512, (512,), generator=gen, device=X.device,
+                              dtype=torch.int32)
+    for tag, tbl, ix in (("ego rows", h, idx), ("probe [512, 128]", probe_tbl, probe_idx)):
+        out = K.row_gather(tbl, ix)
+        if not torch.equal(out, K.row_gather_plain(tbl, ix)):
+            raise AssertionError(f"row_gather differs from its plain version ({tag})")
+        dout = torch.randn(out.shape, generator=gen, device=X.device)
+        d = K.row_gather_bwd(dout, ix, tbl.shape[0])
+        d_p = K.row_gather_bwd_plain(dout, ix, tbl.shape[0])
+        err5 = float((d - d_p).abs().max())
+        if not err5 <= K5_BWD_TOL * float(d_p.abs().max()):
+            raise AssertionError(f"row_gather_bwd ({tag}) max abs err {err5}")
+        record_err(rec, "row_gather", 0.0)
+        record_err(rec, "row_gather_bwd", err5)
+        say(f"  {tag}: row_gather exact, row_gather_bwd max abs err {err5:.3e} within "
+            f"{K5_BWD_TOL} x max (n={tbl.shape[0]}, C={tbl.shape[1]}, m={ix.shape[0]})")
+
+    # bounds: K3 as in phase 2 plus the mask; K4: the forward recompute
+    # (18 H^2 per walk step), the backward products (18 H^2) and the weight
+    # contractions (18 H^2), and ~14 H per walk for the attention
+    walks = T * nw
+    b3 = nbytes(h, paths, dists, m1, agg, *w)
+    o3 = walks * (wl * 18 * H * H + 6 * H)
+    b4 = nbytes(g, h, paths, dists, m1, *w) + nbytes(h, *w)
+    o4 = walks * (wl * 54 * H * H + 14 * H)
+    uniq = int(torch.unique(idx).numel())
+    b5 = (uniq * H + T * H + T) * 4      # distinct rows read, rows written, idx
+    b5b = (T * H + T + n * H) * 4        # dout and idx read, all of dtbl written
+    idx_l = idx.long()
+    dout = torch.randn((T, H), generator=gen, device=X.device)
+    # K3's record keeps its serving time (phase 2); this one is printed only
+    timed({"pagg_encode_fwd with keep mask": {}}, "pagg_encode_fwd with keep mask",
+          lambda: K.pagg_encode_fwd(h, paths, dists, *w, keep_mask=m1, keep=keep),
+          lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, m1, keep), b3, o3, 20)
+    timed(rec, "pagg_encode_bwd", lambda: K.pagg_encode_bwd(*bwd_args),
+          lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 5)
+    timed(rec, "row_gather", lambda: K.row_gather(h, idx),
+          lambda: K.row_gather_plain(h, idx), b5, 0.0, 50,
+          library=lambda: torch.index_select(h, 0, idx_l),
+          kern_graph=lambda: K.row_gather(h, idx, check=False))
+    timed(rec, "row_gather_bwd", lambda: K.row_gather_bwd(dout, idx, n),
+          lambda: K.row_gather_bwd_plain(dout, idx, n), b5b, float(T * H), 50,
+          library=lambda: torch.zeros((n, H), device=X.device).index_add_(0, idx_l, dout),
+          kern_graph=lambda: K.row_gather_bwd(dout, idx, n, check=False))
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(900, exit=True)
     import torch
@@ -212,20 +352,31 @@ def main() -> int:
         from pathnet_tpu_torch.models import PaggSpec, PathNet
         from pathnet_tpu_torch.sample import PathSampler
         from pathnet_tpu_torch.sample.walk import draw_uniforms
-        from pathnet_tpu_torch.train import predict
+        from pathnet_tpu_torch.config import TrainConfig
+        from pathnet_tpu_torch.data.splits import get_whole_mask, ratio_masks
+        from pathnet_tpu_torch.models import draw_dropout_masks
+        from pathnet_tpu_torch.train import predict, run_round
+        from pathnet_tpu_torch.train.trainer import (STREAM_INIT, chunk_index,
+                                                     chunked_grads, make_generator)
     except ImportError as e:
         print(f"chip_smoke: run it from the root of a checkout ({e})", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    rec = {name: {} for name in ("cdf_walk", "membership_dists", "pagg_encode_fwd")}
+    rec = {name: {} for name in KERNELS}
     meta = {
         "cdf_walk": ("pathnet_tpu_torch/csrc/cdf_walk.cu", "pathnet_tpu/sample/alias.py:142"),
         "membership_dists": ("pathnet_tpu_torch/csrc/membership_dists.cu",
                              "pathnet_tpu/sample/distance.py:77"),
         "pagg_encode_fwd": ("pathnet_tpu_torch/csrc/pagg_encode.cu",
                             "pathnet_tpu/models/pagg.py:235"),
+        "pagg_encode_bwd": ("pathnet_tpu_torch/csrc/pagg_encode_bwd.cu",
+                            "pathnet_tpu/models/pagg.py:235"),
+        "row_gather": ("pathnet_tpu_torch/csrc/row_gather.cu",
+                       "scripts/pallas_gather_probe.py:68"),
+        "row_gather_bwd": ("pathnet_tpu_torch/csrc/row_gather.cu",
+                           "scripts/pallas_gather_probe.py:68"),
     }
 
     with Phase("0 device"):
@@ -287,10 +438,9 @@ def main() -> int:
             raise AssertionError("ensemble log-probs are not finite or do not normalise")
         counts = K.launch_counts()
         say(f"  launches: {counts}")
-        for name, c in counts.items():
-            if c != 8 + 4:
-                raise AssertionError(f"{name} launched {c} times, the path makes 12")
-            rec[name]["launches"] = c
+        serving = {name: 0 if name.endswith("_bwd") else 8 + 4 for name in KERNELS}
+        if counts != serving:
+            raise AssertionError(f"serving launch counts {counts}, the path makes {serving}")
         med = float(np.median(times))
         say(f"  8 x {REQUEST}-target requests: ms " + ", ".join(f"{t:.2f}" for t in times)
             + f"; median {med:.2f} ms, {REQUEST / med * 1e3:.0f} targets/s "
@@ -311,8 +461,9 @@ def main() -> int:
         logp = predict(mc, Xc, psc, idx=allc, u=uc[None])
         torch.cuda.synchronize()
         counts = K.launch_counts()
-        if any(c != 1 for c in counts.values()):
-            raise AssertionError(f"cornell request launch counts {counts}, expected 1 each")
+        if counts != {name: 0 if name.endswith("_bwd") else 1 for name in KERNELS}:
+            raise AssertionError(f"cornell request launch counts {counts}, expected 1 "
+                                 "of each forward kernel")
         ps_host = PathSampler.build(gc, NW, WL, device="cpu")
         m_host = PathNet(specc, device="cpu")
         m_host.load_state_dict({k: v.cpu() for k, v in mc.state_dict().items()})
@@ -323,12 +474,111 @@ def main() -> int:
         if not torch.isfinite(logp).all() or err > K3_TOL:
             raise AssertionError(f"cornell log-probs differ from the host's by {err}")
 
+    with Phase("5 training kernels vs plain (bgp, one 8192-target microbatch)"):
+        spec5 = PaggSpec(feat_dim=X.shape[1], hidden=HIDDEN, out_dim=C, walk_len=WL,
+                         dropout=0.7)
+        model5 = PathNet(spec5, device=dev, generator=torch.Generator().manual_seed(0))
+        check_training_kernels(ps, model5, X, idx, u, gen, rec)
+        del model5
+
+    with Phase(f"6 train bgp stand-in ({EPOCHS} epochs)"):
+        y = torch.from_numpy(z["y"].astype(np.int64)).to(dev)
+        masks = get_whole_mask(z["y"], seed=1)
+        chunks = [-(-int(m.sum()) // REQUEST) for m in masks]
+        say(f"  train / val / test nodes {[int(m.sum()) for m in masks]}, "
+            f"{chunks} microbatches of {REQUEST}")
+        cfg = TrainConfig(epochs=EPOCHS, microbatch=REQUEST)
+        spec6 = PaggSpec(feat_dim=X.shape[1], hidden=HIDDEN, out_dim=C, walk_len=WL,
+                         dropout=0.7)
+        K.reset_launch_counts()
+        res = run_round(X, y, ps, spec6, cfg, *masks, C, seed=0, track_history=True,
+                        keep_params=True)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        best, improved = 0.0, 0
+        for acc in res.history:
+            if acc > best:
+                best, improved = float(acc), improved + 1
+        fwd = EPOCHS * (chunks[0] + chunks[1]) + improved * chunks[2]
+        expect = {"cdf_walk": EPOCHS, "membership_dists": EPOCHS,
+                  "pagg_encode_fwd": fwd, "row_gather": fwd,
+                  "pagg_encode_bwd": EPOCHS * chunks[0],
+                  "row_gather_bwd": EPOCHS * chunks[0]}
+        say(f"  launches: {counts} ({improved} epochs improved on validation)")
+        if counts != expect:
+            raise AssertionError(f"training launch counts {counts}, the path makes {expect}")
+        for name, c in counts.items():
+            rec[name]["launches"] = c
+        if not np.isfinite(res.losses).all():
+            raise AssertionError(f"non-finite training loss {res.losses}")
+        if res.best_val_acc != float(res.history.max()):
+            raise AssertionError("best_val_acc is not the best validation accuracy")
+        init = PathNet(spec6, device=dev, generator=make_generator(0, 0, STREAM_INIT))
+        moved = [k for k, v in init.state_dict().items()
+                 if not torch.equal(v, res.best_params[k])]
+        if not moved:
+            raise AssertionError("no parameter moved")
+        say(f"  loss per epoch {res.losses.tolist()}, val acc {res.history.tolist()}, "
+            f"best {res.best_val_acc:.4f}, test acc {res.metrics['accuracy']:.4f}")
+        epoch_ms = [t * 1e3 for t in res.epoch_seconds]
+        say(f"  ms per epoch {', '.join(f'{t:.2f}' for t in epoch_ms)}; median of "
+            f"epochs 2-{EPOCHS}: {float(np.median(epoch_ms[1:])):.2f} ms")
+        paths6, dists6 = ps.sample(generator=gen)
+        ic, wc, total = chunk_index(masks[0], REQUEST, dev)
+        grad_ms = time_ms(lambda: chunked_grads(init, X, y, paths6, dists6, ic[:1], wc[:1],
+                                                total, dropout_gen=lambda i: gen), 5)
+        say(f"  one {REQUEST}-target microbatch grad (forward K3 + K5, backward K4 + "
+            f"K5, weight contractions): {grad_ms:.2f} ms")
+        del res, init, paths6, dists6
+
+    with Phase("7 cornell training step at full width"):
+        trc = ratio_masks(gc.n, 1000, val_size=59)[0]
+        idx7 = torch.from_numpy(np.flatnonzero(trc).astype(np.int32))
+        yc = torch.from_numpy(np.random.default_rng(1).integers(0, 5, size=gc.n))
+        spec7 = PaggSpec(feat_dim=1703, hidden=HIDDEN, out_dim=5, walk_len=WL, dropout=0.7)
+        u7 = torch.rand((WL - 1, gc.n * NW), generator=torch.Generator().manual_seed(7))
+        masks7 = draw_dropout_masks(spec7, idx7.shape[0], NW,
+                                    torch.Generator().manual_seed(8), "cpu")
+        out = []
+        for d, psx, Xx in ((dev, psc, Xc), ("cpu", ps_host, torch.from_numpy(Xc_np))):
+            m7 = PathNet(spec7, device=d, generator=torch.Generator().manual_seed(2))
+            K.reset_launch_counts()
+            p7, d7 = psx.sample(u=u7.to(d))
+            rows = idx7.long().to(d)
+            logits = m7(Xx, p7[rows], d7[rows], idx7.to(d), train=True,
+                        masks=tuple(t.to(d) for t in masks7))
+            torch.nn.functional.cross_entropy(logits, yc[idx7.long()].to(d)).backward()
+            if d == dev:
+                torch.cuda.synchronize()
+                step_counts = K.launch_counts()
+            out.append({"logits": logits.detach().cpu(),
+                        **{k: q.grad.cpu() for k, q in m7.named_parameters()}})
+        if any(c != 1 for c in step_counts.values()):
+            raise AssertionError(f"cornell step launch counts {step_counts}, expected 1 each")
+        worst, parts = 0.0, []
+        for k, want in out[1].items():
+            err = float((out[0][k] - want).abs().max())
+            scale = float(want.abs().max())
+            if k == "attw.bias":
+                # a sum over all walks of the score gradients, which cancel
+                # to near 0; its summands are those of attw.weight's gradient
+                scale = max(scale, float(out[1]["attw.weight"].abs().max()))
+            rel = err / max(float(want.abs().max()), 1e-30)
+            worst = max(worst, rel)
+            parts.append(f"{k} {rel:.1e}")
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"cornell step: {k} differs from the host's by {err}")
+        say(f"  {idx7.shape[0]} train nodes, F = 1703: logits and all {len(out[1]) - 1} "
+            f"gradients on the card against the host (error over the host's largest "
+            f"entry): " + ", ".join(parts))
+
     say(smi)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0],
          "replaces": meta[name][1], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"]}
         for name, r in rec.items()]}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,29 +9,26 @@
 //   c_t = f c_{t-1} + i g,  h_t = o tanh(c_t)
 //   score = leaky_relu(attw . [h_n, h[paths[0]]] + attb), softmax over nw
 //   out   = sum over walks of softmax * h_n                  -> [T, H]
-// One block per target. Thread (j, g) owns hidden unit j of PB walks of path
-// group g, so each weight element it loads from L1/L2 serves PB walks, and
-// the four gates of unit j meet in its registers with no exchange. The
-// gathered rows, the selected inputs and the hidden states live in shared
-// memory; the final hidden state of every walk stays there for the readout.
+// One block per target. The walks run in groups through lstm_group_fwd
+// (pagg_lstm.cuh, shared with K4's recompute); the final hidden state of
+// every walk stays in shared memory for the readout.
+// Training mode (pagg.py:274): with a keep mask (uint8 [wl, T*nw, H], the
+// LSTM input's layout) the selected input of step t becomes
+// mask ? s_t / keep : 0 before the LSTM. The kernel is a template on that
+// choice, so the serving instantiation is the unmasked code unchanged.
 // Bound on the H100: f32 FMA work (18 H^2 flops per walk step), about 1.4 ms
 // per 8192-target request at 67 TFLOP/s; the bytes bound is ~100x lower.
-#include <cuda_runtime.h>
+#include "pagg_lstm.cuh"
 
-#define PB 4  // walks per thread (register blocking over the weights)
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
+template <bool MASKED>
 __global__ void pagg_encode_fwd_kernel(
     const float* __restrict__ h, const int* __restrict__ paths,
     const int* __restrict__ dists, const float* __restrict__ wd,
     const float* __restrict__ bd, const float* __restrict__ w_ih,
     const float* __restrict__ w_hh, const float* __restrict__ b_ih,
     const float* __restrict__ b_hh, const float* __restrict__ attw,
-    const float* __restrict__ attb, float* __restrict__ out, int nw, int wl,
-    int H, int NG) {
+    const float* __restrict__ attb, const uint8_t* __restrict__ mask,
+    float keep, float* __restrict__ out, int nw, int wl, int H, int NG) {
   extern __shared__ float smem[];
   const int P = NG * PB;       // walks in flight per block
   float* xs = smem;            // [P][H] gathered rows of this step
@@ -41,90 +38,16 @@ __global__ void pagg_encode_fwd_kernel(
   float* sc = hn + nw * H;     // [nw] attention scores
   const int j = threadIdx.x % H;
   const int g = threadIdx.x / H;
-  const int H4 = 4 * H;
-  const int* tp = paths + (long long)blockIdx.x * nw * wl;
-  const int* td = dists + (long long)blockIdx.x * nw * wl;
+  const long long B = (long long)gridDim.x * nw;
+  const long long b0 = (long long)blockIdx.x * nw;
+  const int* tp = paths + b0 * wl;
+  const int* td = dists + b0 * wl;
+  const LstmStreams none = {nullptr, nullptr, nullptr, nullptr, nullptr};
 
-  for (int p0 = 0; p0 < nw; p0 += P) {
-    float c[PB], hq[PB];
-#pragma unroll
-    for (int q = 0; q < PB; ++q) {
-      c[q] = 0.0f;
-      hq[q] = 0.0f;
-      hs[(g * PB + q) * H + j] = 0.0f;
-    }
-    for (int t = 0; t < wl; ++t) {
-      const int pos = wl - 1 - t;
-      int dq[PB];
-#pragma unroll
-      for (int q = 0; q < PB; ++q) {
-        const int slot = g * PB + q;
-        const int p = p0 + slot;
-        float x = 0.0f;
-        int d = 0;
-        if (p < nw) {
-          const int v = tp[p * wl + pos];
-          d = td[p * wl + pos];
-          d = d < 0 ? 0 : (d > wl - 1 ? wl - 1 : d);
-          x = h[(long long)v * H + j];
-        }
-        dq[q] = d;
-        xs[slot * H + j] = x;
-      }
-      __syncthreads();
-      float acc[PB];
-#pragma unroll
-      for (int q = 0; q < PB; ++q) acc[q] = bd[dq[q] * H + j];
-      for (int k = 0; k < H; ++k) {
-#pragma unroll
-        for (int q = 0; q < PB; ++q)
-          acc[q] += xs[(g * PB + q) * H + k] *
-                    wd[((long long)dq[q] * H + k) * H + j];
-      }
-#pragma unroll
-      for (int q = 0; q < PB; ++q) ss[(g * PB + q) * H + j] = acc[q];
-      __syncthreads();
-      float gi[PB], gf[PB], gg[PB], go[PB];
-      const float bi = b_ih[j] + b_hh[j];
-      const float bf = b_ih[H + j] + b_hh[H + j];
-      const float bg = b_ih[2 * H + j] + b_hh[2 * H + j];
-      const float bo = b_ih[3 * H + j] + b_hh[3 * H + j];
-#pragma unroll
-      for (int q = 0; q < PB; ++q) {
-        gi[q] = bi;
-        gf[q] = bf;
-        gg[q] = bg;
-        go[q] = bo;
-      }
-      for (int k = 0; k < H; ++k) {
-        const float* wi = w_ih + (long long)k * H4 + j;
-        const float* wh = w_hh + (long long)k * H4 + j;
-        const float wi0 = wi[0], wi1 = wi[H], wi2 = wi[2 * H], wi3 = wi[3 * H];
-        const float wh0 = wh[0], wh1 = wh[H], wh2 = wh[2 * H], wh3 = wh[3 * H];
-#pragma unroll
-        for (int q = 0; q < PB; ++q) {
-          const float a = ss[(g * PB + q) * H + k];
-          const float b = hs[(g * PB + q) * H + k];
-          gi[q] += a * wi0 + b * wh0;
-          gf[q] += a * wi1 + b * wh1;
-          gg[q] += a * wi2 + b * wh2;
-          go[q] += a * wi3 + b * wh3;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < PB; ++q) {
-        c[q] = sigmoid_f(gf[q]) * c[q] + sigmoid_f(gi[q]) * tanhf(gg[q]);
-        hq[q] = sigmoid_f(go[q]) * tanhf(c[q]);
-        hs[(g * PB + q) * H + j] = hq[q];
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < PB; ++q) {
-      const int p = p0 + g * PB + q;
-      if (p < nw) hn[p * H + j] = hq[q];
-    }
-  }
+  for (int p0 = 0; p0 < nw; p0 += P)
+    lstm_group_fwd<MASKED, false>(p0, h, tp, td, wd, bd, w_ih, w_hh, b_ih, b_hh,
+                                  mask, keep, none, xs, ss, hs, hn, nw, wl, H,
+                                  j, g, B, b0);
   __syncthreads();
   for (int p = threadIdx.x; p < nw; p += blockDim.x) {
     const float* ego = h + (long long)tp[p * wl] * H;
@@ -147,22 +70,23 @@ __global__ void pagg_encode_fwd_kernel(
 extern "C" int pathnet_pagg_encode_fwd(
     const void* h, const void* paths, const void* dists, const void* wd,
     const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
-    const void* b_hh, const void* attw, const void* attb, void* out, int T,
-    int nw, int wl, int H, void* stream) {
+    const void* b_hh, const void* attw, const void* attb, const void* mask,
+    float keep, void* out, int T, int nw, int wl, int H, void* stream) {
   if (T == 0) return 0;
   const int NG = H >= 256 ? 1 : 256 / H;
   const int P = NG * PB;
   const size_t smem = ((size_t)3 * P * H + (size_t)nw * H + nw) * sizeof(float);
+  auto kernel = mask ? pagg_encode_fwd_kernel<true> : pagg_encode_fwd_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        pagg_encode_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  pagg_encode_fwd_kernel<<<T, NG * H, smem, (cudaStream_t)stream>>>(
+  kernel<<<T, NG * H, smem, (cudaStream_t)stream>>>(
       (const float*)h, (const int*)paths, (const int*)dists,
       (const float*)wd, (const float*)bd, (const float*)w_ih,
       (const float*)w_hh, (const float*)b_ih, (const float*)b_hh,
-      (const float*)attw, (const float*)attb, (float*)out, nw, wl, H, NG);
+      (const float*)attw, (const float*)attb, (const uint8_t*)mask, keep,
+      (float*)out, nw, wl, H, NG);
   return (int)cudaGetLastError();
 }

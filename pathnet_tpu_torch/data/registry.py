@@ -1,0 +1,273 @@
+"""Dataset registry (port of ``pathnet_tpu/data/registry.py:34-387``).
+
+The same table of datasets (``DATASETS``) and payload fingerprints as the JAX
+package, and the same ``load_dataset``: the edge structure, the payload read
+from the disk payload cache ``<data_root>/payload_cache/<name>.<fingerprint>.npz``
+(``:307-321``), and the split rules (``:373-387``: "random" datasets re-split
+per round with ``get_whole_mask(y, seed=round_i + 1)``, "fixed" ones with
+``ratio_masks(n, seed=1000 + round_i, val_size)``).
+
+Not ported yet, and raising ``NotImplementedError`` naming ROADMAP: making a
+payload that is not in the cache (the synthetic stand-ins, the npy and
+Planetoid readers), the SBM structures, the Geom-GCN reader, and the MERW
+repair of broken probability columns (``:240-247``; Nba, cora, citeseer).
+They wait for the MERW and synthetic-payload slice (ROADMAP §1 items 1, 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import zlib
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from .graph import Graph
+from .splits import get_whole_mask, ratio_masks
+from .validate import validate_graph, validate_masks
+
+_WAITS = "waits for the MERW and synthetic-payload slice (ROADMAP §1 items 1, 6)"
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetSpec:
+    name: str
+    variant: str              # "homo" | "hetero" — model dispatch (PathNet_run.py:286-291)
+    split: str                # "fixed" (H2GCN dirs) | "random" (48/32/20 per round)
+    num_classes: int
+    feat_dim: int
+    homophily: float          # documented edge-homophily ratio (performance.jpg header)
+    edge_file: Optional[str] = None   # .in file name under <root>/edge_input/
+    n: Optional[int] = None           # for SBM stand-ins
+    avg_deg: float = 8.0
+    val_size: Optional[int] = None    # fixed-split val size (dataset.json)
+    large: bool = False               # gen_epoch tier (per-epoch regeneration)
+    # synthetic stand-in knobs (only used when the real payload is absent):
+    # ``signal`` = post-learning feature separation in noise sigmas,
+    # calibrated per dataset (scripts/calibrate_standins.py) so a
+    # feature-only model lands near the documented MLP row of
+    # performance.jpg; ``structure`` = off-diagonal concentration of the
+    # class-compatibility matrix (how informative neighbors are beyond
+    # homophily).
+    signal: float = 2.0
+    structure: float = 0.75
+    # off-diagonal pattern of the class-compatibility matrix ("shift" |
+    # "matching"); WebKB-style role graphs use the invertible pairing —
+    # see synthetic.compat_matrix and the Bayes-ceiling probe
+    # (scripts/standin_ceiling.py)
+    offdiag: str = "shift"
+    # irreducible label noise ρ (synthetic.flip_labels): observed labels are
+    # the field flipped to uniform w.p. ρ, capping every model at
+    # ceiling = (1-ρ) + ρ/C.  Calibrated so the ceiling sits ~2 pts above
+    # the documented PathNet row — clean generative payloads at the
+    # documented homophily are otherwise ~95% learnable (measured,
+    # scripts/calibrate_structure.py), which is why round-2 stand-ins
+    # overshot the reference by 10-20 pts.
+    label_noise: float = 0.0
+    # fraction of nodes carrying walk-pattern labels (the regime-3 path
+    # channel, synthetic.apply_pattern_channel): to smoothing/feature models
+    # these behave as uniform flips; a path model can decode them from
+    # ordered sampled-walk statistics.  This is the knob that makes the
+    # reference's PathNet>MLP ordering demonstrable on stand-ins — a pure
+    # edgewise field provably bounds sampled paths by full-neighborhood
+    # smoothing (RESULTS.md three-regime section).  Calibrated per dataset
+    # so the path-oracle probe sits ~2x the documented PathNet−MLP gap
+    # above the mix oracle (scripts/calibrate_v3.py).
+    pattern_frac: float = 0.0
+    # smoothing applications for the hidden bit field (0 = iid bits);
+    # smoothing widens per-node pattern margins on high-degree graphs
+    bit_smooth: int = 1
+    # pattern alphabet: "raw" walk bits (first-order, LSTM-friendly) or
+    # "xor" transitions (flip-invariant) — see synthetic.walk_pattern_dist
+    pattern_kind: str = "xor"
+    # S-selection: "none" = global top-margin (max decodability; prior leak
+    # absorbed by the signal refit) | "class" = class-balanced quotas (for
+    # datasets where the leak alone exceeds the MLP anchor)
+    pattern_balance: str = "none"
+
+
+# Knob values produced by scripts/calibrate_v2.py (r4 recalibration;
+# results/calibration_v2.json) and, for the heterophily family,
+# scripts/calibrate_v3.py (r5: the walk-pattern channel —
+# results/calibration_v3.json records feat / mix-oracle / path-oracle per
+# choice; the path-oracle sits a calibrated margin above the mix oracle, so
+# the reference's PathNet-over-smoothing ordering is demonstrable).  Anchors: centroid-score logistic probe on features ==
+# documented MLP row; probe given observed 1/2-hop neighbor class mixes
+# (the structure oracle) >= feat + 3 pts wherever the graph supports it;
+# label-noise ceiling ~ documented PathNet row + 5.  The r3 values were
+# mis-anchored by sketch-biased ridge probes (citeseer feat overshot the
+# MLP row by 10 pts; film/squirrel undershot and carried zero structure
+# signal).  Datasets with label_noise=0 use the "clean" mode: the ceiling
+# emerges from a deliberately weak compatibility structure instead of
+# flips (uniform flips at rho>0.5 destroy neighbor-label information
+# entirely).  Measured homophily drifts (observed vs documented):
+# cornell 0.336/0.30, cora 0.759/0.81, citeseer 0.677/0.74,
+# Nba 0.452/0.39 (the flip noise needed to cap the dense-graph oracle
+# pushes observed homophily toward 0.5 — the real 0.39 cut is reachable
+# only noise-free), others within 0.01.
+DATASETS: Dict[str, DatasetSpec] = {
+    "cornell": DatasetSpec("cornell", "hetero", "fixed", 5, 1703, 0.30,
+                           edge_file="cornell.in", val_size=59, signal=39.99,
+                           structure=0.85, offdiag="matching",
+                           label_noise=0.0, pattern_frac=0.178,
+                           bit_smooth=1),
+    "cora": DatasetSpec("cora", "homo", "fixed", 7, 1433, 0.81,
+                        edge_file="cora_nsl.in", val_size=1019, signal=3.2,
+                        structure=0.9, label_noise=0.108),
+    "citeseer": DatasetSpec("citeseer", "homo", "fixed", 6, 3703, 0.74,
+                            edge_file="citeseer.in", val_size=1879,
+                            signal=4.25, structure=0.9, label_noise=0.204),
+    # Nba knobs selected by the trained-model decode probe
+    # (scripts/nba_decode_probe.py, results/nba_decode_probe.json): smooth-3
+    # bits were plug-in-decodable but unlearnable from ~190 train nodes
+    # (trained PathNet sat exactly on the mix-oracle); smooth-2 at frac .60
+    # gives a trained +8.1-pt PathNet-over-MLP gap with the feat probe still
+    # on the documented MLP row (calibration_v3.json: feat .624 vs doc .5921).
+    "Nba": DatasetSpec("Nba", "hetero", "random", 2, 96, 0.39,
+                       edge_file="Nba.in", signal=6.06, structure=0.9,
+                       label_noise=0.35, pattern_frac=0.6, bit_smooth=2),
+    "pubmed": DatasetSpec("pubmed", "homo", "fixed", 3, 500, 0.80,
+                          n=19717, avg_deg=4.5, val_size=6310, large=True,
+                          signal=4.03, label_noise=0.136),
+    "bgp": DatasetSpec("bgp", "hetero", "random", 8, 287, 0.37,
+                       n=63977, avg_deg=10.0, large=True, signal=4.8,
+                       structure=0.9, label_noise=0.335,
+                       pattern_frac=0.205, bit_smooth=1),
+    "Electronics": DatasetSpec("Electronics", "hetero", "random", 10, 8669, 0.25,
+                               n=42318, avg_deg=8.0, large=True, signal=4.91,
+                               structure=0.9, label_noise=0.2,
+                               pattern_frac=0.082, bit_smooth=1),
+    "Dblp": DatasetSpec("Dblp", "hetero", "random", 4, 334, 0.45,
+                        n=17716, avg_deg=6.0, large=True, signal=4.02,
+                        structure=0.9, label_noise=0.307,
+                        pattern_frac=0.126, bit_smooth=1),
+    # Geom-GCN datasets carried by the reference dataset.json (val sizes
+    # from there; scale/homophily from the Geom-GCN/H2GCN papers).  Loaded
+    # from <root>/geomgcn/<name>/out1_* when present (formats.load_geomgcn),
+    # else SBM stand-ins.
+    "chameleon": DatasetSpec("chameleon", "hetero", "fixed", 5, 2325, 0.23,
+                             n=2277, avg_deg=31.7, val_size=729, signal=2.33,
+                             structure=0.97, offdiag="matching",
+                             label_noise=0.445, pattern_frac=0.45,
+                             bit_smooth=1),
+    "squirrel": DatasetSpec("squirrel", "hetero", "fixed", 5, 2089, 0.22,
+                            n=5201, avg_deg=83.5, val_size=1664, signal=0.7,
+                            structure=0.045, label_noise=0.0,
+                            pattern_frac=0.082, bit_smooth=1),
+    "film": DatasetSpec("film", "hetero", "fixed", 5, 931, 0.22,
+                        n=7600, avg_deg=8.8, val_size=3648, signal=1.2,
+                        structure=0.167, label_noise=0.0,
+                        pattern_frac=0.176, bit_smooth=1),
+    "texas": DatasetSpec("texas", "hetero", "fixed", 5, 1703, 0.11,
+                         n=183, avg_deg=3.4, val_size=59, signal=1.76,
+                         structure=0.803, offdiag="matching",
+                         label_noise=0.0, pattern_frac=0.082,
+                         bit_smooth=1),
+    "wisconsin": DatasetSpec("wisconsin", "hetero", "fixed", 5, 1703, 0.21,
+                             n=251, avg_deg=4.0, val_size=80, signal=1.98,
+                             structure=0.894, offdiag="matching",
+                             label_noise=0.0, pattern_frac=0.082,
+                             bit_smooth=1),
+}
+
+
+def payload_fingerprint(spec: DatasetSpec) -> str:
+    """Short stable hash of every knob that shapes the synthetic stand-in
+    payload.  Recorded in result rows (run.py) so stale artifacts produced
+    under an earlier calibration are detectable (VERDICT r3 missing #5)."""
+    key = (f"{spec.name}:{spec.num_classes}:{spec.feat_dim}:{spec.homophily}"
+           f":{spec.n}:{spec.avg_deg}:{spec.signal}:{spec.structure}"
+           f":{spec.offdiag}:{spec.label_noise}")
+    if spec.pattern_frac > 0:
+        # appended only when active so pattern-free payloads keep their
+        # historical fingerprints (r4 artifacts stay valid).  "v2" = the
+        # blend's generation version (stratified per-pattern selection,
+        # measure-aligned q) — bumped when the generation code changes so
+        # checkpoints/rows from an earlier blend can never be resumed into
+        # a recalibrated payload.
+        key += f":pf{spec.pattern_frac}:bs{spec.bit_smooth}:v4"
+        if spec.pattern_kind != "xor":
+            key += f":pk{spec.pattern_kind}"
+        if spec.pattern_balance != "none":
+            key += f":bal{spec.pattern_balance}"
+    return format(zlib.crc32(key.encode()) & 0xFFFFFFFF, "08x")
+
+
+def _find_edge_file(spec: DatasetSpec, data_root: str) -> Optional[str]:
+    if spec.edge_file is None:
+        return None
+    for root in (data_root, os.path.join(os.path.dirname(__file__), "..", "..", "data")):
+        p = os.path.join(root, "edge_input", spec.edge_file)
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def load_structure(name: str, data_root: str = "data") -> Graph:
+    """The edge structure of an edge-file dataset whose probability column
+    is valid (cornell). Raises ``NotImplementedError`` where the JAX package
+    repairs the column with MERW or generates an SBM structure."""
+    spec = DATASETS[name]
+    path = _find_edge_file(spec, data_root)
+    if path is None:
+        raise NotImplementedError(
+            f"{name}: no edge file; SBM and Geom-GCN structures {_WAITS}")
+    g = Graph.from_edge_input(path, name=name)
+    key = g.src.astype(np.int64) * g.n + g.dst.astype(np.int64)
+    _, first = np.unique(key, return_index=True)   # files duplicate records
+    rows = np.zeros(g.n)
+    np.add.at(rows, g.src[first], g.prob[first])
+    cnt = np.bincount(g.src[first], minlength=g.n)
+    if (g.prob < 0).any() or ((cnt > 0).any() and (
+            np.abs(rows[cnt > 0] - 1.0).max() > 1e-2)):
+        raise NotImplementedError(
+            f"{name}: the edge file's probability column needs the MERW "
+            f"repair, which {_WAITS}")
+    return g
+
+
+_PAYLOAD_CACHE: Dict[Tuple[str, str, str], Graph] = {}
+_PAYLOAD_CACHE_MAX = 4
+
+
+def clear_payload_cache() -> None:
+    """Drop cached payloads (tests / after mutating data files on disk)."""
+    _PAYLOAD_CACHE.clear()
+
+
+def load_dataset(name: str, data_root: str = "data", round_i: int = 0,
+                 ) -> Tuple[Graph, np.ndarray, np.ndarray, np.ndarray, DatasetSpec]:
+    """Graph + payload + round masks: ``(graph, train, val, test, spec)``.
+
+    The payload comes from ``<data_root>/payload_cache/<name>.<fingerprint>.npz``
+    (the file the JAX package writes); without it this raises
+    ``NotImplementedError``. Masks are exactly the JAX package's.
+    """
+    spec = DATASETS[name]
+    cache_key = (name, data_root, payload_fingerprint(spec))
+    g = _PAYLOAD_CACHE.get(cache_key)
+    if g is None:
+        disk_cache = os.path.join(data_root, "payload_cache",
+                                  f"{name}.{cache_key[2]}.npz")
+        if not os.path.exists(disk_cache):
+            raise NotImplementedError(
+                f"{name}: no payload cache at {disk_cache}; making the "
+                f"payload {_WAITS}")
+        z = np.load(disk_cache)
+        g = Graph(n=int(z["n"]), src=z["src"], dst=z["dst"], prob=z["prob"],
+                  features=z["x"], labels=z["y"], name=name)
+        for arr in (g.src, g.dst, g.prob, g.features, g.labels):
+            arr.setflags(write=False)
+        while len(_PAYLOAD_CACHE) >= _PAYLOAD_CACHE_MAX:
+            _PAYLOAD_CACHE.pop(next(iter(_PAYLOAD_CACHE)))
+        _PAYLOAD_CACHE[cache_key] = g
+    if spec.split == "random":
+        train, val, test = get_whole_mask(g.labels, seed=round_i + 1)
+    else:
+        # stand-in for the absent H2GCN split files: the dataset's documented
+        # val size with a 48% train fraction
+        train, val, test = ratio_masks(g.n, seed=1000 + round_i,
+                                       val_size=spec.val_size)
+    validate_graph(g)
+    validate_masks(name, g.n, train, val, test)
+    return g, train, val, test, spec

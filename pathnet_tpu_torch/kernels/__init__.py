@@ -1,10 +1,12 @@
-"""Hand-written CUDA kernels of the serving path, each beside its plain version.
+"""Hand-written CUDA kernels of the serving and training paths, each beside its plain version.
 
 | kernel | module | replaces (JAX) |
 |---|---|---|
 | K1 ``cdf_walk`` | ``kernels/cdf_walk.py`` | ``sample/alias.py:142-147`` ``CdfSampler.step``, scanned by ``sample/walk.py:36-55`` |
 | K2 ``membership_dists`` | ``kernels/membership_dists.py`` | ``sample/distance.py:77-139`` |
-| K3 ``pagg_encode_fwd`` | ``kernels/pagg_encode.py`` | ``models/pagg.py:235-303`` encode + readout |
+| K3 ``pagg_encode_fwd`` | ``kernels/pagg_encode.py`` | ``models/pagg.py:235-303`` encode + readout (serving, and training with a dropout mask) |
+| K4 ``pagg_encode_bwd`` | ``kernels/pagg_encode_bwd.py`` | the VJP of ``models/pagg.py:235-303`` with the gather VJP ``:83-93`` |
+| K5 ``row_gather``, ``row_gather_bwd`` | ``kernels/row_gather.py`` | ``scripts/pallas_gather_probe.py:68``, the ``gather_fn`` of ``models/pagg.py:209,309`` |
 
 A wrapper takes the plain PyTorch version for a CPU tensor and launches its
 kernel for a CUDA tensor, or raises; it never falls back. Each wrapper counts
@@ -13,8 +15,12 @@ its kernel launches in a plain integer attribute, ``launches``.
 from .cdf_walk import cdf_walk, cdf_walk_plain
 from .membership_dists import membership_dists, membership_dists_plain
 from .pagg_encode import pagg_encode_fwd, pagg_encode_fwd_plain
+from .pagg_encode_bwd import pagg_encode_bwd, pagg_encode_bwd_plain
+from .row_gather import (row_gather, row_gather_bwd, row_gather_bwd_plain,
+                         row_gather_plain)
 
-WRAPPERS = (cdf_walk, membership_dists, pagg_encode_fwd)
+WRAPPERS = (cdf_walk, membership_dists, pagg_encode_fwd, pagg_encode_bwd,
+            row_gather, row_gather_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -28,4 +34,6 @@ def launch_counts() -> dict:
 
 __all__ = ["cdf_walk", "cdf_walk_plain", "membership_dists",
            "membership_dists_plain", "pagg_encode_fwd", "pagg_encode_fwd_plain",
+           "pagg_encode_bwd", "pagg_encode_bwd_plain", "row_gather",
+           "row_gather_plain", "row_gather_bwd", "row_gather_bwd_plain",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]

@@ -2,21 +2,26 @@
 
 Every C entry point takes ``void*`` for each pointer and for the stream, and
 returns ``cudaGetLastError()`` after its launch. The build lands in
-``build/pathnet_tpu_torch/<hash of the sources and flags>/lib.so`` at the root
-of the checkout. One ``nvcc`` call compiles and links every source into a
-fresh temporary directory that is renamed into place only when the build
-succeeded: no lock file exists, and a half-written build is never reused.
-Nothing is built when a module is imported; the first launch, or an explicit
-:func:`build`, does it.
+``build/pathnet_tpu_torch/<hash of the sources, headers and flags>/lib.so`` at
+the root of the checkout. One ``nvcc -c`` per source runs at the same time,
+then one ``nvcc -shared`` links the objects, all in a fresh temporary
+directory that is renamed into place only when the build succeeded: no lock
+file exists, and a half-written build is never reused. Nothing is built when
+a module is imported; the first launch, or an explicit :func:`build`, does it.
+
+``python -m pathnet_tpu_torch.kernels.build`` times that build against one
+``nvcc -shared csrc/*.cu`` call, each from nothing, and prints one JSON line.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
@@ -29,15 +34,24 @@ TIMEOUT_S = 300
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: name -> argument types (all return int, a cudaError_t)
 SIGNATURES = {
     # nbr, cdf, starts, u, out, D, S, nw, wl, stream
     "pathnet_cdf_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # nbr, deg, starts, paths, out, D, S, nw, wl, stream
     "pathnet_membership_dists": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, attw, attb, out,
-    # T, nw, wl, H, stream
-    "pathnet_pagg_encode_fwd": [_P] * 12 + [_I, _I, _I, _I, _P],
+    # h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, attw, attb, mask,
+    # keep, out, T, nw, wl, H, stream
+    "pathnet_pagg_encode_fwd": [_P] * 12 + [_F, _P, _I, _I, _I, _I, _P],
+    # g, h, paths, dists, wd, wd_t, bd, w_ih, w_hh, w_ih_t, w_hh_t, b_ih,
+    # b_hh, attw, attb, mask, keep, dh, dattw, dattb, xr, xin, hp, cs, gt,
+    # dsel, T, nw, wl, H, stream
+    "pathnet_pagg_encode_bwd": [_P] * 16 + [_F] + [_P] * 9 + [_I, _I, _I, _I, _P],
+    # tbl, idx, out, m, C, stream
+    "pathnet_row_gather": [_P, _P, _P, _I, _I, _P],
+    # dout, idx, dtbl, m, C, stream
+    "pathnet_row_gather_bwd": [_P, _P, _P, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -61,7 +75,7 @@ def find_nvcc() -> Optional[str]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):   # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -71,8 +85,60 @@ def library_path() -> Path:
     return BUILD_ROOT / source_hash() / "lib.so"
 
 
+def _run_all(cmds: Sequence[List[str]]) -> str:
+    """Start every command at once; wait for all within ``TIMEOUT_S``.
+
+    Returns their joined output; raises ``RuntimeError`` with it when one
+    fails or the time runs out (every process is then killed)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    out, failed = [], []
+    try:
+        for cmd, p in zip(cmds, procs):
+            try:
+                text, _ = p.communicate(timeout=TIMEOUT_S)
+            except subprocess.TimeoutExpired as e:
+                raise RuntimeError(f"nvcc ran past {TIMEOUT_S} s: {' '.join(cmd)}") from e
+            out.append(text)
+            if p.returncode != 0:
+                failed.append(f"nvcc failed (rc={p.returncode}): {' '.join(cmd)}\n{text}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(out)
+
+
+def _compile(nvcc: str, out: Path, parallel: bool = True) -> str:
+    """Write ``out/lib.so``: one ``nvcc -c`` per source, all at once, then a
+    link (``parallel``), or one ``nvcc -shared`` over every source. Returns
+    nvcc's report."""
+    if not parallel:
+        return _run_all([[nvcc, *FLAGS, "-shared", *map(str, sources()),
+                          "-o", str(out / "lib.so")]])
+    objs = [out / (src.stem + ".o") for src in sources()]
+    report = _run_all([[nvcc, *FLAGS, "-c", str(src), "-o", str(obj)]
+                       for src, obj in zip(sources(), objs)])
+    report += _run_all([[nvcc, *FLAGS, "-shared", *map(str, objs),
+                         "-o", str(out / "lib.so")]])
+    for obj in objs:
+        obj.unlink()
+    return report
+
+
+def _nvcc() -> str:
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return nvcc
+
+
 def build() -> Tuple[Path, str]:
-    """Compile every ``csrc/*.cu`` into ``lib.so`` with one ``nvcc`` call.
+    """Compile every ``csrc/*.cu`` (one ``nvcc`` each, all at once) and link
+    them into ``lib.so``.
 
     Returns the library's path and nvcc's ``-Xptxas -v`` report (empty when
     the library was already built). Raises ``RuntimeError`` with nvcc's
@@ -81,28 +147,38 @@ def build() -> Tuple[Path, str]:
     final = library_path()
     if final.is_file():
         return final, ""
-    nvcc = find_nvcc()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    nvcc = _nvcc()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
     try:
-        cmd = [nvcc, *FLAGS, "-shared", *map(str, sources()), "-o", str(tmp / "lib.so")]
-        try:
-            r = subprocess.run(cmd, capture_output=True, text=True, timeout=TIMEOUT_S)
-        except subprocess.TimeoutExpired as e:
-            raise RuntimeError(f"nvcc ran past {TIMEOUT_S} s") from e
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed (rc={r.returncode}):\n{r.stdout}{r.stderr}")
+        report = _compile(nvcc, tmp)
         try:
             os.replace(tmp, final.parent)
         except OSError:
             # another process finished the same build first
             if not final.is_file():
                 raise
-        return final, r.stdout + r.stderr
+        return final, report
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def time_builds(reps: int = 2) -> dict:
+    """Seconds of each build from nothing, one-call and parallel alternating,
+    in throwaway directories under ``BUILD_ROOT``."""
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    times = {"one_call_s": [], "parallel_s": []}
+    for _ in range(reps):
+        for key, parallel in (("one_call_s", False), ("parallel_s", True)):
+            tmp = Path(tempfile.mkdtemp(prefix="time-", dir=BUILD_ROOT))
+            try:
+                t0 = time.perf_counter()
+                _compile(nvcc, tmp, parallel)
+                times[key].append(round(time.perf_counter() - t0, 2))
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+    return {"sources": len(sources()), **times}
 
 
 def library() -> ctypes.CDLL:
@@ -147,3 +223,7 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+if __name__ == "__main__":
+    print(json.dumps({"build_times": time_builds()}))

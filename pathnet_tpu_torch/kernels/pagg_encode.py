@@ -9,6 +9,13 @@ apply ``W[d] x + b[d]`` with ``d`` clipped to ``[0, wl - 1]``, run the
 ``leaky_relu(attw . [h_n, h[walk start]] + attb)``, softmax over the walks,
 and return the weighted **sum** of the ``h_n``: ``[T, H]``.
 
+Training mode: with ``keep_mask`` (uint8 ``[wl, T * nw, H]``, the layout of
+the LSTM input ``seq`` at ``pagg.py:274``) the selected input of step ``t`` of
+walk ``b`` becomes ``keep_mask[t, b] ? s / keep : 0``, JAX's
+``where(mask, x / keep, 0)``. The mask is an input, drawn by the caller, so
+the kernel and its plain version see the same draws. Without a mask the
+kernel is the serving kernel unchanged (a separate template instance).
+
 Source: ``pathnet_tpu_torch/csrc/pagg_encode.cu``. One block per target;
 thread ``(j, g)`` owns hidden unit ``j`` for 4 walks of group ``g``, so every
 weight element it loads (from L1/L2; the weights are 192 KB at H = 64) feeds
@@ -24,6 +31,8 @@ rate, is its bound in this form.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -32,7 +41,7 @@ from . import build
 
 
 def pagg_encode_fwd_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                          attw, attb) -> torch.Tensor:
+                          attw, attb, keep_mask=None, keep=1.0) -> torch.Tensor:
     """Plain PyTorch version; same arguments and result as :func:`pagg_encode_fwd`."""
     T, nw, wl = paths.shape
     H = h.shape[1]
@@ -43,6 +52,8 @@ def pagg_encode_fwd_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
     for k in range(wl):
         sel = torch.where(d == k, x @ wd[k] + bd[k], sel)
     seq = sel.reshape(T * nw, wl, H).transpose(0, 1)       # [wl, B, H]
+    if keep_mask is not None:
+        seq = torch.where(keep_mask.bool(), seq / keep, 0.0)
     _, h_n = lstm_scan({"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih,
                         "b_hh": b_hh}, seq)
     h_n = h_n.reshape(T, nw, H)
@@ -54,14 +65,18 @@ def pagg_encode_fwd_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
 def pagg_encode_fwd(h: torch.Tensor, paths: torch.Tensor, dists: torch.Tensor,
                     wd: torch.Tensor, bd: torch.Tensor, w_ih: torch.Tensor,
                     w_hh: torch.Tensor, b_ih: torch.Tensor, b_hh: torch.Tensor,
-                    attw: torch.Tensor, attb: torch.Tensor) -> torch.Tensor:
+                    attw: torch.Tensor, attb: torch.Tensor,
+                    keep_mask: Optional[torch.Tensor] = None,
+                    keep: float = 1.0) -> torch.Tensor:
     """Path-aggregated features ``float32 [T, H]`` of the ``T`` targets.
 
     ``h`` float32 ``[n, H]`` (projected node features), ``paths`` and
     ``dists`` int32 ``[T, nw, wl]`` (node ids in ``[0, n)``), ``wd``
     ``[wl, H, H]`` and ``bd`` ``[wl, H]`` (the distance transforms, ``x @
     wd[d]``), ``w_ih``/``w_hh`` ``[H, 4H]`` and ``b_ih``/``b_hh`` ``[4H]``
-    (LSTM, gates i, f, g, o), ``attw`` ``[2H]`` and ``attb`` ``[1]``.
+    (LSTM, gates i, f, g, o), ``attw`` ``[2H]`` and ``attb`` ``[1]``;
+    ``keep_mask`` uint8 ``[wl, T * nw, H]`` and ``keep`` in ``(0, 1]`` for
+    the training forward's dropout (see the module docstring).
     """
     dev = h.device
     f32 = torch.float32
@@ -78,11 +93,12 @@ def pagg_encode_fwd(h: torch.Tensor, paths: torch.Tensor, dists: torch.Tensor,
     build.require(b_hh, "b_hh", f32, (4 * H,), dev)
     build.require(attw, "attw", f32, (2 * H,), dev)
     build.require(attb, "attb", f32, (1,), dev)
+    check_keep_mask(keep_mask, keep, wl, T * nw, H, dev)
     if nw < 1 or wl < 1:
         raise ValueError(f"pagg_encode_fwd needs nw, wl >= 1, got {nw}, {wl}")
     if dev.type == "cpu":
         return pagg_encode_fwd_plain(h, paths, dists, wd, bd, w_ih, w_hh,
-                                     b_ih, b_hh, attw, attb)
+                                     b_ih, b_hh, attw, attb, keep_mask, keep)
     if dev.type != "cuda":
         raise ValueError(f"pagg_encode_fwd: unsupported device {dev}")
     if H > 1024:
@@ -93,11 +109,23 @@ def pagg_encode_fwd(h: torch.Tensor, paths: torch.Tensor, dists: torch.Tensor,
         rc = lib.pathnet_pagg_encode_fwd(
             h.data_ptr(), paths.data_ptr(), dists.data_ptr(), wd.data_ptr(),
             bd.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
-            b_hh.data_ptr(), attw.data_ptr(), attb.data_ptr(), out.data_ptr(),
-            T, nw, wl, H, build.stream_ptr(h))
+            b_hh.data_ptr(), attw.data_ptr(), attb.data_ptr(),
+            None if keep_mask is None else keep_mask.data_ptr(), float(keep),
+            out.data_ptr(), T, nw, wl, H, build.stream_ptr(h))
     build.check(rc, "pagg_encode_fwd")
     pagg_encode_fwd.launches += 1
     return out
 
 
 pagg_encode_fwd.launches = 0
+
+
+def check_keep_mask(keep_mask: Optional[torch.Tensor], keep: float, wl: int,
+                    B: int, H: int, device: torch.device) -> None:
+    """Raise unless ``keep_mask`` is None or uint8 ``[wl, B, H]`` on
+    ``device`` with ``0 < keep <= 1``."""
+    if keep_mask is None:
+        return
+    build.require(keep_mask, "keep_mask", torch.uint8, (wl, B, H), device)
+    if not 0.0 < keep <= 1.0:
+        raise ValueError(f"keep must lie in (0, 1], got {keep}")

@@ -1,4 +1,4 @@
-"""JAX parameter pytree (as numpy) to the port's ``state_dict``.
+"""JAX parameter pytree (as numpy) to the port's ``state_dict``, and back.
 
 Counterpart of ``pathnet_tpu/models/torch_compat.py``. The JAX package keeps
 weights as ``[in, out]`` (for ``x @ w``) and the distance layers stacked;
@@ -44,3 +44,26 @@ def params_from_jax(np_params: Mapping, spec: PaggSpec) -> Dict[str, torch.Tenso
         sd[f"nets.{k}.weight"] = t(np.asarray(p["dist"]["w"])[k], True)
         sd[f"nets.{k}.bias"] = t(np.asarray(p["dist"]["b"])[k])
     return sd
+
+
+def params_to_jax(tensors: Mapping[str, torch.Tensor], spec: PaggSpec) -> Dict:
+    """Inverse of :func:`params_from_jax`: a ``state_dict``, or any mapping
+    with its keys (gradients, Adam moments), to the JAX pytree layout with
+    numpy leaves."""
+    spec.check_ported()
+
+    def a(key, transpose=False):
+        x = tensors[key].detach().cpu().numpy()
+        return np.ascontiguousarray(x.T if transpose else x)
+
+    wl = spec.walk_len
+    return {
+        "fc0": {"w": a("fc0.weight", True), "b": a("fc0.bias")},
+        "dist": {"w": np.stack([a(f"nets.{k}.weight", True) for k in range(wl)]),
+                 "b": np.stack([a(f"nets.{k}.bias") for k in range(wl)])},
+        "rnn": {"w_ih": a("LSTM.weight_ih_l0", True),
+                "w_hh": a("LSTM.weight_hh_l0", True),
+                "b_ih": a("LSTM.bias_ih_l0"), "b_hh": a("LSTM.bias_hh_l0")},
+        "attw": {"w": a("attw.weight", True), "b": a("attw.bias")},
+        "fc2": {"w": a("fc2.weight", True), "b": a("fc2.bias")},
+    }

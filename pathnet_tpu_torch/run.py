@@ -1,0 +1,187 @@
+"""CLI (port of ``pathnet_tpu/run.py:20-221``): the JAX CLI's flags, on torch.
+
+    python -m pathnet_tpu_torch.run -data cornell [--device cpu]
+
+The same flags and defaults as ``python -m pathnet_tpu.run``, with
+``--device`` in place of ``--platform`` (default: the CUDA card). Choices the
+port does not run yet raise ``NotImplementedError`` naming ROADMAP.md:
+``--mesh``, ``--shard-features``, ``--dtype bfloat16``, ``--rnn`` other than
+lstm, ``--agg`` other than attention, ``--quirk-compat``, ``-mk uniform``,
+homophily (homo-variant) datasets, and the baseline models (``--model``).
+``--no-scan``, ``--scan-chunk`` and ``--remat`` are accepted and change
+nothing. The result line and the JSONL record go to ``--results-dir`` as in
+the JAX CLI.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="pathnet_tpu_torch training CLI")
+    p.add_argument("-data", "--data_name", type=str, required=True)
+    p.add_argument("-lr", "--learning_rate", type=float, default=0.005)
+    p.add_argument("-dr", "--dropout", type=float, default=0.7)
+    p.add_argument("-e", "--epoch", type=int, default=1000)
+    p.add_argument("-wd", "--weight_decay", type=float, default=0.0005)
+    p.add_argument("-r", "--round", type=int, default=10)
+    p.add_argument("-hid", "--hidden_size", type=int, default=64)
+    p.add_argument("-nw", "--num_of_walks", type=int, default=40)
+    p.add_argument("-wl", "--walk_length", type=int, default=4)
+    p.add_argument("-mk", "--marker", type=str, default="merw",
+                   choices=["merw", "uniform"])
+    p.add_argument("-pr", "--data_root", type=str, default="data")
+    p.add_argument("-mode", "--model_mode", type=str, default="pathnet")
+    # reference-command parity (PathNet_run.py:57-63): -nd marks an
+    # npy-triple dataset, -ndr points at the directory holding other_data/.
+    # Our registry infers both, so -nd is accepted as a no-op and -ndr
+    # rebinds the payload root.
+    p.add_argument("-nd", "--is_new_data", action="store_true",
+                   help="reference-parity flag; payload source is inferred "
+                        "from the registry, so this is informational")
+    p.add_argument("-ndr", "--new_data_root", type=str, default=None,
+                   help="directory containing other_data/<name>/{x,y,"
+                        "edge_index}.npy (reference -ndr); overrides "
+                        "--data_root for payload lookup")
+    p.add_argument("--model", type=str, default="pathnet",
+                   help="pathnet or a baseline: mlp/gcn/gat/gatjk/sage/sage1/"
+                        "gin/sgc/sgcmem/cheb/fagcn/h2gcn/mixhop/gprgnn/appnp/"
+                        "link/gcnjk/lp")
+    p.add_argument("--rnn", type=str, default="lstm",
+                   choices=["lstm", "gru", "mlp"])
+    p.add_argument("--agg", type=str, default="attention",
+                   choices=["attention", "mean", "sum"])
+    p.add_argument("--quirk-compat", action="store_true")
+    p.add_argument("--remat", type=str, default="auto",
+                   choices=["auto", "on", "off"],
+                   help="accepted for the JAX CLI's sake; the encode "
+                        "backward always recomputes its forward")
+    p.add_argument("--dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype; only float32 is ported")
+    p.add_argument("--results-dir", type=str, default="results")
+    p.add_argument("--ckpt-dir", type=str, default="saved_models")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--no-scan", action="store_true",
+                   help="accepted for the JAX CLI's sake; the port always "
+                        "runs a Python epoch loop")
+    p.add_argument("--scan-chunk", type=int, default=100,
+                   help="accepted for the JAX CLI's sake; no effect here")
+    p.add_argument("--microbatch", type=int, default=None,
+                   help="nodes per gradient-accumulation chunk (exact math; "
+                        "bounds activation memory for 40k+-node graphs)")
+    p.add_argument("--mesh", type=int, default=None,
+                   help="run the round scan SPMD over an N-device data mesh")
+    p.add_argument("--shard-features", action="store_true",
+                   help="row-shard X over the mesh (graph-partitioned mode)")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: the CUDA card; 'cpu' runs "
+                        "the plain PyTorch versions of the kernels)")
+    p.add_argument("-c", "--config", type=str, default=None,
+                   help="Config JSON file (config.Config.to_json); its values "
+                        "become the defaults, explicit CLI flags override")
+    return p
+
+
+def _apply_config_defaults(parser: argparse.ArgumentParser, path: str):
+    """Seed parser defaults from a Config JSON (two-phase parse: a flag
+    typed on the command line still wins over the file)."""
+    from .config import Config
+
+    with open(path) as f:
+        c = Config.from_json(f.read())
+    parser.set_defaults(
+        data_name=c.dataset, data_root=c.data_root,
+        learning_rate=c.train.lr, weight_decay=c.train.weight_decay,
+        epoch=c.train.epochs, round=c.train.rounds, seed=c.train.seed,
+        scan_chunk=c.train.scan_chunk or 0, microbatch=c.train.microbatch,
+        hidden_size=c.model.hidden, dropout=c.model.dropout,
+        rnn=c.model.rnn, agg=c.model.agg, quirk_compat=c.model.quirk_compat,
+        num_of_walks=c.sample.num_walks, walk_length=c.sample.walk_len,
+        marker=c.sample.kind,
+        mesh=(c.mesh.data_axis * c.mesh.model_axis
+              if c.mesh.data_axis * c.mesh.model_axis > 1 else None))
+    # -data is required unless the config provides it
+    for a in parser._actions:
+        if a.dest == "data_name":
+            a.required = False
+
+
+def check_ported(args) -> None:
+    """Raise ``NotImplementedError`` (naming ROADMAP) for a choice the port
+    does not run yet."""
+    from .data.registry import DATASETS
+
+    todo = []
+    if args.model != "pathnet":
+        todo.append((f"--model {args.model}", "the baseline zoo, ROADMAP §1 item 10"))
+    if args.mesh:
+        todo.append(("--mesh", "the multi-device layer, ROADMAP §1 item 11"))
+    if args.shard_features:
+        todo.append(("--shard-features", "the multi-device layer, ROADMAP §1 item 11"))
+    if args.dtype != "float32":
+        todo.append((f"--dtype {args.dtype}", "bf16 compute, ROADMAP §1 item 3"))
+    if args.rnn != "lstm":
+        todo.append((f"--rnn {args.rnn}", "the GRU and MLP encoders, ROADMAP §1 item 3"))
+    if args.agg != "attention":
+        todo.append((f"--agg {args.agg}", "mean/sum readout, ROADMAP §1 item 3"))
+    if args.quirk_compat:
+        todo.append(("--quirk-compat", "quirk_compat, ROADMAP §1 item 3"))
+    if args.marker != "merw":
+        todo.append((f"-mk {args.marker}", "uniform walks, ROADMAP §1 item 12"))
+    spec = DATASETS.get(args.data_name)
+    if spec is not None and spec.variant == "homo":
+        todo.append((f"-data {args.data_name} (homo variant)",
+                     "the homo PAGG variant, ROADMAP §1 item 3"))
+    if todo:
+        what, where = todo[0]
+        raise NotImplementedError(f"{what} is not ported yet ({where})")
+
+
+def main(argv=None):
+    parser = build_parser()
+    av = list(sys.argv[1:] if argv is None else argv)
+    for i, tok in enumerate(av):
+        if tok in ("-c", "--config") and i + 1 < len(av):
+            _apply_config_defaults(parser, av[i + 1])
+            break
+        if tok.startswith("--config="):
+            _apply_config_defaults(parser, tok.split("=", 1)[1])
+            break
+    args = parser.parse_args(av)
+    check_ported(args)
+
+    from .config import TrainConfig
+    from .data.registry import DATASETS, payload_fingerprint
+    from .train import run_protocol
+    from .train.results import append_results
+
+    cfg = TrainConfig(lr=args.learning_rate, weight_decay=args.weight_decay,
+                      epochs=args.epoch, rounds=args.round, seed=args.seed,
+                      scan_epochs=not args.no_scan, microbatch=args.microbatch,
+                      scan_chunk=args.scan_chunk or None)
+    name = args.data_name
+    if args.new_data_root:
+        args.data_root = args.new_data_root
+    t0 = time.time()
+    print(f"{name}: {vars(args)}")
+    agg, _ = run_protocol(
+        name, data_root=args.data_root, cfg=cfg,
+        num_walks=args.num_of_walks, walk_len=args.walk_length,
+        hidden=args.hidden_size, kind=args.marker, rnn=args.rnn,
+        agg=args.agg, quirk_compat=args.quirk_compat,
+        dropout=args.dropout, compute_dtype=args.dtype, remat=args.remat,
+        ckpt_dir=args.ckpt_dir if args.resume else None, device=args.device)
+    config = dict(vars(args))
+    if name in DATASETS:
+        config["payload"] = payload_fingerprint(DATASETS[name])
+    line = append_results(args.results_dir, name, agg, config, args.model_mode)
+    print(line)
+    print(f"total {time.time() - t0:.1f}s")
+
+
+if __name__ == "__main__":
+    main()

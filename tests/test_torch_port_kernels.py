@@ -65,7 +65,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                                K.pagg_encode_fwd_plain(h, paths, dists, *w),
                                atol=1e-6, rtol=1e-6)
     assert K.launch_counts() == {"cdf_walk": 0, "membership_dists": 0,
-                                 "pagg_encode_fwd": 0}
+                                 "pagg_encode_fwd": 0, "pagg_encode_bwd": 0,
+                                 "row_gather": 0, "row_gather_bwd": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -113,6 +114,17 @@ def test_source_hash_follows_the_sources(tmp_path, monkeypatch):
     assert build.source_hash() != before
 
 
+def test_source_hash_follows_the_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build.source_hash()
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "the encode kernels share a header"
+    headers[0].write_text(headers[0].read_text() + "\n// changed\n")
+    assert build.source_hash() != before
+
+
 def test_port_holds_no_jax_no_library_kernels_and_no_cpu_fallback():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PORT):
@@ -127,7 +139,8 @@ def test_port_holds_no_jax_no_library_kernels_and_no_cpu_fallback():
         for banned in ("cpp_extension", "torch.compile(", "scaled_dot_product_attention",
                        "nn.functional.lstm", "self.LSTM("):
             assert banned not in text, (f, banned)
-    for name in ("cdf_walk", "membership_dists", "pagg_encode"):
+    for name in ("cdf_walk", "membership_dists", "pagg_encode", "pagg_encode_bwd",
+                 "row_gather"):
         # a wrapper launches its kernel or raises: nothing catches a failure
         text = open(os.path.join(PORT, "kernels", name + ".py")).read()
         assert not re.search(r"\b(try|except)\b", text), name
@@ -166,7 +179,8 @@ def test_predict_on_card_counts_launches_and_matches_host(cuda):
                   u=u.to(cuda))
     torch.cuda.synchronize()
     assert K.launch_counts() == {"cdf_walk": 3, "membership_dists": 3,
-                                 "pagg_encode_fwd": 3}
+                                 "pagg_encode_fwd": 3, "pagg_encode_bwd": 0,
+                                 "row_gather": 3, "row_gather_bwd": 0}
     want = predict(m_host, torch.from_numpy(X), PathSampler.build(g, 40, 4, device="cpu"),
                    num_ensemble=3, u=u)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
