@@ -33,20 +33,52 @@ one card). Phases, each with a start and an end line:
 7. cornell at full width in training: one step on the card and on the host
    with the same walks and masks; logits and every gradient within 1e-4 of
    the host's largest entry (``attw.bias``, a sum that cancels to near 0,
-   within 1e-4 of the largest entry of ``attw.weight``'s gradient).
+   within 1e-4 of the largest entry of ``attw.weight``'s gradient);
+8. gather probe: K6 ``lane_gather`` against its plain version (exact) at the
+   probe's ``[512, 128]`` and at ``[63977, 64]`` (bgp rows x H), timed as in
+   phase 2 with ``torch.gather`` as its library yardstick; then the probe
+   (``pathnet_tpu_torch.gather_probe.main``) on the card, with its launches;
+9. payloads and MERW, in a temporary ``data_root`` holding copies of
+   ``data/edge_input/*.in``: ``load_dataset`` makes the cornell, Nba, texas
+   and chameleon payloads from nothing (seconds and a sha256 of each array;
+   cornell's and Nba's must equal ``PAYLOAD_SHA256``, the JAX package's
+   arrays, which a CPU test pins); chameleon's MERW on the card; the port's
+   ``merw_graph`` on the card on the bgp stand-in's structure, whose probs
+   must lie within ``MERW_TOL`` of the file's; the registry's bgp SBM
+   structure and the per-component MERW that ``run_protocol`` runs on the
+   host for it, timed;
+10. the cornell protocol through the CLI (``pathnet_tpu_torch.run``) at the
+    reference defaults (``CORNELL_ROUNDS`` rounds x 1000 epochs, H = 64,
+    nw = 40, wl = 4, dropout 0.7) with temporary data, results and checkpoint
+    directories; the mean test accuracy must lie inside the JAX band
+    80.00 +- 5.82 (``results/results.jsonl:106``);
+11. Nba at H = 256: K3 (with and without the keep mask) and K4 against their
+    plain versions on all 193 train targets of round 0 (one block of 256
+    threads per target), timed, then the protocol through the CLI for
+    ``NBA_ROUNDS`` rounds x 1000 epochs at ``-hid 256``, whose mean test
+    accuracy must lie inside the JAX band 58.54 +- 5.23
+    (``results/results.jsonl:104``).
+
+The protocol phases gate on their band when they run 10 rounds of 1000
+epochs, and on accuracy above chance when a rehearsal cuts them shorter.
 
 The line before the last is the kernels' JSON record (launches from phase 6,
-the training path, which runs every kernel); the last is
-``{"ok": true, "device": {...}}``. Any failure exits non-zero and prints no
-result. Without a CUDA card, or outside a checkout, it exits non-zero.
+the training path, which runs every kernel but K6, and K6's from phase 8);
+the last is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
+prints no result. Without a CUDA card, or outside a checkout, it exits
+non-zero.
 """
 from __future__ import annotations
 
 import faulthandler
+import glob
+import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -62,12 +94,42 @@ K3_TOL = 1e-4
 K4_TOL = 1e-4      # of each gradient's largest plain entry
 K5_BWD_TOL = 1e-5  # of the largest plain entry (atomics order the sums)
 KERNELS = ("cdf_walk", "membership_dists", "pagg_encode_fwd", "pagg_encode_bwd",
-           "row_gather", "row_gather_bwd")
+           "row_gather", "row_gather_bwd", "lane_gather")
 K4_GRADS = ("dh", "dwd", "dbd", "dw_ih", "dw_hh", "db_ih", "db_hh", "dattw", "dattb")
+MERW_TOL = 5e-5    # max abs against the stored bgp probs (f32 power iteration)
+PAYLOADS = ("cornell", "Nba", "texas", "chameleon")
+# sha256 of each payload array (dtype, shape, bytes) as the JAX package makes
+# it; tests/test_torch_data_payload.py pins them against pathnet_tpu
+PAYLOAD_SHA256 = {
+    "cornell": {
+        "src": "a2bb944d63e4bc1c953d6dc7c080ce1aa524a9be6e66b493634b36fb38180f5c",
+        "dst": "e656f749b4b0d5c3844a47b244e9aff3513c151f29c7a19145f127080b2064b8",
+        "prob": "e31fd02f792372e5509dfc399f8ea7383bc147e1fe696dde6e86323ebdf046d7",
+        "features": "d1fc16331eb6ed2c5271afc1452f2c84c849678be82c8e6257f6b39c1d124f68",
+        "labels": "e7052f43387da3ace7495e2929df4e4ee1b3f7de141395523ee1defa69120413",
+    },
+    "Nba": {
+        "src": "70bda7ed570756633db4cea7d8dc9a36305cbf0ee7aac39d6b418e8e86800493",
+        "dst": "1bdb6ee3f267ffbfc871f17e378177fe25dcc94b3a1a856b009fe0a6544be344",
+        "prob": "a3b75bb678d16e3d246963b1e9e6af469b8cff171ee33066ad84c84fa82e3cc6",
+        "features": "6e0d282230b44160610cffd7a564bab008d8ed6650b31e622ad941d877b05a95",
+        "labels": "286c30f9f409167f46a9b244df2d90333e85d60232ba27a99c03bbdc8068c3af",
+    },
+}
+# (mean, std) of the JAX package's 10 x 1000 test accuracy, results/results.jsonl
+CORNELL_BAND = (0.8000000178813934, 0.05821799973974322)    # :106, H = 64
+NBA_BAND = (0.5853658318519592, 0.05231123852817561)        # :104, H = 256
+CORNELL_ROUNDS, NBA_ROUNDS, NBA_HIDDEN, PROTOCOL_EPOCHS = 10, 10, 256, 1000
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def array_sha256(a) -> str:
+    """sha256 of an array's dtype, shape and bytes."""
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.dtype.str}{a.shape}".encode() + a.tobytes()).hexdigest()
 
 
 class Phase:
@@ -261,9 +323,25 @@ def check_k4(tag, got, want):
     return worst
 
 
-def check_training_kernels(ps, model, X, idx, u, gen, rec):
-    """K3 with a mask, K4, K5 against their plain versions on one training
-    microbatch, then the probe's shape for K5; time each."""
+def encode_bounds(h, paths, dists, m1, agg, g, w):
+    """(bytes, ops) of K3 with a mask and of K4 on these inputs. K3: per walk
+    step 2H^2 (select) + 16H^2 (gates), per walk 6H (readout). K4: the
+    forward recompute (18 H^2 per walk step), the backward products (18 H^2)
+    and the weight contractions (18 H^2), and ~14 H per walk for the
+    attention."""
+    T, nw, wl = paths.shape
+    H = h.shape[1]
+    walks = T * nw
+    b3 = nbytes(h, paths, dists, m1, agg, *w)
+    o3 = walks * (wl * 18 * H * H + 6 * H)
+    b4 = nbytes(g, h, paths, dists, m1, *w) + nbytes(h, *w)
+    o4 = walks * (wl * 54 * H * H + 14 * H)
+    return b3, o3, b4, o4
+
+
+def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec):
+    """K3 without and with a keep mask and K4 against their plain versions on
+    the targets ``idx``; returns the inputs and outputs for timing."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.models import draw_dropout_masks
@@ -274,22 +352,36 @@ def check_training_kernels(ps, model, X, idx, u, gen, rec):
     H = h.shape[1]
     keep = 1.0 - model.spec.dropout
     m1, _ = draw_dropout_masks(model.spec, T, nw, gen, X.device)
-    agg = K.pagg_encode_fwd(h, paths, dists, *w, keep_mask=m1, keep=keep)
-    agg_p = K.pagg_encode_fwd_plain(h, paths, dists, *w, m1, keep)
-    torch.cuda.synchronize()
-    err3 = float((agg - agg_p).abs().max())
-    if not torch.allclose(agg, agg_p, atol=K3_TOL, rtol=K3_TOL):
-        raise AssertionError(f"pagg_encode_fwd (training) max abs err {err3}")
-    record_err(rec, "pagg_encode_fwd", err3)
-    say(f"  bgp microbatch: pagg_encode_fwd with the keep mask max abs err {err3:.3e} "
-        f"within atol = rtol = {K3_TOL} (T={T}, nw={nw}, wl={wl}, H={H}, keep={keep:.2f})")
+    for mask_args, what in (((), "without a mask"), ((m1, keep), "with the keep mask")):
+        agg = K.pagg_encode_fwd(h, paths, dists, *w, *mask_args)
+        agg_p = K.pagg_encode_fwd_plain(h, paths, dists, *w, *mask_args)
+        torch.cuda.synchronize()
+        err3 = float((agg - agg_p).abs().max())
+        if not torch.allclose(agg, agg_p, atol=K3_TOL, rtol=K3_TOL):
+            raise AssertionError(f"{tag}: pagg_encode_fwd {what} max abs err {err3}")
+        record_err(rec, "pagg_encode_fwd", err3)
+        say(f"  {tag}: pagg_encode_fwd {what} max abs err {err3:.3e} within atol = "
+            f"rtol = {K3_TOL} (T={T}, nw={nw}, wl={wl}, H={H}, keep={keep:.2f})")
     g = torch.randn((T, H), generator=gen, device=X.device)
     bwd_args = (g, h, paths, dists, *w, m1, keep)
     got = K.pagg_encode_bwd(*bwd_args)
     want = K.pagg_encode_bwd_plain(*bwd_args)
     torch.cuda.synchronize()
-    record_err(rec, "pagg_encode_bwd", check_k4("bgp microbatch", got, want))
+    record_err(rec, "pagg_encode_bwd", check_k4(tag, got, want))
     del got, want
+    return paths, dists, h, w, m1, keep, agg, g, bwd_args
+
+
+def check_training_kernels(ps, model, X, idx, u, gen, rec):
+    """K3 with a mask, K4, K5 against their plain versions on one training
+    microbatch, then the probe's shape for K5; time each."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+
+    paths, dists, h, w, m1, keep, agg, g, bwd_args = check_encode_kernels(
+        "bgp microbatch", ps, model, X, idx, u, gen, rec)
+    T, nw, wl = paths.shape
+    H = h.shape[1]
 
     n = h.shape[0]
     probe_tbl = torch.randn((512, 128), generator=gen, device=X.device)
@@ -310,14 +402,7 @@ def check_training_kernels(ps, model, X, idx, u, gen, rec):
         say(f"  {tag}: row_gather exact, row_gather_bwd max abs err {err5:.3e} within "
             f"{K5_BWD_TOL} x max (n={tbl.shape[0]}, C={tbl.shape[1]}, m={ix.shape[0]})")
 
-    # bounds: K3 as in phase 2 plus the mask; K4: the forward recompute
-    # (18 H^2 per walk step), the backward products (18 H^2) and the weight
-    # contractions (18 H^2), and ~14 H per walk for the attention
-    walks = T * nw
-    b3 = nbytes(h, paths, dists, m1, agg, *w)
-    o3 = walks * (wl * 18 * H * H + 6 * H)
-    b4 = nbytes(g, h, paths, dists, m1, *w) + nbytes(h, *w)
-    o4 = walks * (wl * 54 * H * H + 14 * H)
+    b3, o3, b4, o4 = encode_bounds(h, paths, dists, m1, agg, g, w)
     uniq = int(torch.unique(idx).numel())
     b5 = (uniq * H + T * H + T) * 4      # distinct rows read, rows written, idx
     b5b = (T * H + T + n * H) * 4        # dout and idx read, all of dtbl written
@@ -337,6 +422,173 @@ def check_training_kernels(ps, model, X, idx, u, gen, rec):
           lambda: K.row_gather_bwd_plain(dout, idx, n), b5b, float(T * H), 50,
           library=lambda: torch.zeros((n, H), device=X.device).index_add_(0, idx_l, dout),
           kern_graph=lambda: K.row_gather_bwd(dout, idx, n, check=False))
+
+
+def check_gather_probe(dev, gen, rec):
+    """K6 against its plain version at the probe's shape and at bgp rows x H,
+    timed; then the probe on the card, whose launches are K6's record."""
+    import torch
+    from pathnet_tpu_torch import gather_probe
+    from pathnet_tpu_torch import kernels as K
+
+    for n, D, lo in ((gather_probe.N, gather_probe.D, 0), (63977, HIDDEN, -63977)):
+        tbl = torch.rand((n, D), generator=gen, device=dev)
+        ix = torch.randint(lo, n, (n,), generator=gen, device=dev, dtype=torch.int32)
+        out = K.lane_gather(tbl, ix)
+        if not torch.equal(out, K.lane_gather_plain(tbl, ix)):
+            raise AssertionError(f"lane_gather differs from its plain version at [{n}, {D}]")
+        record_err(rec, "lane_gather", 0.0)
+        say(f"  [{n}, {D}], idx in [{lo}, {n}): lane_gather exact")
+        ids = torch.remainder(ix.long(), D)[:, None].expand(n, D)
+        # rows written; idx and each row's selected float read
+        b = (n * D + 2 * n) * 4
+        name = "lane_gather" if n == gather_probe.N else f"lane_gather [{n}, {D}]"
+        timed(rec if name == "lane_gather" else {name: {}}, name,
+              lambda: K.lane_gather(tbl, ix), lambda: K.lane_gather_plain(tbl, ix), b, 0.0,
+              50, library=lambda: torch.gather(tbl, 1, ids))
+    K.reset_launch_counts()
+    report = gather_probe.main([])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    calls = gather_probe.REPS + 1
+    expect = {name: 0 for name in KERNELS}
+    expect.update(row_gather=3 * calls, lane_gather=calls)
+    say(f"  launches: {counts}")
+    if counts != expect:
+        raise AssertionError(f"gather probe launch counts {counts}, the probe makes {expect}")
+    for case in gather_probe.case_functions():
+        if not report[case]["ok"] or report[case]["max_abs_err"] != 0.0:
+            raise AssertionError(f"gather probe case {case}: {report[case]}")
+    rec["lane_gather"]["launches"] = counts["lane_gather"]
+
+
+def make_payloads(root, dev, z):
+    """Payloads from nothing in ``root``, held to the JAX package's digests
+    where pinned; chameleon's MERW and the bgp stand-in's on the card."""
+    import torch
+    from pathnet_tpu_torch.data import Graph
+    from pathnet_tpu_torch.data.registry import load_dataset, load_structure
+    from pathnet_tpu_torch.merw import merw_graph, merw_graph_per_component
+
+    os.makedirs(os.path.join(root, "edge_input"))
+    for f in sorted(glob.glob(os.path.join(ROOT, "data", "edge_input", "*.in"))):
+        shutil.copy(f, os.path.join(root, "edge_input"))
+    graphs = {}
+    for name in PAYLOADS:
+        t0 = time.perf_counter()
+        g = load_dataset(name, root, 0)[0]
+        secs = time.perf_counter() - t0
+        digests = {f: array_sha256(getattr(g, f))
+                   for f in ("src", "dst", "prob", "features", "labels")}
+        say(f"  {name}: n={g.n}, {len(g.src)} records, F={g.features.shape[1]}, made in "
+            f"{secs:.3f} s; sha256 " + ", ".join(f"{k} {v[:16]}" for k, v in digests.items()))
+        want = PAYLOAD_SHA256.get(name)
+        if want is not None:
+            bad = [k for k in want if digests[k] != want[k]]
+            if bad:
+                raise AssertionError(f"{name}: arrays {bad} differ from the JAX package's")
+            say(f"  {name}: all five arrays equal the JAX package's")
+        graphs[name] = g
+    gch = graphs["chameleon"]
+    t0 = time.perf_counter()
+    mch = merw_graph_per_component(gch, device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not (np.isfinite(mch.prob).all() and (mch.prob > 0).all()):
+        raise AssertionError("chameleon MERW probabilities are not finite and positive")
+    say(f"  chameleon MERW (one component: the power iteration on the card): {ms:.1f} ms")
+    bg = Graph(n=int(z["n"]), src=z["src"], dst=z["dst"], prob=np.ones(len(z["src"])))
+    t0 = time.perf_counter()
+    mb = merw_graph(bg, device=dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.abs(mb.prob - z["prob"]).max())
+    say(f"  bgp stand-in merw_graph on the card (n={bg.n}, {len(bg.src)} records): "
+        f"{ms:.1f} ms, probs max abs err {err:.3e} against the stored ones")
+    if not err <= MERW_TOL:
+        raise AssertionError(f"bgp MERW probs differ from the stored ones by {err}")
+    # what run_protocol pays before the first bgp round: the registry's SBM
+    # stand-in is disconnected, so per-component MERW on the host (f64
+    # log-space solver)
+    t0 = time.perf_counter()
+    gs = load_structure("bgp", root)
+    t1 = time.perf_counter()
+    mp = merw_graph_per_component(gs, device=dev)
+    t2 = time.perf_counter()
+    if not (np.isfinite(mp.prob).all() and (mp.prob > 0).all()):
+        raise AssertionError("bgp per-component MERW probabilities are not finite and positive")
+    say(f"  bgp SBM structure (n={gs.n}, {len(gs.src)} records): made in {t1 - t0:.2f} s; "
+        f"merw_graph_per_component on the host (f64 log-space solver) {t2 - t1:.1f} s")
+
+
+def check_wide_encode(root, dev, gen, rec):
+    """K3 (with and without the mask) and K4 against their plain versions at
+    Nba's H = 256 on all train targets of round 0, timed."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.data.registry import load_dataset
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+    from pathnet_tpu_torch.sample import PathSampler
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+
+    g, train, _, _, spec_d = load_dataset("Nba", root, 0)
+    ps = PathSampler.build(g, NW, WL, device=dev)
+    X = torch.from_numpy(np.array(g.features, np.float32)).to(dev)
+    model = PathNet(PaggSpec(feat_dim=X.shape[1], hidden=NBA_HIDDEN,
+                             out_dim=spec_d.num_classes, walk_len=WL, dropout=0.7),
+                    device=dev, generator=torch.Generator().manual_seed(3))
+    idx = torch.from_numpy(np.flatnonzero(train).astype(np.int32)).to(dev)
+    u = draw_uniforms(WL, idx.shape[0] * NW, gen, dev)
+    paths, dists, h, w, m1, keep, agg, gout, bwd_args = check_encode_kernels(
+        f"Nba round 0, {idx.shape[0]} train targets", ps, model, X, idx, u, gen, rec)
+    b3, o3, b4, o4 = encode_bounds(h, paths, dists, m1, agg, gout, w)
+    name3, name4 = f"pagg_encode_fwd H={NBA_HIDDEN} masked", f"pagg_encode_bwd H={NBA_HIDDEN}"
+    timed({name3: {}}, name3,
+          lambda: K.pagg_encode_fwd(h, paths, dists, *w, keep_mask=m1, keep=keep),
+          lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, m1, keep), b3, o3, 20)
+    timed({name4: {}}, name4, lambda: K.pagg_encode_bwd(*bwd_args),
+          lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 10)
+
+
+def run_protocol_cli(name, root, tmp, rounds, hidden, band):
+    """The protocol through the CLI on the card with temporary results and
+    checkpoint directories; checks its launches, checkpoints and accuracy."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch import run
+    from pathnet_tpu_torch.data.registry import DATASETS
+
+    out = os.path.join(tmp, f"{name}_h{hidden}")
+    argv = ["-data", name, "-pr", root, "-r", str(rounds), "-e", str(PROTOCOL_EPOCHS),
+            "-hid", str(hidden),
+            "--results-dir", os.path.join(out, "results"),
+            "--ckpt-dir", os.path.join(out, "ckpt"), "--resume"]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = run.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    epochs = PROTOCOL_EPOCHS * rounds
+    say(f"  launches: {counts}")
+    fwd = counts["pagg_encode_fwd"]
+    if not (counts["cdf_walk"] == counts["membership_dists"] == counts["pagg_encode_bwd"]
+            == counts["row_gather_bwd"] == epochs and counts["row_gather"] == fwd
+            and 2 * epochs <= fwd <= 3 * epochs and counts["lane_gather"] == 0):
+        raise AssertionError(f"{name} protocol launch counts {counts}: {epochs} epochs make "
+                             "one walk, distance and backward launch each, and 2-3 forwards")
+    saved = glob.glob(os.path.join(out, "ckpt", "*", "round_*", "meta.json"))
+    if len(saved) != rounds or not os.path.isfile(
+            os.path.join(out, "results", f"result_for_{name}.txt")):
+        raise AssertionError(f"{name}: {len(saved)} rounds checkpointed, or no result line")
+    mean, std = agg["accuracy"]
+    say(f"  {name}, {rounds} rounds x {PROTOCOL_EPOCHS} epochs at H = {hidden}: acc {mean:.4f} +- {std:.4f} "
+        f"(JAX {band[0]:.4f} +- {band[1]:.4f}); {secs:.1f} s, {secs / rounds:.2f} s per round, "
+        f"{secs / epochs * 1e3:.3f} ms per epoch (loading and the sampler build included)")
+    if rounds == 10 and PROTOCOL_EPOCHS == 1000:
+        if not abs(mean - band[0]) <= band[1]:
+            raise AssertionError(f"{name}: mean accuracy {mean} outside the JAX band {band}")
+    elif not mean > 1.0 / DATASETS[name].num_classes:
+        raise AssertionError(f"{name}: mean accuracy {mean} not above chance")
 
 
 def main() -> int:
@@ -377,6 +629,8 @@ def main() -> int:
                        "scripts/pallas_gather_probe.py:68"),
         "row_gather_bwd": ("pathnet_tpu_torch/csrc/row_gather.cu",
                            "scripts/pallas_gather_probe.py:68"),
+        "lane_gather": ("pathnet_tpu_torch/csrc/lane_gather.cu",
+                        "scripts/pallas_gather_probe.py:68"),
     }
 
     with Phase("0 device"):
@@ -438,7 +692,8 @@ def main() -> int:
             raise AssertionError("ensemble log-probs are not finite or do not normalise")
         counts = K.launch_counts()
         say(f"  launches: {counts}")
-        serving = {name: 0 if name.endswith("_bwd") else 8 + 4 for name in KERNELS}
+        serving = {name: 0 if name.endswith("_bwd") or name == "lane_gather" else 8 + 4
+                   for name in KERNELS}
         if counts != serving:
             raise AssertionError(f"serving launch counts {counts}, the path makes {serving}")
         med = float(np.median(times))
@@ -461,7 +716,8 @@ def main() -> int:
         logp = predict(mc, Xc, psc, idx=allc, u=uc[None])
         torch.cuda.synchronize()
         counts = K.launch_counts()
-        if counts != {name: 0 if name.endswith("_bwd") else 1 for name in KERNELS}:
+        if counts != {name: 0 if name.endswith("_bwd") or name == "lane_gather" else 1
+                      for name in KERNELS}:
             raise AssertionError(f"cornell request launch counts {counts}, expected 1 "
                                  "of each forward kernel")
         ps_host = PathSampler.build(gc, NW, WL, device="cpu")
@@ -503,7 +759,7 @@ def main() -> int:
         expect = {"cdf_walk": EPOCHS, "membership_dists": EPOCHS,
                   "pagg_encode_fwd": fwd, "row_gather": fwd,
                   "pagg_encode_bwd": EPOCHS * chunks[0],
-                  "row_gather_bwd": EPOCHS * chunks[0]}
+                  "row_gather_bwd": EPOCHS * chunks[0], "lane_gather": 0}
         say(f"  launches: {counts} ({improved} epochs improved on validation)")
         if counts != expect:
             raise AssertionError(f"training launch counts {counts}, the path makes {expect}")
@@ -553,8 +809,9 @@ def main() -> int:
                 step_counts = K.launch_counts()
             out.append({"logits": logits.detach().cpu(),
                         **{k: q.grad.cpu() for k, q in m7.named_parameters()}})
-        if any(c != 1 for c in step_counts.values()):
-            raise AssertionError(f"cornell step launch counts {step_counts}, expected 1 each")
+        if step_counts != {name: int(name != "lane_gather") for name in KERNELS}:
+            raise AssertionError(f"cornell step launch counts {step_counts}, expected 1 of "
+                                 "each training kernel")
         worst, parts = 0.0, []
         for k, want in out[1].items():
             err = float((out[0][k] - want).abs().max())
@@ -571,6 +828,21 @@ def main() -> int:
         say(f"  {idx7.shape[0]} train nodes, F = 1703: logits and all {len(out[1]) - 1} "
             f"gradients on the card against the host (error over the host's largest "
             f"entry): " + ", ".join(parts))
+
+    with Phase("8 gather probe"):
+        check_gather_probe(dev, gen, rec)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        with Phase("9 payloads and MERW"):
+            make_payloads(root, dev, z)
+
+        with Phase(f"10 cornell protocol ({CORNELL_ROUNDS} x {PROTOCOL_EPOCHS})"):
+            run_protocol_cli("cornell", root, tmp, CORNELL_ROUNDS, HIDDEN, CORNELL_BAND)
+
+        with Phase(f"11 Nba at H = {NBA_HIDDEN} ({NBA_ROUNDS} x {PROTOCOL_EPOCHS})"):
+            check_wide_encode(root, dev, gen, rec)
+            run_protocol_cli("Nba", root, tmp, NBA_ROUNDS, NBA_HIDDEN, NBA_BAND)
 
     say(smi)
     say(json.dumps({"kernels": [

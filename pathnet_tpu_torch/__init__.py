@@ -3,17 +3,24 @@
 The layout mirrors the JAX package so each module's counterpart is easy to
 find:
 
-- ``pathnet_tpu_torch.data``    — the edge-input reader, the numpy ``Graph`` and
-  the padded-CSR ``DeviceGraph``.
+- ``pathnet_tpu_torch.data``    — the file readers, the numpy ``Graph``, the
+  padded-CSR ``DeviceGraph``, the synthetic payloads and SBM stand-ins, the
+  dataset registry with its payload cache, splits and validation.
+- ``pathnet_tpu_torch.merw``    — MERW transition probabilities: the power
+  iteration on the device, the per-component f64 log-space solver on the
+  host, the recovery of integer edge weights.
 - ``pathnet_tpu_torch.sample``  — the inverse-CDF walk sampler and the
   membership hop distances.
 - ``pathnet_tpu_torch.nn``      — torch-default initializers, the plain LSTM
   scan, classification metrics.
 - ``pathnet_tpu_torch.models``  — the PAGG model (``PathNet``) and the
   parameter conversion from the JAX package's pytree.
-- ``pathnet_tpu_torch.train``   — serving: ``predict`` and ``evaluate``.
-- ``pathnet_tpu_torch.kernels`` — the hand-written CUDA kernels of the serving
-  path (sources in ``csrc/``), each beside its plain PyTorch version.
+- ``pathnet_tpu_torch.train``   — training (``run_round``, ``run_protocol``,
+  checkpoints, results) and serving (``predict``, ``evaluate``).
+- ``pathnet_tpu_torch.run``     — the training CLI.
+- ``pathnet_tpu_torch.gather_probe`` — the row and lane gather probe (K5, K6).
+- ``pathnet_tpu_torch.kernels`` — the hand-written CUDA kernels (sources in
+  ``csrc/``), each beside its plain PyTorch version.
 
 Entry points take ``device=None``, which means the CUDA card; they raise when
 no card is present and never fall back to the CPU. Pass ``device="cpu"`` to

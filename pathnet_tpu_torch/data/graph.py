@@ -10,6 +10,7 @@ import dataclasses
 from typing import Optional, Tuple, Union
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from ..device import resolve_device
@@ -36,6 +37,27 @@ class Graph:
         from .formats import read_edge_input
         n, src, dst, prob = read_edge_input(path)
         return Graph(n=n, src=src, dst=dst, prob=prob, name=name or path)
+
+    @staticmethod
+    def from_edge_index(n: int, edge_index: np.ndarray, name: str = "") -> "Graph":
+        """From a ``[2, m]`` COO edge index (npy-triple datasets)."""
+        src = edge_index[0].astype(np.int32)
+        dst = edge_index[1].astype(np.int32)
+        return Graph(n=n, src=src, dst=dst, prob=np.ones(len(src)), name=name)
+
+    @staticmethod
+    def from_scipy(adj: sp.spmatrix, name: str = "") -> "Graph":
+        coo = adj.tocoo()
+        return Graph(n=adj.shape[0], src=coo.row.astype(np.int32),
+                     dst=coo.col.astype(np.int32),
+                     prob=coo.data.astype(np.float64), name=name)
+
+    def to_adjacency(self, binary: bool = True) -> sp.csr_matrix:
+        """Collapse records to a CSR adjacency (duplicates summed or binarized)."""
+        a = sp.csr_matrix((self.prob, (self.src, self.dst)), shape=(self.n, self.n))
+        if binary:
+            a.data = np.ones_like(a.data)
+        return a
 
     def degrees(self) -> np.ndarray:
         return np.bincount(self.src, minlength=self.n).astype(np.int32)

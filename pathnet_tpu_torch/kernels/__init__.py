@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the serving and training paths, each beside its plain version.
+"""Hand-written CUDA kernels of the serving, training and probe paths, each beside its plain version.
 
 | kernel | module | replaces (JAX) |
 |---|---|---|
@@ -7,12 +7,14 @@
 | K3 ``pagg_encode_fwd`` | ``kernels/pagg_encode.py`` | ``models/pagg.py:235-303`` encode + readout (serving, and training with a dropout mask) |
 | K4 ``pagg_encode_bwd`` | ``kernels/pagg_encode_bwd.py`` | the VJP of ``models/pagg.py:235-303`` with the gather VJP ``:83-93`` |
 | K5 ``row_gather``, ``row_gather_bwd`` | ``kernels/row_gather.py`` | ``scripts/pallas_gather_probe.py:68``, the ``gather_fn`` of ``models/pagg.py:209,309`` |
+| K6 ``lane_gather`` | ``kernels/lane_gather.py`` | ``scripts/pallas_gather_probe.py:68``, body ``lane_gather_axis1`` ``:45-50`` (the gather probe only) |
 
 A wrapper takes the plain PyTorch version for a CPU tensor and launches its
 kernel for a CUDA tensor, or raises; it never falls back. Each wrapper counts
 its kernel launches in a plain integer attribute, ``launches``.
 """
 from .cdf_walk import cdf_walk, cdf_walk_plain
+from .lane_gather import lane_gather, lane_gather_plain
 from .membership_dists import membership_dists, membership_dists_plain
 from .pagg_encode import pagg_encode_fwd, pagg_encode_fwd_plain
 from .pagg_encode_bwd import pagg_encode_bwd, pagg_encode_bwd_plain
@@ -20,7 +22,7 @@ from .row_gather import (row_gather, row_gather_bwd, row_gather_bwd_plain,
                          row_gather_plain)
 
 WRAPPERS = (cdf_walk, membership_dists, pagg_encode_fwd, pagg_encode_bwd,
-            row_gather, row_gather_bwd)
+            row_gather, row_gather_bwd, lane_gather)
 
 
 def reset_launch_counts() -> None:
@@ -36,4 +38,5 @@ __all__ = ["cdf_walk", "cdf_walk_plain", "membership_dists",
            "membership_dists_plain", "pagg_encode_fwd", "pagg_encode_fwd_plain",
            "pagg_encode_bwd", "pagg_encode_bwd_plain", "row_gather",
            "row_gather_plain", "row_gather_bwd", "row_gather_bwd_plain",
+           "lane_gather", "lane_gather_plain",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]

@@ -52,6 +52,8 @@ SIGNATURES = {
     "pathnet_row_gather": [_P, _P, _P, _I, _I, _P],
     # dout, idx, dtbl, m, C, stream
     "pathnet_row_gather_bwd": [_P, _P, _P, _I, _I, _P],
+    # tbl, idx, out, n, D, stream
+    "pathnet_lane_gather": [_P, _P, _P, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

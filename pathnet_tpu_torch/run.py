@@ -10,7 +10,9 @@ lstm, ``--agg`` other than attention, ``--quirk-compat``, ``-mk uniform``,
 homophily (homo-variant) datasets, and the baseline models (``--model``).
 ``--no-scan``, ``--scan-chunk`` and ``--remat`` are accepted and change
 nothing. The result line and the JSONL record go to ``--results-dir`` as in
-the JAX CLI.
+the JAX CLI. The port's defaults are ``--results-dir results_torch`` and
+``--ckpt-dir saved_models_torch``: ``results/`` and ``saved_models/`` hold the
+JAX package's records and checkpoints under the same names and keys.
 """
 from __future__ import annotations
 
@@ -61,8 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="compute dtype; only float32 is ported")
-    p.add_argument("--results-dir", type=str, default="results")
-    p.add_argument("--ckpt-dir", type=str, default="saved_models")
+    p.add_argument("--results-dir", type=str, default="results_torch")
+    p.add_argument("--ckpt-dir", type=str, default="saved_models_torch")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-scan", action="store_true",
@@ -142,6 +144,8 @@ def check_ported(args) -> None:
 
 
 def main(argv=None):
+    """Run the protocol the flags describe; returns the mean/std of the five
+    test metrics over the rounds."""
     parser = build_parser()
     av = list(sys.argv[1:] if argv is None else argv)
     for i, tok in enumerate(av):
@@ -181,6 +185,7 @@ def main(argv=None):
     line = append_results(args.results_dir, name, agg, config, args.model_mode)
     print(line)
     print(f"total {time.time() - t0:.1f}s")
+    return agg
 
 
 if __name__ == "__main__":

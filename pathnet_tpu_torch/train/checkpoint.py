@@ -4,12 +4,16 @@ The JAX package's directory layout, ``<ckpt_dir>/<name>/round_<iii>/``: each
 round directory holds ``meta.json`` (round, best validation accuracy, test
 metrics at the best epoch, config) and, when the round kept them, the best
 parameters as a ``state_dict`` in ``best.pt``. A protocol that finds a
-round's checkpoint skips the round and takes its metrics.
+round's checkpoint skips the round and takes its metrics. A round directory
+without ``meta.json`` (the JAX package's orbax layout, under the same key) is
+not a checkpoint of this package: it counts as absent, and ``save_round``
+leaves it as it is and saves nothing there.
 """
 from __future__ import annotations
 
 import json
 import os
+import warnings
 from typing import Any, Dict, Optional
 
 import torch
@@ -20,9 +24,14 @@ def _round_dir(ckpt_dir: str, name: str, round_i: int) -> str:
 
 
 def save_round(ckpt_dir: str, name: str, round_i: int, result,
-               config: Optional[dict] = None) -> str:
-    """Persist a round's best params + metrics; returns the directory."""
+               config: Optional[dict] = None) -> Optional[str]:
+    """Persist a round's best params + metrics; returns the directory, or
+    None (with a warning) where another package's round directory stands."""
     path = _round_dir(ckpt_dir, name, round_i)
+    if os.path.isdir(path) and not os.path.isfile(os.path.join(path, "meta.json")):
+        warnings.warn(f"{path} holds a checkpoint of another package; this round "
+                      "is not saved")
+        return None
     tmp = path + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     meta = {"round": round_i, "best_val_acc": result.best_val_acc,
@@ -41,14 +50,12 @@ def save_round(ckpt_dir: str, name: str, round_i: int, result,
 
 
 def load_round(ckpt_dir: str, name: str, round_i: int) -> Optional[Dict[str, Any]]:
-    """``{"meta": ..., "params": state_dict or None}``; None if absent."""
+    """``{"meta": ..., "params": state_dict or None}``; None if absent or if
+    the round directory holds no ``meta.json``."""
     path = _round_dir(ckpt_dir, name, round_i)
-    if not os.path.exists(path):
-        return None
     meta_path = os.path.join(path, "meta.json")
     if not os.path.isfile(meta_path):
-        raise ValueError(f"{path} is not a checkpoint of this package "
-                         "(no meta.json)")
+        return None
     with open(meta_path) as f:
         meta = json.load(f)
     best = os.path.join(path, "best.pt")
@@ -57,8 +64,9 @@ def load_round(ckpt_dir: str, name: str, round_i: int) -> Optional[Dict[str, Any
 
 
 def completed_rounds(ckpt_dir: str, name: str) -> int:
-    """Number of consecutive completed rounds starting at 0."""
+    """Number of consecutive rounds from 0 saved by this package (each
+    round directory holds a ``meta.json``)."""
     i = 0
-    while os.path.exists(_round_dir(ckpt_dir, name, i)):
+    while os.path.isfile(os.path.join(_round_dir(ckpt_dir, name, i), "meta.json")):
         i += 1
     return i

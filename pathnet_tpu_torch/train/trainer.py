@@ -230,7 +230,8 @@ def run_protocol(name: str, data_root: str = "data",
     """The multi-round protocol (trainer.py:347-434; PathNet_run.py:406-485).
 
     Loads the dataset per round (the payload once, the masks per round),
-    builds the sampler once, runs ``rounds`` rounds with seeds
+    builds the sampler once (after MERW on ``device`` for a payload without
+    transition probabilities), runs ``rounds`` rounds with seeds
     ``cfg.seed + round``, and returns ``(mean/std aggregate, per-round
     results)``. With ``ckpt_dir`` each round's best params and metrics are
     saved under the JAX package's checkpoint key, and rounds already saved
@@ -238,6 +239,7 @@ def run_protocol(name: str, data_root: str = "data",
     """
     from ..data.registry import DATASETS, load_dataset, payload_fingerprint
     from ..device import resolve_device
+    from ..merw import merw_graph_per_component
     from .checkpoint import load_round, save_round
     from .results import aggregate_rounds
 
@@ -270,9 +272,10 @@ def run_protocol(name: str, data_root: str = "data",
         g, train_mask, val_mask, test_mask, _ = load_dataset(name, data_root, round_i)
         if ps is None:
             if kind == "merw" and not (g.prob < 1.0).any():
-                raise NotImplementedError(
-                    f"{name}: the payload carries no transition probabilities; "
-                    "computing MERW is not ported yet (ROADMAP §1 item 6)")
+                # per-component: SBM stand-ins can have isolated nodes, and
+                # a global eigenvector yields psi=0 -> NaN probabilities on
+                # minor components (the reference preprocessing's own bug)
+                g = merw_graph_per_component(g, device=dev)
             ps = PathSampler.build(g, num_walks, walk_len, kind=kind, device=dev)
             X = torch.from_numpy(np.array(g.features, np.float32)).to(dev)
             y = torch.from_numpy(np.array(g.labels, np.int64)).to(dev)

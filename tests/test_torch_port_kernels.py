@@ -66,7 +66,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                                atol=1e-6, rtol=1e-6)
     assert K.launch_counts() == {"cdf_walk": 0, "membership_dists": 0,
                                  "pagg_encode_fwd": 0, "pagg_encode_bwd": 0,
-                                 "row_gather": 0, "row_gather_bwd": 0}
+                                 "row_gather": 0, "row_gather_bwd": 0,
+                                 "lane_gather": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -140,7 +141,7 @@ def test_port_holds_no_jax_no_library_kernels_and_no_cpu_fallback():
                        "nn.functional.lstm", "self.LSTM("):
             assert banned not in text, (f, banned)
     for name in ("cdf_walk", "membership_dists", "pagg_encode", "pagg_encode_bwd",
-                 "row_gather"):
+                 "row_gather", "lane_gather"):
         # a wrapper launches its kernel or raises: nothing catches a failure
         text = open(os.path.join(PORT, "kernels", name + ".py")).read()
         assert not re.search(r"\b(try|except)\b", text), name
@@ -180,7 +181,8 @@ def test_predict_on_card_counts_launches_and_matches_host(cuda):
     torch.cuda.synchronize()
     assert K.launch_counts() == {"cdf_walk": 3, "membership_dists": 3,
                                  "pagg_encode_fwd": 3, "pagg_encode_bwd": 0,
-                                 "row_gather": 3, "row_gather_bwd": 0}
+                                 "row_gather": 3, "row_gather_bwd": 0,
+                                 "lane_gather": 0}
     want = predict(m_host, torch.from_numpy(X), PathSampler.build(g, 40, 4, device="cpu"),
                    num_ensemble=3, u=u)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

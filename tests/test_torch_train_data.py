@@ -87,15 +87,6 @@ def test_random_split_datasets_use_the_whole_mask_rule(tmp_path):
         registry.clear_payload_cache()
 
 
-def test_payload_generation_and_merw_repair_wait_for_their_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.load_dataset("cornell", str(tmp_path), 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.load_structure("bgp", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="MERW"):
-        registry.load_structure("cora", "data")
-
-
 def test_validate_masks_rejects_overlap():
     a = np.zeros(5, bool)
     a[:3] = True

@@ -174,7 +174,8 @@ def test_dropout_masks_have_the_layouts_and_rate_of_the_forward():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("H,wl,nw", [(16, 2, 6), (64, 4, 40), (64, 3, 17), (128, 4, 40),
-                                     (64, 4, 200)])  # 200 walks: over 48 KB of shared memory
+                                     (64, 4, 200),   # 200 walks: over 48 KB of shared memory
+                                     (256, 4, 40)])  # Nba's width: one group of 256 threads
 def test_masked_encode_and_its_backward_match_plain_on_the_card(cuda, H, wl, nw):
     starts, paths, dists, h, w, mask, gout = case(nw=nw, wl=wl, H=H, device=cuda)
     for m, keep in ((None, 1.0), (mask, KEEP)):

@@ -96,8 +96,7 @@ def test_checkpoint_round_trip(tmp_path):
     assert load_round(str(tmp_path), "key", 2) is None
     assert completed_rounds(str(tmp_path), "key") == 2
     os.makedirs(tmp_path / "key" / "round_005")
-    with pytest.raises(ValueError, match="meta.json"):
-        load_round(str(tmp_path), "key", 5)
+    assert load_round(str(tmp_path), "key", 5) is None
 
 
 @pytest.fixture
@@ -131,6 +130,41 @@ def test_protocol_checkpoints_and_resumes_completed_rounds(cornell_root, monkeyp
     monkeypatch.setattr(trainer, "run_round", no_training)
     agg2, results2 = run_protocol("cornell", **kw)
     assert agg2 == agg and [r.metrics for r in results2] == [r.metrics for r in results]
+
+
+def jax_style_round(root, key, round_i):
+    """A round directory in the JAX package's orbax layout: no meta.json."""
+    d = root / key / f"round_{round_i:03d}"
+    (d / "default").mkdir(parents=True)
+    (d / "_CHECKPOINT_METADATA").write_text("{}")
+    (d / "default" / "d").write_bytes(b"orbax")
+    return d
+
+
+def test_protocol_runs_rounds_over_another_packages_checkpoints(cornell_root, monkeypatch):
+    kw = dict(data_root=str(cornell_root), cfg=TrainConfig(epochs=2), rounds=1,
+              num_walks=4, hidden=8, ckpt_dir=str(cornell_root / "ck"), verbose=False,
+              device="cpu")
+    key = "cornell.89c32d97.e2.h8.s0.nw4.wl4.dr0.7.merw.lstm.attention"
+    d = jax_style_round(cornell_root / "ck", key, 0)
+    before = {p: p.read_bytes() for p in d.rglob("*") if p.is_file()}
+    assert load_round(kw["ckpt_dir"], key, 0) is None
+    assert completed_rounds(kw["ckpt_dir"], key) == 0
+    ran = []
+    real = trainer.run_round
+    monkeypatch.setattr(trainer, "run_round", lambda *a, **k: ran.append(1) or real(*a, **k))
+    with pytest.warns(UserWarning, match="another package"):
+        agg, results = run_protocol("cornell", **kw)
+    assert ran == [1] and len(results) == 1 and 0.0 <= agg["accuracy"][0] <= 1.0
+    assert completed_rounds(kw["ckpt_dir"], key) == 0
+    assert {p: p.read_bytes() for p in d.rglob("*") if p.is_file()} == before
+
+
+def test_cli_writes_outside_the_jax_packages_records():
+    args = run.build_parser().parse_args(["-data", "cornell"])
+    assert (args.results_dir, args.ckpt_dir) == ("results_torch", "saved_models_torch")
+    for d in (args.results_dir, args.ckpt_dir):
+        assert d not in ("results", "saved_models")
 
 
 def test_cli_takes_the_jax_flags():
