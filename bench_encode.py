@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""Time K3 (the PAGG encode forward) of the PyTorch/CUDA port on one CUDA card,
+with K4 and the request and epoch times around it.
+
+    python3 bench_encode.py                 # this checkout; one JSON line
+    python3 bench_encode.py --ab OTHER      # OTHER, this, this, OTHER in turn
+
+``OTHER`` is the root of another checkout (say the parent commit unpacked
+with ``git archive``). Each turn runs in its own process, which imports
+``pathnet_tpu_torch`` from that root, builds its kernels there and prints one
+JSON line:
+
+- ``k3_bgp_ms``: K3 per launch in a CUDA graph on one 8192-target request of
+  the bgp stand-in (n = 63,977, H = 64, nw = 40, wl = 4, seeded weights);
+- ``k3_nba_masked_ms``: K3 with the keep mask on Nba's 193 train targets of
+  round 0 at H = 256 (payload made from ``data/edge_input`` in a temporary
+  data root); ``k4_bgp_ms``, ``k4_nba_ms``: K4 on the same inputs with the mask;
+- ``k3_*_encode_ms``, ``k3_*_readout_ms``: K3's two launches each alone,
+  where the checkout has them;
+- ``request_ms``: median host time of 8 ``predict`` calls of 8192 targets;
+- ``bgp_epoch_ms``, ``nba_epoch_ms``: median host time of the epochs after
+  the first of ``run_round`` (bgp stand-in: 3 epochs, microbatch 8192;
+  Nba at H = 256: 20 epochs).
+
+Every line carries the card's ``nvidia-smi`` name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean ms per launch: ``iters`` calls in one CUDA graph, replayed warm."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def smi() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True, text=True,
+                       timeout=10)
+    return r.stdout.strip().splitlines()[0]
+
+
+def encode_times(K, tag, h, paths, dists, w, mask_args, out):
+    out[f"k3_{tag}_ms"] = graph_ms(lambda: K.pagg_encode_fwd(h, paths, dists, *w, *mask_args),
+                                   20)
+    if hasattr(K, "encode_walks"):
+        hn = K.encode_walks(h, paths, dists, *w[:6], *mask_args)
+        out[f"k3_{tag}_encode_ms"] = graph_ms(
+            lambda: K.encode_walks(h, paths, dists, *w[:6], *mask_args), 20)
+        out[f"k3_{tag}_readout_ms"] = graph_ms(lambda: K.readout(h, paths, hn, *w[6:]), 50)
+
+
+def measure(root: str) -> dict:
+    """Every time of the module docstring, for the port under ``root``."""
+    sys.path.insert(0, root)
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.config import TrainConfig
+    from pathnet_tpu_torch.data import Graph
+    from pathnet_tpu_torch.data.registry import load_dataset
+    from pathnet_tpu_torch.data.splits import get_whole_mask
+    from pathnet_tpu_torch.models import PaggSpec, PathNet, draw_dropout_masks
+    from pathnet_tpu_torch.sample import PathSampler
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+    from pathnet_tpu_torch.train import predict, run_round
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_encode: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {"root": root, "device": smi()}
+    from pathnet_tpu_torch.kernels import build
+    build.library()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    z = np.load(os.path.join(HERE, "data", "bench_cache", "bgp_standin_63977.npz"))
+    g = Graph(n=int(z["n"]), src=z["src"], dst=z["dst"], prob=z["prob"])
+    X = torch.from_numpy(z["x"]).to(dev)
+    C = int(z["y"].max()) + 1
+    ps = PathSampler.build(g, 40, 4, device=dev)
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=64, out_dim=C, walk_len=4, dropout=0.7)
+    model = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(0))
+    order = np.random.default_rng(0).permutation(g.n)
+    idx = torch.from_numpy(order[:8192].astype(np.int32)).to(dev)
+    paths, dists = ps.sample(idx, u=draw_uniforms(4, 8192 * 40, gen, dev))
+    h, w = model.encode_inputs(X)
+    encode_times(K, "bgp", h, paths, dists, w, (), out)
+    m1, _ = draw_dropout_masks(spec, 8192, 40, gen, dev)
+    gout = torch.randn((8192, 64), generator=gen, device=dev)
+    out["k4_bgp_ms"] = graph_ms(lambda: K.pagg_encode_bwd(gout, h, paths, dists, *w, m1, 0.3),
+                                5)
+
+    times = []
+    for r in np.resize(order, 9 * 8192).reshape(9, 8192):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict(model, X, ps, gen, idx=r)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["request_ms"] = float(np.median(times[1:]))
+
+    y = torch.from_numpy(z["y"].astype(np.int64)).to(dev)
+    res = run_round(X, y, ps, spec, TrainConfig(epochs=3, microbatch=8192),
+                    *get_whole_mask(z["y"], seed=1), C, seed=0, track_history=True)
+    out["bgp_epoch_ms"] = float(np.median(res.epoch_seconds[1:])) * 1e3
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "edge_input"))
+        for f in glob.glob(os.path.join(HERE, "data", "edge_input", "Nba*.in")):
+            shutil.copy(f, os.path.join(tmp, "edge_input"))
+        gn, train, val, test, sd = load_dataset("Nba", tmp, 0)
+    psn = PathSampler.build(gn, 40, 4, device=dev)
+    Xn = torch.from_numpy(np.array(gn.features, np.float32)).to(dev)
+    specn = PaggSpec(feat_dim=Xn.shape[1], hidden=256, out_dim=sd.num_classes, walk_len=4,
+                     dropout=0.7)
+    mn = PathNet(specn, device=dev, generator=torch.Generator().manual_seed(3))
+    it = torch.from_numpy(np.flatnonzero(train).astype(np.int32)).to(dev)
+    pn, dn = psn.sample(it, u=draw_uniforms(4, it.shape[0] * 40, gen, dev))
+    hn_, wn = mn.encode_inputs(Xn)
+    mn1, _ = draw_dropout_masks(specn, it.shape[0], 40, gen, dev)
+    encode_times(K, "nba_masked", hn_, pn, dn, wn, (mn1, 0.3), out)
+    gn_out = torch.randn((it.shape[0], 256), generator=gen, device=dev)
+    out["k4_nba_ms"] = graph_ms(
+        lambda: K.pagg_encode_bwd(gn_out, hn_, pn, dn, *wn, mn1, 0.3), 10)
+    yn = torch.from_numpy(np.array(gn.labels, np.int64)).to(dev)
+    res = run_round(Xn, yn, psn, specn, TrainConfig(epochs=20), train, val, test,
+                    sd.num_classes, seed=0, track_history=True)
+    out["nba_epoch_ms"] = float(np.median(res.epoch_seconds[1:])) * 1e3
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ab", metavar="OTHER", help="root of the checkout to compare with")
+    ap.add_argument("--root", default=HERE, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.ab is None:
+        print(json.dumps(measure(os.path.abspath(args.root))), flush=True)
+        return 0
+    other = os.path.abspath(args.ab)
+    for root in (other, HERE, HERE, other):
+        # each turn in a process of its own, so each imports its own package
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--root", root],
+                           cwd=root, timeout=900)
+        if r.returncode != 0:
+            return r.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,13 +7,15 @@ one card). Phases, each with a start and an end line:
 0. device: the card's name, ``nvidia-smi`` name and power limit, versions;
 1. build: ``nvcc`` compiles ``pathnet_tpu_torch/csrc/*.cu`` (one process per
    source, all at once) into ``build/pathnet_tpu_torch/<hash>/lib.so``
-   (ptxas registers and spills shown);
+   (ptxas registers and spills shown), and K3's tile (walks a block M,
+   threads, shared bytes) at H = 64 and H = 256;
 2. kernels: K1 ``cdf_walk``, K2 ``membership_dists`` and K3
    ``pagg_encode_fwd`` against their plain PyTorch versions on one
    8192-target request of the bgp stand-in (K1, K2 exact; K3 within
    atol = rtol = 1e-4); each kernel timed per launch inside a CUDA graph
    (no host work between launches) and per eager wrapper call, each plain
-   version per eager call, all with CUDA events;
+   version per eager call, all with CUDA events; K3's two launches (the
+   encode to h_n, the readout) also timed each alone;
 3. serve: the bgp stand-in (n = 63,977, F = 8, D = 25) at H = 64, nw = 40,
    wl = 4 with seeded torch-default weights: 8 requests of 8192 targets that
    cover every node, then one of 1024 targets with ``num_ensemble=4``; the
@@ -27,7 +29,8 @@ one card). Phases, each with a start and an end line:
    ``dattw``, ``dattb``, sums that cancel, of ``dh``'s if larger), K5
    ``row_gather`` (exact) and ``row_gather_bwd`` (1e-5), K5 also at the
    gather probe's shape; timed as in phase 2, with the PyTorch calls
-   ``index_select`` and ``index_add_`` as K5's library yardsticks;
+   ``index_select`` and ``index_add_`` as K5's library yardsticks, and K3's
+   two launches each alone;
 6. train: ``run_round`` on the bgp stand-in for 3 epochs (microbatch 8192,
    dropout 0.7, Adam, best-on-validation) with the launch counts of the path;
 7. cornell at full width in training: one step on the card and on the host
@@ -53,8 +56,8 @@ one card). Phases, each with a start and an end line:
     directories; the mean test accuracy must lie inside the JAX band
     80.00 +- 5.82 (``results/results.jsonl:106``);
 11. Nba at H = 256: K3 (with and without the keep mask) and K4 against their
-    plain versions on all 193 train targets of round 0 (one block of 256
-    threads per target), timed, then the protocol through the CLI for
+    plain versions on all 193 train targets of round 0, timed (K3's two
+    launches also each alone), then the protocol through the CLI for
     ``NBA_ROUNDS`` rounds x 1000 epochs at ``-hid 256``, whose mean test
     accuracy must lie inside the JAX band 58.54 +- 5.23
     (``results/results.jsonl:104``).
@@ -279,6 +282,7 @@ def check_kernels(tag, ps, model, X, idx, u, rec, timed):
         say(f"  {name}: {ms:.4f} ms per launch in a CUDA graph, {call_ms:.4f} ms per "
             f"eager wrapper call (plain {plain_ms:.4f} ms eager, bound {bound_ms:.4f} ms "
             f"by {bound_by}: {b / 1e6:.1f} MB, {o / 1e9:.3f} G ops)")
+    time_k3_stages("pagg_encode_fwd", h, paths, dists, w)
 
 
 def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None):
@@ -295,6 +299,17 @@ def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None)
         f"eager wrapper call (plain {plain_ms:.4f} ms eager, library "
         + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms") +
         f", bound {bound_ms:.4f} ms by {bound_by}: {b / 1e6:.1f} MB, {o / 1e9:.3f} G ops)")
+
+
+def time_k3_stages(tag, h, paths, dists, w, mask_args=()):
+    """Each of K3's two launches alone, per launch in a CUDA graph."""
+    from pathnet_tpu_torch import kernels as K
+
+    hn = K.encode_walks(h, paths, dists, *w[:6], *mask_args)
+    enc_ms = graph_ms(lambda: K.encode_walks(h, paths, dists, *w[:6], *mask_args), 20)
+    read_ms = graph_ms(lambda: K.readout(h, paths, hn, *w[6:]), 50)
+    say(f"  {tag}: K3's encode launch {enc_ms:.4f} ms, its readout launch "
+        f"{read_ms:.4f} ms, per launch in a CUDA graph")
 
 
 def record_err(rec, name, err):
@@ -412,6 +427,7 @@ def check_training_kernels(ps, model, X, idx, u, gen, rec):
     timed({"pagg_encode_fwd with keep mask": {}}, "pagg_encode_fwd with keep mask",
           lambda: K.pagg_encode_fwd(h, paths, dists, *w, keep_mask=m1, keep=keep),
           lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, m1, keep), b3, o3, 20)
+    time_k3_stages("pagg_encode_fwd with keep mask", h, paths, dists, w, (m1, keep))
     timed(rec, "pagg_encode_bwd", lambda: K.pagg_encode_bwd(*bwd_args),
           lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 5)
     timed(rec, "row_gather", lambda: K.row_gather(h, idx),
@@ -545,6 +561,7 @@ def check_wide_encode(root, dev, gen, rec):
     timed({name3: {}}, name3,
           lambda: K.pagg_encode_fwd(h, paths, dists, *w, keep_mask=m1, keep=keep),
           lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, m1, keep), b3, o3, 20)
+    time_k3_stages(name3, h, paths, dists, w, (m1, keep))
     timed({name4: {}}, name4, lambda: K.pagg_encode_bwd(*bwd_args),
           lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 10)
 
@@ -649,6 +666,9 @@ def main() -> int:
                     or "spill" in line or line.startswith("==")):
                 say("  " + line.strip())
         build.library()
+        for H in (HIDDEN, NBA_HIDDEN):
+            say(f"  K3 tile at H = {H}: " + ", ".join(
+                f"{k} {v}" for k, v in K.encode_tile(H).items()))
 
     gen = torch.Generator(device=dev).manual_seed(0)
     with Phase("2 kernels vs plain (bgp, one 8192-target request)"):

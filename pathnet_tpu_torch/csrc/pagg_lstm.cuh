@@ -1,5 +1,6 @@
-// The LSTM forward of one group of walks, shared by K3 (pagg_encode.cu) and
-// K4's forward recompute (pagg_encode_bwd.cu), so the two stay one code.
+// The LSTM forward of one group of walks, used only by K4's forward
+// recompute (pagg_encode_bwd.cu). K3 (pagg_encode.cu) no longer calls it: it
+// runs its own tiled forward, walk tiles across targets.
 //
 // Per walk step t (hetero: far -> near, pathnet_tpu/models/pagg.py:235-303):
 //   x_t   = h[paths[wl-1-t]]

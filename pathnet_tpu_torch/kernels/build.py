@@ -41,9 +41,13 @@ SIGNATURES = {
     "pathnet_cdf_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # nbr, deg, starts, paths, out, D, S, nw, wl, stream
     "pathnet_membership_dists": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, attw, attb, mask,
-    # keep, out, T, nw, wl, H, stream
-    "pathnet_pagg_encode_fwd": [_P] * 12 + [_F, _P, _I, _I, _I, _I, _P],
+    # h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep, hn, T,
+    # nw, wl, H, stream
+    "pathnet_pagg_encode_walks": [_P] * 10 + [_F, _P, _I, _I, _I, _I, _P],
+    # h, paths, hn, attw, attb, out, T, nw, wl, H, stream
+    "pathnet_pagg_readout": [_P] * 6 + [_I, _I, _I, _I, _P],
+    # H, out[4]: K3's tile (M, threads, shared bytes, KC)
+    "pathnet_pagg_encode_tile": [_I, _P],
     # g, h, paths, dists, wd, wd_t, bd, w_ih, w_hh, w_ih_t, w_hh_t, b_ih,
     # b_hh, attw, attb, mask, keep, dh, dattw, dattb, xr, xin, hp, cs, gt,
     # dsel, T, nw, wl, H, stream

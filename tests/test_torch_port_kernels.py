@@ -157,14 +157,63 @@ def test_walk_and_distance_kernels_equal_plain(cuda, name):
     assert torch.equal(K.membership_dists(smp.nbr, smp.deg, starts, got), dists)
 
 
+def wild_case(H, wl, nw, T, n=183, seed=0, device="cpu"):
+    """Random walks of ``T`` targets, with distances also outside ``[0, wl -
+    1]`` (the encode clips them), ``h`` and K3 weights."""
+    gen = torch.Generator().manual_seed(seed)
+    paths = torch.randint(0, n, (T, nw, wl), generator=gen, dtype=torch.int32)
+    dists = torch.randint(-2, wl + 2, (T, nw, wl), generator=gen, dtype=torch.int32)
+    h = torch.randn((n, H), generator=gen) * 0.5
+    b = 1.0 / H ** 0.5
+    rnd = lambda *s: (torch.rand(s, generator=gen) * 2 - 1) * b
+    w = (rnd(wl, H, H), rnd(wl, H), rnd(H, 4 * H), rnd(H, 4 * H), rnd(4 * H),
+         rnd(4 * H), rnd(2 * H), rnd(1))
+    return (paths.to(device), dists.to(device), h.to(device),
+            tuple(t.to(device) for t in w))
+
+
+# The encode runs in tiles of M walks across targets (M = 64 at H = 64, 32 at
+# H = 256, 16 at H = 512, 8 at H = 1024): cornell's 183 targets make a ragged
+# last tile; T = 1, nw = 1, nw above M, wl of 1 and 5, widths that are not a
+# multiple of 8 and distances outside [0, wl - 1] are the tile's edges.
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,wl,nw", [(16, 2, 6), (64, 4, 40), (64, 3, 17), (128, 4, 40),
-                                     (64, 4, 200)])  # 200 walks: over 48 KB of shared memory
-def test_encode_kernel_matches_plain(cuda, H, wl, nw):
-    ps, starts, u, paths, dists, h, w = case(nw=nw, wl=wl, H=H, device=cuda)
+@pytest.mark.parametrize("H,wl,nw,T,wild", [
+    (16, 2, 6, None, False), (64, 4, 40, None, False), (64, 3, 17, None, False),
+    (128, 4, 40, None, False),
+    (64, 4, 200, None, False),   # 200 walks: over 48 KB of shared memory
+    (64, 4, 40, 1, False), (64, 4, 1, None, False), (37, 5, 6, None, True),
+    (256, 1, 40, None, True), (256, 4, 40, 7, True), (512, 4, 40, 50, True),
+    (1024, 2, 3, 20, True), (1, 4, 6, None, False)])
+def test_encode_kernel_matches_plain(cuda, H, wl, nw, T, wild):
+    if wild:
+        paths, dists, h, w = wild_case(H, wl, nw, T or 183, device=cuda)
+    else:
+        paths, dists, h, w = case(nw=nw, wl=wl, H=H, S=T, device=cuda)[3:]
     got = K.pagg_encode_fwd(h, paths, dists, *w)
     want = K.pagg_encode_fwd_plain(h, paths, dists, *w)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    # each of the two launches against its plain version
+    hn = K.encode_walks_plain(h, paths, dists, *w[:6])
+    torch.testing.assert_close(K.encode_walks(h, paths, dists, *w[:6]), hn,
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(K.readout(h, paths, hn, *w[6:]),
+                               K.readout_plain(h, paths, hn, *w[6:]), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_encode_kernel_takes_weights_at_any_alignment(cuda):
+    # the encode copies weight rows 16 bytes at a time only where every base
+    # is 16-byte aligned; a view 4 bytes into its storage takes 4-byte copies
+    paths, dists, h, w = case(nw=40, wl=4, H=64, device=cuda)[3:]
+    shifted = []
+    for t in w[:4]:
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        buf[1:] = t.reshape(-1)
+        shifted.append(buf[1:].view(t.shape))
+    assert shifted[2].data_ptr() % 16 != 0
+    got = K.pagg_encode_fwd(h, paths, dists, *shifted, *w[4:])
+    torch.testing.assert_close(got, K.pagg_encode_fwd_plain(h, paths, dists, *w),
+                               atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu

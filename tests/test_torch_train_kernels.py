@@ -172,12 +172,40 @@ def test_dropout_masks_have_the_layouts_and_rate_of_the_forward():
                                        dropout=0.0), 5, 2, torch.Generator(), "cpu") is None
 
 
+def wild_case(H, wl, nw, T, n=183, seed=0, device="cpu"):
+    """Random walks with distances also outside ``[0, wl - 1]`` (the encode
+    clips them), ``h``, K3 weights, a keep mask and an output gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    paths = torch.randint(0, n, (T, nw, wl), generator=gen, dtype=torch.int32)
+    dists = torch.randint(-2, wl + 2, (T, nw, wl), generator=gen, dtype=torch.int32)
+    h = torch.randn((n, H), generator=gen) * 0.5
+    b = 1.0 / H ** 0.5
+    rnd = lambda *s: (torch.rand(s, generator=gen) * 2 - 1) * b
+    w = (rnd(wl, H, H), rnd(wl, H), rnd(H, 4 * H), rnd(H, 4 * H), rnd(4 * H),
+         rnd(4 * H), rnd(2 * H), rnd(1))
+    mask = (torch.rand((wl, T * nw, H), generator=gen) < KEEP).to(torch.uint8)
+    gout = torch.randn((T, H), generator=gen)
+    to = lambda t: t.to(device)
+    return None, to(paths), to(dists), to(h), tuple(map(to, w)), to(mask), to(gout)
+
+
+# K3 runs in tiles of M walks across targets; the cases past (256, 4, 40, None)
+# are the tile's edges: T = 1, nw = 1, nw above M, wl of 1 and 5, widths that
+# are not a multiple of 8, distances outside [0, wl - 1] (see
+# tests/test_torch_port_kernels.py)
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,wl,nw", [(16, 2, 6), (64, 4, 40), (64, 3, 17), (128, 4, 40),
-                                     (64, 4, 200),   # 200 walks: over 48 KB of shared memory
-                                     (256, 4, 40)])  # Nba's width: one group of 256 threads
-def test_masked_encode_and_its_backward_match_plain_on_the_card(cuda, H, wl, nw):
-    starts, paths, dists, h, w, mask, gout = case(nw=nw, wl=wl, H=H, device=cuda)
+@pytest.mark.parametrize("H,wl,nw,T,wild", [
+    (16, 2, 6, None, False), (64, 4, 40, None, False), (64, 3, 17, None, False),
+    (128, 4, 40, None, False),
+    (64, 4, 200, None, False),   # 200 walks: over 48 KB of shared memory
+    (256, 4, 40, None, False),   # Nba's width
+    (64, 4, 40, 1, False), (64, 4, 1, None, False), (37, 5, 6, 183, True),
+    (256, 1, 40, 30, True), (512, 4, 40, 50, True)])
+def test_masked_encode_and_its_backward_match_plain_on_the_card(cuda, H, wl, nw, T, wild):
+    if wild:
+        starts, paths, dists, h, w, mask, gout = wild_case(H, wl, nw, T, device=cuda)
+    else:
+        starts, paths, dists, h, w, mask, gout = case(nw=nw, wl=wl, H=H, T=T, device=cuda)
     for m, keep in ((None, 1.0), (mask, KEEP)):
         got = K.pagg_encode_fwd(h, paths, dists, *w, keep_mask=m, keep=keep)
         want = K.pagg_encode_fwd_plain(h, paths, dists, *w, m, keep)
