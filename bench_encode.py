@@ -17,10 +17,15 @@ JSON line:
   data root); ``k4_bgp_ms``, ``k4_nba_ms``: K4 on the same inputs with the mask;
 - ``k3_*_encode_ms``, ``k3_*_readout_ms``: K3's two launches each alone,
   where the checkout has them;
+- ``k4_{bgp,nba}_{recompute,attn,bptt}_ms``: K4's three launches each alone
+  (the forward recompute with its streams, the attention backward, the
+  BPTT), and ``k4_*_contract_ms``, the wrapper's weight contractions alone,
+  where the checkout has them;
 - ``request_ms``: median host time of 8 ``predict`` calls of 8192 targets;
-- ``bgp_epoch_ms``, ``nba_epoch_ms``: median host time of the epochs after
-  the first of ``run_round`` (bgp stand-in: 3 epochs, microbatch 8192;
-  Nba at H = 256: 20 epochs).
+- ``bgp_epoch_ms``, ``nba_epoch_ms``, ``cornell_epoch_ms``: median host
+  time of the epochs after the first of ``run_round`` (bgp stand-in: 3
+  epochs, microbatch 8192; Nba at H = 256: 20 epochs; cornell at H = 64,
+  full batch as in its protocol: 100 epochs).
 
 Every line carries the card's ``nvidia-smi`` name and power limit.
 """
@@ -81,6 +86,24 @@ def encode_times(K, tag, h, paths, dists, w, mask_args, out):
         out[f"k3_{tag}_readout_ms"] = graph_ms(lambda: K.readout(h, paths, hn, *w[6:]), 50)
 
 
+def k4_stage_times(K, tag, g, h, paths, dists, w, mask_args, out):
+    """K4's three launches and its weight contractions, each alone."""
+    if not hasattr(K, "bptt"):
+        return
+    n = h.shape[0]
+    enc = (h, paths, dists, *w[:6], *mask_args)
+    hn, xr, xin, hp, cs, gt = K.encode_walks_streams(*enc)
+    out[f"k4_{tag}_recompute_ms"] = graph_ms(lambda: K.encode_walks_streams(*enc), 5)
+    dhn = K.attention_bwd(g, h, paths, hn, *w[6:])[0]
+    out[f"k4_{tag}_attn_ms"] = graph_ms(lambda: K.attention_bwd(g, h, paths, hn, *w[6:]), 20)
+    bargs = (dhn, paths, dists, w[0], w[2], w[3], cs, gt, n, *mask_args)
+    _, dg, dsel = K.bptt(*bargs)
+    # each replay writes over gt again: the times do not depend on the values
+    out[f"k4_{tag}_bptt_ms"] = graph_ms(lambda: K.bptt(*bargs), 5)
+    out[f"k4_{tag}_contract_ms"] = graph_ms(
+        lambda: K.contractions(xr, xin, hp, dsel, dg, dists), 5)
+
+
 def measure(root: str) -> dict:
     """Every time of the module docstring, for the port under ``root``."""
     sys.path.insert(0, root)
@@ -119,6 +142,7 @@ def measure(root: str) -> dict:
     gout = torch.randn((8192, 64), generator=gen, device=dev)
     out["k4_bgp_ms"] = graph_ms(lambda: K.pagg_encode_bwd(gout, h, paths, dists, *w, m1, 0.3),
                                 5)
+    k4_stage_times(K, "bgp", gout, h, paths, dists, w, (m1, 0.3), out)
 
     times = []
     for r in np.resize(order, 9 * 8192).reshape(9, 8192):
@@ -138,7 +162,10 @@ def measure(root: str) -> dict:
         os.makedirs(os.path.join(tmp, "edge_input"))
         for f in glob.glob(os.path.join(HERE, "data", "edge_input", "Nba*.in")):
             shutil.copy(f, os.path.join(tmp, "edge_input"))
+        shutil.copy(os.path.join(HERE, "data", "edge_input", "cornell.in"),
+                    os.path.join(tmp, "edge_input"))
         gn, train, val, test, sd = load_dataset("Nba", tmp, 0)
+        gc, trc, vac, tec, sdc = load_dataset("cornell", tmp, 0)
     psn = PathSampler.build(gn, 40, 4, device=dev)
     Xn = torch.from_numpy(np.array(gn.features, np.float32)).to(dev)
     specn = PaggSpec(feat_dim=Xn.shape[1], hidden=256, out_dim=sd.num_classes, walk_len=4,
@@ -152,10 +179,20 @@ def measure(root: str) -> dict:
     gn_out = torch.randn((it.shape[0], 256), generator=gen, device=dev)
     out["k4_nba_ms"] = graph_ms(
         lambda: K.pagg_encode_bwd(gn_out, hn_, pn, dn, *wn, mn1, 0.3), 10)
+    k4_stage_times(K, "nba", gn_out, hn_, pn, dn, wn, (mn1, 0.3), out)
     yn = torch.from_numpy(np.array(gn.labels, np.int64)).to(dev)
     res = run_round(Xn, yn, psn, specn, TrainConfig(epochs=20), train, val, test,
                     sd.num_classes, seed=0, track_history=True)
     out["nba_epoch_ms"] = float(np.median(res.epoch_seconds[1:])) * 1e3
+
+    psc = PathSampler.build(gc, 40, 4, device=dev)
+    Xc = torch.from_numpy(np.array(gc.features, np.float32)).to(dev)
+    yc = torch.from_numpy(np.array(gc.labels, np.int64)).to(dev)
+    specc = PaggSpec(feat_dim=Xc.shape[1], hidden=64, out_dim=sdc.num_classes, walk_len=4,
+                     dropout=0.7)
+    res = run_round(Xc, yc, psc, specc, TrainConfig(epochs=100), trc, vac, tec,
+                    sdc.num_classes, seed=0, track_history=True)
+    out["cornell_epoch_ms"] = float(np.median(res.epoch_seconds[1:])) * 1e3
     return out
 
 

@@ -7,8 +7,9 @@ one card). Phases, each with a start and an end line:
 0. device: the card's name, ``nvidia-smi`` name and power limit, versions;
 1. build: ``nvcc`` compiles ``pathnet_tpu_torch/csrc/*.cu`` (one process per
    source, all at once) into ``build/pathnet_tpu_torch/<hash>/lib.so``
-   (ptxas registers and spills shown), and K3's tile (walks a block M,
-   threads, shared bytes) at H = 64 and H = 256;
+   (ptxas registers and spills shown, those of K4's three launches
+   among them), and K3's tile (walks a block M, threads, shared bytes),
+   which K4 shares, at H = 64 and H = 256;
 2. kernels: K1 ``cdf_walk``, K2 ``membership_dists`` and K3
    ``pagg_encode_fwd`` against their plain PyTorch versions on one
    8192-target request of the bgp stand-in (K1, K2 exact; K3 within
@@ -28,9 +29,13 @@ one card). Phases, each with a start and an end line:
    (every gradient within 1e-4 of its plain version's largest entry;
    ``dattw``, ``dattb``, sums that cancel, of ``dh``'s if larger), K5
    ``row_gather`` (exact) and ``row_gather_bwd`` (1e-5), K5 also at the
-   gather probe's shape; timed as in phase 2, with the PyTorch calls
-   ``index_select`` and ``index_add_`` as K5's library yardsticks, and K3's
-   two launches each alone;
+   gather probe's shape; each of K4's three launches (the forward
+   recompute with its streams, the attention backward, the BPTT) against
+   its plain stage on the plain stage's inputs (within 1e-4 of each
+   output's largest plain entry); timed as in phase 2, with the PyTorch
+   calls ``index_select`` and ``index_add_`` as K5's library yardsticks,
+   K3's two launches each alone, and K4's three launches and the
+   wrapper's weight contractions each alone;
 6. train: ``run_round`` on the bgp stand-in for 3 epochs (microbatch 8192,
    dropout 0.7, Adam, best-on-validation) with the launch counts of the path;
 7. cornell at full width in training: one step on the card and on the host
@@ -56,8 +61,9 @@ one card). Phases, each with a start and an end line:
     directories; the mean test accuracy must lie inside the JAX band
     80.00 +- 5.82 (``results/results.jsonl:106``);
 11. Nba at H = 256: K3 (with and without the keep mask) and K4 against their
-    plain versions on all 193 train targets of round 0, timed (K3's two
-    launches also each alone), then the protocol through the CLI for
+    plain versions, and K4's three launches against their plain stages, on
+    all 193 train targets of round 0, timed (K3's two launches, K4's three
+    and its contractions also each alone), then the protocol through the CLI for
     ``NBA_ROUNDS`` rounds x 1000 epochs at ``-hid 256``, whose mean test
     accuracy must lie inside the JAX band 58.54 +- 5.23
     (``results/results.jsonl:104``).
@@ -312,6 +318,62 @@ def time_k3_stages(tag, h, paths, dists, w, mask_args=()):
         f"{read_ms:.4f} ms, per launch in a CUDA graph")
 
 
+def check_k4_stages(tag, g, h, paths, dists, w, mask, keep):
+    """Each of K4's three launches against its plain stage, on the plain
+    stage's inputs: every output within K4_TOL of its plain version's
+    largest entry (``dattw``, ``dattb``, sums that cancel, of the ego rows'
+    ``dh`` if larger)."""
+    from pathnet_tpu_torch import kernels as K
+
+    parts = []
+
+    def hold(stage, names, got, want, cancel_scale=0.0):
+        for name, a, b in zip(names, got, want):
+            err = float((a - b).abs().max())
+            top = float(b.abs().max())
+            scale = max(top, cancel_scale) if name in ("dattw", "dattb") else top
+            if not err <= K4_TOL * scale:
+                raise AssertionError(f"{tag}: K4's {stage} launch, {name} max abs err "
+                                     f"{err} beyond {K4_TOL} x {scale}")
+            parts.append(f"{name} {err / max(top, 1e-30):.1e}")
+
+    enc = (h, paths, dists, *w[:6], mask, keep)
+    want = K.encode_walks_streams_plain(*enc)
+    hold("recompute", ("hn", "xr", "xin", "hp", "cs", "gt"), K.encode_walks_streams(*enc),
+         want)
+    hn, _, _, _, cs, gt = want
+    want = K.attention_bwd_plain(g, h, paths, hn, *w[6:])
+    hold("attention", ("dhn", "dh_ego", "dattw", "dattb"),
+         K.attention_bwd(g, h, paths, hn, *w[6:]), want, float(want[1].abs().max()))
+    bargs = (want[0], paths, dists, w[0], w[2], w[3], cs)
+    n = h.shape[0]
+    want = K.bptt_plain(*bargs, gt, n, mask, keep)
+    hold("bptt", ("dh_rows", "dgates", "dsel"), K.bptt(*bargs, gt.clone(), n, mask, keep),
+         want)
+    say(f"  {tag}: K4's three launches each within {K4_TOL} of its plain stage (error "
+        "over each plain max: " + ", ".join(parts) + ")")
+
+
+def time_k4_stages(tag, g, h, paths, dists, w, mask, keep):
+    """Each of K4's three launches and the wrapper's weight contractions
+    alone, per launch in a CUDA graph."""
+    from pathnet_tpu_torch import kernels as K
+
+    enc = (h, paths, dists, *w[:6], mask, keep)
+    hn, xr, xin, hp, cs, gt = K.encode_walks_streams(*enc)
+    rec_ms = graph_ms(lambda: K.encode_walks_streams(*enc), 5)
+    dhn = K.attention_bwd(g, h, paths, hn, *w[6:])[0]
+    att_ms = graph_ms(lambda: K.attention_bwd(g, h, paths, hn, *w[6:]), 20)
+    bargs = (dhn, paths, dists, w[0], w[2], w[3], cs, gt, h.shape[0], mask, keep)
+    _, dg, dsel = K.bptt(*bargs)
+    # each replay writes over gt again; the time does not depend on the values
+    bptt_ms = graph_ms(lambda: K.bptt(*bargs), 5)
+    con_ms = graph_ms(lambda: K.contractions(xr, xin, hp, dsel, dg, dists), 5)
+    say(f"  {tag}: K4's forward recompute {rec_ms:.4f} ms, attention backward "
+        f"{att_ms:.4f} ms, BPTT {bptt_ms:.4f} ms, weight contractions {con_ms:.4f} ms "
+        "(torch.matmul, bmm), each per launch in a CUDA graph")
+
+
 def record_err(rec, name, err):
     rec[name]["max_abs_err"] = max(rec[name].get("max_abs_err", 0.0), err)
 
@@ -384,6 +446,7 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec):
     torch.cuda.synchronize()
     record_err(rec, "pagg_encode_bwd", check_k4(tag, got, want))
     del got, want
+    check_k4_stages(tag, g, h, paths, dists, w, m1, keep)
     return paths, dists, h, w, m1, keep, agg, g, bwd_args
 
 
@@ -430,6 +493,7 @@ def check_training_kernels(ps, model, X, idx, u, gen, rec):
     time_k3_stages("pagg_encode_fwd with keep mask", h, paths, dists, w, (m1, keep))
     timed(rec, "pagg_encode_bwd", lambda: K.pagg_encode_bwd(*bwd_args),
           lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 5)
+    time_k4_stages("pagg_encode_bwd", g, h, paths, dists, w, m1, keep)
     timed(rec, "row_gather", lambda: K.row_gather(h, idx),
           lambda: K.row_gather_plain(h, idx), b5, 0.0, 50,
           library=lambda: torch.index_select(h, 0, idx_l),
@@ -564,6 +628,7 @@ def check_wide_encode(root, dev, gen, rec):
     time_k3_stages(name3, h, paths, dists, w, (m1, keep))
     timed({name4: {}}, name4, lambda: K.pagg_encode_bwd(*bwd_args),
           lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 10)
+    time_k4_stages(name4, gout, h, paths, dists, w, m1, keep)
 
 
 def run_protocol_cli(name, root, tmp, rounds, hidden, band):

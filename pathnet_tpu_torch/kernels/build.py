@@ -48,10 +48,14 @@ SIGNATURES = {
     "pathnet_pagg_readout": [_P] * 6 + [_I, _I, _I, _I, _P],
     # H, out[4]: K3's tile (M, threads, shared bytes, KC)
     "pathnet_pagg_encode_tile": [_I, _P],
-    # g, h, paths, dists, wd, wd_t, bd, w_ih, w_hh, w_ih_t, w_hh_t, b_ih,
-    # b_hh, attw, attb, mask, keep, dh, dattw, dattb, xr, xin, hp, cs, gt,
-    # dsel, T, nw, wl, H, stream
-    "pathnet_pagg_encode_bwd": [_P] * 16 + [_F] + [_P] * 9 + [_I, _I, _I, _I, _P],
+    # K4's three launches. h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
+    # mask, keep, hn, xr, xin, hp, cs, gt, T, nw, wl, H, stream
+    "pathnet_pagg_encode_walks_streams": [_P] * 10 + [_F] + [_P] * 6 + [_I] * 4 + [_P],
+    # g, h, paths, hn, attw, attb, dhn, dh, dattw, dattb, T, nw, wl, H, stream
+    "pathnet_pagg_attention_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    # dhn, paths, dists, wd_t, w_t, cs, gt, mask, keep, dsel, dh, T, nw, wl,
+    # H, stream
+    "pathnet_pagg_bptt": [_P] * 8 + [_F, _P, _P] + [_I] * 4 + [_P],
     # tbl, idx, out, m, C, stream
     "pathnet_row_gather": [_P, _P, _P, _I, _I, _P],
     # dout, idx, dtbl, m, C, stream

@@ -189,10 +189,11 @@ def wild_case(H, wl, nw, T, n=183, seed=0, device="cpu"):
     return None, to(paths), to(dists), to(h), tuple(map(to, w)), to(mask), to(gout)
 
 
-# K3 runs in tiles of M walks across targets; the cases past (256, 4, 40, None)
-# are the tile's edges: T = 1, nw = 1, nw above M, wl of 1 and 5, widths that
-# are not a multiple of 8, distances outside [0, wl - 1] (see
-# tests/test_torch_port_kernels.py)
+# K3 and K4 run in tiles of M walks across targets; the cases past (256, 4,
+# 40, None) are the tile's edges: T = 1, nw = 1, nw above M, wl of 1 and 5,
+# widths that are not a multiple of 8 (H = 1 and 37), H = 1024 (K4's BPTT
+# tile takes 229,376 of the 232,448 shared bytes a block may use), distances
+# outside [0, wl - 1] (see tests/test_torch_port_kernels.py)
 @pytest.mark.gpu
 @pytest.mark.parametrize("H,wl,nw,T,wild", [
     (16, 2, 6, None, False), (64, 4, 40, None, False), (64, 3, 17, None, False),
@@ -200,7 +201,8 @@ def wild_case(H, wl, nw, T, n=183, seed=0, device="cpu"):
     (64, 4, 200, None, False),   # 200 walks: over 48 KB of shared memory
     (256, 4, 40, None, False),   # Nba's width
     (64, 4, 40, 1, False), (64, 4, 1, None, False), (37, 5, 6, 183, True),
-    (256, 1, 40, 30, True), (512, 4, 40, 50, True)])
+    (256, 1, 40, 30, True), (512, 4, 40, 50, True), (1, 4, 6, None, False),
+    (1024, 2, 3, 20, True)])
 def test_masked_encode_and_its_backward_match_plain_on_the_card(cuda, H, wl, nw, T, wild):
     if wild:
         starts, paths, dists, h, w, mask, gout = wild_case(H, wl, nw, T, device=cuda)
@@ -223,6 +225,75 @@ def test_masked_encode_and_its_backward_match_plain_on_the_card(cuda, H, wl, nw,
                 scale = max(scale, dh_max)
             err = float((a - b).abs().max())
             assert err <= 1e-4 * scale, (name, keep, err, 1e-4 * scale)
+
+
+def assert_within(got, want, names, tol=1e-4, cancel=(), cancel_scale=0.0):
+    """Each of ``got`` within ``tol`` of its plain version's largest entry;
+    those named in ``cancel`` (sums that cancel to near 0) within ``tol`` of
+    the larger of that and ``cancel_scale``."""
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape, name
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        if name in cancel:
+            scale = max(scale, cancel_scale)
+        err = float((a - b).abs().max()) if b.numel() else 0.0
+        assert err <= tol * scale, (name, err, tol * scale)
+
+
+@pytest.mark.gpu
+def test_encode_backward_takes_weights_at_any_alignment(cuda):
+    # K4's forward recompute copies weight rows 16 bytes at a time only where
+    # every base is 16-byte aligned; a view 4 bytes into its storage takes
+    # 4-byte copies. The BPTT reads the keep mask two bytes at a time only
+    # where it is 2-byte aligned; a view 1 byte into its storage takes bytes.
+    starts, paths, dists, h, w, mask, gout = case(nw=40, wl=4, H=64, device=cuda)
+
+    def shift(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    shifted = [shift(t) for t in w]
+    assert shifted[2].data_ptr() % 16 != 0
+    odd_mask = shift(mask)
+    assert odd_mask.data_ptr() % 2 != 0
+    for m, keep in ((None, 1.0), (mask, KEEP), (odd_mask, KEEP)):
+        got = K.pagg_encode_bwd(gout, h, paths, dists, *shifted, m, keep)
+        want = K.pagg_encode_bwd_plain(gout, h, paths, dists, *w, m, keep)
+        assert_within(got, want, ("dh", "dwd", "dbd", "dw_ih", "dw_hh", "db_ih", "db_hh",
+                                  "dattw", "dattb"), cancel=("dattw", "dattb"),
+                      cancel_scale=float(want[0].abs().max()))
+
+
+# each of K4's three launches against its plain stage, on the plain stage's
+# inputs, at the tile's widths (compiled H = 64 and 256, the run-time
+# instance at H = 1, 37 and 1024), a ragged last tile and wild distances
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,wl,nw,T,wild", [
+    (64, 4, 40, None, False), (256, 4, 40, 30, True), (37, 5, 6, 183, True),
+    (1, 3, 6, None, False), (1024, 2, 3, 20, True)])
+def test_each_encode_backward_stage_matches_its_plain_stage_on_the_card(
+        cuda, H, wl, nw, T, wild):
+    if wild:
+        starts, paths, dists, h, w, mask, gout = wild_case(H, wl, nw, T, device=cuda)
+    else:
+        starts, paths, dists, h, w, mask, gout = case(nw=nw, wl=wl, H=H, T=T, device=cuda)
+    n = h.shape[0]
+    for m, keep in ((None, 1.0), (mask, KEEP)):
+        want = K.encode_walks_streams_plain(h, paths, dists, *w[:6], m, keep)
+        got = K.encode_walks_streams(h, paths, dists, *w[:6], m, keep)
+        assert_within(got, want, ("hn", "xr", "xin", "hp", "cs", "gt"))
+        hn, xr, xin, hp, cs, gt = want
+        want = K.attention_bwd_plain(gout, h, paths, hn, *w[6:])
+        got = K.attention_bwd(gout, h, paths, hn, *w[6:])
+        assert_within(got, want, ("dhn", "dh", "dattw", "dattb"), cancel=("dattw", "dattb"),
+                      cancel_scale=float(want[1].abs().max()))
+        dhn = want[0]
+        want = K.bptt_plain(dhn, paths, dists, w[0], w[2], w[3], cs, gt, n, m, keep)
+        gt_io = gt.clone()
+        got = K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt_io, n, m, keep)
+        assert got[1] is gt_io   # the gate gradients are written over gt
+        assert_within(got, want, ("dh", "dgates", "dsel"))
 
 
 @pytest.mark.gpu
