@@ -4,6 +4,7 @@ with K4 and the request and epoch times around it.
 
     python3 bench_encode.py                 # this checkout; one JSON line
     python3 bench_encode.py --ab OTHER      # OTHER, this, this, OTHER in turn
+    python3 bench_encode.py [--ab OTHER] --profile   # where a bgp epoch's time goes
 
 ``OTHER`` is the root of another checkout (say the parent commit unpacked
 with ``git archive``). Each turn runs in its own process, which imports
@@ -19,13 +20,20 @@ JSON line:
   where the checkout has them;
 - ``k4_{bgp,nba}_{recompute,attn,bptt}_ms``: K4's three launches each alone
   (the forward recompute with its streams, the attention backward, the
-  BPTT), and ``k4_*_contract_ms``, the wrapper's weight contractions alone,
-  where the checkout has them;
+  BPTT), ``k4_*_contract_ms``, the wrapper's weight contractions alone, and
+  ``k4_*_dhsum_ms``, the segment sum of the row gradients into ``dh`` (its
+  sort included), where the checkout has them;
 - ``request_ms``: median host time of 8 ``predict`` calls of 8192 targets;
 - ``bgp_epoch_ms``, ``nba_epoch_ms``, ``cornell_epoch_ms``: median host
   time of the epochs after the first of ``run_round`` (bgp stand-in: 3
   epochs, microbatch 8192; Nba at H = 256: 20 epochs; cornell at H = 64,
-  full batch as in its protocol: 100 epochs).
+  full batch as in its protocol: 100 epochs);
+- ``k1_{shape}_ms``, ``k2_{shape}_ms``, ``walk_dists_{shape}_ms``: K1
+  (``cdf_walk``), K2 (``membership_dists`` on K1's walks) and, where the
+  checkout has it, the fused ``walk_dists``, per launch in a CUDA graph, at
+  nw = 40, wl = 4, for the shapes ``bgp_request`` (8192 starts),
+  ``bgp_epoch`` (all 63,977 nodes), ``cornell`` (all 183 nodes, D = 190)
+  and ``nba`` (all 403 nodes, D = 442).
 
 Every line carries the card's ``nvidia-smi`` name and power limit.
 """
@@ -33,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import inspect
 import json
 import os
 import shutil
@@ -87,7 +96,9 @@ def encode_times(K, tag, h, paths, dists, w, mask_args, out):
 
 
 def k4_stage_times(K, tag, g, h, paths, dists, w, mask_args, out):
-    """K4's three launches and its weight contractions, each alone."""
+    """K4's three launches, its weight contractions and, where the checkout
+    has it, the segment sum of its row gradients, each alone."""
+    import torch
     if not hasattr(K, "bptt"):
         return
     n = h.shape[0]
@@ -96,12 +107,39 @@ def k4_stage_times(K, tag, g, h, paths, dists, w, mask_args, out):
     out[f"k4_{tag}_recompute_ms"] = graph_ms(lambda: K.encode_walks_streams(*enc), 5)
     dhn = K.attention_bwd(g, h, paths, hn, *w[6:])[0]
     out[f"k4_{tag}_attn_ms"] = graph_ms(lambda: K.attention_bwd(g, h, paths, hn, *w[6:]), 20)
-    bargs = (dhn, paths, dists, w[0], w[2], w[3], cs, gt, n, *mask_args)
+    # the node count left the BPTT's arguments when it stopped adding into dh;
+    # a checkout from before that still takes it, and --ab can time one
+    with_n = "n" in inspect.signature(K.bptt).parameters
+    bargs = (dhn, paths, dists, w[0], w[2], w[3], cs, gt, *([n] if with_n else []),
+             *mask_args)
     _, dg, dsel = K.bptt(*bargs)
     # each replay writes over gt again: the times do not depend on the values
     out[f"k4_{tag}_bptt_ms"] = graph_ms(lambda: K.bptt(*bargs), 5)
     out[f"k4_{tag}_contract_ms"] = graph_ms(
         lambda: K.contractions(xr, xin, hp, dsel, dg, dists), 5)
+    if hasattr(K, "segment_sum"):
+        drow = K.bptt(*bargs)[0]
+        dego = K.attention_bwd(g, h, paths, hn, *w[6:])[1]
+        rows = torch.cat([drow.reshape(-1, drow.shape[-1]), dego])
+        nodes = K.row_nodes(paths)
+        out[f"k4_{tag}_dhsum_ms"] = graph_ms(lambda: K.segment_sum(rows, nodes, n), 20)
+
+
+def walk_times(K, shapes, gen, out):
+    """K1, K2 and the fused walk-and-distance launch at each of ``shapes``,
+    ``{tag: (sampler, starts)}``."""
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+
+    for tag, (ps, starts) in shapes.items():
+        smp = ps.sampler
+        u = draw_uniforms(4, starts.shape[0] * 40, gen, starts.device)
+        paths = K.cdf_walk(smp.nbr, smp.cdf, starts, u, 40)
+        out[f"k1_{tag}_ms"] = graph_ms(lambda: K.cdf_walk(smp.nbr, smp.cdf, starts, u, 40), 50)
+        out[f"k2_{tag}_ms"] = graph_ms(
+            lambda: K.membership_dists(smp.nbr, smp.deg, starts, paths), 50)
+        if hasattr(K, "walk_dists"):
+            out[f"walk_dists_{tag}_ms"] = graph_ms(
+                lambda: K.walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, starts, u, 40), 50)
 
 
 def measure(root: str) -> dict:
@@ -193,16 +231,70 @@ def measure(root: str) -> dict:
     res = run_round(Xc, yc, psc, specc, TrainConfig(epochs=100), trc, vac, tec,
                     sdc.num_classes, seed=0, track_history=True)
     out["cornell_epoch_ms"] = float(np.median(res.epoch_seconds[1:])) * 1e3
+
+    def every_node(p):
+        return torch.arange(p.sampler.n, dtype=torch.int32, device=dev)
+
+    walk_times(K, {"bgp_request": (ps, idx), "bgp_epoch": (ps, every_node(ps)),
+                   "cornell": (psc, every_node(psc)), "nba": (psn, every_node(psn))},
+               gen, out)
     return out
+
+
+def profile_bgp_epochs(root: str) -> None:
+    """``torch.profiler`` over two bgp stand-in epochs (microbatch 8192)
+    after one warm round; prints the epochs' host ms and the 25 ops with the
+    most device time."""
+    sys.path.insert(0, root)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pathnet_tpu_torch.config import TrainConfig
+    from pathnet_tpu_torch.data import Graph
+    from pathnet_tpu_torch.data.splits import get_whole_mask
+    from pathnet_tpu_torch.models import PaggSpec
+    from pathnet_tpu_torch.sample import PathSampler
+    from pathnet_tpu_torch.train import run_round
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    z = np.load(os.path.join(HERE, "data", "bench_cache", "bgp_standin_63977.npz"))
+    g = Graph(n=int(z["n"]), src=z["src"], dst=z["dst"], prob=z["prob"])
+    X = torch.from_numpy(z["x"]).to(dev)
+    y = torch.from_numpy(z["y"].astype(np.int64)).to(dev)
+    C = int(z["y"].max()) + 1
+    ps = PathSampler.build(g, 40, 4, device=dev)
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=64, out_dim=C, walk_len=4, dropout=0.7)
+    args = (X, y, ps, spec, TrainConfig(epochs=2, microbatch=8192),
+            *get_whole_mask(z["y"], seed=1), C)
+    run_round(*args, seed=0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = run_round(*args, seed=0, track_history=True)
+        torch.cuda.synchronize()
+    print(f"{root} ({smi()}): profiled bgp epochs ms "
+          f"{[round(t * 1e3, 3) for t in res.epoch_seconds]}")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25,
+                                    max_name_column_width=70))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab", metavar="OTHER", help="root of the checkout to compare with")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile two bgp epochs instead (with --ab: OTHER, then this)")
     ap.add_argument("--root", default=HERE, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.profile and args.ab is None:
+        profile_bgp_epochs(os.path.abspath(args.root))
+        return 0
     if args.ab is None:
         print(json.dumps(measure(os.path.abspath(args.root))), flush=True)
+        return 0
+    if args.profile:
+        for root in (os.path.abspath(args.ab), HERE):
+            r = subprocess.run([sys.executable, os.path.abspath(__file__), "--profile",
+                                "--root", root], cwd=root, timeout=900)
+            if r.returncode != 0:
+                return r.returncode
         return 0
     other = os.path.abspath(args.ab)
     for root in (other, HERE, HERE, other):

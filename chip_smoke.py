@@ -10,13 +10,16 @@ one card). Phases, each with a start and an end line:
    (ptxas registers and spills shown, those of K4's three launches
    among them), and K3's tile (walks a block M, threads, shared bytes),
    which K4 shares, at H = 64 and H = 256;
-2. kernels: K1 ``cdf_walk``, K2 ``membership_dists`` and K3
+2. kernels: K1 ``cdf_walk``, K2 ``membership_dists``, the fused
+   ``walk_dists`` (K1 and K2 in one launch, the sampler's path) and K3
    ``pagg_encode_fwd`` against their plain PyTorch versions on one
-   8192-target request of the bgp stand-in (K1, K2 exact; K3 within
-   atol = rtol = 1e-4); each kernel timed per launch inside a CUDA graph
-   (no host work between launches) and per eager wrapper call, each plain
-   version per eager call, all with CUDA events; K3's two launches (the
-   encode to h_n, the readout) also timed each alone;
+   8192-target request of the bgp stand-in (K1, K2, ``walk_dists`` exact;
+   K3 within atol = rtol = 1e-4); each kernel timed per launch inside a
+   CUDA graph (no host work between launches) and per eager wrapper call,
+   each plain version per eager call, all with CUDA events; K3's two
+   launches (the encode to h_n, the readout) also timed each alone; then
+   ``walk_dists`` against its plain version on every node (the training
+   path's grid, 63,977 starts), exact;
 3. serve: the bgp stand-in (n = 63,977, F = 8, D = 25) at H = 64, nw = 40,
    wl = 4 with seeded torch-default weights: 8 requests of 8192 targets that
    cover every node, then one of 1024 targets with ``num_ensemble=4``; the
@@ -32,16 +35,23 @@ one card). Phases, each with a start and an end line:
    gather probe's shape; each of K4's three launches (the forward
    recompute with its streams, the attention backward, the BPTT) against
    its plain stage on the plain stage's inputs (within 1e-4 of each
-   output's largest plain entry); timed as in phase 2, with the PyTorch
-   calls ``index_select`` and ``index_add_`` as K5's library yardsticks,
-   K3's two launches each alone, and K4's three launches and the
-   wrapper's weight contractions each alone;
+   output's largest plain entry); ``segment_sum`` of those stages' row
+   gradients into ``dh`` against its plain version (within 1e-5 of its
+   largest entry, two calls bit-equal); timed as in phase 2, with the
+   PyTorch calls ``index_select`` and ``index_add_`` as K5's library
+   yardsticks and ``index_add_`` as ``segment_sum``'s, K3's two launches
+   each alone, and K4's three launches and the wrapper's weight
+   contractions each alone;
 6. train: ``run_round`` on the bgp stand-in for 3 epochs (microbatch 8192,
    dropout 0.7, Adam, best-on-validation) with the launch counts of the path;
 7. cornell at full width in training: one step on the card and on the host
    with the same walks and masks; logits and every gradient within 1e-4 of
    the host's largest entry (``attw.bias``, a sum that cancels to near 0,
-   within 1e-4 of the largest entry of ``attw.weight``'s gradient);
+   within 1e-4 of the largest entry of ``attw.weight``'s gradient); then
+   ``segment_sum`` on rows of cornell's walks against its plain version;
+7b. two ``run_round`` calls with one seed (cornell at full width, dropout
+   0.7, 30 epochs; the bgp stand-in, microbatch 8192, 2 epochs) must give
+   bit-equal validation accuracies, losses and best params;
 8. gather probe: K6 ``lane_gather`` against its plain version (exact) at the
    probe's ``[512, 128]`` and at ``[63977, 64]`` (bgp rows x H), timed as in
    phase 2 with ``torch.gather`` as its library yardstick; then the probe
@@ -60,8 +70,10 @@ one card). Phases, each with a start and an end line:
     nw = 40, wl = 4, dropout 0.7) with temporary data, results and checkpoint
     directories; the mean test accuracy must lie inside the JAX band
     80.00 +- 5.82 (``results/results.jsonl:106``);
-11. Nba at H = 256: K3 (with and without the keep mask) and K4 against their
-    plain versions, and K4's three launches against their plain stages, on
+11. Nba at H = 256: ``walk_dists`` against K1 then K2's plain versions on
+    all 403 nodes (D = 442), K3 (with and without the keep mask), K4 and
+    ``segment_sum`` against their plain versions, and K4's three launches
+    against their plain stages, on
     all 193 train targets of round 0, timed (K3's two launches, K4's three
     and its contractions also each alone), then the protocol through the CLI for
     ``NBA_ROUNDS`` rounds x 1000 epochs at ``-hid 256``, whose mean test
@@ -72,7 +84,9 @@ The protocol phases gate on their band when they run 10 rounds of 1000
 epochs, and on accuracy above chance when a rehearsal cuts them shorter.
 
 The line before the last is the kernels' JSON record (launches from phase 6,
-the training path, which runs every kernel but K6, and K6's from phase 8);
+the training path, which runs ``walk_dists``, K3, K4, ``segment_sum`` and
+K5, and launches K1 and K2 no time: ``walk_dists`` replaces them there, as
+each one's ``note`` says; K6's from phase 8);
 the last is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
 prints no result. Without a CUDA card, or outside a checkout, it exits
 non-zero.
@@ -103,7 +117,16 @@ K3_TOL = 1e-4
 K4_TOL = 1e-4      # of each gradient's largest plain entry
 K5_BWD_TOL = 1e-5  # of the largest plain entry (atomics order the sums)
 KERNELS = ("cdf_walk", "membership_dists", "pagg_encode_fwd", "pagg_encode_bwd",
-           "row_gather", "row_gather_bwd", "lane_gather")
+           "row_gather", "row_gather_bwd", "lane_gather", "segment_sum", "walk_dists")
+SEGMENT_TOL = 1e-5  # of the largest plain entry
+# kernels that the main path no longer launches, and why
+NOTES = {name: "0 launches on the main path: walk_dists replaces it there; still the "
+               "entry of " + use
+         for name, use in (("cdf_walk", "sample_paths"),
+                           ("membership_dists", "distances of walks from elsewhere"))}
+# the kernels a request launches, and those a training step adds
+FORWARD_PATH = ("walk_dists", "pagg_encode_fwd", "row_gather")
+BACKWARD_PATH = ("pagg_encode_bwd", "segment_sum", "row_gather_bwd")
 K4_GRADS = ("dh", "dwd", "dbd", "dw_ih", "dw_hh", "db_ih", "db_hh", "dattw", "dattb")
 MERW_TOL = 5e-5    # max abs against the stored bgp probs (f32 power iteration)
 PAYLOADS = ("cornell", "Nba", "texas", "chameleon")
@@ -237,6 +260,7 @@ def check_kernels(tag, ps, model, X, idx, u, rec, timed):
     if not torch.equal(dists, dists_p):
         raise AssertionError(f"{tag}: membership_dists differs from its plain "
                              f"version in {int((dists != dists_p).sum())} entries")
+    check_walk_dists(tag, smp, idx, u, ps.num_walks, (paths_p, dists_p), rec)
     h, w = model.encode_inputs(X)
     agg = K.pagg_encode_fwd(h, paths, dists, *w)
     agg_p = K.pagg_encode_fwd_plain(h, paths, dists, *w)
@@ -248,7 +272,8 @@ def check_kernels(tag, ps, model, X, idx, u, rec, timed):
     for name, err in (("cdf_walk", 0.0), ("membership_dists", 0.0),
                       ("pagg_encode_fwd", err3)):
         rec[name]["max_abs_err"] = max(rec[name].get("max_abs_err", 0.0), err)
-    say(f"  {tag}: cdf_walk exact, membership_dists exact, pagg_encode_fwd max abs "
+    say(f"  {tag}: cdf_walk exact, membership_dists exact, walk_dists exact, "
+        f"pagg_encode_fwd max abs "
         f"err {err3:.3e} within atol = rtol = {K3_TOL}  (T={idx.shape[0]}, nw={ps.num_walks}, "
         f"wl={ps.walk_len}, D={smp.max_deg}, H={h.shape[1]})")
     if not timed:
@@ -266,6 +291,10 @@ def check_kernels(tag, ps, model, X, idx, u, rec, timed):
     o2 = float(((dists[:, :, 2] != 0).double() * ds).sum()
                + ((dists[:, :, 3] != 0).double() * ds).sum()
                + ((dists[:, :, 3] >= 2).double() * ds * dv3).sum())
+    # the fused launch: both tables, deg, starts, u in; walks and distances
+    # out (the sorted rows are this design's copy of nbr, not the function's
+    # input); K1's compares and K2's
+    bw = nbytes(smp.nbr, smp.cdf, smp.deg, idx, u, paths, dists)
     # K3: per walk step 2H^2 (select) + 16H^2 (gates); per walk 6H (readout).
     b3 = nbytes(h, paths, dists, agg, *w)
     o3 = S * nw * (wl * 18 * H * H + 6 * H)
@@ -275,6 +304,9 @@ def check_kernels(tag, ps, model, X, idx, u, rec, timed):
         "membership_dists": (lambda: K.membership_dists(smp.nbr, smp.deg, idx, paths),
                              lambda: K.membership_dists_plain(smp.nbr, smp.deg, idx, paths),
                              b2, o2),
+        "walk_dists": (lambda: K.walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, idx, u, nw),
+                       lambda: K.walk_dists_plain(smp.nbr, smp.cdf, smp.deg, smp.srt, idx,
+                                                  u, nw), bw, o1 + o2),
         "pagg_encode_fwd": (lambda: K.pagg_encode_fwd(h, paths, dists, *w),
                             lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w), b3, o3),
     }
@@ -289,6 +321,53 @@ def check_kernels(tag, ps, model, X, idx, u, rec, timed):
             f"eager wrapper call (plain {plain_ms:.4f} ms eager, bound {bound_ms:.4f} ms "
             f"by {bound_by}: {b / 1e6:.1f} MB, {o / 1e9:.3f} G ops)")
     time_k3_stages("pagg_encode_fwd", h, paths, dists, w)
+
+
+def check_walk_dists(tag, smp, idx, u, nw, want, rec):
+    """The fused walk-and-distance launch against K1 then K2's plain
+    versions: both outputs exact."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+
+    got = K.walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, idx, u, nw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("paths", "dists"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: walk_dists {name} differ from the plain "
+                                 f"versions' in {int((a != b).sum())} entries")
+    record_err(rec, "walk_dists", 0.0)
+
+
+def check_segment_sum(tag, paths, rows, n, rec, timed_=False):
+    """The segment sum of K4's row gradients against its plain version
+    (within SEGMENT_TOL of the plain maximum); timed when ``timed_``, with
+    ``index_add_`` as its library yardstick."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+
+    nodes = K.row_nodes(paths)
+    got = K.segment_sum(rows, nodes, n)
+    again = K.segment_sum(rows, nodes, n)
+    want = K.segment_sum_plain(rows, nodes, n)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not err <= SEGMENT_TOL * float(want.abs().max()):
+        raise AssertionError(f"{tag}: segment_sum max abs err {err}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{tag}: segment_sum differs between two calls")
+    record_err(rec, "segment_sum", err)
+    say(f"  {tag}: segment_sum max abs err {err:.3e} within {SEGMENT_TOL} x max, two "
+        f"calls bit-equal ({rows.shape[0]} rows of {rows.shape[1]} into {n} nodes)")
+    if timed_:
+        R, H = rows.shape
+        idx_l = nodes.long()
+        # the function's bytes: rows and their node ids read, dh written (the
+        # sort order and offsets are this design's, not the function's)
+        b = R * H * 4 + R * 4 + n * H * 4
+        timed(rec, "segment_sum", lambda: K.segment_sum(rows, nodes, n),
+              lambda: K.segment_sum_plain(rows, nodes, n), b, float(R * H), 20,
+              library=lambda: torch.zeros((n, H), device=rows.device).index_add_(0, idx_l,
+                                                                                  rows))
 
 
 def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None):
@@ -323,6 +402,7 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep):
     stage's inputs: every output within K4_TOL of its plain version's
     largest entry (``dattw``, ``dattb``, sums that cancel, of the ego rows'
     ``dh`` if larger)."""
+    import torch
     from pathnet_tpu_torch import kernels as K
 
     parts = []
@@ -343,15 +423,16 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep):
          want)
     hn, _, _, _, cs, gt = want
     want = K.attention_bwd_plain(g, h, paths, hn, *w[6:])
-    hold("attention", ("dhn", "dh_ego", "dattw", "dattb"),
+    hold("attention", ("dhn", "dego", "dattw", "dattb"),
          K.attention_bwd(g, h, paths, hn, *w[6:]), want, float(want[1].abs().max()))
+    dego = want[1]
     bargs = (want[0], paths, dists, w[0], w[2], w[3], cs)
-    n = h.shape[0]
-    want = K.bptt_plain(*bargs, gt, n, mask, keep)
-    hold("bptt", ("dh_rows", "dgates", "dsel"), K.bptt(*bargs, gt.clone(), n, mask, keep),
-         want)
+    want = K.bptt_plain(*bargs, gt, mask, keep)
+    hold("bptt", ("drow", "dgates", "dsel"), K.bptt(*bargs, gt.clone(), mask, keep), want)
     say(f"  {tag}: K4's three launches each within {K4_TOL} of its plain stage (error "
         "over each plain max: " + ", ".join(parts) + ")")
+    H = h.shape[1]
+    return torch.cat([want[0].reshape(-1, H), dego])   # the row gradients
 
 
 def time_k4_stages(tag, g, h, paths, dists, w, mask, keep):
@@ -364,7 +445,7 @@ def time_k4_stages(tag, g, h, paths, dists, w, mask, keep):
     rec_ms = graph_ms(lambda: K.encode_walks_streams(*enc), 5)
     dhn = K.attention_bwd(g, h, paths, hn, *w[6:])[0]
     att_ms = graph_ms(lambda: K.attention_bwd(g, h, paths, hn, *w[6:]), 20)
-    bargs = (dhn, paths, dists, w[0], w[2], w[3], cs, gt, h.shape[0], mask, keep)
+    bargs = (dhn, paths, dists, w[0], w[2], w[3], cs, gt, mask, keep)
     _, dg, dsel = K.bptt(*bargs)
     # each replay writes over gt again; the time does not depend on the values
     bptt_ms = graph_ms(lambda: K.bptt(*bargs), 5)
@@ -416,9 +497,11 @@ def encode_bounds(h, paths, dists, m1, agg, g, w):
     return b3, o3, b4, o4
 
 
-def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec):
-    """K3 without and with a keep mask and K4 against their plain versions on
-    the targets ``idx``; returns the inputs and outputs for timing."""
+def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False):
+    """K3 without and with a keep mask, K4 and the segment sum of K4's row
+    gradients against their plain versions on the targets ``idx`` (the
+    segment sum timed when ``time_segment``); returns the inputs and outputs
+    for timing."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.models import draw_dropout_masks
@@ -446,7 +529,9 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec):
     torch.cuda.synchronize()
     record_err(rec, "pagg_encode_bwd", check_k4(tag, got, want))
     del got, want
-    check_k4_stages(tag, g, h, paths, dists, w, m1, keep)
+    rows = check_k4_stages(tag, g, h, paths, dists, w, m1, keep)
+    check_segment_sum(tag, paths, rows, h.shape[0], rec, time_segment)
+    del rows
     return paths, dists, h, w, m1, keep, agg, g, bwd_args
 
 
@@ -457,7 +542,7 @@ def check_training_kernels(ps, model, X, idx, u, gen, rec):
     from pathnet_tpu_torch import kernels as K
 
     paths, dists, h, w, m1, keep, agg, g, bwd_args = check_encode_kernels(
-        "bgp microbatch", ps, model, X, idx, u, gen, rec)
+        "bgp microbatch", ps, model, X, idx, u, gen, rec, time_segment=True)
     T, nw, wl = paths.shape
     H = h.shape[1]
 
@@ -618,6 +703,13 @@ def check_wide_encode(root, dev, gen, rec):
                     device=dev, generator=torch.Generator().manual_seed(3))
     idx = torch.from_numpy(np.flatnonzero(train).astype(np.int32)).to(dev)
     u = draw_uniforms(WL, idx.shape[0] * NW, gen, dev)
+    smp = ps.sampler
+    every = torch.arange(g.n, dtype=torch.int32, device=dev)
+    ua = draw_uniforms(WL, g.n * NW, gen, dev)
+    pa = K.cdf_walk_plain(smp.nbr, smp.cdf, every, ua, NW)
+    check_walk_dists("Nba", smp, every, ua, NW,
+                     (pa, K.membership_dists_plain(smp.nbr, smp.deg, every, pa)), rec)
+    say(f"  Nba, all {g.n} nodes (D={smp.max_deg}): walk_dists exact")
     paths, dists, h, w, m1, keep, agg, gout, bwd_args = check_encode_kernels(
         f"Nba round 0, {idx.shape[0]} train targets", ps, model, X, idx, u, gen, rec)
     b3, o3, b4, o4 = encode_bounds(h, paths, dists, m1, agg, gout, w)
@@ -629,6 +721,41 @@ def check_wide_encode(root, dev, gen, rec):
     timed({name4: {}}, name4, lambda: K.pagg_encode_bwd(*bwd_args),
           lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 10)
     time_k4_stages(name4, gout, h, paths, dists, w, m1, keep)
+
+
+def check_reproducible(dev, gc, Xc, X, z, psc, ps):
+    """Two ``run_round`` calls with one seed give bit-equal validation
+    accuracies, losses and best params: cornell at full width with dropout
+    (full batch, 30 epochs) and the bgp stand-in (microbatch 8192, the last
+    chunk padded, 2 epochs)."""
+    import torch
+    from pathnet_tpu_torch.config import TrainConfig
+    from pathnet_tpu_torch.data.splits import get_whole_mask, ratio_masks
+    from pathnet_tpu_torch.models import PaggSpec
+    from pathnet_tpu_torch.train import run_round
+
+    yc = torch.from_numpy(np.random.default_rng(1).integers(0, 5, size=gc.n)).to(dev)
+    y = torch.from_numpy(z["y"].astype(np.int64)).to(dev)
+    C = int(z["y"].max()) + 1
+    cases = (("cornell", Xc, yc, psc, ratio_masks(gc.n, 1000, val_size=59)[:3], 5,
+              TrainConfig(epochs=30)),
+             ("bgp stand-in", X, y, ps, get_whole_mask(z["y"], seed=1), C,
+              TrainConfig(epochs=2, microbatch=REQUEST)))
+    for tag, Xx, yy, psx, masks, classes, cfg in cases:
+        spec = PaggSpec(feat_dim=Xx.shape[1], hidden=HIDDEN, out_dim=classes, walk_len=WL,
+                        dropout=0.7)
+        a, b = (run_round(Xx, yy, psx, spec, cfg, *masks, classes, seed=4,
+                          track_history=True, keep_params=True) for _ in range(2))
+        same = {"history": np.array_equal(a.history, b.history),
+                "losses": np.array_equal(a.losses, b.losses),
+                "best_params": all(torch.equal(v, b.best_params[k])
+                                   for k, v in a.best_params.items())}
+        if not all(same.values()):
+            raise AssertionError(f"{tag}: two seeded rounds differ: {same}; losses "
+                                 f"{a.losses.tolist()} and {b.losses.tolist()}")
+        say(f"  {tag}, {cfg.epochs} epochs: two rounds with seed 4 bit-equal in history, "
+            f"losses and all {len(a.best_params)} best params (last loss "
+            f"{float(a.losses[-1]):.6f}, best val {a.best_val_acc:.4f})")
 
 
 def run_protocol_cli(name, root, tmp, rounds, hidden, band):
@@ -653,9 +780,10 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band):
     epochs = PROTOCOL_EPOCHS * rounds
     say(f"  launches: {counts}")
     fwd = counts["pagg_encode_fwd"]
-    if not (counts["cdf_walk"] == counts["membership_dists"] == counts["pagg_encode_bwd"]
+    if not (counts["walk_dists"] == counts["pagg_encode_bwd"] == counts["segment_sum"]
             == counts["row_gather_bwd"] == epochs and counts["row_gather"] == fwd
-            and 2 * epochs <= fwd <= 3 * epochs and counts["lane_gather"] == 0):
+            and 2 * epochs <= fwd <= 3 * epochs and counts["lane_gather"]
+            == counts["cdf_walk"] == counts["membership_dists"] == 0):
         raise AssertionError(f"{name} protocol launch counts {counts}: {epochs} epochs make "
                              "one walk, distance and backward launch each, and 2-3 forwards")
     saved = glob.glob(os.path.join(out, "ckpt", "*", "round_*", "meta.json"))
@@ -700,8 +828,8 @@ def main() -> int:
     dev = torch.device("cuda")
     rec = {name: {} for name in KERNELS}
     meta = {
-        "cdf_walk": ("pathnet_tpu_torch/csrc/cdf_walk.cu", "pathnet_tpu/sample/alias.py:142"),
-        "membership_dists": ("pathnet_tpu_torch/csrc/membership_dists.cu",
+        "cdf_walk": ("pathnet_tpu_torch/csrc/walk_dists.cu", "pathnet_tpu/sample/alias.py:142"),
+        "membership_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
                              "pathnet_tpu/sample/distance.py:77"),
         "pagg_encode_fwd": ("pathnet_tpu_torch/csrc/pagg_encode.cu",
                             "pathnet_tpu/models/pagg.py:235"),
@@ -713,6 +841,10 @@ def main() -> int:
                            "scripts/pallas_gather_probe.py:68"),
         "lane_gather": ("pathnet_tpu_torch/csrc/lane_gather.cu",
                         "scripts/pallas_gather_probe.py:68"),
+        "segment_sum": ("pathnet_tpu_torch/csrc/segment_sum.cu",
+                        "pathnet_tpu/models/pagg.py:83"),
+        "walk_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
+                       "pathnet_tpu/sample/alias.py:142, pathnet_tpu/sample/distance.py:77"),
     }
 
     with Phase("0 device"):
@@ -749,6 +881,14 @@ def main() -> int:
         idx = torch.from_numpy(order[:REQUEST].astype(np.int32)).to(dev)
         u = draw_uniforms(WL, REQUEST * NW, gen, dev)
         check_kernels("bgp", ps, model, X, idx, u, rec, timed=True)
+        # the training path's grid: every node a start, once an epoch
+        every = torch.arange(g.n, dtype=torch.int32, device=dev)
+        ua = draw_uniforms(WL, g.n * NW, gen, dev)
+        check_walk_dists(f"bgp, all {g.n} nodes", ps.sampler, every, ua, NW,
+                         K.walk_dists_plain(ps.sampler.nbr, ps.sampler.cdf, ps.sampler.deg,
+                                            ps.sampler.srt, every, ua, NW), rec)
+        say(f"  bgp, all {g.n} nodes as starts: walk_dists exact")
+        del every, ua
 
     with Phase("3 serve bgp stand-in"):
         requests = np.resize(order, 8 * REQUEST).reshape(8, REQUEST)
@@ -777,8 +917,7 @@ def main() -> int:
             raise AssertionError("ensemble log-probs are not finite or do not normalise")
         counts = K.launch_counts()
         say(f"  launches: {counts}")
-        serving = {name: 0 if name.endswith("_bwd") or name == "lane_gather" else 8 + 4
-                   for name in KERNELS}
+        serving = {name: 8 + 4 if name in FORWARD_PATH else 0 for name in KERNELS}
         if counts != serving:
             raise AssertionError(f"serving launch counts {counts}, the path makes {serving}")
         med = float(np.median(times))
@@ -801,8 +940,7 @@ def main() -> int:
         logp = predict(mc, Xc, psc, idx=allc, u=uc[None])
         torch.cuda.synchronize()
         counts = K.launch_counts()
-        if counts != {name: 0 if name.endswith("_bwd") or name == "lane_gather" else 1
-                      for name in KERNELS}:
+        if counts != {name: int(name in FORWARD_PATH) for name in KERNELS}:
             raise AssertionError(f"cornell request launch counts {counts}, expected 1 "
                                  "of each forward kernel")
         ps_host = PathSampler.build(gc, NW, WL, device="cpu")
@@ -841,9 +979,9 @@ def main() -> int:
             if acc > best:
                 best, improved = float(acc), improved + 1
         fwd = EPOCHS * (chunks[0] + chunks[1]) + improved * chunks[2]
-        expect = {"cdf_walk": EPOCHS, "membership_dists": EPOCHS,
+        expect = {"cdf_walk": 0, "membership_dists": 0, "walk_dists": EPOCHS,
                   "pagg_encode_fwd": fwd, "row_gather": fwd,
-                  "pagg_encode_bwd": EPOCHS * chunks[0],
+                  "pagg_encode_bwd": EPOCHS * chunks[0], "segment_sum": EPOCHS * chunks[0],
                   "row_gather_bwd": EPOCHS * chunks[0], "lane_gather": 0}
         say(f"  launches: {counts} ({improved} epochs improved on validation)")
         if counts != expect:
@@ -894,7 +1032,8 @@ def main() -> int:
                 step_counts = K.launch_counts()
             out.append({"logits": logits.detach().cpu(),
                         **{k: q.grad.cpu() for k, q in m7.named_parameters()}})
-        if step_counts != {name: int(name != "lane_gather") for name in KERNELS}:
+        if step_counts != {name: int(name in FORWARD_PATH or name in BACKWARD_PATH)
+                           for name in KERNELS}:
             raise AssertionError(f"cornell step launch counts {step_counts}, expected 1 of "
                                  "each training kernel")
         worst, parts = 0.0, []
@@ -913,6 +1052,12 @@ def main() -> int:
         say(f"  {idx7.shape[0]} train nodes, F = 1703: logits and all {len(out[1]) - 1} "
             f"gradients on the card against the host (error over the host's largest "
             f"entry): " + ", ".join(parts))
+        pc = psc.sample(u=uc)[0]
+        rows7 = torch.randn(((WL + 1) * gc.n * NW, HIDDEN), generator=gen, device=dev)
+        check_segment_sum(f"cornell, all {gc.n} nodes", pc, rows7, gc.n, rec)
+
+    with Phase("7b seeded rounds twice (cornell 30 epochs, bgp stand-in 2 epochs)"):
+        check_reproducible(dev, gc, Xc, X, z, psc, ps)
 
     with Phase("8 gather probe"):
         check_gather_probe(dev, gen, rec)
@@ -935,7 +1080,8 @@ def main() -> int:
          "replaces": meta[name][1], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"],
+         **({"note": NOTES[name]} if name in NOTES else {})}
         for name, r in rec.items()]}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

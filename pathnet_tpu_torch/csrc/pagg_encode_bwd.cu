@@ -2,11 +2,15 @@
 //
 // Replaces the VJP of pathnet_tpu/models/pagg.py:235-303 (the encode block
 // and attention readout that K3 computes), with the gather VJP of the "h"
-// gather mode (pagg.py:83-93): given g = d h_agg [T, H] it returns
-// dh [n, H] (every gathered row's gradient scattered with atomicAdd, the
-// ego rows included) and dattw, dattb, and writes the per-row streams from
-// which the wrapper contracts the weight gradients (dW_ih = xin^T dgates,
-// dW_hh = hprev^T dgates, dwd[k] = sum over rows with d = k of xr^T dsel).
+// gather mode (pagg.py:83-93): given g = d h_agg [T, H] it writes the
+// gradient of every gathered row, one row per (walk, position) plus one per
+// walk for its ego row, which csrc/segment_sum.cu then sums into dh [n, H]
+// in an order fixed by the paths; the attention weights' gradient as one
+// partial sum per target, which the wrapper sums in a fixed order; and the
+// per-row streams from which the wrapper contracts the weight gradients
+// (dW_ih = xin^T dgates, dW_hh = hprev^T dgates, dwd[k] = sum over rows with
+// d = k of xr^T dsel). No launch adds with atomics, so one input gives one
+// result, bit for bit, on every run.
 //
 // Bound on the H100: f32 FMA work, about 54 H^2 flops per walk step (forward
 // recompute 18, backward products 18, the wrapper's weight-gradient
@@ -24,8 +28,9 @@
 // B. pagg_attention_bwd_kernel: one block per target, shaped like K3's
 //    readout. A warp per walk recomputes its score and d att = g . h_n;
 //    warp 0 forms the softmax and each walk's d score; the block writes
-//    d h_n [T * nw, H] to a second scratch and adds the ego rows' gradient
-//    into dh and its sums into dattw and dattb with atomicAdd.
+//    d h_n [T * nw, H] to a second scratch, the ego rows' gradient to its
+//    rows [T * nw, H], and its sums over the walks (d attw, d attb) to its
+//    row of the partial sums [T, 2H + 1].
 // C. pagg_bptt_kernel: BPTT on K3's grid of M-walk tiles. Thread (r, c)
 //    owns walks 8r .. 8r+7 and units 2c, 2c+1 of its tile and carries their
 //    dh, dc and c_t in registers down the steps, from d h_n. Step t, from
@@ -36,8 +41,8 @@
 //    which stays in registers; the keep mask turns the first into dsel,
 //    written to its stream and over A as [H][M + 4]; one tile_gemm<1> per
 //    distance class present in the tile multiplies it by wd[k]^T (K3's
-//    select loop), and each row's gradient goes to dh at its node with
-//    atomicAdd. Shared memory 4H (M + 4) + 4 KC H floats: 102,400 B at
+//    select loop), and each gathered row's gradient is stored to its row of
+//    the [wl, T * nw, H] row gradients, dsel's layout. Shared memory 4H (M + 4) + 4 KC H floats: 102,400 B at
 //    H = 64 (two blocks a SM, as K3), 229,376 B at H = 1024.
 #include "pagg_tile.cuh"
 
@@ -66,8 +71,8 @@ __global__ void pagg_attention_bwd_kernel(
     const float* __restrict__ g, const float* __restrict__ h,
     const int* __restrict__ paths, const float* __restrict__ hn,
     const float* __restrict__ attw, const float* __restrict__ attb,
-    float* __restrict__ dhn, float* __restrict__ dh, float* __restrict__ dattw,
-    float* __restrict__ dattb, int nw, int wl, int H) {
+    float* __restrict__ dhn, float* __restrict__ dego, float* __restrict__ part,
+    int nw, int wl, int H) {
   extern __shared__ float sm[];
   float* sc = sm;        // [nw] scores before the leaky relu
   float* at = sc + nw;   // [nw] softmax weights
@@ -113,31 +118,33 @@ __global__ void pagg_attention_bwd_kernel(
   for (int e = threadIdx.x; e < nw * H; e += blockDim.x) {
     const int p = e / H, j = e % H;
     dhn[(b0 + p) * H + j] = at[p] * gr[j] + ds[p] * attw[j];
-    atomicAdd(dh + (long long)paths[(b0 + p) * wl] * H + j, ds[p] * attw[H + j]);
+    dego[(b0 + p) * H + j] = ds[p] * attw[H + j];
   }
+  // this target's terms of d attw and d attb, summed over its walks in order
+  float* pr = part + (long long)blockIdx.x * (2 * H + 1);
   for (int j = threadIdx.x; j < H; j += blockDim.x) {
     float dw = 0.0f, de = 0.0f;
     for (int p = 0; p < nw; ++p) {
       dw += ds[p] * hn[(b0 + p) * H + j];
       de += ds[p] * h[(long long)paths[(b0 + p) * wl] * H + j];
     }
-    atomicAdd(dattw + j, dw);
-    atomicAdd(dattw + H + j, de);
+    pr[j] = dw;
+    pr[H + j] = de;
   }
   if (threadIdx.x == 0) {
     float s = 0.0f;
     for (int p = 0; p < nw; ++p) s += ds[p];
-    atomicAdd(dattb, s);
+    pr[2 * H] = s;
   }
 }
 
 template <bool MASKED, int HC>
 __global__ void __launch_bounds__(launch_threads(HC), launch_blocks(HC))
-pagg_bptt_kernel(const float* __restrict__ dhn, const int* __restrict__ paths,
+pagg_bptt_kernel(const float* __restrict__ dhn,
                  const int* __restrict__ dists, const float* __restrict__ wd_t,
                  const float* __restrict__ w_t, const float* __restrict__ cs,
                  float* __restrict__ gt, const uint8_t* __restrict__ mask, float keep,
-                 float* __restrict__ dsel, float* __restrict__ dh, long long B, int wl,
+                 float* __restrict__ dsel, float* __restrict__ drow, long long B, int wl,
                  int Hrt, bool aligned) {
   constexpr Tile tc = tile_for(HC ? HC : 64);
   const Tile tr = tile_for(Hrt);
@@ -294,17 +301,8 @@ pagg_bptt_kernel(const float* __restrict__ dhn, const int* __restrict__ paths,
           if (dq[i] == k) dx[u][i] = a1[i][u][0];
     }
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      if (i >= left) continue;
-      float* row = dh + (long long)paths[(b0 + i) * wl + pos] * H;
-      if (H % 2 == 0) {  // both units in one 8-byte atomic
-        atomicAdd(reinterpret_cast<float2*>(row + jc[0]), make_float2(dx[0][i], dx[1][i]));
-      } else {
-#pragma unroll
-        for (int u = 0; u < TN; ++u)
-          if (jv[u]) atomicAdd(row + jc[u], dx[u][i]);
-      }
-    }
+    for (int i = 0; i < TM; ++i)
+      if (i < left) store_units(drow, r0 + i, H, 0, H, jc, jv, dx[0][i], dx[1][i]);
   }
 }
 
@@ -344,30 +342,31 @@ extern "C" int pathnet_pagg_encode_walks_streams(
   return (int)cudaGetLastError();
 }
 
-// Launch B: d h_n [T * nw, H] from g [T, H] and h_n; adds the ego rows'
-// gradient into dh and the attention weights' into dattw, dattb.
+// Launch B: d h_n [T * nw, H] from g [T, H] and h_n; writes the ego rows'
+// gradient dego [T * nw, H] and each target's terms of the attention
+// weights' gradient, part [T, 2H + 1] (d attw, then d attb).
 extern "C" int pathnet_pagg_attention_bwd(
     const void* g, const void* h, const void* paths, const void* hn,
-    const void* attw, const void* attb, void* dhn, void* dh, void* dattw,
-    void* dattb, int T, int nw, int wl, int H, void* stream) {
+    const void* attw, const void* attb, void* dhn, void* dego, void* part,
+    int T, int nw, int wl, int H, void* stream) {
   if (T == 0) return 0;
   const int smem = 3 * nw * (int)sizeof(float);
   if (int e = allow_smem(pagg_attention_bwd_kernel, smem)) return e;
   pagg_attention_bwd_kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
       (const float*)g, (const float*)h, (const int*)paths, (const float*)hn,
-      (const float*)attw, (const float*)attb, (float*)dhn, (float*)dh,
-      (float*)dattw, (float*)dattb, nw, wl, H);
+      (const float*)attw, (const float*)attb, (float*)dhn, (float*)dego,
+      (float*)part, nw, wl, H);
   return (int)cudaGetLastError();
 }
 
 // Launch C: BPTT from d h_n; overwrites gt with the pre-activation gate
-// gradients, writes dsel [wl, T * nw, H] and adds every gathered row's
-// gradient into dh. wd_t = wd transposed per class [wl, H, H]; w_t =
+// gradients and writes dsel and every gathered row's gradient drow, both
+// [wl, T * nw, H]. wd_t = wd transposed per class [wl, H, H]; w_t =
 // [w_ih; w_hh]^T [4H, 2H].
-extern "C" int pathnet_pagg_bptt(const void* dhn, const void* paths, const void* dists,
+extern "C" int pathnet_pagg_bptt(const void* dhn, const void* dists,
                                  const void* wd_t, const void* w_t, const void* cs,
                                  void* gt, const void* mask, float keep, void* dsel,
-                                 void* dh, int T, int nw, int wl, int H, void* stream) {
+                                 void* drow, int T, int nw, int wl, int H, void* stream) {
   const long long B = (long long)T * nw;
   if (B == 0) return 0;
   const Tile tl = tile_for(H);
@@ -377,9 +376,9 @@ extern "C" int pathnet_pagg_bptt(const void* dhn, const void* paths, const void*
                            : (mask ? pagg_bptt_kernel<true, 0> : pagg_bptt_kernel<false, 0>);
   if (int e = allow_smem(kernel, smem)) return e;
   kernel<<<(unsigned)((B + tl.M - 1) / tl.M), tl.NT, smem, (cudaStream_t)stream>>>(
-      (const float*)dhn, (const int*)paths, (const int*)dists, (const float*)wd_t,
+      (const float*)dhn, (const int*)dists, (const float*)wd_t,
       (const float*)w_t, (const float*)cs, (float*)gt, (const uint8_t*)mask, keep,
-      (float*)dsel, (float*)dh, B, wl, H,
+      (float*)dsel, (float*)drow, B, wl, H,
       ((uintptr_t)wd_t | (uintptr_t)w_t) % 16 == 0);
   return (int)cudaGetLastError();
 }

@@ -37,10 +37,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argument types (all return int, a cudaError_t)
 SIGNATURES = {
-    # nbr, cdf, starts, u, out, D, S, nw, wl, stream
-    "pathnet_cdf_walk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # nbr, deg, starts, paths, out, D, S, nw, wl, stream
-    "pathnet_membership_dists": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # nbr, cdf, deg, srt, starts, u, paths, dists, D, S, nw, wl, walk, stream
+    "pathnet_walk_dists": [_P] * 8 + [_I] * 5 + [_P],
     # h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep, hn, T,
     # nw, wl, H, stream
     "pathnet_pagg_encode_walks": [_P] * 10 + [_F, _P, _I, _I, _I, _I, _P],
@@ -51,11 +49,14 @@ SIGNATURES = {
     # K4's three launches. h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
     # mask, keep, hn, xr, xin, hp, cs, gt, T, nw, wl, H, stream
     "pathnet_pagg_encode_walks_streams": [_P] * 10 + [_F] + [_P] * 6 + [_I] * 4 + [_P],
-    # g, h, paths, hn, attw, attb, dhn, dh, dattw, dattb, T, nw, wl, H, stream
-    "pathnet_pagg_attention_bwd": [_P] * 10 + [_I] * 4 + [_P],
-    # dhn, paths, dists, wd_t, w_t, cs, gt, mask, keep, dsel, dh, T, nw, wl,
-    # H, stream
-    "pathnet_pagg_bptt": [_P] * 8 + [_F, _P, _P] + [_I] * 4 + [_P],
+    # g, h, paths, hn, attw, attb, dhn, dego, part, T, nw, wl, H, stream
+    "pathnet_pagg_attention_bwd": [_P] * 9 + [_I] * 4 + [_P],
+    # dhn, dists, wd_t, w_t, cs, gt, mask, keep, dsel, drow, T, nw, wl, H,
+    # stream
+    "pathnet_pagg_bptt": [_P] * 7 + [_F, _P, _P] + [_I] * 4 + [_P],
+    # rows, order, offsets, piece_off, piece_node, partial, out, n, npieces,
+    # H, P, stream
+    "pathnet_segment_sum": [_P] * 7 + [_I] * 4 + [_P],
     # tbl, idx, out, m, C, stream
     "pathnet_row_gather": [_P, _P, _P, _I, _I, _P],
     # dout, idx, dtbl, m, C, stream

@@ -4,12 +4,16 @@ Replaces ``pathnet_tpu/sample/alias.py:142-147`` (``CdfSampler.step``) as
 scanned by ``pathnet_tpu/sample/walk.py:36-55`` (``sample_paths``). Per step
 and walker: ``idx = #{j : cdf[cur, j] < u}``, ``next = nbr[cur, idx]``.
 
-Source: ``pathnet_tpu_torch/csrc/cdf_walk.cu``. One thread per walker keeps
-its node in a register over the ``wl - 1`` steps; the row scan is a loop over
-the table width and ``idx`` is clamped to ``D - 1``, so a NaN or unsaturated
-row ends the loop in bounds. The uniforms ``u`` are an input, drawn by the
-caller from an explicit generator: kernel and plain version give identical
-walks for the same draws, and tests can feed JAX's own draws.
+Source: ``pathnet_tpu_torch/csrc/walk_dists.cu``, the device code of
+:func:`~pathnet_tpu_torch.kernels.walk_dists.walk_dists` run without its
+distances (any walk length): the walks laid out flat across the grid, a
+lane group per walk (1, 16 or 32 lanes, from D) that counts the CDF entries
+below the uniform with warp votes, ``idx`` clamped to ``D - 1``, so a NaN or
+unsaturated row stays in bounds. The
+sampler's own path takes ``walk_dists``; this entry serves ``sample_paths``.
+The uniforms ``u`` are an input, drawn by the caller from an explicit
+generator: kernel and plain version give identical walks for the same
+draws, and tests can feed JAX's own draws.
 
 Bound on the H100: per 8192-target bgp request about 22 MB of unique bytes
 (two ``[n, D]`` tables, ``u`` and the output), about 7 us at 3.35 TB/s. The
@@ -21,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .walk_dists import launch
 
 
 def cdf_walk_plain(nbr: torch.Tensor, cdf: torch.Tensor, starts: torch.Tensor,
@@ -59,12 +64,7 @@ def cdf_walk(nbr: torch.Tensor, cdf: torch.Tensor, starts: torch.Tensor,
         raise ValueError(f"cdf_walk: unsupported device {dev}")
     wl = u.shape[0] + 1
     out = torch.empty((S, num_walks, wl), dtype=torch.int32, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        rc = lib.pathnet_cdf_walk(
-            nbr.data_ptr(), cdf.data_ptr(), starts.data_ptr(), u.data_ptr(),
-            out.data_ptr(), D, S, num_walks, wl, build.stream_ptr(nbr))
-    build.check(rc, "cdf_walk")
+    launch(nbr, cdf, None, None, starts, u, out, None)
     cdf_walk.launches += 1
     return out
 

@@ -5,21 +5,26 @@ Replaces ``pathnet_tpu/sample/distance.py:77-139``. ``d0 = 0``; ``d1 = 0`` iff
 test, ``N(v3) ∩ N(s) ≠ ∅``. Rows are masked by degree, so padding never
 counts as a neighbour.
 
-Source: ``pathnet_tpu_torch/csrc/membership_dists.cu``. One block per start
-node, one thread per walk; the start's row ``nbr[s]`` (D = 25 on bgp, 190 on
-cornell, 442 on Nba) is staged in shared memory once for all of the block's
-tests, and the N2 test is a loop bounded by ``deg[v3] * deg[s] <= D * D``.
+Source: ``pathnet_tpu_torch/csrc/walk_dists.cu``, the device code of
+:func:`~pathnet_tpu_torch.kernels.walk_dists.walk_dists` run on given walks
+(the sampler's path takes ``walk_dists``; this entry serves walks from
+elsewhere, JAX's in the parity tests). A lane group per walk; each
+membership test a binary search of the start's row, sorted
+(:func:`~pathnet_tpu_torch.kernels.walk_dists.sorted_rows`, made by this
+wrapper on each call); the N2 test the group's lanes over ``nbr[v3]``,
+stopping at the first hit: at most ``deg(v3) * log2(D)`` loads, mostly L1
+hits, where a scan of both rows would compare ``deg(v3) * deg(s)`` pairs.
 The result is exactly the plain version's.
 
-Bound on the H100: the bytes of ``nbr``, ``paths`` and the output (memory);
-the compares are few next to them at bgp's D = 25. Fusing this into K1's
-epilogue is later work (ROADMAP §2).
+Bound on the H100: latency of the ``nbr[v3]`` row reads; the bytes of
+``nbr``, ``paths`` and the output are far fewer.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
+from .walk_dists import launch, sorted_rows
 
 # the plain version takes the [S, nw, D, D] N2 compare in start chunks of at
 # most this many elements
@@ -88,12 +93,7 @@ def membership_dists(nbr: torch.Tensor, deg: torch.Tensor, starts: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"membership_dists: unsupported device {dev}")
     out = torch.empty((S, nw, wl), dtype=torch.int32, device=dev)
-    lib = build.library()
-    with torch.cuda.device(dev):
-        rc = lib.pathnet_membership_dists(
-            nbr.data_ptr(), deg.data_ptr(), starts.data_ptr(), paths.data_ptr(),
-            out.data_ptr(), D, S, nw, wl, build.stream_ptr(nbr))
-    build.check(rc, "membership_dists")
+    launch(nbr, None, deg, sorted_rows(nbr, deg), starts, None, paths, out)
     membership_dists.launches += 1
     return out
 

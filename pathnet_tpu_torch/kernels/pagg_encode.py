@@ -69,7 +69,7 @@ def encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
 def readout_plain(h, paths, hn, attw, attb) -> torch.Tensor:
     """Plain PyTorch version of K3's second launch: the readout ``[T, H]``."""
     T, nw, _ = paths.shape
-    h_n = hn.reshape(T, nw, -1)
+    h_n = hn.reshape(T, nw, hn.shape[1])
     score = torch.cat([h_n, h[paths[:, :, 0].long()]], dim=-1) @ attw + attb
     att = torch.softmax(F.leaky_relu(score, 0.01), dim=1)  # [T, nw]
     return (att[:, :, None] * h_n).sum(dim=1)

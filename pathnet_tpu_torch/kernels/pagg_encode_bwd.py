@@ -18,25 +18,35 @@ forward.
    b``) and the gate activations ``gt`` ``[wl, T * nw, 4H]``, besides
    ``h_n`` ``[T * nw, H]`` into a scratch.
 2. The attention backward, one block per target: the scores and the softmax
-   again from ``h_n``, ``d h_n`` into a second scratch ``[T * nw, H]``, and,
-   with ``atomicAdd``, the ego rows' gradient into ``dh`` and the sums into
-   ``dattw`` and ``dattb``.
+   again from ``h_n``, ``d h_n`` into a second scratch ``[T * nw, H]``, the
+   ego rows' gradient to its rows ``[T * nw, H]``, and the target's terms of
+   ``dattw`` and ``dattb`` to its row of ``[T, 2H + 1]`` partial sums, which
+   the wrapper sums over the targets (``torch.sum`` over a fixed shape).
 3. BPTT on the same tiles: a thread keeps ``dh`` and ``dc`` of 8 walks x 2
    units in registers down the steps. Each step forms the pre-activation
    gate gradients (written over ``gt``); one register-tiled product with
    ``[w_ih; w_hh]^T`` gives the LSTM input's gradient and ``dh_{t-1}``; the
    keep mask turns the first into ``dsel`` (its stream); one product per
    distance class present in the tile with ``wd[k]^T`` gives each gathered
-   row's gradient, scattered into ``dh`` with ``atomicAdd``.
+   row's gradient, stored in ``dsel``'s layout ``[wl, T * nw, H]``.
+4. :func:`~pathnet_tpu_torch.kernels.segment_sum.segment_sum` adds the row
+   gradients of 2. and 3. into ``dh [n, H]``, each node's in the order of a
+   stable sort of the paths' node ids (its own launch and count).
+
+No launch adds with atomics and every reduction has an order fixed by the
+inputs, so one input gives one result, bit for bit, on every run: a seeded
+round on the card is reproducible (``tests/test_torch_reproducible.py``).
 
 The weight gradients are contractions of the streams over all rows
 (:func:`contractions`), left to ``torch.matmul`` as the JAX package leaves
-them to XLA dots. Memory held during the call: the streams, 9 ``H`` floats
-per walk step (3.0 GB for one 8192-target bgp microbatch, nw = 40, wl = 4,
-H = 64); the two scratches ``h_n`` and ``d h_n``, ``[T * nw, H]`` each
-(84 MB each there); and 2 ``H`` floats a walk step more (0.67 GB) while
-:func:`class_contractions` regroups ``xr`` and ``dsel`` by distance class.
-All are freed on return.
+them to XLA dots; the class-grouped ones sum their tiles per class with a
+one-hot product, not ``index_add_``. Memory held during the call: the
+streams, 9 ``H`` floats per walk step (3.0 GB for one 8192-target bgp
+microbatch, nw = 40, wl = 4, H = 64); the row gradients, ``H`` floats per
+walk step and per walk (0.42 GB there); the two scratches ``h_n`` and
+``d h_n``, ``[T * nw, H]`` each (84 MB each there); and 2 ``H`` floats a walk
+step more (0.67 GB) while :func:`class_contractions` regroups ``xr`` and
+``dsel`` by distance class. All are freed on return.
 
 :func:`encode_walks_streams`, :func:`attention_bwd` and :func:`bptt` launch
 each stage alone (for timing and tests; they count no launch), beside plain
@@ -56,6 +66,7 @@ import torch.nn.functional as F
 
 from . import build
 from .pagg_encode import _check as check_encode, check_keep_mask, pagg_encode_fwd_plain
+from .segment_sum import segment_sum
 
 Grads = Tuple[torch.Tensor, ...]
 
@@ -109,10 +120,10 @@ def encode_walks_streams_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
 
 
 def attention_bwd_plain(g, h, paths, hn, attw, attb):
-    """Plain version of the attention backward: ``(dhn, dh, dattw, dattb)``,
-    ``dh [n, H]`` holding the ego rows' gradient."""
+    """Plain version of the attention backward: ``(dhn, dego, dattw, dattb)``,
+    ``dego [T * nw, H]`` holding each walk's ego row gradient."""
     T, nw, _ = paths.shape
-    n, H = h.shape
+    H = h.shape[1]
     h_n = hn.reshape(T, nw, H)
     ego_idx = paths[:, :, 0].long()
     ego = h[ego_idx]
@@ -122,22 +133,21 @@ def attention_bwd_plain(g, h, paths, hn, attw, attb):
     ds = att * (datt - (att * datt).sum(1, keepdim=True))
     ds = ds * torch.where(score > 0, 1.0, 0.01)
     dhn = att[:, :, None] * g[:, None, :] + ds[:, :, None] * attw[:H]
-    dh = h.new_zeros((n, H)).index_add_(
-        0, ego_idx.reshape(-1), (ds[:, :, None] * attw[H:]).reshape(-1, H))
+    dego = ds[:, :, None] * attw[H:]
     dattw = torch.cat([(ds[:, :, None] * h_n).sum((0, 1)),
                        (ds[:, :, None] * ego).sum((0, 1))])
-    return dhn.reshape(T * nw, H), dh, dattw, ds.sum().reshape(1)
+    return dhn.reshape(T * nw, H), dego.reshape(T * nw, H), dattw, ds.sum().reshape(1)
 
 
-def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, n, keep_mask=None, keep=1.0):
-    """Plain version of the BPTT: ``(dh, dgates, dsel)``, ``dh [n, H]`` holding
-    every gathered row's gradient, ``dgates [wl, T * nw, 4H]`` the
+def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0):
+    """Plain version of the BPTT: ``(drow, dgates, dsel)``, ``drow [wl, T * nw,
+    H]`` holding every gathered row's gradient (row ``t * T * nw + b`` is
+    position ``wl - 1 - t`` of walk ``b``), ``dgates [wl, T * nw, 4H]`` the
     pre-activation gate gradients and ``dsel [wl, T * nw, H]`` the gradient of
     the selected input."""
-    wl, B, H = cs.shape
     d = _step_classes(dists)
-    rows = paths.flip(2).reshape(B, wl).t().long()
-    dh = cs.new_zeros((n, H))
+    wl, _, H = cs.shape
+    drow = torch.empty_like(cs)
     dgates = torch.empty_like(gt)
     dsel = torch.empty_like(cs)
     dht, dc = dhn, torch.zeros_like(dhn)
@@ -158,8 +168,17 @@ def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, n, keep_mask=None, kee
         dx = torch.zeros_like(dxin)
         for k in range(wl):
             dx = torch.where(d[t, :, None] == k, dxin @ wd[k].t(), dx)
-        dh.index_add_(0, rows[t], dx)
-    return dh, dgates, dsel
+        drow[t] = dx
+    return drow, dgates, dsel
+
+
+def row_nodes(paths: torch.Tensor) -> torch.Tensor:
+    """int32 ``[(wl + 1) * T * nw]``: the node of each row gradient, in the
+    order of the BPTT's ``drow`` (step ``t`` holds position ``wl - 1 - t``)
+    followed by the attention backward's ego rows."""
+    T, nw, wl = paths.shape
+    steps = paths.flip(2).reshape(T * nw, wl).t()
+    return torch.cat([steps.reshape(-1), paths[:, :, 0].reshape(-1)])
 
 
 def class_contractions(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor,
@@ -171,7 +190,9 @@ def class_contractions(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor,
     Each row is contracted once and nothing waits on the host, so the K4
     wrapper can be captured in a CUDA graph: the rows are copied into a
     buffer in which every class starts on a ``tile`` boundary, so each
-    ``[H, tile] @ [tile, H]`` tile product belongs to one class.
+    ``[H, tile] @ [tile, H]`` tile product belongs to one class. A one-hot
+    ``[classes, tiles]`` product sums each class's tiles, in an order that
+    depends on the shapes alone (the tiles of other classes add exact zeros).
     """
     R, H = x.shape
     # [classes, R]: the scan runs along the contiguous dimension (a scan
@@ -186,9 +207,9 @@ def class_contractions(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor,
     starts = torch.arange(ntiles, device=d.device) * tile
     cls = torch.bucketize(starts, ends, right=True).clamp_(max=classes - 1)
     prod = torch.bmm(xp.view(ntiles, tile, H).transpose(1, 2), sp)
-    dw = x.new_zeros((classes, H, H)).index_add_(0, cls, prod)
-    db = x.new_zeros((classes, H)).index_add_(0, cls, sp.sum(dim=1))
-    return dw, db
+    onehot = (torch.arange(classes, device=d.device)[:, None] == cls).to(x.dtype)
+    dw = (onehot @ prod.view(ntiles, H * H)).view(classes, H, H)
+    return dw, onehot @ sp.sum(dim=1)
 
 
 def contractions(xr, xin, hp, dsel, dgates, dists) -> Grads:
@@ -225,18 +246,22 @@ def _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, 
     return hn
 
 
-def _launch_attention(g, h, paths, hn, attw, attb, dh, dattw, dattb):
-    """Launch B: returns ``d h_n``; adds into ``dh``, ``dattw``, ``dattb``."""
+def _launch_attention(g, h, paths, hn, attw, attb, dego):
+    """Launch B: the ego rows' gradient into ``dego [T * nw, H]``; returns
+    ``(d h_n, dattw, dattb)``, the last two summed over the targets' partial
+    sums."""
     T, nw, wl = paths.shape
     H = h.shape[1]
     dhn = torch.empty((T * nw, H), dtype=torch.float32, device=h.device)
+    part = torch.empty((T, 2 * H + 1), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         rc = build.library().pathnet_pagg_attention_bwd(
             g.data_ptr(), h.data_ptr(), paths.data_ptr(), hn.data_ptr(),
-            attw.data_ptr(), attb.data_ptr(), dhn.data_ptr(), dh.data_ptr(),
-            dattw.data_ptr(), dattb.data_ptr(), T, nw, wl, H, build.stream_ptr(h))
+            attw.data_ptr(), attb.data_ptr(), dhn.data_ptr(), dego.data_ptr(),
+            part.data_ptr(), T, nw, wl, H, build.stream_ptr(h))
     build.check(rc, "pagg_encode_bwd (attention)")
-    return dhn
+    dpart = part.sum(dim=0)
+    return dhn, dpart[:2 * H], dpart[2 * H:]
 
 
 def bptt_weights(wd, w_ih, w_hh):
@@ -246,16 +271,16 @@ def bptt_weights(wd, w_ih, w_hh):
             torch.cat([w_ih, w_hh], 0).t().contiguous())
 
 
-def _launch_bptt(dhn, paths, dists, wd_t, w_t, cs, gt, keep_mask, keep, dsel, dh):
-    """Launch C: gate gradients over ``gt``, ``dsel``, row gradients into ``dh``."""
-    T, nw, wl = paths.shape
+def _launch_bptt(dhn, dists, wd_t, w_t, cs, gt, keep_mask, keep, dsel, drow):
+    """Launch C: gate gradients over ``gt``, ``dsel``, row gradients ``drow``."""
+    T, nw, wl = dists.shape
     H = dhn.shape[1]
     with torch.cuda.device(dhn.device):
         rc = build.library().pathnet_pagg_bptt(
-            dhn.data_ptr(), paths.data_ptr(), dists.data_ptr(), wd_t.data_ptr(),
+            dhn.data_ptr(), dists.data_ptr(), wd_t.data_ptr(),
             w_t.data_ptr(), cs.data_ptr(), gt.data_ptr(),
             None if keep_mask is None else keep_mask.data_ptr(), float(keep),
-            dsel.data_ptr(), dh.data_ptr(), T, nw, wl, H, build.stream_ptr(dhn))
+            dsel.data_ptr(), drow.data_ptr(), T, nw, wl, H, build.stream_ptr(dhn))
     build.check(rc, "pagg_encode_bwd (bptt)")
 
 
@@ -297,18 +322,18 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
     if H > 1024:
         raise ValueError(f"pagg_encode_bwd: hidden {H} > 1024 is not supported")
     B = T * nw
-    dh = torch.zeros((n, H), dtype=f32, device=dev)
-    dattw = torch.zeros((2 * H,), dtype=f32, device=dev)
-    dattb = torch.zeros((1,), dtype=f32, device=dev)
     xr, xin, hp, cs, dsel = torch.empty((5, wl, B, H), dtype=f32, device=dev)
     gt = torch.empty((wl, B, 4 * H), dtype=f32, device=dev)
+    rows = torch.empty((wl + 1, B, H), dtype=f32, device=dev)  # drow, then dego
     hn = _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask,
                          keep, (xr, xin, hp, cs, gt))
-    dhn = _launch_attention(g, h, paths, hn, attw, attb, dh, dattw, dattb)
+    dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, rows[wl])
     del hn
-    _launch_bptt(dhn, paths, dists, *bptt_weights(wd, w_ih, w_hh), cs, gt, keep_mask,
-                 keep, dsel, dh)
+    _launch_bptt(dhn, dists, *bptt_weights(wd, w_ih, w_hh), cs, gt, keep_mask, keep,
+                 dsel, rows[:wl])
     pagg_encode_bwd.launches += 1
+    dh = segment_sum(rows.view(-1, H), row_nodes(paths), n)
+    del rows
     dwd, dbd, dw_ih, dw_hh, db = contractions(xr, xin, hp, dsel, gt, dists)
     return dh, dwd, dbd, dw_ih, dw_hh, db, db.clone(), dattw, dattb
 
@@ -334,12 +359,13 @@ def encode_walks_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
 
 
 def attention_bwd(g, h, paths, hn, attw, attb):
-    """K4's attention backward alone: ``(dhn, dh, dattw, dattb)``, ``dh [n, H]``
-    holding the ego rows' gradient. For timing and tests; it counts no launch."""
+    """K4's attention backward alone: ``(dhn, dego, dattw, dattb)``, ``dego
+    [T * nw, H]`` holding each walk's ego row gradient. For timing and tests;
+    it counts no launch."""
     dev = h.device
     f32 = torch.float32
     build.require(h, "h", f32, (None, None), dev)
-    n, H = h.shape
+    H = h.shape[1]
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
     T, nw, _ = paths.shape
     build.require(g, "g", f32, (T, H), dev)
@@ -349,19 +375,17 @@ def attention_bwd(g, h, paths, hn, attw, attb):
     _require_device(dev, "attention_bwd")
     if dev.type == "cpu":
         return attention_bwd_plain(g, h, paths, hn, attw, attb)
-    dh = torch.zeros((n, H), dtype=f32, device=dev)
-    dattw = torch.zeros((2 * H,), dtype=f32, device=dev)
-    dattb = torch.zeros((1,), dtype=f32, device=dev)
-    dhn = _launch_attention(g, h, paths, hn, attw, attb, dh, dattw, dattb)
-    return dhn, dh, dattw, dattb
+    dego = torch.empty((T * nw, H), dtype=f32, device=dev)
+    dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, dego)
+    return dhn, dego, dattw, dattb
 
 
-def bptt(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, n, keep_mask=None, keep=1.0):
-    """K4's BPTT alone: ``(dh, dgates, dsel)`` from ``d h_n`` ``[T * nw, H]``
-    and the recompute's ``cs`` and ``gt``; ``dh [n, H]`` holds every gathered
-    row's gradient. As in the whole backward, the gate gradients are written
-    over ``gt``, which is returned as ``dgates``. For timing and tests; it
-    counts no launch."""
+def bptt(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0):
+    """K4's BPTT alone: ``(drow, dgates, dsel)`` from ``d h_n`` ``[T * nw, H]``
+    and the recompute's ``cs`` and ``gt``; ``drow [wl, T * nw, H]`` holds every
+    gathered row's gradient (see :func:`bptt_plain`). As in the whole
+    backward, the gate gradients are written over ``gt``, which is returned
+    as ``dgates``. For timing and tests; it counts no launch."""
     dev = dhn.device
     f32 = torch.float32
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
@@ -378,14 +402,13 @@ def bptt(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, n, keep_mask=None, keep=1.0)
     check_keep_mask(keep_mask, keep, wl, B, H, dev)
     _require_device(dev, "bptt")
     if dev.type == "cpu":
-        dh, dgates, dsel = bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, n,
-                                      keep_mask, keep)
-        return dh, gt.copy_(dgates), dsel
+        drow, dgates, dsel = bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt,
+                                        keep_mask, keep)
+        return drow, gt.copy_(dgates), dsel
     if H > 1024:
         raise ValueError(f"bptt: hidden {H} > 1024 is not supported")
-    dh = torch.zeros((n, H), dtype=f32, device=dev)
-    dsel = torch.empty_like(cs)
-    _launch_bptt(dhn, paths, dists, *bptt_weights(wd, w_ih, w_hh), cs, gt,
-                 keep_mask, keep, dsel, dh)
-    return dh, gt, dsel
+    drow, dsel = torch.empty((2, wl, B, H), dtype=f32, device=dev)
+    _launch_bptt(dhn, dists, *bptt_weights(wd, w_ih, w_hh), cs, gt, keep_mask, keep,
+                 dsel, drow)
+    return drow, gt, dsel
 

@@ -5,7 +5,12 @@ Replaces the Pallas row-gather probe ``scripts/pallas_gather_probe.py:68``
 computes the function of ``pagg_forward``'s ``gather_fn`` hook
 (``pathnet_tpu/models/pagg.py:200-209,309``): the model's ego gather
 ``h[ego_idx]`` goes through it, forward and backward. The backward is
-``dtbl.index_add_(0, idx, dout)``, an ``atomicAdd`` scatter.
+``dtbl.index_add_(0, idx, dout)``, an ``atomicAdd`` scatter. On the training
+path its sums do not depend on the atomics' order: a chunk's real targets are
+unique, and its one repeated index is node 0, where ``_pad_chunks``
+(``train/trainer.py``) puts the padding at weight 0, whose rows' gradients
+are exact zeros (``tests/test_torch_reproducible.py``); adding +-0 to a sum
+in any order gives the same bits.
 
 Source: ``pathnet_tpu_torch/csrc/row_gather.cu``. One thread per float4 of
 output (per float when the width is not a multiple of 4), consecutive threads

@@ -11,8 +11,8 @@ taken as explicit keep masks: the first on the LSTM input (``pagg.py:274``,
 inside K3), the second on ``[h[target], h_agg]`` before ``fc2`` (``:312``).
 Gradients flow through two autograd functions: ``PaggEncode``
 (forward K3, backward K4, ``kernels/pagg_encode_bwd.py``) and ``RowGather``
-(forward and backward K5). K4 scatters the row gradients into ``dh [n, H]``
-and autograd takes ``dW0 = X^T dh`` through ``h = X @ W0 + b0``: JAX's "h"
+(forward and backward K5). K4 sums the row gradients into ``dh [n, H]``
+(its segment sum, in an order fixed by the paths) and autograd takes ``dW0 = X^T dh`` through ``h = X @ W0 + b0``: JAX's "h"
 gather mode. Its "x" mode computes the same gradient, so
 ``PaggSpec.gather_mode`` does not change the port's math; nor do
 ``dist_mode`` (one formulation of the distance select) and ``remat`` (K4

@@ -19,9 +19,9 @@ def lstm_scan(params: Dict[str, torch.Tensor], xs: torch.Tensor
     ``params``: ``w_ih [in, 4H]``, ``w_hh [H, 4H]``, ``b_ih [4H]``,
     ``b_hh [4H]``. Returns ``(outputs [L, B, H], h_n [B, H])``.
     """
-    L, B, _ = xs.shape
+    L, B, F = xs.shape
     H = params["w_hh"].shape[0]
-    gx = (xs.reshape(L * B, -1) @ params["w_ih"] + params["b_ih"]).reshape(L, B, 4 * H)
+    gx = (xs.reshape(L * B, F) @ params["w_ih"] + params["b_ih"]).reshape(L, B, 4 * H)
     h = xs.new_zeros((B, H))
     c = xs.new_zeros((B, H))
     ys = []

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from ..data.graph import DeviceGraph
+from ..kernels.walk_dists import sorted_rows
 
 _BLOCK = 16
 
@@ -36,13 +37,15 @@ def _blocked_cumsum(p: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class CdfSampler:
-    """Neighbour table and inclusive CDF table of one graph, on its device."""
+    """Neighbour table, inclusive CDF table and sorted rows of one graph, on
+    its device."""
 
     n: int
     max_deg: int
     nbr: torch.Tensor    # int32 [n, D]
     cdf: torch.Tensor    # float32 [n, D]
     deg: torch.Tensor    # int32 [n]
+    srt: torch.Tensor    # int32 [n, D]: each row's real entries ascending
 
     @staticmethod
     def from_device_graph(dg: DeviceGraph) -> "CdfSampler":
@@ -54,4 +57,4 @@ class CdfSampler:
         last = dg.deg.clamp(min=1)[:, None] - 1
         cdf = torch.where(col >= last, torch.ones_like(cdf), cdf).contiguous()
         return CdfSampler(n=dg.n, max_deg=dg.max_deg, nbr=dg.nbr, cdf=cdf,
-                          deg=dg.deg)
+                          deg=dg.deg, srt=sorted_rows(dg.nbr, dg.deg))

@@ -1,8 +1,9 @@
 """Path sampling for serving (port of ``pathnet_tpu/sample/walk.py:36-55,85-164``).
 
-``sample_paths`` draws the walks with K1 (``kernels/cdf_walk.py``) and
-``PathSampler.sample`` resolves their hop distances with K2
-(``kernels/membership_dists.py``). The uniforms of the ``wl - 1`` steps come
+``sample_paths`` draws the walks with K1 (``kernels/cdf_walk.py``);
+``PathSampler.sample`` draws them and resolves their hop distances in one
+launch, ``walk_dists`` (``kernels/walk_dists.py``: K1 and K2 fused). The
+uniforms of the ``wl - 1`` steps come
 from an explicit ``torch.Generator``, or from the caller: a test that hands in
 JAX's own draws gets JAX's walks.
 """
@@ -16,8 +17,8 @@ import torch
 from ..data.graph import DeviceGraph, Graph
 from ..device import resolve_device
 from ..kernels.cdf_walk import cdf_walk
+from ..kernels.walk_dists import walk_dists
 from .alias import CdfSampler
-from .distance import membership_dists
 
 
 def draw_uniforms(walk_len: int, walkers: int, generator: torch.Generator,
@@ -35,15 +36,21 @@ def sample_paths(sampler: CdfSampler, starts: torch.Tensor, num_walks: int,
     ``u`` (``[walk_len - 1, len(starts) * num_walks]``) gives the draws; else
     they come from ``generator``, which must then be given.
     """
+    u = _uniforms(u, generator, walk_len, starts.shape[0] * num_walks,
+                  sampler.nbr.device)
+    return cdf_walk(sampler.nbr, sampler.cdf, starts, u, num_walks)
+
+
+def _uniforms(u, generator, walk_len, walkers, device) -> torch.Tensor:
+    """``u`` checked against ``walk_len``, or drawn from ``generator``."""
     if u is None:
         if generator is None:
-            raise ValueError("sample_paths needs the uniforms u or a generator")
-        u = draw_uniforms(walk_len, starts.shape[0] * num_walks, generator,
-                          sampler.nbr.device)
+            raise ValueError("sampling needs the uniforms u or a generator")
+        u = draw_uniforms(walk_len, walkers, generator, device)
     if u.shape[0] != walk_len - 1:
         raise ValueError(f"u has {u.shape[0]} steps, walk_len {walk_len} needs "
                          f"{walk_len - 1}")
-    return cdf_walk(sampler.nbr, sampler.cdf, starts, u, num_walks)
+    return u
 
 
 @dataclasses.dataclass
@@ -90,16 +97,17 @@ class PathSampler:
     def sample(self, starts: Optional[torch.Tensor] = None,
                u: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None):
-        """``(paths, dists)``, both ``int32 [S, num_walks, walk_len]``.
+        """``(paths, dists)``, both ``int32 [S, num_walks, walk_len]``, from
+        one ``walk_dists`` launch.
 
         ``dists`` holds each walk node's 0-based hop distance from its start
         (the reference's ``o[_] - 1``, gen_merw.cpp:199-204). ``starts``
-        defaults to every node in order.
+        defaults to every node in order; ``u`` and ``generator`` as in
+        :func:`sample_paths`.
         """
+        smp = self.sampler
         if starts is None:
-            starts = torch.arange(self.sampler.n, dtype=torch.int32,
-                                  device=self.device)
-        paths = sample_paths(self.sampler, starts, self.num_walks,
-                             self.walk_len, u=u, generator=generator)
-        dists = membership_dists(self.sampler.nbr, self.sampler.deg, starts, paths)
-        return paths, dists
+            starts = torch.arange(smp.n, dtype=torch.int32, device=self.device)
+        u = _uniforms(u, generator, self.walk_len, starts.shape[0] * self.num_walks,
+                      self.device)
+        return walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, starts, u, self.num_walks)

@@ -2,9 +2,10 @@
 ``pathnet_tpu/train/trainer.py:48-434``).
 
 A round initialises the model from its seed and runs ``cfg.epochs`` epochs.
-Each epoch samples a fresh walk set for every node (K1, K2), accumulates the
-exact full-train-set gradient over microbatches (forward K3 with dropout, K5;
-backward K4, K5), takes one Adam step, computes the validation confusion
+Each epoch samples a fresh walk set for every node (``walk_dists``: K1 and
+K2 in one launch), accumulates the exact full-train-set gradient over
+microbatches (forward K3 with dropout, K5; backward K4 with its segment sum,
+K5), takes one Adam step, computes the validation confusion
 matrix and, only on a strict improvement of validation accuracy (from 0),
 the test confusion matrix: the round's result is the test metrics of the
 best-on-validation epoch (PathNet_run.py:281-403).
@@ -15,8 +16,11 @@ no effect here). Randomness: every (round seed, epoch, stream) pair gets its
 own ``torch.Generator``, for the streams init, walks and dropout (one
 generator per microbatch), as JAX folds the epoch into its key: an epoch's
 draws depend only on the round seed and the global epoch, and two runs with
-one seed on one device give identical results. Philox and threefry streams
-differ, so rounds are compared with the JAX package by distribution only.
+one seed on one device give identical results, on the card too: no sum on
+the training path depends on the order its threads finish in (K4 reduces in
+an order fixed by the paths; ``tests/test_torch_reproducible.py``). Philox
+and threefry streams differ, so rounds are compared with the JAX package by
+distribution only.
 
 Optimizer semantics match ``optax.chain(add_decayed_weights, scale_by_adam,
 scale(-lr))``: ``torch.optim.Adam(lr, weight_decay)``, additive L2 before the
@@ -159,7 +163,8 @@ def run_round(X: torch.Tensor, y: torch.Tensor, ps: PathSampler, spec: PaggSpec,
     ``X [n, F]`` and ``y [n]`` lie on the sampler's device. With
     ``track_history`` the result carries the per-epoch validation accuracy,
     train loss and host-clock seconds; with ``keep_params`` the best epoch's
-    ``state_dict``.
+    ``state_dict`` (the init params when validation accuracy never rises
+    above 0, as in JAX).
     """
     dev = ps.device
     model = PathNet(spec, device=dev, generator=make_generator(seed, 0, STREAM_INIT))
@@ -169,7 +174,10 @@ def run_round(X: torch.Tensor, y: torch.Tensor, ps: PathSampler, spec: PaggSpec,
     te = chunk_index(test_mask, cfg.microbatch, dev)
     best_val = 0.0
     best_cm = torch.zeros((num_classes, num_classes), device=dev)
-    best_params = None
+    # as JAX's carry: a round whose validation accuracy never rises keeps
+    # the init params (pathnet_tpu/train/trainer.py:216-217)
+    best_params = ({k: v.detach().clone() for k, v in model.state_dict().items()}
+                   if keep_params else None)
     hist, losses, secs = [], [], []
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()

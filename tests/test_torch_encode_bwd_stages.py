@@ -39,15 +39,17 @@ def cornell():
 
 
 def compose_stages(g, h, paths, dists, w, mask, keep):
-    """K4's gradients from its three stage wrappers and the contractions."""
-    n = h.shape[0]
+    """K4's gradients from its three stage wrappers, the segment sum of their
+    row gradients and the contractions."""
+    n, H = h.shape
     hn, xr, xin, hp, cs, gt = K.encode_walks_streams(h, paths, dists, *w[:6], mask, keep)
-    dhn, dh_ego, dattw, dattb = K.attention_bwd(g, h, paths, hn, *w[6:])
-    dh_rows, dgates, dsel = K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt, n,
-                                   mask, keep)
+    dhn, dego, dattw, dattb = K.attention_bwd(g, h, paths, hn, *w[6:])
+    drow, dgates, dsel = K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt, mask, keep)
     assert dgates is gt   # written over the activations, as in the whole backward
+    rows = torch.cat([drow.reshape(-1, H), dego])
+    dh = K.segment_sum(rows, K.row_nodes(paths), n)
     dwd, dbd, dw_ih, dw_hh, db = K.contractions(xr, xin, hp, dsel, dgates, dists)
-    return dh_ego + dh_rows, dwd, dbd, dw_ih, dw_hh, db, db, dattw, dattb
+    return dh, dwd, dbd, dw_ih, dw_hh, db, db, dattw, dattb
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -130,7 +132,7 @@ def test_bwd_stage_wrappers_reject_bad_inputs():
     g = torch.randn((T, H), generator=gen)
     hn, xr, xin, hp, cs, gt = K.encode_walks_streams(h, paths, dists, *w)
     dhn = K.attention_bwd(g, h, paths, hn, *att)[0]
-    K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt, n)
+    K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt)
     with pytest.raises(ValueError):
         K.encode_walks_streams(h, paths, dists[:, :, :-1].contiguous(), *w)
     with pytest.raises(TypeError):
@@ -140,19 +142,19 @@ def test_bwd_stage_wrappers_reject_bad_inputs():
     with pytest.raises(TypeError):
         K.attention_bwd(g, h, paths, hn.double(), *att)
     with pytest.raises(ValueError):
-        K.bptt(dhn[:-1], paths, dists, w[0], w[2], w[3], cs, gt, n)
+        K.bptt(dhn[:-1], paths, dists, w[0], w[2], w[3], cs, gt)
     with pytest.raises(ValueError):
-        K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt[:, :, :H].contiguous(), n)
+        K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt[:, :, :H].contiguous())
     with pytest.raises(ValueError, match="keep"):
-        K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt, n,
+        K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt,
                torch.ones((wl, T * nw, H), dtype=torch.uint8), 0.0)
     with pytest.raises(ValueError, match="contiguous"):
         K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs.transpose(0, 1).contiguous()
-               .transpose(0, 1), gt, n)
+               .transpose(0, 1), gt)
     meta = lambda *ts: tuple(t.to("meta") for t in ts)
     with pytest.raises(ValueError, match="unsupported device"):
         K.encode_walks_streams(*meta(h, paths, dists, *w))
     with pytest.raises(ValueError, match="unsupported device"):
         K.attention_bwd(*meta(g, h, paths, hn, *att))
     with pytest.raises(ValueError, match="unsupported device"):
-        K.bptt(*meta(dhn, paths, dists, w[0], w[2], w[3], cs, gt), n)
+        K.bptt(*meta(dhn, paths, dists, w[0], w[2], w[3], cs, gt))

@@ -60,6 +60,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     smp = ps.sampler
     assert torch.equal(K.cdf_walk(smp.nbr, smp.cdf, starts, u, 6), paths)
     assert torch.equal(K.membership_dists(smp.nbr, smp.deg, starts, paths), dists)
+    got = K.walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, starts, u, 6)
+    assert torch.equal(got[0], paths) and torch.equal(got[1], dists)
     # f32 products on the host may round differently with buffer alignment
     torch.testing.assert_close(K.pagg_encode_fwd(h, paths, dists, *w),
                                K.pagg_encode_fwd_plain(h, paths, dists, *w),
@@ -67,7 +69,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert K.launch_counts() == {"cdf_walk": 0, "membership_dists": 0,
                                  "pagg_encode_fwd": 0, "pagg_encode_bwd": 0,
                                  "row_gather": 0, "row_gather_bwd": 0,
-                                 "lane_gather": 0}
+                                 "lane_gather": 0, "segment_sum": 0, "walk_dists": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -82,6 +84,16 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="walk_len"):
         K.membership_dists(smp.nbr, smp.deg, starts,
                            torch.cat([paths, paths[:, :, :1]], dim=2))
+    with pytest.raises(ValueError, match="walk_len"):
+        K.walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, starts,
+                     torch.cat([u, u[:1]]), 6)
+    with pytest.raises(ValueError):
+        K.walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt[:, :-1].contiguous(), starts, u, 6)
+    with pytest.raises(TypeError):
+        K.walk_dists(smp.nbr, smp.cdf, smp.deg.long(), smp.srt, starts, u, 6)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.walk_dists(*(t.to("meta") for t in (smp.nbr, smp.cdf, smp.deg, smp.srt, starts,
+                                              u)), 6)
     with pytest.raises(TypeError):
         K.pagg_encode_fwd(h.double(), paths, dists, *w)
     with pytest.raises(ValueError):
@@ -141,7 +153,7 @@ def test_port_holds_no_jax_no_library_kernels_and_no_cpu_fallback():
                        "nn.functional.lstm", "self.LSTM("):
             assert banned not in text, (f, banned)
     for name in ("cdf_walk", "membership_dists", "pagg_encode", "pagg_encode_bwd",
-                 "row_gather", "lane_gather"):
+                 "row_gather", "lane_gather", "segment_sum", "walk_dists"):
         # a wrapper launches its kernel or raises: nothing catches a failure
         text = open(os.path.join(PORT, "kernels", name + ".py")).read()
         assert not re.search(r"\b(try|except)\b", text), name
@@ -155,6 +167,47 @@ def test_walk_and_distance_kernels_equal_plain(cuda, name):
     got = K.cdf_walk(smp.nbr, smp.cdf, starts, u, 40)
     assert torch.equal(got, paths)
     assert torch.equal(K.membership_dists(smp.nbr, smp.deg, starts, got), dists)
+    fused = K.walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, starts, u, 40)
+    assert torch.equal(fused[0], paths) and torch.equal(fused[1], dists)
+
+
+def walk_graph(D, n=300, seed=0):
+    """A graph of ``n`` nodes whose widest row has ``D`` records, one node of
+    degree 0 (node 1), random transition probabilities and repeated
+    records."""
+    rng = np.random.default_rng(seed + D)
+    deg = rng.integers(1, D + 1, size=n)
+    deg[0], deg[1] = D, 0
+    src = np.repeat(np.arange(n), deg).astype(np.int32)
+    dst = rng.integers(0, n, size=len(src)).astype(np.int32)
+    return Graph(n=n, src=src, dst=dst, prob=rng.random(len(src)) + 0.05)
+
+
+# the fused launch against the plain walk and distances on widths 1 and bgp's
+# 25 (a lane a walk), cornell's 190 and Nba's 442 (16 lanes) and 600 (32),
+# with a node of degree 0 among the starts, a NaN row and a row that sums to
+# 0.6
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 25, 190, 442, 600])
+@pytest.mark.parametrize("nw", [1, 40])
+@pytest.mark.parametrize("wl", [1, 2, 3, 4])
+def test_fused_walk_and_distance_kernel_equals_plain(cuda, D, nw, wl):
+    ps = PathSampler.build(walk_graph(D), nw, wl, device=cuda)
+    smp = ps.sampler
+    assert smp.max_deg == D and int(smp.deg[1]) == 0
+    cdf = smp.cdf.clone()
+    cdf[2] = float("nan")
+    cdf[3] = cdf[3] * 0.6
+    gen = torch.Generator().manual_seed(D * 10 + wl)
+    starts = torch.randperm(smp.n, generator=gen)[:257].to(torch.int32)
+    starts[:4] = torch.arange(4)
+    starts = starts.to(cuda)
+    u = torch.rand((wl - 1, starts.shape[0] * nw), generator=gen).to(cuda)
+    want = K.walk_dists_plain(smp.nbr, cdf, smp.deg, smp.srt, starts, u, nw)
+    got = K.walk_dists(smp.nbr, cdf, smp.deg, smp.srt, starts, u, nw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(K.cdf_walk(smp.nbr, cdf, starts, u, nw), want[0])
+    assert torch.equal(K.membership_dists(smp.nbr, smp.deg, starts, want[0]), want[1])
 
 
 def wild_case(H, wl, nw, T, n=183, seed=0, device="cpu"):
@@ -228,10 +281,10 @@ def test_predict_on_card_counts_launches_and_matches_host(cuda):
                   PathSampler.build(g, 40, 4, device=cuda), num_ensemble=3,
                   u=u.to(cuda))
     torch.cuda.synchronize()
-    assert K.launch_counts() == {"cdf_walk": 3, "membership_dists": 3,
+    assert K.launch_counts() == {"cdf_walk": 0, "membership_dists": 0,
                                  "pagg_encode_fwd": 3, "pagg_encode_bwd": 0,
                                  "row_gather": 3, "row_gather_bwd": 0,
-                                 "lane_gather": 0}
+                                 "lane_gather": 0, "segment_sum": 0, "walk_dists": 3}
     want = predict(m_host, torch.from_numpy(X), PathSampler.build(g, 40, 4, device="cpu"),
                    num_ensemble=3, u=u)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

@@ -15,7 +15,7 @@ from pathnet_tpu.sample import sample_paths as j_sample_paths
 from pathnet_tpu.sample.alias import CdfSampler as JCdfSampler
 
 from pathnet_tpu_torch.data import DeviceGraph, Graph
-from pathnet_tpu_torch.kernels import cdf_walk_plain
+from pathnet_tpu_torch.kernels import cdf_walk_plain, sorted_rows, walk_dists
 from pathnet_tpu_torch.sample import CdfSampler, PathSampler, membership_dists, sample_paths
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -130,6 +130,67 @@ def test_walk_scan_stays_in_bounds_on_unsaturated_or_nan_rows():
     u = torch.tensor([[0.9, 0.9]])
     got = cdf_walk_plain(nbr, cdf, torch.tensor([0, 1], dtype=torch.int32), u, 1)
     assert got[:, 0, 1].tolist() == [0, 0]      # idx clamped to D-1; NaN compares false
+
+
+def jax_walk_dists(jsmp, key, starts, wl):
+    """JAX's walks under ``key`` and their membership distances."""
+    paths = j_sample_paths(jsmp, key, jnp.asarray(starts), NW, wl)
+    return (np.asarray(paths),
+            np.asarray(j_membership_dists(jsmp.nbr, jsmp.deg, jnp.asarray(starts), paths)))
+
+
+def port_walk_dists(smp, key, starts, wl):
+    walkers = len(starts) * NW
+    u = (jax_uniforms(key, walkers, wl) if wl > 1 else np.zeros((0, walkers), np.float32))
+    return walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, torch.from_numpy(starts),
+                      torch.from_numpy(u), NW)
+
+
+@pytest.mark.parametrize("wl", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", ["cornell", "Nba"])
+def test_walk_dists_equals_jax_walks_then_distances(name, wl):
+    """The fused launch's plain version against JAX's ``sample_paths`` and
+    ``membership_dists`` on JAX's own draws."""
+    jg, g = graph_pair(name)
+    starts = starts_for(name, g.n)
+    key = jax.random.PRNGKey(20 + wl)
+    want = jax_walk_dists(JCdfSampler.from_device_graph(JDeviceGraph.from_graph(jg)), key,
+                          starts, wl)
+    smp = CdfSampler.from_device_graph(DeviceGraph.from_graph(g, device="cpu"))
+    got = port_walk_dists(smp, key, starts, wl)
+    for w, gt in zip(want, got):
+        np.testing.assert_array_equal(w, gt.numpy())
+
+
+def test_walk_dists_equals_jax_on_nan_and_unsaturated_rows():
+    """A NaN row (every compare false: idx 0) and a row that sums to 0.999
+    give JAX's walks and distances; the key's draws all fall inside the
+    short row, where JAX's gather would fill and the port clamps to D - 1."""
+    nbr = np.array([[1, 2, 3, 0], [0, 2, 2, 2], [3, 1, 0, 0], [2, 2, 2, 2]], np.int32)
+    deg = np.array([4, 2, 3, 1], np.int32)
+    cdf = np.array([[0.2, 0.4, 0.6, 0.999], [np.nan] * 4, [0.3, 0.5, 1.0, 1.0],
+                    [1.0] * 4], np.float32)
+    starts = np.arange(4, dtype=np.int32)
+    key = jax.random.PRNGKey(5)
+    jsmp = JCdfSampler(n=4, max_deg=4, nbr=jnp.asarray(nbr), cdf=jnp.asarray(cdf),
+                       deg=jnp.asarray(deg))
+    want = jax_walk_dists(jsmp, key, starts, 4)
+    assert (want[0] >= 0).all()     # no draw above the short row's 0.999
+    tn, td = torch.from_numpy(nbr), torch.from_numpy(deg)
+    smp = CdfSampler(n=4, max_deg=4, nbr=tn, cdf=torch.from_numpy(cdf), deg=td,
+                     srt=sorted_rows(tn, td))
+    got = port_walk_dists(smp, key, starts, 4)
+    for w, gt in zip(want, got):
+        np.testing.assert_array_equal(w, gt.numpy())
+    assert (want[0][1, :, 1] == 0).all()     # the NaN row takes its first slot
+
+
+def test_sorted_rows_keep_each_rows_real_entries_in_order():
+    nbr = torch.tensor([[5, 1, 3, 3], [2, 0, 9, 9], [4, 4, 4, 4]], dtype=torch.int32)
+    deg = torch.tensor([3, 2, 0], dtype=torch.int32)
+    big = 2 ** 31 - 1
+    assert sorted_rows(nbr, deg).tolist() == [[1, 3, 5, big], [0, 2, big, big],
+                                              [big] * 4]
 
 
 @pytest.mark.parametrize("kw", [{"kind": "uniform"}, {"sampler": "alias"},

@@ -62,6 +62,47 @@ def test_a_round_is_reproducible_and_keeps_the_first_best_epoch(planted):
     assert round_of(planted, 3, seed=1).history.tolist() != a.history[:3].tolist()
 
 
+def test_a_round_whose_validation_never_rises_keeps_its_init_params(planted, small_graph,
+                                                                  tmp_path):
+    """With an empty validation set the accuracy stays 0, so no epoch is
+    ever best: both packages keep the init params (JAX through its scan's
+    carry, pathnet_tpu/train/trainer.py:216-217), and the port saves them."""
+    import jax
+    from pathnet_tpu.config import TrainConfig as JTrainConfig
+    from pathnet_tpu.models.pagg import PaggSpec as JPaggSpec, init_pagg_params
+    from pathnet_tpu.sample import PathSampler as JPathSampler
+    from pathnet_tpu.train.trainer import run_round as j_run_round
+    from pathnet_tpu_torch.models import PathNet, params_from_jax
+
+    ps, X, y, (tr, va, te) = planted
+    va = np.zeros_like(va)
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=16, out_dim=3, walk_len=4)
+    j_spec = JPaggSpec(feat_dim=X.shape[1], hidden=16, out_dim=3, walk_len=4)
+    j_res = j_run_round(jax.numpy.asarray(X.numpy()), jax.numpy.asarray(y.numpy()),
+                        JPathSampler.build(small_graph, 6, 4), j_spec,
+                        JTrainConfig(epochs=3, lr=0.01), tr, va, te, 3, seed=5,
+                        keep_params=True)
+    res = run_round(X, y, ps, spec, TrainConfig(epochs=3, lr=0.01), tr, va, te, 3,
+                    seed=5, keep_params=True)
+    assert j_res.best_val_acc == res.best_val_acc == 0.0
+    assert j_res.metrics == pytest.approx(res.metrics)
+    to_np = lambda p: jax.tree_util.tree_map(np.asarray, p)
+    j_kept = params_from_jax(to_np(j_res.best_params), spec)
+    j_init = params_from_jax(to_np(init_pagg_params(
+        jax.random.split(jax.random.PRNGKey(5))[0], j_spec)), spec)
+    init = PathNet(spec, device="cpu",
+                   generator=trainer.make_generator(5, 0, trainer.STREAM_INIT)).state_dict()
+    assert j_kept.keys() == res.best_params.keys() == init.keys()
+    for k, v in res.best_params.items():
+        assert v.shape == j_kept[k].shape, k
+        torch.testing.assert_close(j_kept[k], j_init[k], atol=1e-6, rtol=0)
+        torch.testing.assert_close(v, init[k], atol=1e-6, rtol=0)
+    save_round(str(tmp_path), "ck", 0, res)
+    saved = load_round(str(tmp_path), "ck", 0)
+    for k, v in init.items():
+        torch.testing.assert_close(saved["params"][k], v, atol=1e-6, rtol=0)
+
+
 def test_microbatched_round_equals_the_full_batch_round_without_dropout(planted):
     ps, X, y, (tr, va, te) = planted
     spec = PaggSpec(feat_dim=X.shape[1], hidden=16, out_dim=3, walk_len=4, dropout=0.0)
