@@ -22,7 +22,14 @@ JSON line:
   (the forward recompute with its streams, the attention backward, the
   BPTT), ``k4_*_contract_ms``, the wrapper's weight contractions alone, and
   ``k4_*_dhsum_ms``, the segment sum of the row gradients into ``dh`` (its
-  sort included), where the checkout has them;
+  grouping included), where the checkout has them; the segment sum's parts:
+  ``k4_*_rownodes_ms`` (``row_nodes``, the rows' node ids), ``k4_*_segments_ms``
+  (``segments``, the grouping alone), each per call in a CUDA graph, and
+  ``k4_*_dhsum_kernels_us``, the device time of each kernel of one
+  ``segment_sum`` call by name (``torch.profiler`` over 20 eager calls);
+- ``k5_bgp_ms``, ``k5_bgp_call_ms``: K5's forward on the request's ego rows
+  (8192 x 64), per wrapper call in a CUDA graph and per eager call (CUDA
+  events), and ``k5_bgp_kernels_us``, each of its kernels' device time a call;
 - ``request_ms``: median host time of 8 ``predict`` calls of 8192 targets;
 - ``bgp_epoch_ms``, ``nba_epoch_ms``, ``cornell_epoch_ms``: median host
   time of the epochs after the first of ``run_round`` (bgp stand-in: 3
@@ -41,7 +48,7 @@ from __future__ import annotations
 
 import argparse
 import glob
-import inspect
+import importlib
 import json
 import os
 import shutil
@@ -78,6 +85,41 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_ms(fn, iters: int) -> float:
+    """Mean ms per eager call: CUDA events around ``iters`` warm calls."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_us(fn, iters: int = 20) -> dict:
+    """Device microseconds a call of each kernel ``fn`` launches, by kernel
+    name: ``torch.profiler`` over ``iters`` warm eager calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total / iters
+        if us > 0:
+            out[evt.key[:120]] = round(us, 3)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
 def smi() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True, text=True,
@@ -107,11 +149,7 @@ def k4_stage_times(K, tag, g, h, paths, dists, w, mask_args, out):
     out[f"k4_{tag}_recompute_ms"] = graph_ms(lambda: K.encode_walks_streams(*enc), 5)
     dhn = K.attention_bwd(g, h, paths, hn, *w[6:])[0]
     out[f"k4_{tag}_attn_ms"] = graph_ms(lambda: K.attention_bwd(g, h, paths, hn, *w[6:]), 20)
-    # the node count left the BPTT's arguments when it stopped adding into dh;
-    # a checkout from before that still takes it, and --ab can time one
-    with_n = "n" in inspect.signature(K.bptt).parameters
-    bargs = (dhn, paths, dists, w[0], w[2], w[3], cs, gt, *([n] if with_n else []),
-             *mask_args)
+    bargs = (dhn, paths, dists, w[0], w[2], w[3], cs, gt, *mask_args)
     _, dg, dsel = K.bptt(*bargs)
     # each replay writes over gt again: the times do not depend on the values
     out[f"k4_{tag}_bptt_ms"] = graph_ms(lambda: K.bptt(*bargs), 5)
@@ -123,6 +161,10 @@ def k4_stage_times(K, tag, g, h, paths, dists, w, mask_args, out):
         rows = torch.cat([drow.reshape(-1, drow.shape[-1]), dego])
         nodes = K.row_nodes(paths)
         out[f"k4_{tag}_dhsum_ms"] = graph_ms(lambda: K.segment_sum(rows, nodes, n), 20)
+        out[f"k4_{tag}_rownodes_ms"] = graph_ms(lambda: K.row_nodes(paths), 20)
+        seg = importlib.import_module(K.segment_sum.__module__)
+        out[f"k4_{tag}_segments_ms"] = graph_ms(lambda: seg.segments(nodes, n), 20)
+        out[f"k4_{tag}_dhsum_kernels_us"] = kernel_us(lambda: K.segment_sum(rows, nodes, n))
 
 
 def walk_times(K, shapes, gen, out):
@@ -176,6 +218,9 @@ def measure(root: str) -> dict:
     paths, dists = ps.sample(idx, u=draw_uniforms(4, 8192 * 40, gen, dev))
     h, w = model.encode_inputs(X)
     encode_times(K, "bgp", h, paths, dists, w, (), out)
+    out["k5_bgp_ms"] = graph_ms(lambda: K.row_gather(h, idx), 50)
+    out["k5_bgp_call_ms"] = time_ms(lambda: K.row_gather(h, idx), 50)
+    out["k5_bgp_kernels_us"] = kernel_us(lambda: K.row_gather(h, idx))
     m1, _ = draw_dropout_masks(spec, 8192, 40, gen, dev)
     gout = torch.randn((8192, 64), generator=gen, device=dev)
     out["k4_bgp_ms"] = graph_ms(lambda: K.pagg_encode_bwd(gout, h, paths, dists, *w, m1, 0.3),

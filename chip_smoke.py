@@ -37,13 +37,17 @@ one card). Phases, each with a start and an end line:
    its plain stage on the plain stage's inputs (within 1e-4 of each
    output's largest plain entry); ``segment_sum`` of those stages' row
    gradients into ``dh`` against its plain version (within 1e-5 of its
-   largest entry, two calls bit-equal); timed as in phase 2, with the
+   largest entry, two calls bit-equal) and its grouping ``segments``
+   against the plain grouping (exact); timed as in phase 2, with the
    PyTorch calls ``index_select`` and ``index_add_`` as K5's library
    yardsticks and ``index_add_`` as ``segment_sum``'s, K3's two launches
    each alone, and K4's three launches and the wrapper's weight
    contractions each alone;
 6. train: ``run_round`` on the bgp stand-in for 3 epochs (microbatch 8192,
    dropout 0.7, Adam, best-on-validation) with the launch counts of the path;
+   then ``segment_sum`` and ``segments`` as in phase 5 on the rows of the
+   last train microbatch, whose padding targets send one long run of rows
+   to node 0, timed;
 7. cornell at full width in training: one step on the card and on the host
    with the same walks and masks; logits and every gradient within 1e-4 of
    the host's largest entry (``attw.bias``, a sum that cancels to near 0,
@@ -338,14 +342,21 @@ def check_walk_dists(tag, smp, idx, u, nw, want, rec):
     record_err(rec, "walk_dists", 0.0)
 
 
-def check_segment_sum(tag, paths, rows, n, rec, timed_=False):
+def check_segment_sum(tag, paths, rows, n, rec, time_as=None):
     """The segment sum of K4's row gradients against its plain version
-    (within SEGMENT_TOL of the plain maximum); timed when ``timed_``, with
-    ``index_add_`` as its library yardstick."""
+    (within SEGMENT_TOL of the plain maximum, two calls bit-equal) and its
+    grouping (``segments``) against the plain grouping (exact); timed as
+    ``time_as`` when given, with ``index_add_`` as its library yardstick."""
     import torch
     from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.kernels.segment_sum import segments, segments_plain
 
     nodes = K.row_nodes(paths)
+    units, offsets = segments(nodes, n)
+    units_p, offsets_p = segments_plain(nodes, n)
+    U = int(offsets_p[-1])
+    if not (torch.equal(offsets, offsets_p) and torch.equal(units[:U], units_p[:U])):
+        raise AssertionError(f"{tag}: segments differ from the plain grouping")
     got = K.segment_sum(rows, nodes, n)
     again = K.segment_sum(rows, nodes, n)
     want = K.segment_sum_plain(rows, nodes, n)
@@ -356,18 +367,22 @@ def check_segment_sum(tag, paths, rows, n, rec, timed_=False):
     if not torch.equal(got, again):
         raise AssertionError(f"{tag}: segment_sum differs between two calls")
     record_err(rec, "segment_sum", err)
-    say(f"  {tag}: segment_sum max abs err {err:.3e} within {SEGMENT_TOL} x max, two "
-        f"calls bit-equal ({rows.shape[0]} rows of {rows.shape[1]} into {n} nodes)")
-    if timed_:
+    say(f"  {tag}: segments exact ({U} units), segment_sum max abs err {err:.3e} within "
+        f"{SEGMENT_TOL} x max, two calls bit-equal ({rows.shape[0]} rows of {rows.shape[1]} "
+        f"into {n} nodes)")
+    if time_as is not None:
         R, H = rows.shape
         idx_l = nodes.long()
         # the function's bytes: rows and their node ids read, dh written (the
-        # sort order and offsets are this design's, not the function's)
+        # units and offsets are this design's, not the function's)
         b = R * H * 4 + R * 4 + n * H * 4
-        timed(rec, "segment_sum", lambda: K.segment_sum(rows, nodes, n),
+        timed(rec if time_as == "segment_sum" else {time_as: {}}, time_as,
+              lambda: K.segment_sum(rows, nodes, n),
               lambda: K.segment_sum_plain(rows, nodes, n), b, float(R * H), 20,
               library=lambda: torch.zeros((n, H), device=rows.device).index_add_(0, idx_l,
                                                                                   rows))
+        say(f"  {time_as}: its grouping alone (segments) {graph_ms(lambda: segments(nodes, n), 20):.4f} "
+            "ms per call in a CUDA graph")
 
 
 def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None):
@@ -530,7 +545,7 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False
     record_err(rec, "pagg_encode_bwd", check_k4(tag, got, want))
     del got, want
     rows = check_k4_stages(tag, g, h, paths, dists, w, m1, keep)
-    check_segment_sum(tag, paths, rows, h.shape[0], rec, time_segment)
+    check_segment_sum(tag, paths, rows, h.shape[0], rec, "segment_sum" if time_segment else None)
     del rows
     return paths, dists, h, w, m1, keep, agg, g, bwd_args
 
@@ -581,8 +596,7 @@ def check_training_kernels(ps, model, X, idx, u, gen, rec):
     time_k4_stages("pagg_encode_bwd", g, h, paths, dists, w, m1, keep)
     timed(rec, "row_gather", lambda: K.row_gather(h, idx),
           lambda: K.row_gather_plain(h, idx), b5, 0.0, 50,
-          library=lambda: torch.index_select(h, 0, idx_l),
-          kern_graph=lambda: K.row_gather(h, idx, check=False))
+          library=lambda: torch.index_select(h, 0, idx_l))
     timed(rec, "row_gather_bwd", lambda: K.row_gather_bwd(dout, idx, n),
           lambda: K.row_gather_bwd_plain(dout, idx, n), b5b, float(T * H), 50,
           library=lambda: torch.zeros((n, H), device=X.device).index_add_(0, idx_l, dout),
@@ -1008,7 +1022,14 @@ def main() -> int:
                                                 total, dropout_gen=lambda i: gen), 5)
         say(f"  one {REQUEST}-target microbatch grad (forward K3 + K5, backward K4 + "
             f"K5, weight contractions): {grad_ms:.2f} ms")
-        del res, init, paths6, dists6
+        # the last train microbatch: its padding targets' walks and ego rows
+        # are one long run to node 0
+        pad = int((wc[-1] == 0).sum())
+        p_last = ps.sample(ic[-1], u=draw_uniforms(WL, REQUEST * NW, gen, dev))[0]
+        rows_last = torch.randn(((WL + 1) * REQUEST * NW, HIDDEN), generator=gen, device=dev)
+        check_segment_sum(f"bgp last train microbatch ({pad} padding targets at node 0)",
+                          p_last, rows_last, g.n, rec, "segment_sum, padded microbatch")
+        del res, init, paths6, dists6, p_last, rows_last
 
     with Phase("7 cornell training step at full width"):
         trc = ratio_masks(gc.n, 1000, val_size=59)[0]

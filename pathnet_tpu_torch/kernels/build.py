@@ -35,7 +35,8 @@ TIMEOUT_S = 300
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: name -> argument types (all return int, a cudaError_t)
+# C entry points: name -> argument types (all return int, a cudaError_t, but
+# those in RESTYPES)
 SIGNATURES = {
     # nbr, cdf, deg, srt, starts, u, paths, dists, D, S, nw, wl, walk, stream
     "pathnet_walk_dists": [_P] * 8 + [_I] * 5 + [_P],
@@ -54,16 +55,21 @@ SIGNATURES = {
     # dhn, dists, wd_t, w_t, cs, gt, mask, keep, dsel, drow, T, nw, wl, H,
     # stream
     "pathnet_pagg_bptt": [_P] * 7 + [_F, _P, _P] + [_I] * 4 + [_P],
-    # rows, order, offsets, piece_off, piece_node, partial, out, n, npieces,
-    # H, P, stream
-    "pathnet_segment_sum": [_P] * 7 + [_I] * 4 + [_P],
-    # tbl, idx, out, m, C, stream
-    "pathnet_row_gather": [_P, _P, _P, _I, _I, _P],
+    # rows, index, ints, units, offsets, part, out, R, n, H, stream
+    "pathnet_segment_sum": [_P] * 7 + [_I] * 3 + [_P],
+    # index, ints, units, offsets, R, n, stream
+    "pathnet_segment_group": [_P] * 4 + [_I] * 2 + [_P],
+    # R: the int32 scratch of the two above (returns a long long)
+    "pathnet_segment_scratch": [_I],
+    # tbl, idx, out, m, n, C, stream
+    "pathnet_row_gather": [_P, _P, _P, _I, _I, _I, _P],
     # dout, idx, dtbl, m, C, stream
     "pathnet_row_gather_bwd": [_P, _P, _P, _I, _I, _P],
     # tbl, idx, out, n, D, stream
     "pathnet_lane_gather": [_P, _P, _P, _I, _I, _P],
 }
+
+RESTYPES = {"pathnet_segment_scratch": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -201,7 +207,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         lib.pathnet_error_string.argtypes = [ctypes.c_int]
         lib.pathnet_error_string.restype = ctypes.c_char_p
         _lib = lib

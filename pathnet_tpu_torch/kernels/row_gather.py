@@ -12,15 +12,18 @@ unique, and its one repeated index is node 0, where ``_pad_chunks``
 are exact zeros (``tests/test_torch_reproducible.py``); adding +-0 to a sum
 in any order gives the same bits.
 
-Source: ``pathnet_tpu_torch/csrc/row_gather.cu``. One thread per float4 of
-output (per float when the width is not a multiple of 4), consecutive threads
-on consecutive columns. Bound on the H100: bytes, ``m * C`` floats read and
-written plus the indices, over 3.35 TB/s.
+Source: ``pathnet_tpu_torch/csrc/row_gather.cu``. The forward gives each
+row a group of lanes (16 lanes of one float4 each at C = 64), 256 / lanes
+rows a block, the row's index loaded once; the backward one thread per float
+of ``dout``. Bound on the H100: bytes, ``m * C`` floats read and written plus
+the indices, over 3.35 TB/s.
 
-``idx`` is checked to lie in ``[0, n)``: on the host with an ``IndexError``,
-on the card with a device-side assert on its minimum and maximum, which
-needs no host sync. ``check=False`` skips that where the caller has checked
-(the autograd function's backward, whose forward checked the same ``idx``).
+``idx`` is checked to lie in ``[0, n)``: on the host with an ``IndexError``;
+on the card the forward kernel asserts it for each row (a bad index stops the
+stream, as ``tbl[idx]`` does: one launch a call), and the backward enqueues a
+device-side assert on its minimum and maximum, which needs no host sync;
+``check=False`` skips that where the caller has checked (the autograd
+function's backward, whose forward checked the same ``idx``).
 """
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ def _check_idx(idx: torch.Tensor, n: int, name: str) -> None:
         torch._assert_async((lo >= 0) & (hi < n), f"{name}: index outside [0, {n})")
 
 
-def row_gather(tbl: torch.Tensor, idx: torch.Tensor, check: bool = True) -> torch.Tensor:
+def row_gather(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``float32 [m, C]`` of ``tbl`` (float32 ``[n, C]``) at ``idx``
     (int32 ``[m]``, in ``[0, n)``)."""
     dev = tbl.device
@@ -63,16 +66,15 @@ def row_gather(tbl: torch.Tensor, idx: torch.Tensor, check: bool = True) -> torc
     build.require(idx, "idx", torch.int32, (None,), dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"row_gather: unsupported device {dev}")
-    if check:
-        _check_idx(idx, n, "row_gather")
     if dev.type == "cpu":
+        _check_idx(idx, n, "row_gather")
         return row_gather_plain(tbl, idx)
     m = idx.shape[0]
     out = torch.empty((m, C), dtype=torch.float32, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
         rc = lib.pathnet_row_gather(tbl.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                                    m, C, build.stream_ptr(tbl))
+                                    m, n, C, build.stream_ptr(tbl))
     build.check(rc, "row_gather")
     row_gather.launches += 1
     return out

@@ -17,7 +17,8 @@ from pathnet_tpu_torch.config import TrainConfig
 from pathnet_tpu_torch.data import Graph
 from pathnet_tpu_torch.data.splits import ratio_masks
 from pathnet_tpu_torch.kernels.pagg_encode_bwd import class_contractions
-from pathnet_tpu_torch.kernels.segment_sum import segments
+from pathnet_tpu_torch.kernels.pagg_encode_bwd import row_nodes
+from pathnet_tpu_torch.kernels.segment_sum import RUN, segments, segments_plain
 from pathnet_tpu_torch.models import PaggSpec
 from pathnet_tpu_torch.sample import PathSampler
 from pathnet_tpu_torch.train import run_round
@@ -123,13 +124,77 @@ def test_segment_sum_equals_index_add_and_repeats_bit_for_bit():
 def test_segment_sum_orders_each_nodes_rows_as_they_lie():
     """A node's rows are added from 0 in their order in ``rows``: three
     values whose f32 sum depends on the order give the sequential sum
-    ((1e8 + 1) - 1e8 = 0 in f32, where (1e8 - 1e8) + 1 = 1)."""
+    ((1e8 + 1) - 1e8 = 0 in f32, where (1e8 - 1e8) + 1 = 1). The grouping
+    names rows 0-2 as one unit of node 2 (first row 0, length 3) and row 3 as
+    one of node 0."""
     rows = torch.tensor([[1e8], [1.0], [-1e8], [3.0]], dtype=torch.float32)
     index = torch.tensor([2, 2, 2, 0], dtype=torch.int32)
     out = K.segment_sum(rows, index, 3)
     assert out[:, 0].tolist() == [3.0, 0.0, 0.0]
-    order, offsets = segments(index, 3)
-    assert order.tolist() == [3, 0, 1, 2] and offsets.tolist() == [0, 1, 1, 4]
+    units, offsets = segments(index, 3)
+    assert units[:2].tolist() == [3 * RUN + 0, 0 * RUN + 2] and offsets.tolist() == [0, 1, 1, 2]
+
+
+def sequential_sum(rows, index, n):
+    """Each node's rows added one after another in row order: a stable sort
+    of the ids, then ``index_add_`` (sequential on the CPU)."""
+    order = torch.sort(index, stable=True).indices
+    return torch.zeros((n, rows.shape[1])).index_add_(0, index[order].long(), rows[order])
+
+
+def k4_index(T, nw, wl, n, pad, seed):
+    """``row_nodes`` of walks of ``T`` targets, the last ``pad`` of them the
+    padding at node 0, as a microbatch of K4 lays them out."""
+    gen = torch.Generator().manual_seed(seed)
+    paths = torch.randint(0, n, (T, nw, wl), generator=gen, dtype=torch.int32)
+    paths[:, :, 0] = torch.randperm(n - 1, generator=gen)[:T, None].to(torch.int32) + 1
+    paths[T - pad:, :, 0] = 0
+    return row_nodes(paths)
+
+
+def grouping_case(kind):
+    gen = torch.Generator().manual_seed(len(kind))
+    if kind == "runs of equal ids":             # K4's runs of 40 ego and position-0 rows
+        index, n = k4_index(50, 40, 4, 500, 0, 1), 500
+    elif kind == "a run longer than a piece":   # padding: 2 runs of 40 x 300 rows to node 0
+        index, n = k4_index(400, 40, 4, 5000, 300, 2), 5000
+    elif kind == "empty nodes":                  # odd nodes and the top half have no row
+        index, n = torch.randint(0, 200, (7000,), generator=gen, dtype=torch.int32) * 2, 800
+    else:                                        # three radix passes on the card
+        index = torch.randint(0, 70_000, (30_000,), generator=gen, dtype=torch.int32)
+        index[1000:5000] = 69_999
+        n = 70_001
+    rows = torch.randn((index.shape[0], 8), generator=gen)
+    return rows, index, n
+
+
+@pytest.mark.parametrize("kind", ["runs of equal ids", "a run longer than a piece",
+                                  "empty nodes", "more than 65,536 nodes"])
+def test_grouping_keeps_each_nodes_rows_in_row_order(kind):
+    """The units cover each row once, lie in (node, first row) order and
+    stay inside their aligned window; the plain sum over them is bit-equal
+    to the sequential sum of each node's rows in row order."""
+    rows, index, n = grouping_case(kind)
+    R = index.shape[0]
+    units, offsets = segments_plain(index, n)
+    U = int(offsets[-1])
+    u = units[:U].long()
+    first, length = u // RUN, u % RUN + 1
+    assert ((first % RUN) + length <= RUN).all() and U < R
+    covered = torch.zeros(R, dtype=torch.int64)
+    for k in range(RUN):
+        covered.index_add_(0, (first + k)[length > k], torch.ones(int((length > k).sum()),
+                                                                  dtype=torch.int64))
+    assert (covered == 1).all()
+    key = index[first].long()
+    assert (key[1:] > key[:-1]).logical_or((key[1:] == key[:-1]) & (first[1:] > first[:-1])).all()
+    assert torch.equal(offsets.long(), torch.searchsorted(key, torch.arange(n + 1)))
+    for k in range(RUN):   # each unit is one node's
+        inside = length > k
+        assert torch.equal(index[(first + k)[inside]].long(), key[inside])
+    got = K.segment_sum(rows, index, n)
+    assert torch.equal(got, sequential_sum(rows, index, n))
+    assert torch.equal(got[torch.diff(offsets) == 0], torch.zeros((int((torch.diff(offsets) == 0).sum()), 8)))
 
 
 def test_segment_sum_rejects_bad_inputs():
@@ -185,13 +250,37 @@ def test_padded_targets_send_exact_zeros_to_the_ego_row_scatter(monkeypatch):
     assert (seen[1][1] == 0).sum() > 1 and (wc[1] == 0).sum() > 0
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("R,n,H", [(5000, 300, 24), (1_638_400, 63977, 64), (38600, 403, 256),
-                                   (999, 50, 37), (10, 4, 1)])
-def test_segment_sum_kernel_matches_plain_on_the_card(cuda, R, n, H):
-    rows, index, n = segment_case(R, n, H, seed=R)
+def assert_segment_sum_on_the_card(rows, index, n, cuda):
+    """The kernel's grouping equals the plain one; its sum is within 1e-5 of
+    the plain maximum and the same on two calls."""
+    units, offsets = segments(index.to(cuda), n)
+    units_p, offsets_p = segments_plain(index, n)
+    U = int(offsets_p[-1])
+    assert torch.equal(offsets.cpu(), offsets_p)
+    assert torch.equal(units[:U].cpu(), units_p[:U])
     want = K.segment_sum_plain(rows, index, n)
     got = K.segment_sum(rows.to(cuda), index.to(cuda), n)
     again = K.segment_sum(rows.to(cuda), index.to(cuda), n)
     assert torch.equal(got, again)
     assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,n,H", [(5000, 300, 24), (1_638_400, 63977, 64), (38600, 403, 256),
+                                   (17400, 183, 64), (999, 50, 37), (10, 4, 1)])
+def test_segment_sum_kernel_matches_plain_on_the_card(cuda, R, n, H):
+    assert_segment_sum_on_the_card(*segment_case(R, n, H, seed=R), cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["runs of equal ids", "a run longer than a piece",
+                                  "empty nodes", "more than 65,536 nodes",
+                                  "bgp microbatch, padded"])
+def test_segment_sum_kernel_on_runs_and_wide_ids_on_the_card(cuda, kind):
+    if kind == "bgp microbatch, padded":   # the last train chunk of the bgp stand-in
+        index = k4_index(8192, 40, 4, 63977, 2060, 5)
+        gen = torch.Generator().manual_seed(5)
+        rows, n = torch.randn((index.shape[0], 64), generator=gen), 63977
+    else:
+        rows, index, n = grouping_case(kind)
+    assert_segment_sum_on_the_card(rows, index, n, cuda)

@@ -8,6 +8,8 @@ absent: ``python -m pytest tests/test_torch_train_kernels.py -m gpu
 --noconftest``.
 """
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -296,7 +298,9 @@ def test_each_encode_backward_stage_matches_its_plain_stage_on_the_card(
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,C,m", [(512, 128, 512), (63977, 64, 8192), (183, 5, 1000)])
+@pytest.mark.parametrize("n,C,m", [(512, 128, 512), (63977, 64, 8192), (183, 5, 1000),
+                                   (1000, 3, 4097), (300, 130, 999), (77, 1, 50),
+                                   (403, 256, 193)])
 def test_row_gather_matches_plain_on_the_card(cuda, n, C, m):
     gen = torch.Generator().manual_seed(n)
     tbl = torch.randn((n, C), generator=gen).to(cuda)
@@ -306,6 +310,39 @@ def test_row_gather_matches_plain_on_the_card(cuda, n, C, m):
     got = K.row_gather_bwd(dout, idx, n)
     want = K.row_gather_bwd_plain(dout, idx, n)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_row_gather_is_one_launch_a_call_on_the_card(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(0)
+    tbl = torch.randn((63977, 64), generator=gen).to(cuda)
+    idx = torch.randint(0, 63977, (8192,), generator=gen, dtype=torch.int32).to(cuda)
+    K.row_gather(tbl, idx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        K.row_gather(tbl, idx)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "row_gather" in kernels[0], kernels
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", [8, -1])
+def test_row_gather_stops_the_stream_on_an_index_out_of_range(cuda, bad):
+    """In a process of its own, since the assert leaves the context unusable."""
+    code = ("import torch\n"
+            "from pathnet_tpu_torch import kernels as K\n"
+            "tbl = torch.randn((8, 64), device='cuda')\n"
+            f"idx = torch.tensor([0, {bad}, 3], dtype=torch.int32, device='cuda')\n"
+            "out = K.row_gather(tbl, idx)\n"
+            "torch.cuda.synchronize()\n"
+            "print('no error', out.sum().item())\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode != 0 and "no error" not in r.stdout, r.stdout
+    assert "assert" in r.stderr.lower(), r.stderr[-2000:]
 
 
 @pytest.mark.gpu
