@@ -40,8 +40,9 @@ one card). Phases, each with a start and an end line:
    largest entry, two calls bit-equal) and its grouping ``segments``
    against the plain grouping (exact); timed as in phase 2, with the
    PyTorch calls ``index_select`` and ``index_add_`` as K5's library
-   yardsticks and ``index_add_`` as ``segment_sum``'s, K3's two launches
-   each alone, and K4's three launches and the wrapper's weight
+   yardsticks and ``index_add_`` as ``segment_sum``'s (each library call
+   timed as the kernel, per call in a CUDA graph, and eagerly), K3's two
+   launches each alone, and K4's three launches and the wrapper's weight
    contractions each alone;
 6. train: ``run_round`` on the bgp stand-in for 3 epochs (microbatch 8192,
    dropout 0.7, Adam, best-on-validation) with the launch counts of the path;
@@ -56,7 +57,8 @@ one card). Phases, each with a start and an end line:
 7b. two ``run_round`` calls with one seed (cornell at full width, dropout
    0.7, 30 epochs; the bgp stand-in, microbatch 8192, 2 epochs) must give
    bit-equal validation accuracies, losses and best params;
-8. gather probe: K6 ``lane_gather`` against its plain version (exact) at the
+8. the launch floor: an empty kernel's time per launch in a CUDA graph;
+   gather probe: K6 ``lane_gather`` against its plain version (exact) at the
    probe's ``[512, 128]`` and at ``[63977, 64]`` (bgp rows x H), timed as in
    phase 2 with ``torch.gather`` as its library yardstick; then the probe
    (``pathnet_tpu_torch.gather_probe.main``) on the card, with its launches;
@@ -82,7 +84,18 @@ one card). Phases, each with a start and an end line:
     and its contractions also each alone), then the protocol through the CLI for
     ``NBA_ROUNDS`` rounds x 1000 epochs at ``-hid 256``, whose mean test
     accuracy must lie inside the JAX band 58.54 +- 5.23
-    (``results/results.jsonl:104``).
+    (``results/results.jsonl:104``);
+12. the homo variant: cora at full width (its payload made in phase 9's
+    data root, n = 2,708, F = 1,433, H = 64): K3 (with and without the
+    keep mask), K4 and its three launches, ``segment_sum`` and K5 against
+    their homo plain versions on all 2,708 targets (the tolerances of
+    phases 2 and 5), timed as in phase 5; ``predict`` on the card against
+    the host; one training step on the card against the host; two seeded
+    30-epoch rounds bit-equal; then the cora and citeseer protocols through
+    the CLI (``CORA_ROUNDS``, ``CITESEER_ROUNDS`` rounds x 1000 epochs at
+    the reference defaults), gated on the JAX bands 74.46 +- 2.66 and
+    71.94 +- 1.24 (``results/results.jsonl:55,59``) only when the payload's
+    fingerprint is the band's (ec4121ed, 907bb672; else the phase fails).
 
 The protocol phases gate on their band when they run 10 rounds of 1000
 epochs, and on accuracy above chance when a rehearsal cuts them shorter.
@@ -90,7 +103,8 @@ epochs, and on accuracy above chance when a rehearsal cuts them shorter.
 The line before the last is the kernels' JSON record (launches from phase 6,
 the training path, which runs ``walk_dists``, K3, K4, ``segment_sum`` and
 K5, and launches K1 and K2 no time: ``walk_dists`` replaces them there, as
-each one's ``note`` says; K6's from phase 8);
+each one's ``note`` says; K6's from phase 8; the homo instances of K3 and
+K4, named ``... homo``, from phase 12's cora protocol);
 the last is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
 prints no result. Without a CUDA card, or outside a checkout, it exits
 non-zero.
@@ -156,6 +170,13 @@ PAYLOAD_SHA256 = {
 CORNELL_BAND = (0.8000000178813934, 0.05821799973974322)    # :106, H = 64
 NBA_BAND = (0.5853658318519592, 0.05231123852817561)        # :104, H = 256
 CORNELL_ROUNDS, NBA_ROUNDS, NBA_HIDDEN, PROTOCOL_EPOCHS = 10, 10, 256, 1000
+# the homo variant's JAX bands (results/results.jsonl) and the payload each
+# was run on
+CORA_BAND = (0.7446494042873383, 0.02663735362741913)       # :55
+CITESEER_BAND = (0.7193985044956207, 0.01236745494699046)   # :59
+HOMO_PAYLOADS = {"cora": "ec4121ed", "citeseer": "907bb672"}
+CORA_ROUNDS, CITESEER_ROUNDS = 10, 10
+HOMO_KERNELS = ("pagg_encode_fwd", "pagg_encode_bwd")  # the kernels with a HOMO instance
 
 
 def say(msg: str) -> None:
@@ -342,16 +363,18 @@ def check_walk_dists(tag, smp, idx, u, nw, want, rec):
     record_err(rec, "walk_dists", 0.0)
 
 
-def check_segment_sum(tag, paths, rows, n, rec, time_as=None):
+def check_segment_sum(tag, paths, rows, n, rec, time_as=None, homo=False):
     """The segment sum of K4's row gradients against its plain version
     (within SEGMENT_TOL of the plain maximum, two calls bit-equal) and its
     grouping (``segments``) against the plain grouping (exact); timed as
-    ``time_as`` when given, with ``index_add_`` as its library yardstick."""
+    ``time_as`` when given, with ``index_add_`` as its library yardstick.
+    ``homo``: the rows are the homo variant's (``wl`` a walk, in sampled
+    order)."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.kernels.segment_sum import segments, segments_plain
 
-    nodes = K.row_nodes(paths)
+    nodes = K.row_nodes(paths, homo)
     units, offsets = segments(nodes, n)
     units_p, offsets_p = segments_plain(nodes, n)
     U = int(offsets_p[-1])
@@ -376,7 +399,7 @@ def check_segment_sum(tag, paths, rows, n, rec, time_as=None):
         # the function's bytes: rows and their node ids read, dh written (the
         # units and offsets are this design's, not the function's)
         b = R * H * 4 + R * 4 + n * H * 4
-        timed(rec if time_as == "segment_sum" else {time_as: {}}, time_as,
+        timed(rec if time_as in rec else {time_as: {}}, time_as,
               lambda: K.segment_sum(rows, nodes, n),
               lambda: K.segment_sum_plain(rows, nodes, n), b, float(R * H), 20,
               library=lambda: torch.zeros((n, H), device=rows.device).index_add_(0, idx_l,
@@ -387,36 +410,41 @@ def check_segment_sum(tag, paths, rows, n, rec, time_as=None):
 
 def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None):
     """Time a kernel per launch in a CUDA graph and per eager call, its plain
-    version and (if given) the library call per eager call; record them."""
+    version per eager call and (if given) the library call as the kernel,
+    per call in a CUDA graph (its ``library_ms``) and eagerly; record them."""
     ms = graph_ms(kern_graph or kern, iters)
     call_ms = time_ms(kern, max(2, iters // 3))
     plain_ms = time_ms(plain, 3)
-    lib_ms = time_ms(library, 20) if library is not None else None
+    lib_ms = graph_ms(library, iters) if library is not None else None
+    lib_call = "" if library is None else f", eager {time_ms(library, 20):.4f} ms"
     bound_ms, bound_by = bound(b, o)
     rec[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=lib_ms)
     say(f"  {name}: {ms:.4f} ms per launch in a CUDA graph, {call_ms:.4f} ms per "
         f"eager wrapper call (plain {plain_ms:.4f} ms eager, library "
-        + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms") +
+        + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms in a CUDA graph{lib_call}") +
         f", bound {bound_ms:.4f} ms by {bound_by}: {b / 1e6:.1f} MB, {o / 1e9:.3f} G ops)")
 
 
-def time_k3_stages(tag, h, paths, dists, w, mask_args=()):
+def time_k3_stages(tag, h, paths, dists, w, mask_args=(None, 1.0), homo=False):
     """Each of K3's two launches alone, per launch in a CUDA graph."""
     from pathnet_tpu_torch import kernels as K
 
-    hn = K.encode_walks(h, paths, dists, *w[:6], *mask_args)
-    enc_ms = graph_ms(lambda: K.encode_walks(h, paths, dists, *w[:6], *mask_args), 20)
-    read_ms = graph_ms(lambda: K.readout(h, paths, hn, *w[6:]), 50)
+    enc = (h, paths, dists, *w[:6], *mask_args, homo)
+    out = K.encode_walks(*enc)
+    hn, ego = out if homo else (out, None)
+    enc_ms = graph_ms(lambda: K.encode_walks(*enc), 20)
+    read_ms = graph_ms(lambda: K.readout(h, paths, hn, *w[6:], ego), 50)
     say(f"  {tag}: K3's encode launch {enc_ms:.4f} ms, its readout launch "
         f"{read_ms:.4f} ms, per launch in a CUDA graph")
 
 
-def check_k4_stages(tag, g, h, paths, dists, w, mask, keep):
+def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False):
     """Each of K4's three launches against its plain stage, on the plain
     stage's inputs: every output within K4_TOL of its plain version's
     largest entry (``dattw``, ``dattb``, sums that cancel, of the ego rows'
-    ``dh`` if larger)."""
+    ``dh`` if larger). Returns the row gradients that ``segment_sum`` adds
+    (hetero: the BPTT's and the ego rows'; homo: the BPTT's)."""
     import torch
     from pathnet_tpu_torch import kernels as K
 
@@ -432,39 +460,45 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep):
                                      f"{err} beyond {K4_TOL} x {scale}")
             parts.append(f"{name} {err / max(top, 1e-30):.1e}")
 
-    enc = (h, paths, dists, *w[:6], mask, keep)
+    enc = (h, paths, dists, *w[:6], mask, keep, homo)
     want = K.encode_walks_streams_plain(*enc)
-    hold("recompute", ("hn", "xr", "xin", "hp", "cs", "gt"), K.encode_walks_streams(*enc),
-         want)
-    hn, _, _, _, cs, gt = want
-    want = K.attention_bwd_plain(g, h, paths, hn, *w[6:])
+    hold("recompute", ("hn", "xr", "xin", "hp", "cs", "gt", "ego"),
+         K.encode_walks_streams(*enc), want)
+    hn, _, xin, _, cs, gt = want[:6]
+    ego = want[6] if homo else None
+    want = K.attention_bwd_plain(g, h, paths, hn, *w[6:], ego)
     hold("attention", ("dhn", "dego", "dattw", "dattb"),
-         K.attention_bwd(g, h, paths, hn, *w[6:]), want, float(want[1].abs().max()))
+         K.attention_bwd(g, h, paths, hn, *w[6:], ego), want, float(want[1].abs().max()))
     dego = want[1]
     bargs = (want[0], paths, dists, w[0], w[2], w[3], cs)
-    want = K.bptt_plain(*bargs, gt, mask, keep)
-    hold("bptt", ("drow", "dgates", "dsel"), K.bptt(*bargs, gt.clone(), mask, keep), want)
+    hargs = (xin, ego, dego) if homo else None
+    want = K.bptt_plain(*bargs, gt, mask, keep, hargs)
+    hold("bptt", ("drow", "dgates", "dsel"), K.bptt(*bargs, gt.clone(), mask, keep, hargs),
+         want)
     say(f"  {tag}: K4's three launches each within {K4_TOL} of its plain stage (error "
         "over each plain max: " + ", ".join(parts) + ")")
     H = h.shape[1]
-    return torch.cat([want[0].reshape(-1, H), dego])   # the row gradients
+    drow = want[0].reshape(-1, H)
+    return drow if homo else torch.cat([drow, dego])   # the row gradients
 
 
-def time_k4_stages(tag, g, h, paths, dists, w, mask, keep):
+def time_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False):
     """Each of K4's three launches and the wrapper's weight contractions
     alone, per launch in a CUDA graph."""
     from pathnet_tpu_torch import kernels as K
 
-    enc = (h, paths, dists, *w[:6], mask, keep)
-    hn, xr, xin, hp, cs, gt = K.encode_walks_streams(*enc)
+    enc = (h, paths, dists, *w[:6], mask, keep, homo)
+    hn, xr, xin, hp, cs, gt, *ego = K.encode_walks_streams(*enc)
+    ego = ego[0] if homo else None
     rec_ms = graph_ms(lambda: K.encode_walks_streams(*enc), 5)
-    dhn = K.attention_bwd(g, h, paths, hn, *w[6:])[0]
-    att_ms = graph_ms(lambda: K.attention_bwd(g, h, paths, hn, *w[6:]), 20)
-    bargs = (dhn, paths, dists, w[0], w[2], w[3], cs, gt, mask, keep)
+    dhn, dego = K.attention_bwd(g, h, paths, hn, *w[6:], ego)[:2]
+    att_ms = graph_ms(lambda: K.attention_bwd(g, h, paths, hn, *w[6:], ego), 20)
+    bargs = (dhn, paths, dists, w[0], w[2], w[3], cs, gt, mask, keep,
+             (xin, ego, dego) if homo else None)
     _, dg, dsel = K.bptt(*bargs)
     # each replay writes over gt again; the time does not depend on the values
     bptt_ms = graph_ms(lambda: K.bptt(*bargs), 5)
-    con_ms = graph_ms(lambda: K.contractions(xr, xin, hp, dsel, dg, dists), 5)
+    con_ms = graph_ms(lambda: K.contractions(xr, xin, hp, dsel, dg, dists, homo), 5)
     say(f"  {tag}: K4's forward recompute {rec_ms:.4f} ms, attention backward "
         f"{att_ms:.4f} ms, BPTT {bptt_ms:.4f} ms, weight contractions {con_ms:.4f} ms "
         "(torch.matmul, bmm), each per launch in a CUDA graph")
@@ -472,6 +506,11 @@ def time_k4_stages(tag, g, h, paths, dists, w, mask, keep):
 
 def record_err(rec, name, err):
     rec[name]["max_abs_err"] = max(rec[name].get("max_abs_err", 0.0), err)
+
+
+def homo_name(name, homo):
+    """A kernel's record: its homo instances' record has its own name."""
+    return f"{name} homo" if homo else name
 
 
 def check_k4(tag, got, want):
@@ -515,8 +554,9 @@ def encode_bounds(h, paths, dists, m1, agg, g, w):
 def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False):
     """K3 without and with a keep mask, K4 and the segment sum of K4's row
     gradients against their plain versions on the targets ``idx`` (the
-    segment sum timed when ``time_segment``); returns the inputs and outputs
-    for timing."""
+    segment sum timed when ``time_segment``), in ``model``'s variant (a homo
+    model's kernels record under ``homo_name``); returns the inputs and
+    outputs for timing."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.models import draw_dropout_masks
@@ -525,27 +565,29 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False
     T, nw, wl = paths.shape
     h, w = model.encode_inputs(X)
     H = h.shape[1]
+    homo = model.homo
     keep = 1.0 - model.spec.dropout
     m1, _ = draw_dropout_masks(model.spec, T, nw, gen, X.device)
-    for mask_args, what in (((), "without a mask"), ((m1, keep), "with the keep mask")):
-        agg = K.pagg_encode_fwd(h, paths, dists, *w, *mask_args)
-        agg_p = K.pagg_encode_fwd_plain(h, paths, dists, *w, *mask_args)
+    for mask_args, what in (((None, 1.0), "without a mask"), ((m1, keep), "with the keep mask")):
+        agg = K.pagg_encode_fwd(h, paths, dists, *w, *mask_args, homo)
+        agg_p = K.pagg_encode_fwd_plain(h, paths, dists, *w, *mask_args, homo)
         torch.cuda.synchronize()
         err3 = float((agg - agg_p).abs().max())
         if not torch.allclose(agg, agg_p, atol=K3_TOL, rtol=K3_TOL):
             raise AssertionError(f"{tag}: pagg_encode_fwd {what} max abs err {err3}")
-        record_err(rec, "pagg_encode_fwd", err3)
+        record_err(rec, homo_name("pagg_encode_fwd", homo), err3)
         say(f"  {tag}: pagg_encode_fwd {what} max abs err {err3:.3e} within atol = "
             f"rtol = {K3_TOL} (T={T}, nw={nw}, wl={wl}, H={H}, keep={keep:.2f})")
     g = torch.randn((T, H), generator=gen, device=X.device)
-    bwd_args = (g, h, paths, dists, *w, m1, keep)
+    bwd_args = (g, h, paths, dists, *w, m1, keep, homo)
     got = K.pagg_encode_bwd(*bwd_args)
     want = K.pagg_encode_bwd_plain(*bwd_args)
     torch.cuda.synchronize()
-    record_err(rec, "pagg_encode_bwd", check_k4(tag, got, want))
+    record_err(rec, homo_name("pagg_encode_bwd", homo), check_k4(tag, got, want))
     del got, want
-    rows = check_k4_stages(tag, g, h, paths, dists, w, m1, keep)
-    check_segment_sum(tag, paths, rows, h.shape[0], rec, "segment_sum" if time_segment else None)
+    rows = check_k4_stages(tag, g, h, paths, dists, w, m1, keep, homo)
+    check_segment_sum(tag, paths, rows, h.shape[0], rec,
+                      homo_name("segment_sum", homo) if time_segment else None, homo)
     del rows
     return paths, dists, h, w, m1, keep, agg, g, bwd_args
 
@@ -737,6 +779,75 @@ def check_wide_encode(root, dev, gen, rec):
     time_k4_stages(name4, gout, h, paths, dists, w, m1, keep)
 
 
+def step_card_vs_host(tag, spec, dev, samplers, Xs, idx, y):
+    """One training step (dropout masks drawn on the host) on the card and on
+    the host from the same weights, walks and masks: one launch of each
+    training kernel on the card, and the logits and every gradient within
+    1e-4 of the host's largest entry (``attw.bias``, a sum that cancels to
+    near 0, within 1e-4 of the largest entry of ``attw.weight``'s gradient).
+    ``samplers`` and ``Xs`` are (card, host) pairs."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.models import PathNet, draw_dropout_masks
+
+    n = samplers[1].sampler.n
+    u = torch.rand((WL - 1, n * NW), generator=torch.Generator().manual_seed(7))
+    masks = draw_dropout_masks(spec, idx.shape[0], NW, torch.Generator().manual_seed(8),
+                               "cpu")
+    out = []
+    for d, psx, Xx in zip((dev, "cpu"), samplers, Xs):
+        m = PathNet(spec, device=d, generator=torch.Generator().manual_seed(2))
+        K.reset_launch_counts()
+        p, dd = psx.sample(u=u.to(d))
+        rows = idx.long().to(d)
+        logits = m(Xx, p[rows], dd[rows], idx.to(d), train=True,
+                   masks=tuple(t.to(d) for t in masks))
+        torch.nn.functional.cross_entropy(logits, y[idx.long()].to(d)).backward()
+        if d == dev:
+            torch.cuda.synchronize()
+            step_counts = K.launch_counts()
+        out.append({"logits": logits.detach().cpu(),
+                    **{k: q.grad.cpu() for k, q in m.named_parameters()}})
+    if step_counts != {name: int(name in FORWARD_PATH or name in BACKWARD_PATH)
+                       for name in KERNELS}:
+        raise AssertionError(f"{tag} step launch counts {step_counts}, expected 1 of "
+                             "each training kernel")
+    parts = []
+    for k, want in out[1].items():
+        err = float((out[0][k] - want).abs().max())
+        scale = float(want.abs().max())
+        if k == "attw.bias":
+            # a sum over all walks of the score gradients, which cancel
+            # to near 0; its summands are those of attw.weight's gradient
+            scale = max(scale, float(out[1]["attw.weight"].abs().max()))
+        parts.append(f"{k} {err / max(float(want.abs().max()), 1e-30):.1e}")
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"{tag} step: {k} differs from the host's by {err}")
+    say(f"  {tag}, {idx.shape[0]} train nodes, F = {spec.feat_dim}, {spec.variant}: logits "
+        f"and all {len(out[1]) - 1} gradients on the card against the host (error over "
+        "the host's largest entry): " + ", ".join(parts))
+
+
+def rounds_bit_equal(tag, X, y, ps, masks, classes, cfg, spec):
+    """Two ``run_round`` calls with one seed give bit-equal validation
+    accuracies, losses and best params."""
+    import torch
+    from pathnet_tpu_torch.train import run_round
+
+    a, b = (run_round(X, y, ps, spec, cfg, *masks, classes, seed=4, track_history=True,
+                      keep_params=True) for _ in range(2))
+    same = {"history": np.array_equal(a.history, b.history),
+            "losses": np.array_equal(a.losses, b.losses),
+            "best_params": all(torch.equal(v, b.best_params[k])
+                               for k, v in a.best_params.items())}
+    if not all(same.values()):
+        raise AssertionError(f"{tag}: two seeded rounds differ: {same}; losses "
+                             f"{a.losses.tolist()} and {b.losses.tolist()}")
+    say(f"  {tag}, {cfg.epochs} epochs: two rounds with seed 4 bit-equal in history, "
+        f"losses and all {len(a.best_params)} best params (last loss "
+        f"{float(a.losses[-1]):.6f}, best val {a.best_val_acc:.4f})")
+
+
 def check_reproducible(dev, gc, Xc, X, z, psc, ps):
     """Two ``run_round`` calls with one seed give bit-equal validation
     accuracies, losses and best params: cornell at full width with dropout
@@ -746,7 +857,6 @@ def check_reproducible(dev, gc, Xc, X, z, psc, ps):
     from pathnet_tpu_torch.config import TrainConfig
     from pathnet_tpu_torch.data.splits import get_whole_mask, ratio_masks
     from pathnet_tpu_torch.models import PaggSpec
-    from pathnet_tpu_torch.train import run_round
 
     yc = torch.from_numpy(np.random.default_rng(1).integers(0, 5, size=gc.n)).to(dev)
     y = torch.from_numpy(z["y"].astype(np.int64)).to(dev)
@@ -758,28 +868,24 @@ def check_reproducible(dev, gc, Xc, X, z, psc, ps):
     for tag, Xx, yy, psx, masks, classes, cfg in cases:
         spec = PaggSpec(feat_dim=Xx.shape[1], hidden=HIDDEN, out_dim=classes, walk_len=WL,
                         dropout=0.7)
-        a, b = (run_round(Xx, yy, psx, spec, cfg, *masks, classes, seed=4,
-                          track_history=True, keep_params=True) for _ in range(2))
-        same = {"history": np.array_equal(a.history, b.history),
-                "losses": np.array_equal(a.losses, b.losses),
-                "best_params": all(torch.equal(v, b.best_params[k])
-                                   for k, v in a.best_params.items())}
-        if not all(same.values()):
-            raise AssertionError(f"{tag}: two seeded rounds differ: {same}; losses "
-                                 f"{a.losses.tolist()} and {b.losses.tolist()}")
-        say(f"  {tag}, {cfg.epochs} epochs: two rounds with seed 4 bit-equal in history, "
-            f"losses and all {len(a.best_params)} best params (last loss "
-            f"{float(a.losses[-1]):.6f}, best val {a.best_val_acc:.4f})")
+        rounds_bit_equal(tag, Xx, yy, psx, masks, classes, cfg, spec)
 
 
-def run_protocol_cli(name, root, tmp, rounds, hidden, band):
+def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None):
     """The protocol through the CLI on the card with temporary results and
-    checkpoint directories; checks its launches, checkpoints and accuracy."""
+    checkpoint directories; checks its launches, checkpoints and accuracy,
+    and returns the launch counts. At 10 rounds x 1000 epochs the mean test
+    accuracy must lie inside the JAX ``band``, whose payload fingerprint
+    (``payload``, where given) the dataset's must equal; a shorter run
+    must lie above chance."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch import run
-    from pathnet_tpu_torch.data.registry import DATASETS
+    from pathnet_tpu_torch.data.registry import DATASETS, payload_fingerprint
 
+    if payload is not None and payload_fingerprint(DATASETS[name]) != payload:
+        raise AssertionError(f"{name}: payload {payload_fingerprint(DATASETS[name])} is not "
+                             f"the JAX band's {payload}")
     out = os.path.join(tmp, f"{name}_h{hidden}")
     argv = ["-data", name, "-pr", root, "-r", str(rounds), "-e", str(PROTOCOL_EPOCHS),
             "-hid", str(hidden),
@@ -813,10 +919,99 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band):
             raise AssertionError(f"{name}: mean accuracy {mean} outside the JAX band {band}")
     elif not mean > 1.0 / DATASETS[name].num_classes:
         raise AssertionError(f"{name}: mean accuracy {mean} not above chance")
+    return counts
+
+
+def check_homo_kernels(root, dev, gen, rec):
+    """Cora at full width (n = 2,708, F = 1,433, H = 64) in the homo
+    variant: K3 (with and without the mask), K4 and its three launches,
+    ``segment_sum`` and K5 against their homo plain versions on all targets,
+    timed; ``predict`` and one training step on the card against the host;
+    two seeded rounds bit-equal."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.config import TrainConfig
+    from pathnet_tpu_torch.data.registry import load_dataset
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+    from pathnet_tpu_torch.sample import PathSampler
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+    from pathnet_tpu_torch.train import predict
+
+    g, train, val, test, spec_d = load_dataset("cora", root, 0)
+    ps = PathSampler.build(g, NW, WL, device=dev)
+    X = torch.from_numpy(np.array(g.features, np.float32)).to(dev)
+    y = torch.from_numpy(np.array(g.labels, np.int64))
+    C = spec_d.num_classes
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=HIDDEN, out_dim=C, walk_len=WL, dropout=0.7,
+                    variant="homo")
+    model = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(5))
+    every = torch.arange(g.n, dtype=torch.int32, device=dev)
+    u = draw_uniforms(WL, g.n * NW, gen, dev)
+    say(f"  cora: n={g.n}, F={X.shape[1]}, C={C}, D={ps.sampler.max_deg}, train / val / test "
+        f"{int(train.sum())} / {int(val.sum())} / {int(test.sum())}")
+    paths, dists, h, w, m1, keep, agg, gout, bwd_args = check_encode_kernels(
+        f"cora homo, all {g.n} targets", ps, model, X, every, u, gen, rec, time_segment=True)
+    n, H = h.shape
+    out = K.row_gather(h, every)
+    dout = torch.randn(out.shape, generator=gen, device=dev)
+    d5, d5p = K.row_gather_bwd(dout, every, n), K.row_gather_bwd_plain(dout, every, n)
+    err5 = float((d5 - d5p).abs().max())
+    if not (torch.equal(out, K.row_gather_plain(h, every))
+            and err5 <= K5_BWD_TOL * float(d5p.abs().max())):
+        raise AssertionError(f"cora: row_gather differs, or row_gather_bwd err {err5}")
+    record_err(rec, "row_gather", 0.0)
+    record_err(rec, "row_gather_bwd", err5)
+    say(f"  cora ego rows: row_gather exact, row_gather_bwd max abs err {err5:.3e} within "
+        f"{K5_BWD_TOL} x max")
+
+    b3 = nbytes(h, paths, dists, agg, *w)
+    _, o3, b4, o4 = encode_bounds(h, paths, dists, m1, agg, gout, w)
+    timed(rec, "pagg_encode_fwd homo", lambda: K.pagg_encode_fwd(h, paths, dists, *w, homo=True),
+          lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, homo=True), b3, o3, 20)
+    timed({"pagg_encode_fwd homo with keep mask": {}}, "pagg_encode_fwd homo with keep mask",
+          lambda: K.pagg_encode_fwd(h, paths, dists, *w, m1, keep, homo=True),
+          lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, m1, keep, homo=True),
+          b3 + nbytes(m1), o3, 20)
+    time_k3_stages("pagg_encode_fwd homo", h, paths, dists, w, homo=True)
+    timed(rec, "pagg_encode_bwd homo", lambda: K.pagg_encode_bwd(*bwd_args),
+          lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 5)
+    time_k4_stages("pagg_encode_bwd homo", gout, h, paths, dists, w, m1, keep, homo=True)
+    idx_l = every.long()
+    timed({"row_gather cora": {}}, "row_gather cora", lambda: K.row_gather(h, every),
+          lambda: K.row_gather_plain(h, every), (2 * n * H + n) * 4, 0.0, 50,
+          library=lambda: torch.index_select(h, 0, idx_l))
+    timed({"row_gather_bwd cora": {}}, "row_gather_bwd cora",
+          lambda: K.row_gather_bwd(dout, every, n),
+          lambda: K.row_gather_bwd_plain(dout, every, n), (2 * n * H + n) * 4, float(n * H),
+          50, library=lambda: torch.zeros((n, H), device=dev).index_add_(0, idx_l, dout),
+          kern_graph=lambda: K.row_gather_bwd(dout, every, n, check=False))
+    del paths, dists, m1, agg, gout, bwd_args
+
+    # serving and one training step, the card against the host
+    ps_host = PathSampler.build(g, NW, WL, device="cpu")
+    m_host = PathNet(spec, device="cpu")
+    m_host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    K.reset_launch_counts()
+    logp = predict(model, X, ps, idx=every, u=u[None])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if counts != {name: int(name in FORWARD_PATH) for name in KERNELS}:
+        raise AssertionError(f"cora request launch counts {counts}, expected 1 of each "
+                             "forward kernel")
+    logp_host = predict(m_host, X.cpu(), ps_host, idx=every.cpu(), u=u[None].cpu())
+    err = float((logp.cpu() - logp_host).abs().max())
+    say(f"  cora predict on the card vs the host (same draws, all {g.n} nodes): max abs err "
+        f"{err:.3e}")
+    if not torch.isfinite(logp).all() or err > K3_TOL:
+        raise AssertionError(f"cora log-probs differ from the host's by {err}")
+    idx = torch.from_numpy(np.flatnonzero(train).astype(np.int32))
+    step_card_vs_host("cora", spec, dev, (ps, ps_host), (X, X.cpu()), idx, y)
+    rounds_bit_equal("cora homo", X, y.to(dev), ps, (train, val, test), C,
+                     TrainConfig(epochs=30), spec)
 
 
 def main() -> int:
-    faulthandler.dump_traceback_later(900, exit=True)
+    faulthandler.dump_traceback_later(1150, exit=True)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -840,7 +1035,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    rec = {name: {} for name in KERNELS}
+    rec = {name: {} for name in KERNELS + tuple(homo_name(n, True) for n in HOMO_KERNELS)}
     meta = {
         "cdf_walk": ("pathnet_tpu_torch/csrc/walk_dists.cu", "pathnet_tpu/sample/alias.py:142"),
         "membership_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
@@ -860,6 +1055,7 @@ def main() -> int:
         "walk_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
                        "pathnet_tpu/sample/alias.py:142, pathnet_tpu/sample/distance.py:77"),
     }
+    meta.update({homo_name(n, True): meta[n] for n in HOMO_KERNELS})
 
     with Phase("0 device"):
         kind = torch.cuda.get_device_name(0)
@@ -1036,43 +1232,8 @@ def main() -> int:
         idx7 = torch.from_numpy(np.flatnonzero(trc).astype(np.int32))
         yc = torch.from_numpy(np.random.default_rng(1).integers(0, 5, size=gc.n))
         spec7 = PaggSpec(feat_dim=1703, hidden=HIDDEN, out_dim=5, walk_len=WL, dropout=0.7)
-        u7 = torch.rand((WL - 1, gc.n * NW), generator=torch.Generator().manual_seed(7))
-        masks7 = draw_dropout_masks(spec7, idx7.shape[0], NW,
-                                    torch.Generator().manual_seed(8), "cpu")
-        out = []
-        for d, psx, Xx in ((dev, psc, Xc), ("cpu", ps_host, torch.from_numpy(Xc_np))):
-            m7 = PathNet(spec7, device=d, generator=torch.Generator().manual_seed(2))
-            K.reset_launch_counts()
-            p7, d7 = psx.sample(u=u7.to(d))
-            rows = idx7.long().to(d)
-            logits = m7(Xx, p7[rows], d7[rows], idx7.to(d), train=True,
-                        masks=tuple(t.to(d) for t in masks7))
-            torch.nn.functional.cross_entropy(logits, yc[idx7.long()].to(d)).backward()
-            if d == dev:
-                torch.cuda.synchronize()
-                step_counts = K.launch_counts()
-            out.append({"logits": logits.detach().cpu(),
-                        **{k: q.grad.cpu() for k, q in m7.named_parameters()}})
-        if step_counts != {name: int(name in FORWARD_PATH or name in BACKWARD_PATH)
-                           for name in KERNELS}:
-            raise AssertionError(f"cornell step launch counts {step_counts}, expected 1 of "
-                                 "each training kernel")
-        worst, parts = 0.0, []
-        for k, want in out[1].items():
-            err = float((out[0][k] - want).abs().max())
-            scale = float(want.abs().max())
-            if k == "attw.bias":
-                # a sum over all walks of the score gradients, which cancel
-                # to near 0; its summands are those of attw.weight's gradient
-                scale = max(scale, float(out[1]["attw.weight"].abs().max()))
-            rel = err / max(float(want.abs().max()), 1e-30)
-            worst = max(worst, rel)
-            parts.append(f"{k} {rel:.1e}")
-            if not err <= 1e-4 * scale:
-                raise AssertionError(f"cornell step: {k} differs from the host's by {err}")
-        say(f"  {idx7.shape[0]} train nodes, F = 1703: logits and all {len(out[1]) - 1} "
-            f"gradients on the card against the host (error over the host's largest "
-            f"entry): " + ", ".join(parts))
+        step_card_vs_host("cornell", spec7, dev, (psc, ps_host), (Xc, torch.from_numpy(Xc_np)),
+                          idx7, yc)
         pc = psc.sample(u=uc)[0]
         rows7 = torch.randn(((WL + 1) * gc.n * NW, HIDDEN), generator=gen, device=dev)
         check_segment_sum(f"cornell, all {gc.n} nodes", pc, rows7, gc.n, rec)
@@ -1080,7 +1241,9 @@ def main() -> int:
     with Phase("7b seeded rounds twice (cornell 30 epochs, bgp stand-in 2 epochs)"):
         check_reproducible(dev, gc, Xc, X, z, psc, ps)
 
-    with Phase("8 gather probe"):
+    with Phase("8 gather probe and the launch floor"):
+        floor_ms = graph_ms(lambda: build.empty_launch(dev), 200)
+        say(f"  launch floor: an empty kernel, {floor_ms:.5f} ms per launch in a CUDA graph")
         check_gather_probe(dev, gen, rec)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1094,6 +1257,16 @@ def main() -> int:
         with Phase(f"11 Nba at H = {NBA_HIDDEN} ({NBA_ROUNDS} x {PROTOCOL_EPOCHS})"):
             check_wide_encode(root, dev, gen, rec)
             run_protocol_cli("Nba", root, tmp, NBA_ROUNDS, NBA_HIDDEN, NBA_BAND)
+
+        with Phase(f"12 homo: cora kernels, cora {CORA_ROUNDS} x {PROTOCOL_EPOCHS}, citeseer "
+                   f"{CITESEER_ROUNDS} x {PROTOCOL_EPOCHS}"):
+            check_homo_kernels(root, dev, gen, rec)
+            counts = run_protocol_cli("cora", root, tmp, CORA_ROUNDS, HIDDEN, CORA_BAND,
+                                      HOMO_PAYLOADS["cora"])
+            for name in HOMO_KERNELS:
+                rec[homo_name(name, True)]["launches"] = counts[name]
+            run_protocol_cli("citeseer", root, tmp, CITESEER_ROUNDS, HIDDEN, CITESEER_BAND,
+                             HOMO_PAYLOADS["citeseer"])
 
     say(smi)
     say(json.dumps({"kernels": [

@@ -1,16 +1,23 @@
-// K3: PAGG encode forward for the hetero / LSTM / attention model, f32.
+// K3: PAGG encode forward for the LSTM / attention model, hetero and homo
+// variants, f32.
 //
 // Replaces pathnet_tpu/models/pagg.py:235-303 (the encode block and the
 // attention readout of pagg_forward) with _dist_select (:150-177) and
 // nn/cells.py:22-46 (lstm_scan). For every walk b = target * nw + walk:
-//   x_t   = h[paths[wl-1-t]]                     (hetero: far -> near)
-//   s_t   = x_t @ W[d] + b[d],  d = clip(dists[wl-1-t], 0, wl-1)
+//   x_t   = h[paths[p_t]],  p_t = wl-1-t (hetero: far -> near), t (homo)
+//   s_t   = x_t @ W[d] + b[d],  d = clip(dists[p_t], 0, wl-1)
+//   s_t   = relu(s_t)                            (homo only, pagg.py:269)
+//   ego   = h[paths[0]] (hetero),  s_0 here (homo, before dropout, :270)
 //   s_t   = mask ? s_t / keep : 0                (training only, pagg.py:274)
 //   gates = s_t @ w_ih + b_ih + h_{t-1} @ w_hh + b_hh   (i, f, g, o)
 //   c_t = f c_{t-1} + i g,  h_t = o tanh(c_t)
-// and per target:
-//   score = leaky_relu(attw . [h_n, h[paths[0]]] + attb), softmax over nw
-//   out   = sum over walks of softmax * h_n                  -> [T, H]
+// and per target, with score = attw . [h_n, ego] + attb:
+//   hetero: softmax over nw of leaky_relu(score); out = sum of softmax * h_n
+//   homo:   out = mean over nw of (1 + score) * h_n          -> [T, H]
+// HOMO is a template parameter of both launches, so the hetero instances
+// are the code they were; the homo encode also stores the walk's ego row
+// to a scratch [T * nw, H] that the readout reads in place of h[paths[0]].
+// The variant changes per-element work only: the bound below holds for both.
 //
 // Bound on the H100: f32 FMA work on the CUDA cores, 18 H^2 flops per walk
 // step (2 H^2 for the selected distance transform, 16 H^2 for the gates):
@@ -49,8 +56,8 @@
 //    tile as constants; other widths take the instance that reads it at run
 //    time.
 // 2. pagg_readout_kernel: one block per target; a warp per walk scores it,
-//    warp 0 reduces the max and the denominator once, and the block forms
-//    the weighted sum over nw.
+//    warp 0 reduces the max and the denominator once (hetero), and the
+//    block forms the weighted sum over nw.
 // M and KC are derived from H in tile_for; nothing is a knob.
 //
 // The tile machinery and the encode kernel live in pagg_tile.cuh, which K4
@@ -59,26 +66,28 @@
 
 namespace {
 
+template <bool HOMO>
 __global__ void pagg_readout_kernel(const float* __restrict__ h,
                                     const int* __restrict__ paths,
                                     const float* __restrict__ hn,
+                                    const float* __restrict__ ego,
                                     const float* __restrict__ attw,
                                     const float* __restrict__ attb,
                                     float* __restrict__ out, int nw, int wl, int H) {
-  extern __shared__ float sc[];  // [nw] scores, then softmax weights
+  extern __shared__ float sc[];  // [nw] scores, then the walks' weights
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const long long b0 = (long long)blockIdx.x * nw;
   for (int p = warp; p < nw; p += nwarps) {
     const float* hr = hn + (b0 + p) * H;
-    const float* ego = h + (long long)paths[(b0 + p) * wl] * H;
+    const float* er = HOMO ? ego + (b0 + p) * H : h + (long long)paths[(b0 + p) * wl] * H;
     float s = 0.0f;
-    for (int k = lane; k < H; k += 32) s += attw[k] * hr[k] + attw[H + k] * ego[k];
+    for (int k = lane; k < H; k += 32) s += attw[k] * hr[k] + attw[H + k] * er[k];
     s = warp_sum(s) + attb[0];
-    if (lane == 0) sc[p] = s > 0.0f ? s : 0.01f * s;
+    if (lane == 0) sc[p] = HOMO ? 1.0f + s : (s > 0.0f ? s : 0.01f * s);
   }
   __syncthreads();
-  if (warp == 0) {
+  if (!HOMO && warp == 0) {
     float m = -INFINITY;
     for (int p = lane; p < nw; p += 32) m = fmaxf(m, sc[p]);
     m = warp_max(m);
@@ -91,7 +100,7 @@ __global__ void pagg_readout_kernel(const float* __restrict__ h,
   for (int j = threadIdx.x; j < H; j += blockDim.x) {
     float o = 0.0f;
     for (int p = 0; p < nw; ++p) o += sc[p] * hn[(b0 + p) * H + j];
-    out[(long long)blockIdx.x * H + j] = o;
+    out[(long long)blockIdx.x * H + j] = HOMO ? o / nw : o;
   }
 }
 
@@ -108,50 +117,29 @@ extern "C" int pathnet_pagg_encode_tile(int H, void* out) {
   return 0;
 }
 
-// Launch 1: h_n [T * nw, H] of every walk.
+// Launch 1: h_n [T * nw, H] of every walk; homo where ego [T * nw, H] is
+// given, which then receives each walk's ego row.
 extern "C" int pathnet_pagg_encode_walks(
     const void* h, const void* paths, const void* dists, const void* wd,
     const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
-    const void* b_hh, const void* mask, float keep, void* hn, int T, int nw,
+    const void* b_hh, const void* mask, float keep, void* hn, void* ego, int T, int nw,
     int wl, int H, void* stream) {
-  const long long B = (long long)T * nw;
-  if (B == 0) return 0;
-  const Tile tl = tile_for(H);
-  auto kernel = H == 64    ? (mask ? pagg_encode_walks_kernel<true, 64, false>
-                                   : pagg_encode_walks_kernel<false, 64, false>)
-                : H == 256 ? (mask ? pagg_encode_walks_kernel<true, 256, false>
-                                   : pagg_encode_walks_kernel<false, 256, false>)
-                           : (mask ? pagg_encode_walks_kernel<true, 0, false>
-                                   : pagg_encode_walks_kernel<false, 0, false>);
-  if (tl.smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tl.smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const long long grid = (B + tl.M - 1) / tl.M;
-  kernel<<<(unsigned)grid, tl.NT, tl.smem, (cudaStream_t)stream>>>(
-      (const float*)h, (const int*)paths, (const int*)dists, (const float*)wd,
-      (const float*)bd, (const float*)w_ih, (const float*)w_hh,
-      (const float*)b_ih, (const float*)b_hh, (const uint8_t*)mask, keep,
-      (float*)hn, Streams{}, B, wl, H,
-      ((uintptr_t)wd | (uintptr_t)w_ih | (uintptr_t)w_hh) % 16 == 0);
-  return (int)cudaGetLastError();
+  return launch_encode<false>(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep,
+                              hn, ego, Streams{}, T, nw, wl, H, stream);
 }
 
-// Launch 2: the attention readout [T, H] from h_n.
+// Launch 2: the attention readout [T, H] from h_n; homo where ego (launch
+// 1's) is given.
 extern "C" int pathnet_pagg_readout(const void* h, const void* paths,
-                                    const void* hn, const void* attw,
+                                    const void* hn, const void* ego, const void* attw,
                                     const void* attb, void* out, int T, int nw,
                                     int wl, int H, void* stream) {
   if (T == 0) return 0;
-  const size_t smem = (size_t)nw * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pagg_readout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  pagg_readout_kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
-      (const float*)h, (const int*)paths, (const float*)hn, (const float*)attw,
-      (const float*)attb, (float*)out, nw, wl, H);
+  const int smem = nw * (int)sizeof(float);
+  const auto kernel = ego ? pagg_readout_kernel<true> : pagg_readout_kernel<false>;
+  if (int e = allow_smem(kernel, smem)) return e;
+  kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
+      (const float*)h, (const int*)paths, (const float*)hn, (const float*)ego,
+      (const float*)attw, (const float*)attb, (float*)out, nw, wl, H);
   return (int)cudaGetLastError();
 }

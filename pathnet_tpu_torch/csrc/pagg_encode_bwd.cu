@@ -1,10 +1,13 @@
-// K4: PAGG encode backward for the hetero / LSTM / attention model, f32.
+// K4: PAGG encode backward for the LSTM / attention model, hetero and homo
+// variants, f32.
 //
 // Replaces the VJP of pathnet_tpu/models/pagg.py:235-303 (the encode block
 // and attention readout that K3 computes), with the gather VJP of the "h"
 // gather mode (pagg.py:83-93): given g = d h_agg [T, H] it writes the
-// gradient of every gathered row, one row per (walk, position) plus one per
-// walk for its ego row, which csrc/segment_sum.cu then sums into dh [n, H]
+// gradient of every gathered row, one row per (walk, position) plus, for
+// the hetero variant, one per walk for its ego row h[paths[0]] (the homo
+// ego row is step 0's selected row, so its gradient joins that step's
+// dsel), which csrc/segment_sum.cu then sums into dh [n, H]
 // in an order fixed by the paths; the attention weights' gradient as one
 // partial sum per target, which the wrapper sums in a fixed order; and the
 // per-row streams from which the wrapper contracts the weight gradients
@@ -19,9 +22,24 @@
 // are written once and read once or twice, ~1-2 ms of HBM at 3.35 TB/s where
 // nothing overlaps them.
 //
+// HOMO is a template parameter of all three launches (the hetero instances
+// are the code they were); it changes per-element work only, so the bound
+// above holds for both variants. Under HOMO launch A also writes the ego
+// rows [T * nw, H] (the ReLU'd step-0 selected rows before dropout); launch B
+// reads them in place of h[paths[0]], with d score = g . h_n / nw and
+// d h_n = (1 + score) g / nw + d score attw[:H], and writes d ego = d score
+// attw[H:] to a scratch [T * nw, H]; launch C adds d ego to step 0's dsel and
+// multiplies dsel by the ReLU's derivative 1[s > 0]. The sign of s comes from
+// the ego row at step 0 and from xin, the dropped-out input, after it: where
+// the mask dropped a row its dsel is 0 whatever the sign, and where it kept
+// it xin = s / keep has the sign of s. So the homo variant keeps no second
+// copy of the inputs: its extra scratch is the ego rows and d ego, 2 H floats
+// a walk (168 MB at the bgp-sized microbatch) against the H floats a walk of
+// the hetero ego-row gradients it does not write.
+//
 // Design: three launches on K3's walk tile (pagg_tile.cuh); nothing is kept
 // between K3 and K4, so launch A recomputes the forward.
-// A. pagg_encode_walks_kernel<MASKED, HC, STREAMS = true>: K3's encode on
+// A. pagg_encode_walks_kernel<MASKED, HC, STREAMS = true, HOMO>: K3's encode on
 //    K3's grid and tile, which also stores per step the values launch C and
 //    the contractions read (xr, xin, hp, cs, gt: see Streams) and writes
 //    h_n [T * nw, H] to a scratch.
@@ -67,15 +85,25 @@ __device__ __forceinline__ float2 load_units(const float* __restrict__ s, long l
 
 __device__ __forceinline__ float leaky(float s) { return s > 0.0f ? s : 0.01f * s; }
 
+// Walk b's ego row: h[paths[b, 0]] (hetero), the ego scratch's row b (homo).
+template <bool HOMO>
+__device__ __forceinline__ const float* ego_row(const float* __restrict__ h,
+                                                const int* __restrict__ paths,
+                                                const float* __restrict__ ego, long long b,
+                                                int wl, int H) {
+  return HOMO ? ego + b * H : h + (long long)paths[b * wl] * H;
+}
+
+template <bool HOMO>
 __global__ void pagg_attention_bwd_kernel(
     const float* __restrict__ g, const float* __restrict__ h,
     const int* __restrict__ paths, const float* __restrict__ hn,
-    const float* __restrict__ attw, const float* __restrict__ attb,
-    float* __restrict__ dhn, float* __restrict__ dego, float* __restrict__ part,
-    int nw, int wl, int H) {
+    const float* __restrict__ ego, const float* __restrict__ attw,
+    const float* __restrict__ attb, float* __restrict__ dhn, float* __restrict__ dego,
+    float* __restrict__ part, int nw, int wl, int H) {
   extern __shared__ float sm[];
-  float* sc = sm;        // [nw] scores before the leaky relu
-  float* at = sc + nw;   // [nw] softmax weights
+  float* sc = sm;        // [nw] scores (hetero: before the leaky relu)
+  float* at = sc + nw;   // [nw] each walk's weight on g: softmax, or (1 + score) / nw
   float* ds = at + nw;   // [nw] d att, then d score
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -83,10 +111,10 @@ __global__ void pagg_attention_bwd_kernel(
   const float* gr = g + (long long)blockIdx.x * H;
   for (int p = warp; p < nw; p += nwarps) {
     const float* hr = hn + (b0 + p) * H;
-    const float* ego = h + (long long)paths[(b0 + p) * wl] * H;
+    const float* er = ego_row<HOMO>(h, paths, ego, b0 + p, wl, H);
     float s = 0.0f, da = 0.0f;
     for (int k = lane; k < H; k += 32) {
-      s += attw[k] * hr[k] + attw[H + k] * ego[k];
+      s += attw[k] * hr[k] + attw[H + k] * er[k];
       da += gr[k] * hr[k];
     }
     s = warp_sum(s) + attb[0];
@@ -97,7 +125,13 @@ __global__ void pagg_attention_bwd_kernel(
     }
   }
   __syncthreads();
-  if (warp == 0) {
+  if (HOMO && warp == 0) {
+    // out = mean of (1 + score) h_n: d score = d att / nw
+    for (int p = lane; p < nw; p += 32) {
+      at[p] = (1.0f + sc[p]) / nw;
+      ds[p] = ds[p] / nw;
+    }
+  } else if (warp == 0) {
     // softmax over the walks; d score = att (d att - sum att d att) leaky'
     float m = -INFINITY;
     for (int p = lane; p < nw; p += 32) m = fmaxf(m, leaky(sc[p]));
@@ -126,7 +160,7 @@ __global__ void pagg_attention_bwd_kernel(
     float dw = 0.0f, de = 0.0f;
     for (int p = 0; p < nw; ++p) {
       dw += ds[p] * hn[(b0 + p) * H + j];
-      de += ds[p] * h[(long long)paths[(b0 + p) * wl] * H + j];
+      de += ds[p] * ego_row<HOMO>(h, paths, ego, b0 + p, wl, H)[j];
     }
     pr[j] = dw;
     pr[H + j] = de;
@@ -138,14 +172,16 @@ __global__ void pagg_attention_bwd_kernel(
   }
 }
 
-template <bool MASKED, int HC>
+// HOMO also reads xin and ego (launch A's) and dego (launch B's).
+template <bool MASKED, int HC, bool HOMO>
 __global__ void __launch_bounds__(launch_threads(HC), launch_blocks(HC))
 pagg_bptt_kernel(const float* __restrict__ dhn,
                  const int* __restrict__ dists, const float* __restrict__ wd_t,
                  const float* __restrict__ w_t, const float* __restrict__ cs,
                  float* __restrict__ gt, const uint8_t* __restrict__ mask, float keep,
-                 float* __restrict__ dsel, float* __restrict__ drow, long long B, int wl,
-                 int Hrt, bool aligned) {
+                 const float* __restrict__ xin, const float* __restrict__ ego,
+                 const float* __restrict__ dego, float* __restrict__ dsel,
+                 float* __restrict__ drow, long long B, int wl, int Hrt, bool aligned) {
   constexpr Tile tc = tile_for(HC ? HC : 64);
   const Tile tr = tile_for(Hrt);
   const int H = HC ? HC : Hrt;
@@ -180,7 +216,7 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
     }
 
   for (int t = wl - 1; t >= 0; --t) {
-    const int pos = wl - 1 - t;
+    const int pos = HOMO ? t : wl - 1 - t;
     const long long r0 = (long long)t * B + b0;  // stream row of walk b0
     // gate gradients, rows in halves of 4 so that both units of a row move
     // through global memory in one access: over gt, and into A transposed
@@ -255,6 +291,19 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
         acc[i][0][0] = k0 ? acc[i][0][0] * rkeep : 0.0f;
         acc[i][1][0] = k1 ? acc[i][1][0] * rkeep : 0.0f;
       }
+      if constexpr (HOMO) {
+        // step 0 also takes the ego row's gradient; then the ReLU's derivative,
+        // the sign of s read from the ego row (step 0) or from xin (see above)
+        const float2 sgn = t == 0 ? load_units(ego, b0 + i, H, 0, H, jc, jv)
+                                  : load_units(xin, r0 + i, H, 0, H, jc, jv);
+        if (t == 0) {
+          const float2 de = load_units(dego, b0 + i, H, 0, H, jc, jv);
+          acc[i][0][0] += de.x;
+          acc[i][1][0] += de.y;
+        }
+        acc[i][0][0] = sgn.x > 0.0f ? acc[i][0][0] : 0.0f;
+        acc[i][1][0] = sgn.y > 0.0f ? acc[i][1][0] : 0.0f;
+      }
       store_units(dsel, r0 + i, H, 0, H, jc, jv, acc[i][0][0], acc[i][1][0]);
     }
 #pragma unroll
@@ -306,79 +355,69 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
   }
 }
 
-template <typename Kernel>
-int allow_smem(Kernel kernel, int bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   bytes);
+template <int HC>
+auto bptt_instance(bool masked, bool homo) {
+  return masked ? (homo ? pagg_bptt_kernel<true, HC, true> : pagg_bptt_kernel<true, HC, false>)
+                : (homo ? pagg_bptt_kernel<false, HC, true> : pagg_bptt_kernel<false, HC, false>);
 }
 
 }  // namespace
 
 // Launch A: h_n [T * nw, H] and the streams xr, xin, hp, cs [wl, T * nw, H]
-// and gt [wl, T * nw, 4H].
+// and gt [wl, T * nw, 4H]; homo where ego [T * nw, H] is given, which then
+// receives each walk's ego row.
 extern "C" int pathnet_pagg_encode_walks_streams(
     const void* h, const void* paths, const void* dists, const void* wd,
     const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
     const void* b_hh, const void* mask, float keep, void* hn, void* xr, void* xin,
-    void* hp, void* cs, void* gt, int T, int nw, int wl, int H, void* stream) {
-  const long long B = (long long)T * nw;
-  if (B == 0) return 0;
-  const Tile tl = tile_for(H);
-  auto kernel = H == 64    ? (mask ? pagg_encode_walks_kernel<true, 64, true>
-                                   : pagg_encode_walks_kernel<false, 64, true>)
-                : H == 256 ? (mask ? pagg_encode_walks_kernel<true, 256, true>
-                                   : pagg_encode_walks_kernel<false, 256, true>)
-                           : (mask ? pagg_encode_walks_kernel<true, 0, true>
-                                   : pagg_encode_walks_kernel<false, 0, true>);
-  if (int e = allow_smem(kernel, tl.smem)) return e;
+    void* hp, void* cs, void* gt, void* ego, int T, int nw, int wl, int H, void* stream) {
   const Streams st = {(float*)xr, (float*)xin, (float*)hp, (float*)cs, (float*)gt};
-  kernel<<<(unsigned)((B + tl.M - 1) / tl.M), tl.NT, tl.smem, (cudaStream_t)stream>>>(
-      (const float*)h, (const int*)paths, (const int*)dists, (const float*)wd,
-      (const float*)bd, (const float*)w_ih, (const float*)w_hh,
-      (const float*)b_ih, (const float*)b_hh, (const uint8_t*)mask, keep,
-      (float*)hn, st, B, wl, H,
-      ((uintptr_t)wd | (uintptr_t)w_ih | (uintptr_t)w_hh) % 16 == 0);
-  return (int)cudaGetLastError();
+  return launch_encode<true>(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep,
+                             hn, ego, st, T, nw, wl, H, stream);
 }
 
 // Launch B: d h_n [T * nw, H] from g [T, H] and h_n; writes the ego rows'
 // gradient dego [T * nw, H] and each target's terms of the attention
-// weights' gradient, part [T, 2H + 1] (d attw, then d attb).
+// weights' gradient, part [T, 2H + 1] (d attw, then d attb). Homo where ego
+// (launch A's) is given.
 extern "C" int pathnet_pagg_attention_bwd(
-    const void* g, const void* h, const void* paths, const void* hn,
+    const void* g, const void* h, const void* paths, const void* hn, const void* ego,
     const void* attw, const void* attb, void* dhn, void* dego, void* part,
     int T, int nw, int wl, int H, void* stream) {
   if (T == 0) return 0;
   const int smem = 3 * nw * (int)sizeof(float);
-  if (int e = allow_smem(pagg_attention_bwd_kernel, smem)) return e;
-  pagg_attention_bwd_kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
+  const auto kernel = ego ? pagg_attention_bwd_kernel<true> : pagg_attention_bwd_kernel<false>;
+  if (int e = allow_smem(kernel, smem)) return e;
+  kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
       (const float*)g, (const float*)h, (const int*)paths, (const float*)hn,
-      (const float*)attw, (const float*)attb, (float*)dhn, (float*)dego,
-      (float*)part, nw, wl, H);
+      (const float*)ego, (const float*)attw, (const float*)attb, (float*)dhn,
+      (float*)dego, (float*)part, nw, wl, H);
   return (int)cudaGetLastError();
 }
 
 // Launch C: BPTT from d h_n; overwrites gt with the pre-activation gate
 // gradients and writes dsel and every gathered row's gradient drow, both
 // [wl, T * nw, H]. wd_t = wd transposed per class [wl, H, H]; w_t =
-// [w_ih; w_hh]^T [4H, 2H].
+// [w_ih; w_hh]^T [4H, 2H]. Homo where ego is given, with xin (launch A's)
+// and dego (launch B's).
 extern "C" int pathnet_pagg_bptt(const void* dhn, const void* dists,
                                  const void* wd_t, const void* w_t, const void* cs,
-                                 void* gt, const void* mask, float keep, void* dsel,
+                                 void* gt, const void* mask, float keep, const void* xin,
+                                 const void* ego, const void* dego, void* dsel,
                                  void* drow, int T, int nw, int wl, int H, void* stream) {
   const long long B = (long long)T * nw;
   if (B == 0) return 0;
   const Tile tl = tile_for(H);
   const int smem = bptt_smem(H);
-  auto kernel = H == 64    ? (mask ? pagg_bptt_kernel<true, 64> : pagg_bptt_kernel<false, 64>)
-                : H == 256 ? (mask ? pagg_bptt_kernel<true, 256> : pagg_bptt_kernel<false, 256>)
-                           : (mask ? pagg_bptt_kernel<true, 0> : pagg_bptt_kernel<false, 0>);
+  const bool masked = mask != nullptr, homo = ego != nullptr;
+  auto kernel = H == 64    ? bptt_instance<64>(masked, homo)
+                : H == 256 ? bptt_instance<256>(masked, homo)
+                           : bptt_instance<0>(masked, homo);
   if (int e = allow_smem(kernel, smem)) return e;
   kernel<<<(unsigned)((B + tl.M - 1) / tl.M), tl.NT, smem, (cudaStream_t)stream>>>(
       (const float*)dhn, (const int*)dists, (const float*)wd_t,
       (const float*)w_t, (const float*)cs, (float*)gt, (const uint8_t*)mask, keep,
-      (float*)dsel, (float*)drow, B, wl, H,
-      ((uintptr_t)wd_t | (uintptr_t)w_t) % 16 == 0);
+      (const float*)xin, (const float*)ego, (const float*)dego, (float*)dsel,
+      (float*)drow, B, wl, H, ((uintptr_t)wd_t | (uintptr_t)w_t) % 16 == 0);
   return (int)cudaGetLastError();
 }

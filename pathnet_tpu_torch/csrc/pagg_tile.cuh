@@ -4,7 +4,9 @@
 // the encode over walk tiles, pagg_encode_walks_kernel. K3 serves with
 // STREAMS = false; K4's forward recompute runs the same kernel with
 // STREAMS = true, which also writes the per-step values K4's BPTT reads.
-// The design and its bound are described in pagg_encode.cu.
+// HOMO = true is the homo variant: steps in sampled order, a ReLU on the
+// selected row, and that row of step 0 (before dropout) stored as the
+// walk's ego row. The design and its bound are described in pagg_encode.cu.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -237,8 +239,9 @@ struct Streams {
 };
 
 // The encode of every walk to h_n [B, H]; with STREAMS, also the per-step
-// values of Streams (K4's forward recompute).
-template <bool MASKED, int HC, bool STREAMS>
+// values of Streams (K4's forward recompute); with HOMO, also each walk's
+// ego row, the ReLU'd selected row of step 0 before dropout, to ego [B, H].
+template <bool MASKED, int HC, bool STREAMS, bool HOMO>
 __global__ void __launch_bounds__(launch_threads(HC), launch_blocks(HC))
 pagg_encode_walks_kernel(
     const float* __restrict__ h, const int* __restrict__ paths,
@@ -246,7 +249,8 @@ pagg_encode_walks_kernel(
     const float* __restrict__ bd, const float* __restrict__ w_ih,
     const float* __restrict__ w_hh, const float* __restrict__ b_ih,
     const float* __restrict__ b_hh, const uint8_t* __restrict__ mask, float keep,
-    float* __restrict__ hn, Streams st, long long B, int wl, int Hrt, bool aligned) {
+    float* __restrict__ hn, float* __restrict__ ego, Streams st, long long B, int wl,
+    int Hrt, bool aligned) {
   constexpr Tile tc = tile_for(HC ? HC : 64);
   const Tile tr = tile_for(Hrt);
   const int H = HC ? HC : Hrt;
@@ -272,7 +276,7 @@ pagg_encode_walks_kernel(
     for (int u = 0; u < TN; ++u) cs[i][u] = 0.0f;
 
   for (int t = 0; t < wl; ++t) {
-    const int pos = wl - 1 - t;
+    const int pos = HOMO ? t : wl - 1 - t;  // hetero: far to near
     // gather x_t into the s half of A; each row's distance class to dq
     int dq[TM];
     float xv[TN][TM];
@@ -325,6 +329,13 @@ pagg_encode_walks_kernel(
         for (int i = 0; i < TM; ++i)
           if (dq[i] == k) sv[u][i] = acc[i][u][0] + bk;
       }
+    }
+    if constexpr (HOMO) {
+#pragma unroll
+      for (int u = 0; u < TN; ++u)
+#pragma unroll
+        for (int i = 0; i < TM; ++i) sv[u][i] = fmaxf(sv[u][i], 0.0f);
+      if (t == 0) store_pairs(ego, b0, B - b0, H, jc, jv, sv);
     }
     // dropout as s_t is written over x_t (the last GEMM ended with a barrier)
 #pragma unroll
@@ -412,6 +423,50 @@ pagg_encode_walks_kernel(
       }
     }
   }
+}
+
+using EncodeKernel = void (*)(const float*, const int*, const int*, const float*,
+                              const float*, const float*, const float*, const float*,
+                              const float*, const uint8_t*, float, float*, float*,
+                              Streams, long long, int, int, bool);
+
+template <bool STREAMS, int HC>
+EncodeKernel encode_instance(bool masked, bool homo) {
+  return masked ? (homo ? pagg_encode_walks_kernel<true, HC, STREAMS, true>
+                        : pagg_encode_walks_kernel<true, HC, STREAMS, false>)
+                : (homo ? pagg_encode_walks_kernel<false, HC, STREAMS, true>
+                        : pagg_encode_walks_kernel<false, HC, STREAMS, false>);
+}
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   bytes);
+}
+
+// The encode on K3's grid of tiles at width H: the instance with the tile
+// compiled in where there is one (H = 64, 256), masked where mask is given,
+// homo where ego is given.
+template <bool STREAMS>
+int launch_encode(const void* h, const void* paths, const void* dists, const void* wd,
+                  const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
+                  const void* b_hh, const void* mask, float keep, void* hn, void* ego,
+                  Streams st, int T, int nw, int wl, int H, void* stream) {
+  const long long B = (long long)T * nw;
+  if (B == 0) return 0;
+  const Tile tl = tile_for(H);
+  const bool masked = mask != nullptr, homo = ego != nullptr;
+  const EncodeKernel kernel = H == 64    ? encode_instance<STREAMS, 64>(masked, homo)
+                              : H == 256 ? encode_instance<STREAMS, 256>(masked, homo)
+                                         : encode_instance<STREAMS, 0>(masked, homo);
+  if (int e = allow_smem(kernel, tl.smem)) return e;
+  kernel<<<(unsigned)((B + tl.M - 1) / tl.M), tl.NT, tl.smem, (cudaStream_t)stream>>>(
+      (const float*)h, (const int*)paths, (const int*)dists, (const float*)wd,
+      (const float*)bd, (const float*)w_ih, (const float*)w_hh, (const float*)b_ih,
+      (const float*)b_hh, (const uint8_t*)mask, keep, (float*)hn, (float*)ego, st, B, wl,
+      H, ((uintptr_t)wd | (uintptr_t)w_ih | (uintptr_t)w_hh) % 16 == 0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

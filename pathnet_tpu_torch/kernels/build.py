@@ -40,21 +40,21 @@ _F = ctypes.c_float
 SIGNATURES = {
     # nbr, cdf, deg, srt, starts, u, paths, dists, D, S, nw, wl, walk, stream
     "pathnet_walk_dists": [_P] * 8 + [_I] * 5 + [_P],
-    # h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep, hn, T,
-    # nw, wl, H, stream
-    "pathnet_pagg_encode_walks": [_P] * 10 + [_F, _P, _I, _I, _I, _I, _P],
-    # h, paths, hn, attw, attb, out, T, nw, wl, H, stream
-    "pathnet_pagg_readout": [_P] * 6 + [_I, _I, _I, _I, _P],
+    # h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep, hn, ego,
+    # T, nw, wl, H, stream (ego null: hetero)
+    "pathnet_pagg_encode_walks": [_P] * 10 + [_F, _P, _P, _I, _I, _I, _I, _P],
+    # h, paths, hn, ego, attw, attb, out, T, nw, wl, H, stream
+    "pathnet_pagg_readout": [_P] * 7 + [_I, _I, _I, _I, _P],
     # H, out[4]: K3's tile (M, threads, shared bytes, KC)
     "pathnet_pagg_encode_tile": [_I, _P],
     # K4's three launches. h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-    # mask, keep, hn, xr, xin, hp, cs, gt, T, nw, wl, H, stream
-    "pathnet_pagg_encode_walks_streams": [_P] * 10 + [_F] + [_P] * 6 + [_I] * 4 + [_P],
-    # g, h, paths, hn, attw, attb, dhn, dego, part, T, nw, wl, H, stream
-    "pathnet_pagg_attention_bwd": [_P] * 9 + [_I] * 4 + [_P],
-    # dhn, dists, wd_t, w_t, cs, gt, mask, keep, dsel, drow, T, nw, wl, H,
-    # stream
-    "pathnet_pagg_bptt": [_P] * 7 + [_F, _P, _P] + [_I] * 4 + [_P],
+    # mask, keep, hn, xr, xin, hp, cs, gt, ego, T, nw, wl, H, stream
+    "pathnet_pagg_encode_walks_streams": [_P] * 10 + [_F] + [_P] * 7 + [_I] * 4 + [_P],
+    # g, h, paths, hn, ego, attw, attb, dhn, dego, part, T, nw, wl, H, stream
+    "pathnet_pagg_attention_bwd": [_P] * 10 + [_I] * 4 + [_P],
+    # dhn, dists, wd_t, w_t, cs, gt, mask, keep, xin, ego, dego, dsel, drow,
+    # T, nw, wl, H, stream
+    "pathnet_pagg_bptt": [_P] * 7 + [_F] + [_P] * 5 + [_I] * 4 + [_P],
     # rows, index, ints, units, offsets, part, out, R, n, H, stream
     "pathnet_segment_sum": [_P] * 7 + [_I] * 3 + [_P],
     # index, ints, units, offsets, R, n, stream
@@ -67,6 +67,8 @@ SIGNATURES = {
     "pathnet_row_gather_bwd": [_P, _P, _P, _I, _I, _P],
     # tbl, idx, out, n, D, stream
     "pathnet_lane_gather": [_P, _P, _P, _I, _I, _P],
+    # stream: an empty kernel, the launch floor
+    "pathnet_empty_launch": [_P],
 }
 
 RESTYPES = {"pathnet_segment_scratch": ctypes.c_longlong}
@@ -223,6 +225,14 @@ def check(rc: int, kernel: str) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def empty_launch(device: torch.device) -> None:
+    """One launch of an empty kernel on ``device``'s current stream: timed in
+    a CUDA graph, the floor under any kernel's time per launch."""
+    with torch.cuda.device(device):
+        rc = library().pathnet_empty_launch(torch.cuda.current_stream(device).cuda_stream)
+    check(rc, "empty_launch")
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -1,20 +1,29 @@
 """K3 ``pagg_encode_fwd``: the PAGG encode forward and attention readout, f32.
 
 Replaces ``pathnet_tpu/models/pagg.py:235-303`` (the encode block and the
-attention readout of ``pagg_forward``, hetero / LSTM / attention), with
+attention readout of ``pagg_forward``, LSTM / attention, both variants), with
 ``_dist_select`` (``:150-177``) and ``nn/cells.py:22-46`` (``lstm_scan``). Per
-target: gather its ``nw * wl`` rows of ``h``, flip each walk (far to near),
-apply ``W[d] x + b[d]`` with ``d`` clipped to ``[0, wl - 1]``, run the
-``wl``-step LSTM, score each walk by
-``leaky_relu(attw . [h_n, h[walk start]] + attb)``, softmax over the walks,
-and return the weighted **sum** of the ``h_n``: ``[T, H]``.
+target: gather its ``nw * wl`` rows of ``h`` and apply ``W[d] x + b[d]`` with
+``d`` clipped to ``[0, wl - 1]``, then run the ``wl``-step LSTM.
+
+- **hetero** (the default): each walk flipped (far to near); each walk
+  scored by ``leaky_relu(attw . [h_n, h[walk start]] + attb)``, softmax
+  over the walks; the result is the weighted **sum** of the ``h_n``.
+- **homo** (``homo=True``, ``pagg.py:257-303``): the walk in sampled order,
+  a ReLU on each selected row, whose step-0 row (before dropout) is the
+  walk's ego row; each walk scored by ``attw . [h_n, ego] + attb``; the
+  result is the **mean** over the walks of ``(1 + score) * h_n``.
+
+Either way the result is ``[T, H]``.
 
 Training mode: with ``keep_mask`` (uint8 ``[wl, T * nw, H]``, the layout of
 the LSTM input ``seq`` at ``pagg.py:274``) the selected input of step ``t`` of
 walk ``b`` becomes ``keep_mask[t, b] ? s / keep : 0``, JAX's
 ``where(mask, x / keep, 0)``. The mask is an input, drawn by the caller, so
 the kernel and its plain version see the same draws. Without a mask the
-kernel is the serving kernel unchanged (a separate template instance).
+kernel is the serving kernel unchanged (a separate template instance); the
+variant is a template parameter too (``HOMO``), so the hetero instances are
+what they were before the homo variant came.
 
 Source: ``pathnet_tpu_torch/csrc/pagg_encode.cu``, two launches behind the
 one wrapper (one count a call). The first runs the encode over the flat walk
@@ -25,9 +34,10 @@ GEMM ``[M, 2H] x [2H, 4H]`` with ``[s_t | h_{t-1}]`` in shared memory and
 ``cp.async`` chunks. A thread holds 8 walks x 2 hidden units x 4 gates of
 accumulators, so the cell update is the GEMM's epilogue in registers and
 ``c`` never leaves them. The distance select is one such GEMM per distance
-class present in the tile. It writes ``h_n`` ``[T * nw, H]`` to a scratch;
-the second launch, one block per target, scores the walks, reduces the
-softmax once and forms the weighted sum. :func:`encode_walks` and
+class present in the tile. It writes ``h_n`` ``[T * nw, H]`` to a scratch
+(and, homo, the ego rows to a second one); the second launch, one block per
+target, scores the walks, reduces the softmax once (hetero) and forms the
+weighted sum. :func:`encode_walks` and
 :func:`readout` launch each stage alone (for timing and tests; they count no
 launch), with plain versions :func:`encode_walks_plain` and
 :func:`readout_plain`, whose composition is :func:`pagg_encode_fwd_plain`.
@@ -36,7 +46,8 @@ Bound on the H100: f32 FMA work, about 18 H^2 flops per walk step: at one
 8192-target request (nw = 40, wl = 4, H = 64) about 97 GFLOP, 1.4 ms at the
 67 TFLOP/s f32 rate, against about 29 MB of unique bytes (9 us). The kernel
 computes in f32 on the CUDA cores, so the f32 rate, not the bf16 tensor-core
-rate, is its bound in this form.
+rate, is its bound in this form. The homo variant adds per-element work
+only (two ReLUs, the ego store): the same bound.
 """
 from __future__ import annotations
 
@@ -51,36 +62,51 @@ from . import build
 
 
 def encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                       keep_mask=None, keep=1.0) -> torch.Tensor:
-    """Plain PyTorch version of K3's first launch: ``h_n`` ``[T * nw, H]``."""
+                       keep_mask=None, keep=1.0, homo=False):
+    """Plain PyTorch version of K3's first launch: ``h_n`` ``[T * nw, H]``;
+    with ``homo``, ``(h_n, ego)``, ``ego [T * nw, H]`` the walks' ego rows."""
     T, nw, wl = paths.shape
     H = h.shape[1]
-    x = h[paths.long()].flip(2).reshape(-1, H)
-    d = dists.flip(2).clamp(0, wl - 1).reshape(-1, 1)
+    x, d = h[paths.long()], dists
+    if not homo:
+        x, d = x.flip(2), d.flip(2)
+    x = x.reshape(-1, H)
+    d = d.clamp(0, wl - 1).reshape(-1, 1)
     sel = torch.zeros_like(x)
     for k in range(wl):
         sel = torch.where(d == k, x @ wd[k] + bd[k], sel)
+    if homo:
+        sel = torch.relu(sel)
     seq = sel.reshape(T * nw, wl, H).transpose(0, 1)       # [wl, B, H]
+    ego = seq[0].contiguous() if homo else None
     if keep_mask is not None:
         seq = torch.where(keep_mask.bool(), seq / keep, 0.0)
-    return lstm_scan({"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh}, seq)[1]
+    hn = lstm_scan({"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh}, seq)[1]
+    return (hn, ego) if homo else hn
 
 
-def readout_plain(h, paths, hn, attw, attb) -> torch.Tensor:
-    """Plain PyTorch version of K3's second launch: the readout ``[T, H]``."""
+def readout_plain(h, paths, hn, attw, attb, ego=None) -> torch.Tensor:
+    """Plain PyTorch version of K3's second launch: the readout ``[T, H]``,
+    homo where ``ego`` (the first launch's) is given."""
     T, nw, _ = paths.shape
-    h_n = hn.reshape(T, nw, hn.shape[1])
-    score = torch.cat([h_n, h[paths[:, :, 0].long()]], dim=-1) @ attw + attb
-    att = torch.softmax(F.leaky_relu(score, 0.01), dim=1)  # [T, nw]
+    H = hn.shape[1]
+    h_n = hn.reshape(T, nw, H)
+    e = h[paths[:, :, 0].long()] if ego is None else ego.reshape(T, nw, H)
+    score = torch.cat([h_n, e], dim=-1) @ attw + attb           # [T, nw]
+    if ego is not None:
+        return ((1.0 + score)[:, :, None] * h_n).mean(dim=1)
+    att = torch.softmax(F.leaky_relu(score, 0.01), dim=1)
     return (att[:, :, None] * h_n).sum(dim=1)
 
 
 def pagg_encode_fwd_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                          attw, attb, keep_mask=None, keep=1.0) -> torch.Tensor:
+                          attw, attb, keep_mask=None, keep=1.0,
+                          homo=False) -> torch.Tensor:
     """Plain PyTorch version; same arguments and result as :func:`pagg_encode_fwd`."""
-    hn = encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                            keep_mask, keep)
-    return readout_plain(h, paths, hn, attw, attb)
+    out = encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
+                             keep_mask, keep, homo)
+    hn, ego = out if homo else (out, None)
+    return readout_plain(h, paths, hn, attw, attb, ego)
 
 
 def _check(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep):
@@ -108,27 +134,35 @@ def _check(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep):
         raise ValueError(f"pagg_encode_fwd: hidden {H} > 1024 is not supported")
 
 
-def _launch_walks(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep):
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device address for a C entry point; None for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def _launch_walks(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep,
+                  homo):
+    """Launch 1: ``h_n``, and with ``homo`` ``(h_n, ego)``."""
     T, nw, wl = paths.shape
     H = h.shape[1]
     hn = torch.empty((T * nw, H), dtype=torch.float32, device=h.device)
+    ego = torch.empty_like(hn) if homo else None
     with torch.cuda.device(h.device):
         rc = build.library().pathnet_pagg_encode_walks(
             h.data_ptr(), paths.data_ptr(), dists.data_ptr(), wd.data_ptr(),
             bd.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
-            b_hh.data_ptr(), None if keep_mask is None else keep_mask.data_ptr(),
-            float(keep), hn.data_ptr(), T, nw, wl, H, build.stream_ptr(h))
+            b_hh.data_ptr(), ptr(keep_mask), float(keep), hn.data_ptr(), ptr(ego),
+            T, nw, wl, H, build.stream_ptr(h))
     build.check(rc, "pagg_encode_fwd (encode)")
-    return hn
+    return (hn, ego) if homo else hn
 
 
-def _launch_readout(h, paths, hn, attw, attb):
+def _launch_readout(h, paths, hn, attw, attb, ego=None):
     T, nw, wl = paths.shape
     H = h.shape[1]
     out = torch.empty((T, H), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         rc = build.library().pathnet_pagg_readout(
-            h.data_ptr(), paths.data_ptr(), hn.data_ptr(), attw.data_ptr(),
+            h.data_ptr(), paths.data_ptr(), hn.data_ptr(), ptr(ego), attw.data_ptr(),
             attb.data_ptr(), out.data_ptr(), T, nw, wl, H, build.stream_ptr(h))
     build.check(rc, "pagg_encode_fwd (readout)")
     return out
@@ -139,7 +173,7 @@ def pagg_encode_fwd(h: torch.Tensor, paths: torch.Tensor, dists: torch.Tensor,
                     w_hh: torch.Tensor, b_ih: torch.Tensor, b_hh: torch.Tensor,
                     attw: torch.Tensor, attb: torch.Tensor,
                     keep_mask: Optional[torch.Tensor] = None,
-                    keep: float = 1.0) -> torch.Tensor:
+                    keep: float = 1.0, homo: bool = False) -> torch.Tensor:
     """Path-aggregated features ``float32 [T, H]`` of the ``T`` targets.
 
     ``h`` float32 ``[n, H]`` (projected node features), ``paths`` and
@@ -148,49 +182,55 @@ def pagg_encode_fwd(h: torch.Tensor, paths: torch.Tensor, dists: torch.Tensor,
     wd[d]``), ``w_ih``/``w_hh`` ``[H, 4H]`` and ``b_ih``/``b_hh`` ``[4H]``
     (LSTM, gates i, f, g, o), ``attw`` ``[2H]`` and ``attb`` ``[1]``;
     ``keep_mask`` uint8 ``[wl, T * nw, H]`` and ``keep`` in ``(0, 1]`` for
-    the training forward's dropout (see the module docstring).
+    the training forward's dropout; ``homo`` picks the homo variant (see the
+    module docstring).
     """
     enc = (h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep)
     _check(*enc)
     build.require(attw, "attw", torch.float32, (2 * h.shape[1],), h.device)
     build.require(attb, "attb", torch.float32, (1,), h.device)
     if h.device.type == "cpu":
-        return pagg_encode_fwd_plain(h, paths, dists, wd, bd, w_ih, w_hh,
-                                     b_ih, b_hh, attw, attb, keep_mask, keep)
-    out = _launch_readout(h, paths, _launch_walks(*enc), attw, attb)
+        return pagg_encode_fwd_plain(*enc[:9], attw, attb, keep_mask, keep, homo)
+    walks = _launch_walks(*enc, homo)
+    hn, ego = walks if homo else (walks, None)
+    out = _launch_readout(h, paths, hn, attw, attb, ego)
     pagg_encode_fwd.launches += 1
     return out
 
 
 def encode_walks(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                 keep_mask=None, keep=1.0) -> torch.Tensor:
-    """K3's first launch alone: ``h_n`` ``[T * nw, H]`` of every walk.
+                 keep_mask=None, keep=1.0, homo=False):
+    """K3's first launch alone: ``h_n`` ``[T * nw, H]`` of every walk; with
+    ``homo``, ``(h_n, ego)`` as :func:`encode_walks_plain` returns them.
 
     For timing and tests; it counts no launch (the model calls
     :func:`pagg_encode_fwd`)."""
     enc = (h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep)
     _check(*enc)
     if h.device.type == "cpu":
-        return encode_walks_plain(*enc)
-    return _launch_walks(*enc)
+        return encode_walks_plain(*enc, homo)
+    return _launch_walks(*enc, homo)
 
 
-def readout(h, paths, hn, attw, attb) -> torch.Tensor:
+def readout(h, paths, hn, attw, attb, ego=None) -> torch.Tensor:
     """K3's second launch alone: the attention readout ``[T, H]`` from
-    ``hn`` ``[T * nw, H]``. For timing and tests; it counts no launch."""
+    ``hn`` ``[T * nw, H]``, homo where the ego rows ``ego [T * nw, H]`` are
+    given. For timing and tests; it counts no launch."""
     dev = h.device
     build.require(h, "h", torch.float32, (None, None), dev)
     H = h.shape[1]
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
     T, nw, _ = paths.shape
     build.require(hn, "hn", torch.float32, (T * nw, H), dev)
+    if ego is not None:
+        build.require(ego, "ego", torch.float32, (T * nw, H), dev)
     build.require(attw, "attw", torch.float32, (2 * H,), dev)
     build.require(attb, "attb", torch.float32, (1,), dev)
     if dev.type == "cpu":
-        return readout_plain(h, paths, hn, attw, attb)
+        return readout_plain(h, paths, hn, attw, attb, ego)
     if dev.type != "cuda":
         raise ValueError(f"readout: unsupported device {dev}")
-    return _launch_readout(h, paths, hn, attw, attb)
+    return _launch_readout(h, paths, hn, attw, attb, ego)
 
 
 def encode_tile(H: int) -> dict:

@@ -6,6 +6,9 @@ gather VJP of the "h" gather mode (``pagg.py:83-93``). Given ``g``, the
 gradient of K3's output ``[T, H]``, it returns the gradients of K3's inputs:
 ``dh [n, H]`` and those of ``wd, bd, w_ih, w_hh, b_ih, b_hh, attw, attb``.
 
+Both variants of K3 (``homo=False``, hetero, and ``homo=True``) have their
+backward here; the variant is a template parameter (``HOMO``) of each launch.
+
 Source: ``pathnet_tpu_torch/csrc/pagg_encode_bwd.cu`` on K3's walk tile
 (``csrc/pagg_tile.cuh``), three launches behind the one wrapper (one count a
 call). Nothing is kept between K3 and K4, so the first launch recomputes the
@@ -33,6 +36,17 @@ forward.
    gradients of 2. and 3. into ``dh [n, H]``, each node's in the order of a
    stable sort of the paths' node ids (its own launch and count).
 
+Homo (``pagg.py:257-303``): the steps run in sampled order (step ``t`` holds
+position ``t``); 1. also writes the ego rows ``ego [T * nw, H]``, the ReLU'd
+step-0 selected rows before dropout, and ``xin`` holds the ReLU'd input
+after dropout; 2. reads ``ego`` for the scores, forms ``d score = g . h_n /
+nw`` and ``d h_n = (1 + score) g / nw + d score attw[:H]``, and writes
+``d ego`` to a scratch (not a row gradient: the ego row is step 0's selected
+row); 3. adds ``d ego`` to step 0's ``dsel`` and multiplies every ``dsel``
+by the ReLU's derivative, its sign read from ``ego`` at step 0 and from
+``xin`` after (where the mask dropped an entry its ``dsel`` is 0 whatever
+the sign). So 4. sums ``wl`` rows a walk, not ``wl + 1``.
+
 No launch adds with atomics and every reduction has an order fixed by the
 inputs, so one input gives one result, bit for bit, on every run: a seeded
 round on the card is reproducible (``tests/test_torch_reproducible.py``).
@@ -46,7 +60,8 @@ microbatch, nw = 40, wl = 4, H = 64); the row gradients, ``H`` floats per
 walk step and per walk (0.42 GB there); the two scratches ``h_n`` and
 ``d h_n``, ``[T * nw, H]`` each (84 MB each there); and 2 ``H`` floats a walk
 step more (0.67 GB) while :func:`class_contractions` regroups ``xr`` and
-``dsel`` by distance class. All are freed on return.
+``dsel`` by distance class. Homo holds ``ego`` and ``d ego`` (84 MB each
+there) in place of the ego rows' gradients. All are freed on return.
 
 :func:`encode_walks_streams`, :func:`attention_bwd` and :func:`bptt` launch
 each stage alone (for timing and tests; they count no launch), beside plain
@@ -55,7 +70,8 @@ compose to :func:`pagg_encode_bwd_plain`.
 
 Bound on the H100: f32 operations, about 54 ``H^2`` flops per walk step
 (forward recompute 18, backward products 18, weight-gradient contractions
-18), about 290 GFLOP or 4.3 ms at 67 TFLOP/s per bgp microbatch.
+18), about 290 GFLOP or 4.3 ms at 67 TFLOP/s per bgp microbatch, for either
+variant (homo's extra work is per element).
 """
 from __future__ import annotations
 
@@ -65,43 +81,51 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .pagg_encode import _check as check_encode, check_keep_mask, pagg_encode_fwd_plain
+from .pagg_encode import _check as check_encode, check_keep_mask, pagg_encode_fwd_plain, ptr
 from .segment_sum import segment_sum
 
 Grads = Tuple[torch.Tensor, ...]
 
 
 def pagg_encode_bwd_plain(g, h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                          attw, attb, keep_mask=None, keep=1.0) -> Grads:
+                          attw, attb, keep_mask=None, keep=1.0, homo=False) -> Grads:
     """Plain PyTorch version: ``torch.autograd.grad`` through
-    :func:`pagg_encode_fwd_plain` with the same mask."""
+    :func:`pagg_encode_fwd_plain` with the same mask and variant."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True)
                   for t in (h, wd, bd, w_ih, w_hh, b_ih, b_hh, attw, attb)]
         lh, lwd, lbd, lwi, lwh, lbi, lbh, law, lab = leaves
         out = pagg_encode_fwd_plain(lh, paths, dists, lwd, lbd, lwi, lwh, lbi,
-                                    lbh, law, lab, keep_mask, keep)
+                                    lbh, law, lab, keep_mask, keep, homo)
         return torch.autograd.grad(out, leaves, g)
 
 
-def _step_classes(dists: torch.Tensor) -> torch.Tensor:
+def _step_classes(dists: torch.Tensor, homo: bool = False) -> torch.Tensor:
     """int64 ``[wl, T * nw]``: the clipped distance class of step ``t`` of
-    each walk (step ``t`` holds position ``wl - 1 - t``)."""
+    each walk (step ``t`` holds position ``wl - 1 - t``, homo ``t``)."""
     T, nw, wl = dists.shape
-    return dists.flip(2).clamp(0, wl - 1).reshape(T * nw, wl).t().contiguous().long()
+    d = dists if homo else dists.flip(2)
+    return d.clamp(0, wl - 1).reshape(T * nw, wl).t().contiguous().long()
 
 
 def encode_walks_streams_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                               keep_mask=None, keep=1.0):
-    """Plain version of the forward recompute: ``(h_n, xr, xin, hp, cs, gt)``."""
+                               keep_mask=None, keep=1.0, homo=False):
+    """Plain version of the forward recompute: ``(h_n, xr, xin, hp, cs, gt)``,
+    and with ``homo`` the ego rows ``ego [T * nw, H]`` after them."""
     T, nw, wl = paths.shape
     H = h.shape[1]
     B = T * nw
-    xr = h[paths.long()].flip(2).reshape(B, wl, H).transpose(0, 1).contiguous()
-    d = _step_classes(dists)[:, :, None]
+    xr = h[paths.long()]
+    if not homo:
+        xr = xr.flip(2)
+    xr = xr.reshape(B, wl, H).transpose(0, 1).contiguous()
+    d = _step_classes(dists, homo)[:, :, None]
     xin = torch.zeros_like(xr)
     for k in range(wl):
         xin = torch.where(d == k, xr @ wd[k] + bd[k], xin)
+    if homo:
+        xin = torch.relu(xin)
+    ego = xin[0].clone() if homo else None
     if keep_mask is not None:
         xin = torch.where(keep_mask.bool(), xin / keep, 0.0)
     gx = xin @ w_ih + b_ih
@@ -116,36 +140,44 @@ def encode_walks_streams_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
         cs.append(c)
         gt.append(torch.cat([si, sf, tg, so], dim=1))
         hprev = so * torch.tanh(c)
-    return hprev, xr, xin, torch.stack(hp), torch.stack(cs), torch.stack(gt)
+    out = (hprev, xr, xin, torch.stack(hp), torch.stack(cs), torch.stack(gt))
+    return out + (ego,) if homo else out
 
 
-def attention_bwd_plain(g, h, paths, hn, attw, attb):
+def attention_bwd_plain(g, h, paths, hn, attw, attb, ego=None):
     """Plain version of the attention backward: ``(dhn, dego, dattw, dattb)``,
-    ``dego [T * nw, H]`` holding each walk's ego row gradient."""
+    ``dego [T * nw, H]`` holding each walk's ego row gradient; homo where the
+    ego rows ``ego [T * nw, H]`` (the recompute's) are given."""
     T, nw, _ = paths.shape
     H = h.shape[1]
     h_n = hn.reshape(T, nw, H)
-    ego_idx = paths[:, :, 0].long()
-    ego = h[ego_idx]
-    score = h_n @ attw[:H] + ego @ attw[H:] + attb                   # [T, nw]
-    att = torch.softmax(F.leaky_relu(score, 0.01), dim=1)
+    e = h[paths[:, :, 0].long()] if ego is None else ego.reshape(T, nw, H)
+    score = h_n @ attw[:H] + e @ attw[H:] + attb                     # [T, nw]
     datt = (h_n * g[:, None, :]).sum(-1)
-    ds = att * (datt - (att * datt).sum(1, keepdim=True))
-    ds = ds * torch.where(score > 0, 1.0, 0.01)
+    if ego is None:
+        att = torch.softmax(F.leaky_relu(score, 0.01), dim=1)
+        ds = att * (datt - (att * datt).sum(1, keepdim=True))
+        ds = ds * torch.where(score > 0, 1.0, 0.01)
+    else:
+        att = (1.0 + score) / nw
+        ds = datt / nw
     dhn = att[:, :, None] * g[:, None, :] + ds[:, :, None] * attw[:H]
     dego = ds[:, :, None] * attw[H:]
     dattw = torch.cat([(ds[:, :, None] * h_n).sum((0, 1)),
-                       (ds[:, :, None] * ego).sum((0, 1))])
+                       (ds[:, :, None] * e).sum((0, 1))])
     return dhn.reshape(T * nw, H), dego.reshape(T * nw, H), dattw, ds.sum().reshape(1)
 
 
-def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0):
+def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0,
+               homo=None):
     """Plain version of the BPTT: ``(drow, dgates, dsel)``, ``drow [wl, T * nw,
     H]`` holding every gathered row's gradient (row ``t * T * nw + b`` is
-    position ``wl - 1 - t`` of walk ``b``), ``dgates [wl, T * nw, 4H]`` the
-    pre-activation gate gradients and ``dsel [wl, T * nw, H]`` the gradient of
-    the selected input."""
-    d = _step_classes(dists)
+    position ``wl - 1 - t`` of walk ``b``, homo position ``t``), ``dgates [wl,
+    T * nw, 4H]`` the pre-activation gate gradients and ``dsel [wl, T * nw,
+    H]`` the gradient of the selected row (homo: before its ReLU). ``homo``
+    is None (hetero) or ``(xin, ego, dego)``: the recompute's ``xin`` and
+    ``ego`` and the attention backward's ``dego``."""
+    d = _step_classes(dists, homo is not None)
     wl, _, H = cs.shape
     drow = torch.empty_like(cs)
     dgates = torch.empty_like(gt)
@@ -164,6 +196,11 @@ def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1
         dht = dg @ w_hh.t()
         if keep_mask is not None:
             dxin = torch.where(keep_mask[t].bool(), dxin / keep, 0.0)
+        if homo is not None:
+            xin, ego, dego = homo
+            if t == 0:
+                dxin = dxin + dego
+            dxin = torch.where((ego if t == 0 else xin[t]) > 0, dxin, 0.0)
         dsel[t] = dxin
         dx = torch.zeros_like(dxin)
         for k in range(wl):
@@ -172,11 +209,14 @@ def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1
     return drow, dgates, dsel
 
 
-def row_nodes(paths: torch.Tensor) -> torch.Tensor:
-    """int32 ``[(wl + 1) * T * nw]``: the node of each row gradient, in the
-    order of the BPTT's ``drow`` (step ``t`` holds position ``wl - 1 - t``)
-    followed by the attention backward's ego rows."""
+def row_nodes(paths: torch.Tensor, homo: bool = False) -> torch.Tensor:
+    """int32: the node of each row gradient, in the order of the BPTT's
+    ``drow`` (step ``t`` holds position ``wl - 1 - t``) followed by the
+    attention backward's ego rows, ``(wl + 1) * T * nw`` in all; homo (step
+    ``t`` holds position ``t``, no ego rows) ``wl * T * nw``."""
     T, nw, wl = paths.shape
+    if homo:
+        return paths.reshape(T * nw, wl).t().reshape(-1)
     steps = paths.flip(2).reshape(T * nw, wl).t()
     return torch.cat([steps.reshape(-1), paths[:, :, 0].reshape(-1)])
 
@@ -212,7 +252,7 @@ def class_contractions(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor,
     return dw, onehot @ sp.sum(dim=1)
 
 
-def contractions(xr, xin, hp, dsel, dgates, dists) -> Grads:
+def contractions(xr, xin, hp, dsel, dgates, dists, homo=False) -> Grads:
     """The weight gradients from the streams: ``(dwd, dbd, dw_ih, dw_hh, db)``,
     ``db`` being both LSTM biases' gradient."""
     wl, B, H = xr.shape
@@ -220,7 +260,7 @@ def contractions(xr, xin, hp, dsel, dgates, dists) -> Grads:
     dw_ih = xin.view(-1, H).t() @ dg
     dw_hh = hp.view(-1, H).t() @ dg
     dwd, dbd = class_contractions(xr.view(-1, H), dsel.view(-1, H),
-                                  _step_classes(dists).reshape(-1), wl)
+                                  _step_classes(dists, homo).reshape(-1), wl)
     return dwd, dbd, dw_ih, dw_hh, dg.sum(dim=0)
 
 
@@ -230,8 +270,9 @@ def _require_device(dev: torch.device, what: str) -> None:
 
 
 def _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep,
-                    streams):
-    """Launch A into ``streams = (xr, xin, hp, cs, gt)``; returns ``h_n``."""
+                    streams, ego=None):
+    """Launch A into ``streams = (xr, xin, hp, cs, gt)``, homo where ``ego``
+    (which receives the ego rows) is given; returns ``h_n``."""
     T, nw, wl = paths.shape
     H = h.shape[1]
     hn = torch.empty((T * nw, H), dtype=torch.float32, device=h.device)
@@ -239,24 +280,23 @@ def _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, 
         rc = build.library().pathnet_pagg_encode_walks_streams(
             h.data_ptr(), paths.data_ptr(), dists.data_ptr(), wd.data_ptr(),
             bd.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
-            b_hh.data_ptr(), None if keep_mask is None else keep_mask.data_ptr(),
-            float(keep), hn.data_ptr(), *(s.data_ptr() for s in streams),
-            T, nw, wl, H, build.stream_ptr(h))
+            b_hh.data_ptr(), ptr(keep_mask), float(keep), hn.data_ptr(),
+            *(s.data_ptr() for s in streams), ptr(ego), T, nw, wl, H, build.stream_ptr(h))
     build.check(rc, "pagg_encode_bwd (forward recompute)")
     return hn
 
 
-def _launch_attention(g, h, paths, hn, attw, attb, dego):
-    """Launch B: the ego rows' gradient into ``dego [T * nw, H]``; returns
-    ``(d h_n, dattw, dattb)``, the last two summed over the targets' partial
-    sums."""
+def _launch_attention(g, h, paths, hn, attw, attb, dego, ego=None):
+    """Launch B: the ego rows' gradient into ``dego [T * nw, H]``, homo where
+    ``ego`` is given; returns ``(d h_n, dattw, dattb)``, the last two summed
+    over the targets' partial sums."""
     T, nw, wl = paths.shape
     H = h.shape[1]
     dhn = torch.empty((T * nw, H), dtype=torch.float32, device=h.device)
     part = torch.empty((T, 2 * H + 1), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         rc = build.library().pathnet_pagg_attention_bwd(
-            g.data_ptr(), h.data_ptr(), paths.data_ptr(), hn.data_ptr(),
+            g.data_ptr(), h.data_ptr(), paths.data_ptr(), hn.data_ptr(), ptr(ego),
             attw.data_ptr(), attb.data_ptr(), dhn.data_ptr(), dego.data_ptr(),
             part.data_ptr(), T, nw, wl, H, build.stream_ptr(h))
     build.check(rc, "pagg_encode_bwd (attention)")
@@ -271,16 +311,18 @@ def bptt_weights(wd, w_ih, w_hh):
             torch.cat([w_ih, w_hh], 0).t().contiguous())
 
 
-def _launch_bptt(dhn, dists, wd_t, w_t, cs, gt, keep_mask, keep, dsel, drow):
-    """Launch C: gate gradients over ``gt``, ``dsel``, row gradients ``drow``."""
+def _launch_bptt(dhn, dists, wd_t, w_t, cs, gt, keep_mask, keep, dsel, drow, homo=None):
+    """Launch C: gate gradients over ``gt``, ``dsel``, row gradients ``drow``;
+    ``homo`` as in :func:`bptt_plain`."""
     T, nw, wl = dists.shape
     H = dhn.shape[1]
+    xin, ego, dego = homo if homo is not None else (None, None, None)
     with torch.cuda.device(dhn.device):
         rc = build.library().pathnet_pagg_bptt(
             dhn.data_ptr(), dists.data_ptr(), wd_t.data_ptr(),
-            w_t.data_ptr(), cs.data_ptr(), gt.data_ptr(),
-            None if keep_mask is None else keep_mask.data_ptr(), float(keep),
-            dsel.data_ptr(), drow.data_ptr(), T, nw, wl, H, build.stream_ptr(dhn))
+            w_t.data_ptr(), cs.data_ptr(), gt.data_ptr(), ptr(keep_mask), float(keep),
+            ptr(xin), ptr(ego), ptr(dego), dsel.data_ptr(), drow.data_ptr(), T, nw, wl, H,
+            build.stream_ptr(dhn))
     build.check(rc, "pagg_encode_bwd (bptt)")
 
 
@@ -289,7 +331,7 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
                     w_ih: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
                     b_hh: torch.Tensor, attw: torch.Tensor, attb: torch.Tensor,
                     keep_mask: Optional[torch.Tensor] = None,
-                    keep: float = 1.0) -> Grads:
+                    keep: float = 1.0, homo: bool = False) -> Grads:
     """``(dh, dwd, dbd, dw_ih, dw_hh, db_ih, db_hh, dattw, dattb)``.
 
     ``g`` float32 ``[T, H]``; the other arguments are K3's
@@ -317,24 +359,27 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
         raise ValueError(f"pagg_encode_bwd needs nw, wl >= 1, got {nw}, {wl}")
     if dev.type == "cpu":
         return pagg_encode_bwd_plain(g, h, paths, dists, wd, bd, w_ih, w_hh,
-                                     b_ih, b_hh, attw, attb, keep_mask, keep)
+                                     b_ih, b_hh, attw, attb, keep_mask, keep, homo)
     _require_device(dev, "pagg_encode_bwd")
     if H > 1024:
         raise ValueError(f"pagg_encode_bwd: hidden {H} > 1024 is not supported")
     B = T * nw
     xr, xin, hp, cs, dsel = torch.empty((5, wl, B, H), dtype=f32, device=dev)
     gt = torch.empty((wl, B, 4 * H), dtype=f32, device=dev)
-    rows = torch.empty((wl + 1, B, H), dtype=f32, device=dev)  # drow, then dego
+    # the row gradients: drow, then (hetero) the ego rows'
+    rows = torch.empty((wl + (not homo), B, H), dtype=f32, device=dev)
+    ego, dego = torch.empty((2, B, H), dtype=f32, device=dev) if homo else (None, rows[wl])
     hn = _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask,
-                         keep, (xr, xin, hp, cs, gt))
-    dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, rows[wl])
+                         keep, (xr, xin, hp, cs, gt), ego)
+    dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, dego, ego)
     del hn
     _launch_bptt(dhn, dists, *bptt_weights(wd, w_ih, w_hh), cs, gt, keep_mask, keep,
-                 dsel, rows[:wl])
+                 dsel, rows[:wl], (xin, ego, dego) if homo else None)
     pagg_encode_bwd.launches += 1
-    dh = segment_sum(rows.view(-1, H), row_nodes(paths), n)
+    del ego, dego
+    dh = segment_sum(rows.view(-1, H), row_nodes(paths, homo), n)
     del rows
-    dwd, dbd, dw_ih, dw_hh, db = contractions(xr, xin, hp, dsel, gt, dists)
+    dwd, dbd, dw_ih, dw_hh, db = contractions(xr, xin, hp, dsel, gt, dists, homo)
     return dh, dwd, dbd, dw_ih, dw_hh, db, db.clone(), dattw, dattb
 
 
@@ -342,26 +387,30 @@ pagg_encode_bwd.launches = 0
 
 
 def encode_walks_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                         keep_mask=None, keep=1.0):
-    """K4's forward recompute alone: ``(h_n, xr, xin, hp, cs, gt)`` (see the
-    module docstring). For timing and tests; it counts no launch."""
+                         keep_mask=None, keep=1.0, homo=False):
+    """K4's forward recompute alone: ``(h_n, xr, xin, hp, cs, gt)``, and with
+    ``homo`` the ego rows after them (see the module docstring). For timing
+    and tests; it counts no launch."""
     enc = (h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep)
     check_encode(*enc)
     if h.device.type == "cpu":
-        return encode_walks_streams_plain(*enc)
+        return encode_walks_streams_plain(*enc, homo)
     T, nw, wl = paths.shape
     H = h.shape[1]
     xr, xin, hp, cs = torch.empty((4, wl, T * nw, H), dtype=torch.float32,
                                   device=h.device)
     gt = torch.empty((wl, T * nw, 4 * H), dtype=torch.float32, device=h.device)
-    hn = _launch_streams(*enc, (xr, xin, hp, cs, gt))
-    return hn, xr, xin, hp, cs, gt
+    ego = torch.empty((T * nw, H), dtype=torch.float32, device=h.device) if homo else None
+    hn = _launch_streams(*enc, (xr, xin, hp, cs, gt), ego)
+    out = (hn, xr, xin, hp, cs, gt)
+    return out + (ego,) if homo else out
 
 
-def attention_bwd(g, h, paths, hn, attw, attb):
+def attention_bwd(g, h, paths, hn, attw, attb, ego=None):
     """K4's attention backward alone: ``(dhn, dego, dattw, dattb)``, ``dego
-    [T * nw, H]`` holding each walk's ego row gradient. For timing and tests;
-    it counts no launch."""
+    [T * nw, H]`` holding each walk's ego row gradient; homo where the ego
+    rows ``ego [T * nw, H]`` are given. For timing and tests; it counts no
+    launch."""
     dev = h.device
     f32 = torch.float32
     build.require(h, "h", f32, (None, None), dev)
@@ -370,22 +419,25 @@ def attention_bwd(g, h, paths, hn, attw, attb):
     T, nw, _ = paths.shape
     build.require(g, "g", f32, (T, H), dev)
     build.require(hn, "hn", f32, (T * nw, H), dev)
+    if ego is not None:
+        build.require(ego, "ego", f32, (T * nw, H), dev)
     build.require(attw, "attw", f32, (2 * H,), dev)
     build.require(attb, "attb", f32, (1,), dev)
     _require_device(dev, "attention_bwd")
     if dev.type == "cpu":
-        return attention_bwd_plain(g, h, paths, hn, attw, attb)
+        return attention_bwd_plain(g, h, paths, hn, attw, attb, ego)
     dego = torch.empty((T * nw, H), dtype=f32, device=dev)
-    dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, dego)
+    dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, dego, ego)
     return dhn, dego, dattw, dattb
 
 
-def bptt(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0):
+def bptt(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0, homo=None):
     """K4's BPTT alone: ``(drow, dgates, dsel)`` from ``d h_n`` ``[T * nw, H]``
     and the recompute's ``cs`` and ``gt``; ``drow [wl, T * nw, H]`` holds every
-    gathered row's gradient (see :func:`bptt_plain`). As in the whole
-    backward, the gate gradients are written over ``gt``, which is returned
-    as ``dgates``. For timing and tests; it counts no launch."""
+    gathered row's gradient, and ``homo`` is None or ``(xin, ego, dego)`` (see
+    :func:`bptt_plain`). As in the whole backward, the gate gradients are
+    written over ``gt``, which is returned as ``dgates``. For timing and
+    tests; it counts no launch."""
     dev = dhn.device
     f32 = torch.float32
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
@@ -399,16 +451,19 @@ def bptt(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0):
     build.require(w_hh, "w_hh", f32, (H, 4 * H), dev)
     build.require(cs, "cs", f32, (wl, B, H), dev)
     build.require(gt, "gt", f32, (wl, B, 4 * H), dev)
+    if homo is not None:
+        for name, t, shape in zip(("xin", "ego", "dego"), homo,
+                                  ((wl, B, H), (B, H), (B, H))):
+            build.require(t, name, f32, shape, dev)
     check_keep_mask(keep_mask, keep, wl, B, H, dev)
     _require_device(dev, "bptt")
     if dev.type == "cpu":
         drow, dgates, dsel = bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt,
-                                        keep_mask, keep)
+                                        keep_mask, keep, homo)
         return drow, gt.copy_(dgates), dsel
     if H > 1024:
         raise ValueError(f"bptt: hidden {H} > 1024 is not supported")
     drow, dsel = torch.empty((2, wl, B, H), dtype=f32, device=dev)
     _launch_bptt(dhn, dists, *bptt_weights(wd, w_ih, w_hh), cs, gt, keep_mask, keep,
-                 dsel, drow)
+                 dsel, drow, homo)
     return drow, gt, dsel
-

@@ -1,10 +1,16 @@
 """The PAGG model (port of ``pathnet_tpu/models/pagg.py:56-114,142-147,191-313``).
 
-Forward of the hetero PathNet with an LSTM encoder and attention readout:
-``h = X @ W0 + b0`` (one plain large product, as the JAX package also leaves
-it), then kernel K3 (``kernels/pagg_encode.py``) for the encode and the path
-attention, the ego rows ``h[ego_idx]`` through kernel K5
-(``kernels/row_gather.py``), then ``[h[target], h_agg] @ fc2``.
+Forward of PathNet with an LSTM encoder and attention readout, in both of
+JAX's variants (``PaggSpec.variant``): ``h = X @ W0 + b0`` (one plain large
+product, as the JAX package also leaves it; the homo variant takes its
+ReLU), then kernel K3 (``kernels/pagg_encode.py``) for the encode and the
+path attention, the ego rows ``h[ego_idx]`` through kernel K5
+(``kernels/row_gather.py``), then ``[h[target], h_agg] @ fc2``. The homo
+variant (``pagg.py:9-20``) also runs each walk in sampled order, takes a
+ReLU after the distance select, scores each walk against its selected
+step-0 row and reads out ``mean((1 + score) h_n)`` (all inside K3 and K4,
+``homo=True``), and redraws the ``fc0`` and ``fc2`` weights from xavier's
+uniform.
 
 Training (``train=True``) runs the same forward with both of JAX's dropouts,
 taken as explicit keep masks: the first on the LSTM input (``pagg.py:274``,
@@ -36,7 +42,7 @@ from ..device import resolve_device
 from ..kernels.pagg_encode import pagg_encode_fwd
 from ..kernels.pagg_encode_bwd import pagg_encode_bwd
 from ..kernels.row_gather import row_gather, row_gather_bwd
-from ..nn.init import torch_linear_init_, torch_lstm_init_
+from ..nn.init import torch_linear_init_, torch_lstm_init_, xavier_uniform_
 
 Masks = Tuple[torch.Tensor, torch.Tensor]
 
@@ -66,8 +72,9 @@ class PaggSpec:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for a choice the port does not run yet."""
-        todo = {"variant": (self.variant, "hetero"), "rnn": (self.rnn, "lstm"),
-                "agg": (self.agg, "attention"),
+        if self.variant not in ("hetero", "homo"):
+            raise ValueError(f"variant={self.variant!r}")
+        todo = {"rnn": (self.rnn, "lstm"), "agg": (self.agg, "attention"),
                 "quirk_compat": (self.quirk_compat, False),
                 "compute_dtype": (self.compute_dtype, "float32")}
         for name, (value, ported) in todo.items():
@@ -88,20 +95,20 @@ class PaggEncode(torch.autograd.Function):
     weights in K3's layout, with an optional dropout keep mask."""
 
     @staticmethod
-    def forward(ctx, h, paths, dists, keep_mask, keep, wd, bd, w_ih, w_hh,
+    def forward(ctx, h, paths, dists, keep_mask, keep, homo, wd, bd, w_ih, w_hh,
                 b_ih, b_hh, attw, attb):
-        ctx.keep = keep
+        ctx.keep, ctx.homo = keep, homo
         ctx.save_for_backward(h, paths, dists, keep_mask, wd, bd, w_ih, w_hh,
                               b_ih, b_hh, attw, attb)
         return pagg_encode_fwd(h, paths, dists, wd, bd, w_ih, w_hh, b_ih,
-                               b_hh, attw, attb, keep_mask, keep)
+                               b_hh, attw, attb, keep_mask, keep, homo)
 
     @staticmethod
     def backward(ctx, g):
         h, paths, dists, keep_mask, *weights = ctx.saved_tensors
         dh, *dweights = pagg_encode_bwd(g.contiguous(), h, paths, dists,
-                                        *weights, keep_mask, ctx.keep)
-        return (dh, None, None, None, None, *dweights)
+                                        *weights, keep_mask, ctx.keep, ctx.homo)
+        return (dh, None, None, None, None, None, *dweights)
 
 
 class RowGather(torch.autograd.Function):
@@ -136,8 +143,10 @@ def draw_dropout_masks(spec: PaggSpec, T: int, nw: int,
 
 
 class PathNet(nn.Module):
-    """Hetero PathNet. Weights are torch-default draws from ``generator`` (a
-    CPU generator; seed 0 when omitted)."""
+    """PathNet, hetero or homo (``spec.variant``). Weights are torch-default
+    draws from ``generator`` (a CPU generator; seed 0 when omitted); the homo
+    variant then redraws the ``fc0`` and ``fc2`` weights from xavier's
+    uniform, as the reference does (``pathnet_tpu/models/pagg.py:124-127``)."""
 
     def __init__(self, spec: PaggSpec,
                  device: Optional[Union[str, torch.device]] = None,
@@ -158,9 +167,15 @@ class PathNet(nn.Module):
         for layer in (self.fc0, *self.nets, self.attw, self.fc2):
             torch_linear_init_(layer, g)
         torch_lstm_init_(self.LSTM, g)
+        self.homo = spec.variant == "homo"
+        if self.homo:
+            xavier_uniform_(self.fc0.weight, g)
+            xavier_uniform_(self.fc2.weight, g)
 
     def _encode_inputs(self, X: torch.Tensor):
         h = F.linear(X, self.fc0.weight, self.fc0.bias)
+        if self.homo:
+            h = torch.relu(h)
         lstm = self.LSTM
         weights = tuple(w.contiguous() for w in (
             torch.stack([l.weight.t() for l in self.nets]),
@@ -172,8 +187,9 @@ class PathNet(nn.Module):
 
     @torch.no_grad()
     def encode_inputs(self, X: torch.Tensor):
-        """``h = X @ W0 + b0`` and the weights in K3's layout, in K3's order
-        after ``(h, paths, dists)``, detached from the parameters."""
+        """``h = X @ W0 + b0`` (homo: its ReLU) and the weights in K3's
+        layout, in K3's order after ``(h, paths, dists)``, detached from the
+        parameters."""
         h, weights = self._encode_inputs(X)
         return h, tuple(w.detach() for w in weights)
 
@@ -192,13 +208,13 @@ class PathNet(nn.Module):
         if not train:
             with torch.no_grad():
                 h, weights = self._encode_inputs(X)
-                h_agg = pagg_encode_fwd(h, paths, dists, *weights)
+                h_agg = pagg_encode_fwd(h, paths, dists, *weights, homo=self.homo)
                 out = torch.cat([row_gather(h, ego_idx), h_agg], dim=-1)
                 return F.linear(out, self.fc2.weight, self.fc2.bias)
         keep = 1.0 - self.spec.dropout
         m1, m2 = masks if masks is not None else (None, None)
         h, weights = self._encode_inputs(X)
-        h_agg = PaggEncode.apply(h, paths, dists, m1, keep, *weights)
+        h_agg = PaggEncode.apply(h, paths, dists, m1, keep, self.homo, *weights)
         out = torch.cat([RowGather.apply(h, ego_idx), h_agg], dim=-1)
         if m2 is not None:
             out = torch.where(m2.bool(), out / keep, 0.0)

@@ -2,7 +2,8 @@
 
 Port of ``pathnet_tpu/nn/init.py:26-56``: ``nn.Linear`` draws weight and bias
 from U(-1/sqrt(fan_in), 1/sqrt(fan_in)); ``nn.LSTM`` draws every tensor from
-U(-1/sqrt(hidden), 1/sqrt(hidden)). Draws come from a CPU generator and are
+U(-1/sqrt(hidden), 1/sqrt(hidden)); the homo PathNet redraws its ``fc0`` and
+``fc2`` weights from xavier's U(-sqrt(6 / (fan_in + fan_out)), ...). Draws come from a CPU generator and are
 copied to the parameter's device, so one seed gives the same weights on the
 host and on the card.
 """
@@ -27,6 +28,14 @@ def torch_linear_init_(layer: nn.Linear, generator: torch.Generator) -> None:
     uniform_(layer.weight, bound, generator)
     if layer.bias is not None:
         uniform_(layer.bias, bound, generator)
+
+
+@torch.no_grad()
+def xavier_uniform_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Fill a weight ``t [out, in]`` in place with xavier's uniform draw
+    (gain 1) from ``generator``."""
+    fan_out, fan_in = t.shape
+    return uniform_(t, math.sqrt(6.0 / (fan_in + fan_out)), generator)
 
 
 def torch_lstm_init_(lstm: nn.LSTM, generator: torch.Generator) -> None:

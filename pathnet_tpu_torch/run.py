@@ -7,7 +7,8 @@ The same flags and defaults as ``python -m pathnet_tpu.run``, with
 port does not run yet raise ``NotImplementedError`` naming ROADMAP.md:
 ``--mesh``, ``--shard-features``, ``--dtype bfloat16``, ``--rnn`` other than
 lstm, ``--agg`` other than attention, ``--quirk-compat``, ``-mk uniform``,
-homophily (homo-variant) datasets, and the baseline models (``--model``).
+and the baseline models (``--model``). The homophily datasets (cora,
+citeseer, pubmed) train the homo variant, as in the JAX CLI.
 ``--no-scan``, ``--scan-chunk`` and ``--remat`` are accepted and change
 nothing. The result line and the JSONL record go to ``--results-dir`` as in
 the JAX CLI. The port's defaults are ``--results-dir results_torch`` and
@@ -115,8 +116,6 @@ def _apply_config_defaults(parser: argparse.ArgumentParser, path: str):
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP) for a choice the port
     does not run yet."""
-    from .data.registry import DATASETS
-
     todo = []
     if args.model != "pathnet":
         todo.append((f"--model {args.model}", "the baseline zoo, ROADMAP §1 item 10"))
@@ -134,10 +133,6 @@ def check_ported(args) -> None:
         todo.append(("--quirk-compat", "quirk_compat, ROADMAP §1 item 3"))
     if args.marker != "merw":
         todo.append((f"-mk {args.marker}", "uniform walks, ROADMAP §1 item 12"))
-    spec = DATASETS.get(args.data_name)
-    if spec is not None and spec.variant == "homo":
-        todo.append((f"-data {args.data_name} (homo variant)",
-                     "the homo PAGG variant, ROADMAP §1 item 3"))
     if todo:
         what, where = todo[0]
         raise NotImplementedError(f"{what} is not ported yet ({where})")

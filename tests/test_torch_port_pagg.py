@@ -115,7 +115,7 @@ def test_weights_are_seeded_torch_default_draws():
         assert float(x.abs().max()) <= bound, name
 
 
-@pytest.mark.parametrize("kw", [{"variant": "homo"}, {"rnn": "gru"}, {"rnn": "mlp"},
+@pytest.mark.parametrize("kw", [{"rnn": "gru"}, {"rnn": "mlp"},
                                 {"agg": "mean"}, {"agg": "sum"},
                                 {"quirk_compat": True}, {"compute_dtype": "bfloat16"}])
 def test_unported_model_choices_raise(kw):

@@ -36,7 +36,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def cornell_round(dev, epochs, microbatch=None, hidden=64):
+def cornell_round(dev, epochs, microbatch=None, hidden=64, variant="hetero"):
     """A seeded round on cornell's structure at full width (F = 1703,
     nw = 40, wl = 4, dropout 0.7) with features and labels from a seed."""
     g = Graph.from_edge_input(CORNELL)
@@ -46,7 +46,8 @@ def cornell_round(dev, epochs, microbatch=None, hidden=64):
     y = torch.from_numpy(labels).to(dev)
     masks = ratio_masks(g.n, 1000, val_size=59)[:3]
     ps = PathSampler.build(g, 40, 4, device=dev)
-    spec = PaggSpec(feat_dim=1703, hidden=hidden, out_dim=5, walk_len=4, dropout=0.7)
+    spec = PaggSpec(feat_dim=1703, hidden=hidden, out_dim=5, walk_len=4, dropout=0.7,
+                    variant=variant)
     cfg = TrainConfig(epochs=epochs, microbatch=microbatch)
     return run_round(X, y, ps, spec, cfg, *masks, 5, seed=3, track_history=True,
                      keep_params=True)
@@ -66,6 +67,15 @@ def assert_bit_equal(a, b):
 def test_two_seeded_rounds_are_bit_equal_on_the_card(cuda, microbatch):
     a = cornell_round(cuda, 30, microbatch)
     b = cornell_round(cuda, 30, microbatch)
+    assert np.isfinite(a.losses).all()
+    assert_bit_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("microbatch", [None, 32])
+def test_two_seeded_homo_rounds_are_bit_equal_on_the_card(cuda, microbatch):
+    a = cornell_round(cuda, 30, microbatch, variant="homo")
+    b = cornell_round(cuda, 30, microbatch, variant="homo")
     assert np.isfinite(a.losses).all()
     assert_bit_equal(a, b)
 

@@ -297,6 +297,47 @@ def test_each_encode_backward_stage_matches_its_plain_stage_on_the_card(
         assert_within(got, want, ("drow", "dgates", "dsel"))
 
 
+# the homo instances (HOMO = true) of K3's two and K4's three launches, at
+# the compiled widths (64, 256), the run-time instance (H = 1, 16, 37, 1024),
+# one target, a ragged last tile and wild distances
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,wl,nw,T,wild", [
+    (64, 4, 40, None, False), (256, 4, 40, 30, True), (37, 5, 6, 183, True),
+    (16, 2, 6, None, False), (1, 3, 6, None, False), (64, 4, 40, 1, False),
+    (1024, 2, 3, 20, True)])
+def test_homo_encode_and_its_backward_match_plain_on_the_card(cuda, H, wl, nw, T, wild):
+    if wild:
+        starts, paths, dists, h, w, mask, gout = wild_case(H, wl, nw, T, device=cuda)
+    else:
+        starts, paths, dists, h, w, mask, gout = case(nw=nw, wl=wl, H=H, T=T, device=cuda)
+    names = ("dh", "dwd", "dbd", "dw_ih", "dw_hh", "db_ih", "db_hh", "dattw", "dattb")
+    for m, keep in ((None, 1.0), (mask, KEEP)):
+        got = K.pagg_encode_fwd(h, paths, dists, *w, m, keep, homo=True)
+        want = K.pagg_encode_fwd_plain(h, paths, dists, *w, m, keep, homo=True)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        got = K.pagg_encode_bwd(gout, h, paths, dists, *w, m, keep, homo=True)
+        want = K.pagg_encode_bwd_plain(gout, h, paths, dists, *w, m, keep, homo=True)
+        assert_within(got, want, names, cancel=("dattw", "dattb"),
+                      cancel_scale=float(want[0].abs().max()))
+        want = K.encode_walks_streams_plain(h, paths, dists, *w[:6], m, keep, homo=True)
+        got = K.encode_walks_streams(h, paths, dists, *w[:6], m, keep, homo=True)
+        assert_within(got, want, ("hn", "xr", "xin", "hp", "cs", "gt", "ego"))
+        hn, xr, xin, hp, cs, gt, ego = want
+        torch.testing.assert_close(K.readout(h, paths, hn, *w[6:], ego=ego),
+                                   K.readout_plain(h, paths, hn, *w[6:], ego),
+                                   atol=1e-4, rtol=1e-4)
+        want = K.attention_bwd_plain(gout, h, paths, hn, *w[6:], ego)
+        got = K.attention_bwd(gout, h, paths, hn, *w[6:], ego=ego)
+        assert_within(got, want, ("dhn", "dego", "dattw", "dattb"), cancel=("dattw", "dattb"),
+                      cancel_scale=float(want[1].abs().max()))
+        dhn, dego = want[:2]
+        want = K.bptt_plain(dhn, paths, dists, w[0], w[2], w[3], cs, gt, m, keep,
+                            (xin, ego, dego))
+        got = K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt.clone(), m, keep,
+                     homo=(xin, ego, dego))
+        assert_within(got, want, ("drow", "dgates", "dsel"))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,C,m", [(512, 128, 512), (63977, 64, 8192), (183, 5, 1000),
                                    (1000, 3, 4097), (300, 130, 999), (77, 1, 50),
@@ -347,8 +388,20 @@ def test_row_gather_stops_the_stream_on_an_index_out_of_range(cuda, bad):
 
 @pytest.mark.gpu
 def test_a_training_step_on_the_card_matches_the_host(cuda):
+    training_step_on_the_card_and_the_host(cuda, "hetero")
+
+
+@pytest.mark.gpu
+def test_a_homo_training_step_on_the_card_matches_the_host(cuda):
+    training_step_on_the_card_and_the_host(cuda, "homo")
+
+
+def training_step_on_the_card_and_the_host(cuda, variant):
+    """One training step with dropout on the card and on the host from the
+    same weights, walks and masks: logits and every gradient within 1e-4 of
+    the host's largest entry."""
     g = Graph.from_edge_input(CORNELL)
-    spec = PaggSpec(feat_dim=32, hidden=64, out_dim=5, walk_len=4)
+    spec = PaggSpec(feat_dim=32, hidden=64, out_dim=5, walk_len=4, variant=variant)
     gen = torch.Generator().manual_seed(0)
     X = torch.randn((g.n, 32), generator=gen)
     idx = torch.arange(0, g.n, 2, dtype=torch.int32)

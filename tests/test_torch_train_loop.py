@@ -223,9 +223,27 @@ def test_cli_refuses_unported_choices(argv):
         run.main(["-data", "cornell", *argv])
 
 
-def test_cli_refuses_homo_datasets():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run.main(["-data", "cora"])
+@pytest.mark.parametrize("name", ["cora", "citeseer"])
+def test_cli_runs_a_short_homo_protocol_on_the_host(tmp_path, capsys, monkeypatch, name):
+    """A homophily dataset trains the homo variant through the CLI, as in JAX:
+    its payload made from the repo's edge file, one round of 2 epochs on the
+    host, checkpointed under the JAX package's key."""
+    specs = []
+    real = trainer.run_round
+    monkeypatch.setattr(trainer, "run_round",
+                        lambda *a, **k: specs.append(a[3]) or real(*a, **k))
+    agg = run.main(["-data", name, "-pr", str(tmp_path), "-e", "2", "-r", "1", "-hid", "8",
+                    "-nw", "4", "--device", "cpu", "--results-dir", str(tmp_path / "res"),
+                    "--ckpt-dir", str(tmp_path / "ck"), "--resume"])
+    registry.clear_payload_cache()
+    assert [s.variant for s in specs] == ["homo"]
+    assert 0.0 <= agg["accuracy"][0] <= 1.0
+    assert f"pathnet Avg for {name}: acc" in capsys.readouterr().out
+    assert (tmp_path / "res" / f"result_for_{name}.txt").exists()
+    fp = {"cora": "ec4121ed", "citeseer": "907bb672"}[name]
+    assert registry.payload_fingerprint(registry.DATASETS[name]) == fp
+    key = f"{name}.{fp}.e2.h8.s0.nw4.wl4.dr0.7.merw.lstm.attention"
+    assert completed_rounds(str(tmp_path / "ck"), key) == 1
 
 
 def test_cli_runs_a_short_protocol_on_the_host(cornell_root, capsys):
