@@ -35,6 +35,10 @@ JSON line:
   time of the epochs after the first of ``run_round`` (bgp stand-in: 3
   epochs, microbatch 8192; Nba at H = 256: 20 epochs; cornell at H = 64,
   full batch as in its protocol: 100 epochs);
+- ``k3_bgp_bf16_ms``, ``k4_bgp_bf16_ms`` (and their launches' keys, as
+  above), ``request_bf16_ms``, ``bgp_bf16_epoch_ms``: the same at bf16
+  compute (``compute_dtype="bfloat16"``: K3's and K4's bf16 instances),
+  where the checkout runs it;
 - ``k1_{shape}_ms``, ``k2_{shape}_ms``, ``walk_dists_{shape}_ms``: K1
   (``cdf_walk``), K2 (``membership_dists`` on K1's walks) and, where the
   checkout has it, the fused ``walk_dists``, per launch in a CUDA graph, at
@@ -47,6 +51,7 @@ Every line carries the card's ``nvidia-smi`` name and power limit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import importlib
 import json
@@ -184,6 +189,38 @@ def walk_times(K, shapes, gen, out):
                 lambda: K.walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, starts, u, 40), 50)
 
 
+def bf16_times(K, X, y, z, ps, spec, idx, order, paths, dists, m1, gout, gen, C, out):
+    """The bgp request's, microbatch's and epoch's times at bf16 compute,
+    where the checkout's model takes ``compute_dtype="bfloat16"``."""
+    import torch
+    from pathnet_tpu_torch.config import TrainConfig
+    from pathnet_tpu_torch.data.splits import get_whole_mask
+    from pathnet_tpu_torch.models import PathNet
+    from pathnet_tpu_torch.train import predict, run_round
+
+    spec = dataclasses.replace(spec, compute_dtype="bfloat16")
+    try:
+        model = PathNet(spec, device=X.device, generator=torch.Generator().manual_seed(0))
+    except NotImplementedError:
+        return
+    h, w = model.encode_inputs(X)
+    encode_times(K, "bgp_bf16", h, paths, dists, w, (), out)
+    out["k4_bgp_bf16_ms"] = graph_ms(
+        lambda: K.pagg_encode_bwd(gout, h, paths, dists, *w, m1, 0.3), 5)
+    k4_stage_times(K, "bgp_bf16", gout, h, paths, dists, w, (m1, 0.3), out)
+    times = []
+    for r in np.resize(order, 9 * 8192).reshape(9, 8192):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict(model, X, ps, gen, idx=r)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["request_bf16_ms"] = float(np.median(times[1:]))
+    res = run_round(X, y, ps, spec, TrainConfig(epochs=3, microbatch=8192),
+                    *get_whole_mask(z["y"], seed=1), C, seed=0, track_history=True)
+    out["bgp_bf16_epoch_ms"] = float(np.median(res.epoch_seconds[1:])) * 1e3
+
+
 def measure(root: str) -> dict:
     """Every time of the module docstring, for the port under ``root``."""
     sys.path.insert(0, root)
@@ -240,6 +277,7 @@ def measure(root: str) -> dict:
     res = run_round(X, y, ps, spec, TrainConfig(epochs=3, microbatch=8192),
                     *get_whole_mask(z["y"], seed=1), C, seed=0, track_history=True)
     out["bgp_epoch_ms"] = float(np.median(res.epoch_seconds[1:])) * 1e3
+    bf16_times(K, X, y, z, ps, spec, idx, order, paths, dists, m1, gout, gen, C, out)
 
     with tempfile.TemporaryDirectory() as tmp:
         os.makedirs(os.path.join(tmp, "edge_input"))

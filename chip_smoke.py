@@ -95,16 +95,34 @@ one card). Phases, each with a start and an end line:
     the CLI (``CORA_ROUNDS``, ``CITESEER_ROUNDS`` rounds x 1000 epochs at
     the reference defaults), gated on the JAX bands 74.46 +- 2.66 and
     71.94 +- 1.24 (``results/results.jsonl:55,59``) only when the payload's
-    fingerprint is the band's (ec4121ed, 907bb672; else the phase fails).
+    fingerprint is the band's (ec4121ed, 907bb672; else the phase fails);
+13. bf16 compute (``compute_dtype="bfloat16"``, K3's and K4's ``BF16``
+    instances): K3 bf16 against its plain version on one 8192-target bgp
+    request, K3 (with and without the keep mask) and K4 bf16 with each of
+    its three launches on one bgp microbatch, and the homo bf16 instances
+    on cora with all 2,708 targets, each within ``BF16_TOL`` (four bf16
+    ulps) of its plain version's largest entry and timed as in phase 5, its
+    bound at bf16's tensor-core rate with the f32 CUDA-core bound beside
+    it; ``predict`` at bf16 on the card against the host (cornell at full
+    width, the "h" table; 1024 bgp targets, the "x" table) and one cornell
+    training step, within ``BF16_TOL``; two seeded bf16 rounds bit-equal
+    (as 7b); then the bgp protocol through the CLI at its band's
+    configuration (``--dtype bfloat16 --microbatch 8192``, payload 276b674c,
+    else the phase fails) for ``BGP_ROUNDS`` x 1000, and cora at bf16 for
+    ``CORA_BF16_ROUNDS`` x 1000.
 
 The protocol phases gate on their band when they run 10 rounds of 1000
-epochs, and on accuracy above chance when a rehearsal cuts them shorter.
+epochs, and on accuracy above chance when a rehearsal cuts them shorter;
+the bgp rehearsal holds each round's test accuracy within 3 std of its
+band, 70.30 +- 1.26 (``results/results.jsonl:96``).
 
 The line before the last is the kernels' JSON record (launches from phase 6,
 the training path, which runs ``walk_dists``, K3, K4, ``segment_sum`` and
 K5, and launches K1 and K2 no time: ``walk_dists`` replaces them there, as
 each one's ``note`` says; K6's from phase 8; the homo instances of K3 and
-K4, named ``... homo``, from phase 12's cora protocol);
+K4, named ``... homo``, from phase 12's cora protocol; the bf16 instances,
+named ``... bf16``, from phase 13's bgp and cora protocols, each with an
+``f32_bound_ms`` beside its bound at bf16's rate);
 the last is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
 prints no result. Without a CUDA card, or outside a checkout, it exits
 non-zero.
@@ -130,6 +148,7 @@ BGP = os.path.join(ROOT, "data", "bench_cache", "bgp_standin_63977.npz")
 CORNELL = os.path.join(ROOT, "data", "edge_input", "cornell.in")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 NW, WL, HIDDEN, REQUEST, EPOCHS = 40, 4, 64, 8192, 3
 K3_TOL = 1e-4
 K4_TOL = 1e-4      # of each gradient's largest plain entry
@@ -177,7 +196,15 @@ CITESEER_BAND = (0.7193985044956207, 0.01236745494699046)   # :59
 HOMO_PAYLOADS = {"cora": "ec4121ed", "citeseer": "907bb672"}
 CORA_ROUNDS, CITESEER_ROUNDS = 10, 10
 HOMO_KERNELS = ("pagg_encode_fwd", "pagg_encode_bwd")  # the kernels with a HOMO instance
-
+# bf16 compute: K3's and K4's BF16 instances (hetero and homo), held to four
+# bf16 ulps of each output's largest plain entry (the gpu tests' tolerance)
+BF16_TOL = 4 * 2.0 ** -8
+BF16_KERNELS = tuple(f"{n}{v} bf16" for v in ("", " homo") for n in HOMO_KERNELS)
+# the bgp band (results/results.jsonl:96): bf16, H = 64, microbatch 8192, on
+# payload 276b674c; a run of fewer rounds holds each round to 3 std
+BGP_BAND = (0.7030006766319274, 0.004238089026796824)
+BGP_PAYLOAD, BGP_ROUNDS, BGP_MICROBATCH = "276b674c", 1, 8192
+CORA_BF16_ROUNDS = 1
 
 def say(msg: str) -> None:
     print(msg, flush=True)
@@ -260,9 +287,12 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(nbytes_: float, ops: float):
+def bound(nbytes_: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
+    """The least ms for the work: bytes over HBM's rate or operations over
+    ``ops_per_s`` (f32 by default; bf16's tensor-core rate for bf16
+    inputs), whichever is larger, and which."""
     t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -408,22 +438,30 @@ def check_segment_sum(tag, paths, rows, n, rec, time_as=None, homo=False):
             "ms per call in a CUDA graph")
 
 
-def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None):
+def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None,
+          bf16=False):
     """Time a kernel per launch in a CUDA graph and per eager call, its plain
     version per eager call and (if given) the library call as the kernel,
-    per call in a CUDA graph (its ``library_ms``) and eagerly; record them."""
+    per call in a CUDA graph (its ``library_ms``) and eagerly; record them.
+    ``bf16``: the bound at bf16's tensor-core rate, and beside it the f32
+    CUDA-core bound of the same operations (``f32_bound_ms``)."""
     ms = graph_ms(kern_graph or kern, iters)
     call_ms = time_ms(kern, max(2, iters // 3))
     plain_ms = time_ms(plain, 3)
     lib_ms = graph_ms(library, iters) if library is not None else None
     lib_call = "" if library is None else f", eager {time_ms(library, 20):.4f} ms"
-    bound_ms, bound_by = bound(b, o)
+    bound_ms, bound_by = bound(b, o, BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
     rec[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=lib_ms)
+    f32_note = ""
+    if bf16:
+        rec[name]["f32_bound_ms"] = bound(b, o)[0]
+        f32_note = f", f32 CUDA-core bound {rec[name]['f32_bound_ms']:.4f} ms"
     say(f"  {name}: {ms:.4f} ms per launch in a CUDA graph, {call_ms:.4f} ms per "
         f"eager wrapper call (plain {plain_ms:.4f} ms eager, library "
         + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms in a CUDA graph{lib_call}") +
-        f", bound {bound_ms:.4f} ms by {bound_by}: {b / 1e6:.1f} MB, {o / 1e9:.3f} G ops)")
+        f", bound {bound_ms:.4f} ms by {bound_by}{' at bf16' if bf16 else ''}{f32_note}: "
+        f"{b / 1e6:.1f} MB, {o / 1e9:.3f} G ops)")
 
 
 def time_k3_stages(tag, h, paths, dists, w, mask_args=(None, 1.0), homo=False):
@@ -439,9 +477,9 @@ def time_k3_stages(tag, h, paths, dists, w, mask_args=(None, 1.0), homo=False):
         f"{read_ms:.4f} ms, per launch in a CUDA graph")
 
 
-def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False):
+def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_TOL):
     """Each of K4's three launches against its plain stage, on the plain
-    stage's inputs: every output within K4_TOL of its plain version's
+    stage's inputs: every output within ``tol`` of its plain version's
     largest entry (``dattw``, ``dattb``, sums that cancel, of the ego rows'
     ``dh`` if larger). Returns the row gradients that ``segment_sum`` adds
     (hetero: the BPTT's and the ego rows'; homo: the BPTT's)."""
@@ -455,9 +493,9 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False):
             err = float((a - b).abs().max())
             top = float(b.abs().max())
             scale = max(top, cancel_scale) if name in ("dattw", "dattb") else top
-            if not err <= K4_TOL * scale:
+            if not err <= tol * scale:
                 raise AssertionError(f"{tag}: K4's {stage} launch, {name} max abs err "
-                                     f"{err} beyond {K4_TOL} x {scale}")
+                                     f"{err} beyond {tol} x {scale}")
             parts.append(f"{name} {err / max(top, 1e-30):.1e}")
 
     enc = (h, paths, dists, *w[:6], mask, keep, homo)
@@ -475,7 +513,7 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False):
     want = K.bptt_plain(*bargs, gt, mask, keep, hargs)
     hold("bptt", ("drow", "dgates", "dsel"), K.bptt(*bargs, gt.clone(), mask, keep, hargs),
          want)
-    say(f"  {tag}: K4's three launches each within {K4_TOL} of its plain stage (error "
+    say(f"  {tag}: K4's three launches each within {tol:.3g} of its plain stage (error "
         "over each plain max: " + ", ".join(parts) + ")")
     H = h.shape[1]
     drow = want[0].reshape(-1, H)
@@ -508,15 +546,17 @@ def record_err(rec, name, err):
     rec[name]["max_abs_err"] = max(rec[name].get("max_abs_err", 0.0), err)
 
 
-def homo_name(name, homo):
-    """A kernel's record: its homo instances' record has its own name."""
-    return f"{name} homo" if homo else name
+def homo_name(name, homo, bf16=False):
+    """A kernel's record: its homo and its bf16 instances' records have their
+    own names."""
+    return name + (" homo" if homo else "") + (" bf16" if bf16 else "")
 
 
-def check_k4(tag, got, want):
-    """Each K4 gradient within K4_TOL of its plain version's largest entry;
+def check_k4(tag, got, want, tol=K4_TOL):
+    """Each K4 gradient within ``tol`` of its plain version's largest entry;
     ``dattw`` and ``dattb`` (sums over all walks that cancel) against the
     larger of that and ``dh``'s largest entry. Returns the max abs error."""
+    got, want = [t.float() for t in got], [t.float() for t in want]
     dh_max = float(want[0].abs().max())
     worst = 0.0
     parts = []
@@ -526,13 +566,22 @@ def check_k4(tag, got, want):
         if name in ("dattw", "dattb"):
             scale = max(scale, dh_max)
         parts.append(f"{name} {err / max(float(b.abs().max()), 1e-30):.1e}")
-        if not err <= K4_TOL * scale:
+        if not err <= tol * scale:
             raise AssertionError(f"{tag}: pagg_encode_bwd {name} max abs err {err} "
-                                 f"beyond {K4_TOL} x {scale}")
+                                 f"beyond {tol} x {scale}")
         worst = max(worst, err)
-    say(f"  {tag}: pagg_encode_bwd within {K4_TOL} (error over each plain max: "
+    say(f"  {tag}: pagg_encode_bwd within {tol:.3g} (error over each plain max: "
         + ", ".join(parts) + ")")
     return worst
+
+
+def k3_close(agg, agg_p, bf16):
+    """K3 against its plain version: f32 within atol = rtol = K3_TOL; bf16
+    within BF16_TOL of the plain version's largest entry."""
+    import torch
+    if bf16:
+        return float((agg - agg_p).abs().max()) <= BF16_TOL * float(agg_p.abs().max())
+    return torch.allclose(agg, agg_p, atol=K3_TOL, rtol=K3_TOL)
 
 
 def encode_bounds(h, paths, dists, m1, agg, g, w):
@@ -565,7 +614,7 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False
     T, nw, wl = paths.shape
     h, w = model.encode_inputs(X)
     H = h.shape[1]
-    homo = model.homo
+    homo, bf16 = model.homo, model.bf16
     keep = 1.0 - model.spec.dropout
     m1, _ = draw_dropout_masks(model.spec, T, nw, gen, X.device)
     for mask_args, what in (((None, 1.0), "without a mask"), ((m1, keep), "with the keep mask")):
@@ -573,19 +622,22 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False
         agg_p = K.pagg_encode_fwd_plain(h, paths, dists, *w, *mask_args, homo)
         torch.cuda.synchronize()
         err3 = float((agg - agg_p).abs().max())
-        if not torch.allclose(agg, agg_p, atol=K3_TOL, rtol=K3_TOL):
+        if not k3_close(agg, agg_p, bf16):
             raise AssertionError(f"{tag}: pagg_encode_fwd {what} max abs err {err3}")
-        record_err(rec, homo_name("pagg_encode_fwd", homo), err3)
-        say(f"  {tag}: pagg_encode_fwd {what} max abs err {err3:.3e} within atol = "
-            f"rtol = {K3_TOL} (T={T}, nw={nw}, wl={wl}, H={H}, keep={keep:.2f})")
+        record_err(rec, homo_name("pagg_encode_fwd", homo, bf16), err3)
+        say(f"  {tag}: pagg_encode_fwd {what} max abs err {err3:.3e} within "
+            + (f"{BF16_TOL:.4g} x max {float(agg_p.abs().max()):.3f}" if bf16 else
+               f"atol = rtol = {K3_TOL}")
+            + f" (T={T}, nw={nw}, wl={wl}, H={H}, keep={keep:.2f}, {h.dtype})")
     g = torch.randn((T, H), generator=gen, device=X.device)
     bwd_args = (g, h, paths, dists, *w, m1, keep, homo)
     got = K.pagg_encode_bwd(*bwd_args)
     want = K.pagg_encode_bwd_plain(*bwd_args)
     torch.cuda.synchronize()
-    record_err(rec, homo_name("pagg_encode_bwd", homo), check_k4(tag, got, want))
+    tol = BF16_TOL if bf16 else K4_TOL
+    record_err(rec, homo_name("pagg_encode_bwd", homo, bf16), check_k4(tag, got, want, tol))
     del got, want
-    rows = check_k4_stages(tag, g, h, paths, dists, w, m1, keep, homo)
+    rows = check_k4_stages(tag, g, h, paths, dists, w, m1, keep, homo, tol)
     check_segment_sum(tag, paths, rows, h.shape[0], rec,
                       homo_name("segment_sum", homo) if time_segment else None, homo)
     del rows
@@ -779,13 +831,13 @@ def check_wide_encode(root, dev, gen, rec):
     time_k4_stages(name4, gout, h, paths, dists, w, m1, keep)
 
 
-def step_card_vs_host(tag, spec, dev, samplers, Xs, idx, y):
+def step_card_vs_host(tag, spec, dev, samplers, Xs, idx, y, tol=1e-4):
     """One training step (dropout masks drawn on the host) on the card and on
     the host from the same weights, walks and masks: one launch of each
     training kernel on the card, and the logits and every gradient within
-    1e-4 of the host's largest entry (``attw.bias``, a sum that cancels to
-    near 0, within 1e-4 of the largest entry of ``attw.weight``'s gradient).
-    ``samplers`` and ``Xs`` are (card, host) pairs."""
+    ``tol`` of the host's largest entry (``attw.bias``, a sum that cancels to
+    near 0, within ``tol`` of the largest entry of ``attw.weight``'s
+    gradient). ``samplers`` and ``Xs`` are (card, host) pairs."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.models import PathNet, draw_dropout_masks
@@ -821,9 +873,10 @@ def step_card_vs_host(tag, spec, dev, samplers, Xs, idx, y):
             # to near 0; its summands are those of attw.weight's gradient
             scale = max(scale, float(out[1]["attw.weight"].abs().max()))
         parts.append(f"{k} {err / max(float(want.abs().max()), 1e-30):.1e}")
-        if not err <= 1e-4 * scale:
+        if not err <= tol * scale:
             raise AssertionError(f"{tag} step: {k} differs from the host's by {err}")
-    say(f"  {tag}, {idx.shape[0]} train nodes, F = {spec.feat_dim}, {spec.variant}: logits "
+    say(f"  {tag}, {idx.shape[0]} train nodes, F = {spec.feat_dim}, {spec.variant}, "
+        f"{spec.compute_dtype}, within {tol:.3g}: logits "
         f"and all {len(out[1]) - 1} gradients on the card against the host (error over "
         "the host's largest entry): " + ", ".join(parts))
 
@@ -848,11 +901,11 @@ def rounds_bit_equal(tag, X, y, ps, masks, classes, cfg, spec):
         f"{float(a.losses[-1]):.6f}, best val {a.best_val_acc:.4f})")
 
 
-def check_reproducible(dev, gc, Xc, X, z, psc, ps):
+def check_reproducible(dev, gc, Xc, X, z, psc, ps, dtype="float32"):
     """Two ``run_round`` calls with one seed give bit-equal validation
     accuracies, losses and best params: cornell at full width with dropout
     (full batch, 30 epochs) and the bgp stand-in (microbatch 8192, the last
-    chunk padded, 2 epochs)."""
+    chunk padded, 2 epochs), at the compute dtype ``dtype``."""
     import torch
     from pathnet_tpu_torch.config import TrainConfig
     from pathnet_tpu_torch.data.splits import get_whole_mask, ratio_masks
@@ -867,30 +920,38 @@ def check_reproducible(dev, gc, Xc, X, z, psc, ps):
               TrainConfig(epochs=2, microbatch=REQUEST)))
     for tag, Xx, yy, psx, masks, classes, cfg in cases:
         spec = PaggSpec(feat_dim=Xx.shape[1], hidden=HIDDEN, out_dim=classes, walk_len=WL,
-                        dropout=0.7)
-        rounds_bit_equal(tag, Xx, yy, psx, masks, classes, cfg, spec)
+                        dropout=0.7, compute_dtype=dtype)
+        rounds_bit_equal(f"{tag} {dtype}", Xx, yy, psx, masks, classes, cfg, spec)
 
 
-def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None):
+def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype="float32",
+                     microbatch=None, round_band=False):
     """The protocol through the CLI on the card with temporary results and
-    checkpoint directories; checks its launches, checkpoints and accuracy,
-    and returns the launch counts. At 10 rounds x 1000 epochs the mean test
-    accuracy must lie inside the JAX ``band``, whose payload fingerprint
-    (``payload``, where given) the dataset's must equal; a shorter run
-    must lie above chance."""
+    checkpoint directories (``--dtype dtype``, ``--microbatch`` where
+    given); checks its launches, checkpoints and accuracy, and returns the
+    launch counts. At 10 rounds x 1000 epochs the mean test accuracy must
+    lie inside the JAX ``band``, whose payload fingerprint (``payload``,
+    where given) the dataset's must equal; a shorter run must lie above
+    chance, or with ``round_band`` hold each round's test accuracy within 3
+    std of the band's mean."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch import run
-    from pathnet_tpu_torch.data.registry import DATASETS, payload_fingerprint
+    from pathnet_tpu_torch.data.registry import DATASETS, load_dataset, payload_fingerprint
 
     if payload is not None and payload_fingerprint(DATASETS[name]) != payload:
         raise AssertionError(f"{name}: payload {payload_fingerprint(DATASETS[name])} is not "
                              f"the JAX band's {payload}")
-    out = os.path.join(tmp, f"{name}_h{hidden}")
+    out = os.path.join(tmp, f"{name}_h{hidden}_{dtype}")
     argv = ["-data", name, "-pr", root, "-r", str(rounds), "-e", str(PROTOCOL_EPOCHS),
-            "-hid", str(hidden),
+            "-hid", str(hidden), "--dtype", dtype,
             "--results-dir", os.path.join(out, "results"),
             "--ckpt-dir", os.path.join(out, "ckpt"), "--resume"]
+    chunks = (1, 1, 1)   # train, validation, test chunks an epoch
+    if microbatch is not None:
+        argv += ["--microbatch", str(microbatch)]
+        masks = load_dataset(name, root, 0)[1:4]
+        chunks = tuple(-(-int(m.sum()) // microbatch) for m in masks)
     K.reset_launch_counts()
     t0 = time.perf_counter()
     agg = run.main(argv)
@@ -900,23 +961,38 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None):
     epochs = PROTOCOL_EPOCHS * rounds
     say(f"  launches: {counts}")
     fwd = counts["pagg_encode_fwd"]
-    if not (counts["walk_dists"] == counts["pagg_encode_bwd"] == counts["segment_sum"]
-            == counts["row_gather_bwd"] == epochs and counts["row_gather"] == fwd
-            and 2 * epochs <= fwd <= 3 * epochs and counts["lane_gather"]
-            == counts["cdf_walk"] == counts["membership_dists"] == 0):
+    ktr, kva, kte = chunks
+    if not (counts["walk_dists"] == epochs and counts["pagg_encode_bwd"] == counts["segment_sum"]
+            == counts["row_gather_bwd"] == ktr * epochs and counts["row_gather"] == fwd
+            and (ktr + kva) * epochs <= fwd <= (ktr + kva + kte) * epochs
+            and counts["lane_gather"] == counts["cdf_walk"] == counts["membership_dists"] == 0):
         raise AssertionError(f"{name} protocol launch counts {counts}: {epochs} epochs make "
-                             "one walk, distance and backward launch each, and 2-3 forwards")
-    saved = glob.glob(os.path.join(out, "ckpt", "*", "round_*", "meta.json"))
+                             f"one walk launch each, {ktr} backward launches and "
+                             f"{ktr + kva}-{ktr + kva + kte} forwards")
+    saved = sorted(glob.glob(os.path.join(out, "ckpt", "*", "round_*", "meta.json")))
     if len(saved) != rounds or not os.path.isfile(
             os.path.join(out, "results", f"result_for_{name}.txt")):
         raise AssertionError(f"{name}: {len(saved)} rounds checkpointed, or no result line")
+    if dtype != "float32" and not all(f".{dtype}/" in p for p in saved):
+        raise AssertionError(f"{name}: rounds not checkpointed under the .{dtype} key: {saved}")
+    accs = []
+    for path in saved:
+        with open(path) as f:
+            accs.append(json.load(f)["metrics"]["accuracy"])
     mean, std = agg["accuracy"]
-    say(f"  {name}, {rounds} rounds x {PROTOCOL_EPOCHS} epochs at H = {hidden}: acc {mean:.4f} +- {std:.4f} "
-        f"(JAX {band[0]:.4f} +- {band[1]:.4f}); {secs:.1f} s, {secs / rounds:.2f} s per round, "
-        f"{secs / epochs * 1e3:.3f} ms per epoch (loading and the sampler build included)")
+    say(f"  {name}, {rounds} rounds x {PROTOCOL_EPOCHS} epochs at H = {hidden}, {dtype}"
+        + (f", microbatch {microbatch}" if microbatch else "") + f": acc {mean:.4f} +- "
+        f"{std:.4f} (JAX {band[0]:.4f} +- {band[1]:.4f}; rounds "
+        + ", ".join(f"{a:.4f}" for a in accs) + f"); {secs:.1f} s, {secs / rounds:.2f} s "
+        f"per round, {secs / epochs * 1e3:.3f} ms per epoch (loading, MERW and the sampler "
+        "build included)")
     if rounds == 10 and PROTOCOL_EPOCHS == 1000:
         if not abs(mean - band[0]) <= band[1]:
             raise AssertionError(f"{name}: mean accuracy {mean} outside the JAX band {band}")
+    elif round_band:
+        bad = [a for a in accs if not abs(a - band[0]) <= 3 * band[1]]
+        if bad:
+            raise AssertionError(f"{name}: rounds {bad} outside 3 std of the JAX band {band}")
     elif not mean > 1.0 / DATASETS[name].num_classes:
         raise AssertionError(f"{name}: mean accuracy {mean} not above chance")
     return counts
@@ -1010,6 +1086,130 @@ def check_homo_kernels(root, dev, gen, rec):
                      TrainConfig(epochs=30), spec)
 
 
+def check_bf16_kernels(root, dev, gen, rec, X, ps, idx, u, C):
+    """bf16 compute: K3's bf16 instance on one 8192-target bgp request, K3
+    (with the keep mask) and K4 with each of its three launches on one bgp
+    microbatch, and the homo bf16 instances on cora with all 2,708 targets,
+    each against its plain version within BF16_TOL of its largest entry;
+    timed as phases 2 and 5, each bound at bf16's tensor-core rate with the
+    f32 CUDA-core bound beside it."""
+    import dataclasses
+
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.data.registry import load_dataset
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+    from pathnet_tpu_torch.sample import PathSampler
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=HIDDEN, out_dim=C, walk_len=WL,
+                    compute_dtype="bfloat16")
+    model = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(0))
+    paths, dists = ps.sample(idx, u=u)
+    h, w = model.encode_inputs(X)
+    agg = K.pagg_encode_fwd(h, paths, dists, *w)
+    agg_p = K.pagg_encode_fwd_plain(h, paths, dists, *w)
+    torch.cuda.synchronize()
+    err = float((agg - agg_p).abs().max())
+    if not k3_close(agg, agg_p, True):
+        raise AssertionError(f"bgp request: pagg_encode_fwd bf16 max abs err {err}")
+    record_err(rec, "pagg_encode_fwd bf16", err)
+    say(f"  bgp request: pagg_encode_fwd bf16 ({spec.resolved_gather_mode()!r} table) max abs "
+        f"err {err:.3e} within {BF16_TOL:.4g} x max {float(agg_p.abs().max()):.3f}")
+    S, nw, wl = paths.shape
+    b3 = nbytes(h, paths, dists, agg, *w)
+    o3 = S * nw * (wl * 18 * HIDDEN * HIDDEN + 6 * HIDDEN)
+    timed(rec, "pagg_encode_fwd bf16", lambda: K.pagg_encode_fwd(h, paths, dists, *w),
+          lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w), b3, o3, 50, bf16=True)
+    time_k3_stages("pagg_encode_fwd bf16", h, paths, dists, w)
+
+    model = PathNet(dataclasses.replace(spec, dropout=0.7), device=dev,
+                    generator=torch.Generator().manual_seed(0))
+    paths, dists, h, w, m1, keep, agg, g, bwd_args = check_encode_kernels(
+        "bgp microbatch bf16", ps, model, X, idx, u, gen, rec)
+    b3, o3, b4, o4 = encode_bounds(h, paths, dists, m1, agg, g, w)
+    name = "pagg_encode_fwd bf16 with keep mask"
+    timed({name: {}}, name, lambda: K.pagg_encode_fwd(h, paths, dists, *w, m1, keep),
+          lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, m1, keep), b3, o3, 20,
+          bf16=True)
+    time_k3_stages(name, h, paths, dists, w, (m1, keep))
+    timed(rec, "pagg_encode_bwd bf16", lambda: K.pagg_encode_bwd(*bwd_args),
+          lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 5, bf16=True)
+    time_k4_stages("pagg_encode_bwd bf16", g, h, paths, dists, w, m1, keep)
+    del paths, dists, h, w, m1, agg, g, bwd_args
+
+    gc, _, _, _, spec_d = load_dataset("cora", root, 0)
+    psc = PathSampler.build(gc, NW, WL, device=dev)
+    Xc = torch.from_numpy(np.array(gc.features, np.float32)).to(dev)
+    spec = PaggSpec(feat_dim=Xc.shape[1], hidden=HIDDEN, out_dim=spec_d.num_classes,
+                    walk_len=WL, dropout=0.7, variant="homo", compute_dtype="bfloat16")
+    model = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(5))
+    every = torch.arange(gc.n, dtype=torch.int32, device=dev)
+    uc = draw_uniforms(WL, gc.n * NW, gen, dev)
+    paths, dists, h, w, m1, keep, agg, g, bwd_args = check_encode_kernels(
+        f"cora homo bf16, all {gc.n} targets", psc, model, Xc, every, uc, gen, rec)
+    b3, o3, b4, o4 = encode_bounds(h, paths, dists, m1, agg, g, w)
+    timed(rec, "pagg_encode_fwd homo bf16",
+          lambda: K.pagg_encode_fwd(h, paths, dists, *w, homo=True),
+          lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, homo=True),
+          nbytes(h, paths, dists, agg, *w), o3, 20, bf16=True)
+    timed(rec, "pagg_encode_bwd homo bf16", lambda: K.pagg_encode_bwd(*bwd_args),
+          lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 5, bf16=True)
+    time_k4_stages("pagg_encode_bwd homo bf16", g, h, paths, dists, w, m1, keep, homo=True)
+
+
+def check_bf16_host(dev, X, ps, z, C, gc, Xc_np, psc, ps_host):
+    """bf16 compute on the card against the host: ``predict`` on cornell at
+    full width (F = 1,703: the "h" table) over all nodes and on 1024 bgp
+    targets (F = 8: the "x" table) with the same draws, each within BF16_TOL
+    of the host's largest log-probability; one cornell training step, its
+    logits and gradients within BF16_TOL of the host's largest entries."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.data import Graph
+    from pathnet_tpu_torch.data.splits import ratio_masks
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+    from pathnet_tpu_torch.sample import PathSampler
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+    from pathnet_tpu_torch.train import predict
+
+    gb = Graph(n=int(z["n"]), src=z["src"], dst=z["dst"], prob=z["prob"])
+    cases = (("cornell", torch.from_numpy(Xc_np), psc, ps_host, 5,
+              torch.arange(gc.n, dtype=torch.int32)),
+             ("bgp", X.cpu(), ps, PathSampler.build(gb, NW, WL, device="cpu"), C,
+              torch.from_numpy(np.random.default_rng(3).permutation(gb.n)[:1024]
+                               .astype(np.int32))))
+    for tag, Xh, psd, psh, classes, idx in cases:
+        spec = PaggSpec(feat_dim=Xh.shape[1], hidden=HIDDEN, out_dim=classes, walk_len=WL,
+                        compute_dtype="bfloat16")
+        m = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(6))
+        m_host = PathNet(spec, device="cpu")
+        m_host.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+        u = draw_uniforms(WL, idx.shape[0] * NW, torch.Generator().manual_seed(9), "cpu")
+        K.reset_launch_counts()
+        logp = predict(m, Xh.to(dev), psd, idx=idx.to(dev), u=u[None].to(dev))
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        if counts != {name: int(name in FORWARD_PATH) for name in KERNELS}:
+            raise AssertionError(f"{tag} bf16 request launch counts {counts}")
+        logp_host = predict(m_host, Xh, psh, idx=idx, u=u[None])
+        err = float((logp.cpu() - logp_host).abs().max())
+        top = float(logp_host.abs().max())
+        say(f"  {tag} bf16 predict ({spec.resolved_gather_mode()!r} table) on the card vs the "
+            f"host (same draws, {idx.shape[0]} targets): max abs err {err:.3e}, "
+            f"{err / top:.2e} of the largest |log-prob|")
+        if not torch.isfinite(logp).all() or err > BF16_TOL * top:
+            raise AssertionError(f"{tag} bf16 log-probs differ from the host's by {err}")
+    trc = ratio_masks(gc.n, 1000, val_size=59)[0]
+    idx7 = torch.from_numpy(np.flatnonzero(trc).astype(np.int32))
+    yc = torch.from_numpy(np.random.default_rng(1).integers(0, 5, size=gc.n))
+    spec7 = PaggSpec(feat_dim=1703, hidden=HIDDEN, out_dim=5, walk_len=WL, dropout=0.7,
+                     compute_dtype="bfloat16")
+    step_card_vs_host("cornell bf16", spec7, dev, (psc, ps_host),
+                      (torch.from_numpy(Xc_np).to(dev), torch.from_numpy(Xc_np)), idx7, yc,
+                      BF16_TOL)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1150, exit=True)
     import torch
@@ -1035,7 +1235,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    rec = {name: {} for name in KERNELS + tuple(homo_name(n, True) for n in HOMO_KERNELS)}
+    rec = {name: {} for name in KERNELS + tuple(homo_name(n, True) for n in HOMO_KERNELS)
+           + BF16_KERNELS}
     meta = {
         "cdf_walk": ("pathnet_tpu_torch/csrc/walk_dists.cu", "pathnet_tpu/sample/alias.py:142"),
         "membership_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
@@ -1056,6 +1257,11 @@ def main() -> int:
                        "pathnet_tpu/sample/alias.py:142, pathnet_tpu/sample/distance.py:77"),
     }
     meta.update({homo_name(n, True): meta[n] for n in HOMO_KERNELS})
+    meta.update({homo_name(n, v, True): meta[n] for n in HOMO_KERNELS for v in (False, True)})
+    notes = dict(NOTES)
+    notes.update({homo_name(n, v, True): f"{k}'s bf16 instances (BF16 = true)"
+                  + (", homo" if v else "")
+                  for n, k in zip(HOMO_KERNELS, ("K3", "K4")) for v in (False, True)})
 
     with Phase("0 device"):
         kind = torch.cuda.get_device_name(0)
@@ -1268,6 +1474,22 @@ def main() -> int:
             run_protocol_cli("citeseer", root, tmp, CITESEER_ROUNDS, HIDDEN, CITESEER_BAND,
                              HOMO_PAYLOADS["citeseer"])
 
+        with Phase(f"13 bf16: kernels (bgp, cora), card vs host, seeded rounds, bgp "
+                   f"{BGP_ROUNDS} x {PROTOCOL_EPOCHS}, cora {CORA_BF16_ROUNDS} x "
+                   f"{PROTOCOL_EPOCHS}"):
+            check_bf16_kernels(root, dev, gen, rec, X, ps, idx, u, C)
+            check_bf16_host(dev, X, ps, z, C, gc, Xc_np, psc, ps_host)
+            check_reproducible(dev, gc, Xc, X, z, psc, ps, "bfloat16")
+            counts = run_protocol_cli("bgp", root, tmp, BGP_ROUNDS, HIDDEN, BGP_BAND,
+                                      BGP_PAYLOAD, "bfloat16", BGP_MICROBATCH,
+                                      round_band=True)
+            for name in HOMO_KERNELS:
+                rec[homo_name(name, False, True)]["launches"] = counts[name]
+            counts = run_protocol_cli("cora", root, tmp, CORA_BF16_ROUNDS, HIDDEN, CORA_BAND,
+                                      HOMO_PAYLOADS["cora"], "bfloat16")
+            for name in HOMO_KERNELS:
+                rec[homo_name(name, True, True)]["launches"] = counts[name]
+
     say(smi)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0],
@@ -1275,7 +1497,8 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **({"note": NOTES[name]} if name in NOTES else {})}
+         **({"f32_bound_ms": r["f32_bound_ms"]} if "f32_bound_ms" in r else {}),
+         **({"note": notes[name]} if name in notes else {})}
         for name, r in rec.items()]}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

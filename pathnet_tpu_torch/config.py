@@ -46,7 +46,7 @@ class ModelConfig:
     # (PathNet_run.py:196-204, see SURVEY.md §2.4) for golden-value parity.
     quirk_compat: bool = False
     param_dtype: str = "float32"
-    compute_dtype: str = "float32"  # bfloat16 is not ported yet
+    compute_dtype: str = "float32"  # or "bfloat16": the encode in bf16 (K3, K4)
 
 
 @dataclasses.dataclass(frozen=True)

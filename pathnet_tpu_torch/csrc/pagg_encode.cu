@@ -1,5 +1,5 @@
 // K3: PAGG encode forward for the LSTM / attention model, hetero and homo
-// variants, f32.
+// variants, f32 and bf16 compute.
 //
 // Replaces pathnet_tpu/models/pagg.py:235-303 (the encode block and the
 // attention readout of pagg_forward) with _dist_select (:150-177) and
@@ -18,6 +18,18 @@
 // are the code they were; the homo encode also stores the walk's ego row
 // to a scratch [T * nw, H] that the readout reads in place of h[paths[0]].
 // The variant changes per-element work only: the bound below holds for both.
+// bf16 compute (the JAX package's compute_dtype="bfloat16", pagg.py:233-279)
+// is the template parameter BF16 of the encode and the table's type in the
+// readout: the table and wd, bd, w_ih, w_hh, b_ih, b_hh are bf16 (the
+// weight chunks staged as bf16 at half the bytes, widened in the product),
+// every product and the cell are the f32 FMAs below, and the encode rounds
+// s_t = round(round(x_t @ W[d]) + b[d]), the dropped-out round(s_t / keep)
+// (the wrapper passes keep rounded to bf16, as JAX divides by it),
+// c_t and h_t to bf16; the readout runs in f32 on the bf16 table's ego rows
+// (hetero) or the rounded step-0 rows (homo). The same FMA count, so the
+// same f32 bound: bf16's tensor-core rate (~989 TFLOP/s dense, a bound of
+// ~0.10 ms at the bgp request) is for a tensor-core design to reach. The
+// bf16 instances are compiled at H = 64 and at the run-time width only.
 //
 // Bound on the H100: f32 FMA work on the CUDA cores, 18 H^2 flops per walk
 // step (2 H^2 for the selected distance transform, 16 H^2 for the gates):
@@ -66,8 +78,8 @@
 
 namespace {
 
-template <bool HOMO>
-__global__ void pagg_readout_kernel(const float* __restrict__ h,
+template <bool HOMO, typename W>
+__global__ void pagg_readout_kernel(const W* __restrict__ h,
                                     const int* __restrict__ paths,
                                     const float* __restrict__ hn,
                                     const float* __restrict__ ego,
@@ -80,9 +92,9 @@ __global__ void pagg_readout_kernel(const float* __restrict__ h,
   const long long b0 = (long long)blockIdx.x * nw;
   for (int p = warp; p < nw; p += nwarps) {
     const float* hr = hn + (b0 + p) * H;
-    const float* er = HOMO ? ego + (b0 + p) * H : h + (long long)paths[(b0 + p) * wl] * H;
+    const auto* er = ego_row<HOMO>(h, paths, ego, b0 + p, wl, H);
     float s = 0.0f;
-    for (int k = lane; k < H; k += 32) s += attw[k] * hr[k] + attw[H + k] * er[k];
+    for (int k = lane; k < H; k += 32) s += attw[k] * hr[k] + attw[H + k] * ldf(er + k);
     s = warp_sum(s) + attb[0];
     if (lane == 0) sc[p] = HOMO ? 1.0f + s : (s > 0.0f ? s : 0.01f * s);
   }
@@ -104,11 +116,25 @@ __global__ void pagg_readout_kernel(const float* __restrict__ h,
   }
 }
 
+template <typename W>
+int launch_readout(const void* h, const void* paths, const void* hn, const void* ego,
+                   const void* attw, const void* attb, void* out, int T, int nw, int wl,
+                   int H, void* stream) {
+  const int smem = nw * (int)sizeof(float);
+  const auto kernel = ego ? pagg_readout_kernel<true, W> : pagg_readout_kernel<false, W>;
+  if (int e = allow_smem(kernel, smem)) return e;
+  kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
+      (const W*)h, (const int*)paths, (const float*)hn, (const float*)ego,
+      (const float*)attw, (const float*)attb, (float*)out, nw, wl, H);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// K3's tile at width H: out[0..3] = M (walks a block), threads, shared bytes, KC.
-extern "C" int pathnet_pagg_encode_tile(int H, void* out) {
-  const Tile t = tile_for(H);
+// K3's tile at width H (bf16: with bf16 weight chunks): out[0..3] = M
+// (walks a block), threads, shared bytes, KC.
+extern "C" int pathnet_pagg_encode_tile(int H, int bf16, void* out) {
+  const Tile t = tile_for(H, bf16 != 0);
   int* o = (int*)out;
   o[0] = t.M;
   o[1] = t.NT;
@@ -118,28 +144,24 @@ extern "C" int pathnet_pagg_encode_tile(int H, void* out) {
 }
 
 // Launch 1: h_n [T * nw, H] of every walk; homo where ego [T * nw, H] is
-// given, which then receives each walk's ego row.
+// given, which then receives each walk's ego row; bf16 where bf16 is
+// nonzero (h and the six weights bf16).
 extern "C" int pathnet_pagg_encode_walks(
     const void* h, const void* paths, const void* dists, const void* wd,
     const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
     const void* b_hh, const void* mask, float keep, void* hn, void* ego, int T, int nw,
-    int wl, int H, void* stream) {
+    int wl, int H, int bf16, void* stream) {
   return launch_encode<false>(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep,
-                              hn, ego, Streams{}, T, nw, wl, H, stream);
+                              hn, ego, Streams{}, T, nw, wl, H, bf16, stream);
 }
 
 // Launch 2: the attention readout [T, H] from h_n; homo where ego (launch
-// 1's) is given.
+// 1's) is given; the hetero ego rows from a bf16 table where bf16 is nonzero.
 extern "C" int pathnet_pagg_readout(const void* h, const void* paths,
                                     const void* hn, const void* ego, const void* attw,
                                     const void* attb, void* out, int T, int nw,
-                                    int wl, int H, void* stream) {
+                                    int wl, int H, int bf16, void* stream) {
   if (T == 0) return 0;
-  const int smem = nw * (int)sizeof(float);
-  const auto kernel = ego ? pagg_readout_kernel<true> : pagg_readout_kernel<false>;
-  if (int e = allow_smem(kernel, smem)) return e;
-  kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
-      (const float*)h, (const int*)paths, (const float*)hn, (const float*)ego,
-      (const float*)attw, (const float*)attb, (float*)out, nw, wl, H);
-  return (int)cudaGetLastError();
+  return (bf16 ? launch_readout<__nv_bfloat16> : launch_readout<float>)(
+      h, paths, hn, ego, attw, attb, out, T, nw, wl, H, stream);
 }

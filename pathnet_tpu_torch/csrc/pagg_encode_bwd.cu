@@ -1,5 +1,5 @@
 // K4: PAGG encode backward for the LSTM / attention model, hetero and homo
-// variants, f32.
+// variants, f32 and bf16 compute.
 //
 // Replaces the VJP of pathnet_tpu/models/pagg.py:235-303 (the encode block
 // and attention readout that K3 computes), with the gather VJP of the "h"
@@ -37,6 +37,15 @@
 // a walk (168 MB at the bgp-sized microbatch) against the H floats a walk of
 // the hetero ego-row gradients it does not write.
 //
+// bf16 compute (BF16, the table and the six cast weights bf16): launch A is
+// K3's bf16 encode with STREAMS, so the streams hold exactly the forward's
+// rounded values (in f32, which holds them exactly); launch B reads the
+// hetero ego rows from the bf16 table; launch C stages the bf16 weights as
+// K3 does. Every cotangent stays f32: rounding's derivative is taken as the
+// identity, as JAX's convert VJP is. The wrapper returns dh and the cast
+// weights' gradients as bf16, the type of their inputs. The bf16 instances
+// are compiled at H = 64 and at the run-time width only.
+//
 // Design: three launches on K3's walk tile (pagg_tile.cuh); nothing is kept
 // between K3 and K4, so launch A recomputes the forward.
 // A. pagg_encode_walks_kernel<MASKED, HC, STREAMS = true, HOMO>: K3's encode on
@@ -66,10 +75,12 @@
 
 namespace {
 
-// Launch C's shared bytes at width H: A [4H][LDA], then two chunks of KC
-// rows of the [4H, 2H] weight (the [H][LDA] dsel and [H, H] chunks fit inside).
-__host__ __device__ constexpr int bptt_smem(int H) {
-  return (int)((4 * H * tile_for(H).LDA + 4 * tile_for(H).KC * H) * sizeof(float));
+// Launch C's shared bytes at width H: A [4H][LDA] in f32, then two chunks of
+// KC rows of the [4H, 2H] weight in its type (the [H][LDA] dsel and [H, H]
+// chunks fit inside).
+__host__ __device__ constexpr int bptt_smem(int H, bool bf16 = false) {
+  return (int)(4 * H * tile_for(H).LDA * sizeof(float) +
+               4 * tile_for(H).KC * H * (bf16 ? 2 : 4));
 }
 
 // Units 2c, 2c + 1 of row r of a row-major stream of width W at column
@@ -85,18 +96,9 @@ __device__ __forceinline__ float2 load_units(const float* __restrict__ s, long l
 
 __device__ __forceinline__ float leaky(float s) { return s > 0.0f ? s : 0.01f * s; }
 
-// Walk b's ego row: h[paths[b, 0]] (hetero), the ego scratch's row b (homo).
-template <bool HOMO>
-__device__ __forceinline__ const float* ego_row(const float* __restrict__ h,
-                                                const int* __restrict__ paths,
-                                                const float* __restrict__ ego, long long b,
-                                                int wl, int H) {
-  return HOMO ? ego + b * H : h + (long long)paths[b * wl] * H;
-}
-
-template <bool HOMO>
+template <bool HOMO, typename W>
 __global__ void pagg_attention_bwd_kernel(
-    const float* __restrict__ g, const float* __restrict__ h,
+    const float* __restrict__ g, const W* __restrict__ h,
     const int* __restrict__ paths, const float* __restrict__ hn,
     const float* __restrict__ ego, const float* __restrict__ attw,
     const float* __restrict__ attb, float* __restrict__ dhn, float* __restrict__ dego,
@@ -111,10 +113,10 @@ __global__ void pagg_attention_bwd_kernel(
   const float* gr = g + (long long)blockIdx.x * H;
   for (int p = warp; p < nw; p += nwarps) {
     const float* hr = hn + (b0 + p) * H;
-    const float* er = ego_row<HOMO>(h, paths, ego, b0 + p, wl, H);
+    const auto* er = ego_row<HOMO>(h, paths, ego, b0 + p, wl, H);
     float s = 0.0f, da = 0.0f;
     for (int k = lane; k < H; k += 32) {
-      s += attw[k] * hr[k] + attw[H + k] * er[k];
+      s += attw[k] * hr[k] + attw[H + k] * ldf(er + k);
       da += gr[k] * hr[k];
     }
     s = warp_sum(s) + attb[0];
@@ -160,7 +162,7 @@ __global__ void pagg_attention_bwd_kernel(
     float dw = 0.0f, de = 0.0f;
     for (int p = 0; p < nw; ++p) {
       dw += ds[p] * hn[(b0 + p) * H + j];
-      de += ds[p] * ego_row<HOMO>(h, paths, ego, b0 + p, wl, H)[j];
+      de += ds[p] * ldf(ego_row<HOMO>(h, paths, ego, b0 + p, wl, H) + j);
     }
     pr[j] = dw;
     pr[H + j] = de;
@@ -172,16 +174,18 @@ __global__ void pagg_attention_bwd_kernel(
   }
 }
 
-// HOMO also reads xin and ego (launch A's) and dego (launch B's).
-template <bool MASKED, int HC, bool HOMO>
+// HOMO also reads xin and ego (launch A's) and dego (launch B's); BF16 takes
+// the weights as bf16. `align` is the alignment of wd_t and w_t in bytes.
+template <bool MASKED, int HC, bool HOMO, bool BF16>
 __global__ void __launch_bounds__(launch_threads(HC), launch_blocks(HC))
 pagg_bptt_kernel(const float* __restrict__ dhn,
-                 const int* __restrict__ dists, const float* __restrict__ wd_t,
-                 const float* __restrict__ w_t, const float* __restrict__ cs,
+                 const int* __restrict__ dists, const Elem<BF16>* __restrict__ wd_t,
+                 const Elem<BF16>* __restrict__ w_t, const float* __restrict__ cs,
                  float* __restrict__ gt, const uint8_t* __restrict__ mask, float keep,
                  const float* __restrict__ xin, const float* __restrict__ ego,
                  const float* __restrict__ dego, float* __restrict__ dsel,
-                 float* __restrict__ drow, long long B, int wl, int Hrt, bool aligned) {
+                 float* __restrict__ drow, long long B, int wl, int Hrt, int align) {
+  using W = Elem<BF16>;
   constexpr Tile tc = tile_for(HC ? HC : 64);
   const Tile tr = tile_for(Hrt);
   const int H = HC ? HC : Hrt;
@@ -190,13 +194,13 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
   const int LDA = HC ? tc.LDA : tr.LDA;
   const int M = HC ? tc.M : tr.M;
   const int NT = HC ? tc.NT : tr.NT;
-  const bool vec2 = aligned && H % 2 == 0, vec1 = aligned && H % 4 == 0;
+  const int mode2 = copy_mode<W>(2 * H, align), mode1 = copy_mode<W>(H, align);
   const bool mask2 = H % 2 == 0 && (uintptr_t)mask % 2 == 0;  // mask pairs in one load
   // one division here: a division in the loop calls a slow path that spills
   const float rkeep = 1.0f / keep;
   extern __shared__ __align__(16) float smem[];
   float* As = smem;               // [4H][LDA]: gate gradients, then dsel [H][LDA]
-  float* Bs = As + 4 * H * LDA;   // [2][KC][2H] weight chunks
+  W* Bs = reinterpret_cast<W*>(As + 4 * H * LDA);  // [2][KC][2H] weight chunks
   int r, c, jc[TN];
   bool jv[TN];
   tile_thread(CT, M, H, r, c, jc, jv);
@@ -268,7 +272,7 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int u = 0; u < TN; ++u) acc[i][u][0] = acc[i][u][1] = 0.0f;
-    tile_gemm<2>(acc, As, LDA, m0, 4 * H, w_t, 4 * H, w_t, Bs, KC, jc, H, NT, vec2);
+    tile_gemm<2>(acc, As, LDA, m0, 4 * H, w_t, 4 * H, w_t, Bs, KC, jc, H, NT, mode2);
 
     // dh_{t-1} stays in registers; d xin, dropped out, is dsel: to its
     // stream and over A (the product ended with a barrier)
@@ -341,8 +345,8 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int u = 0; u < TN; ++u) a1[i][u][0] = 0.0f;
-      const float* wk = wd_t + (size_t)k * H * H;
-      tile_gemm<1>(a1, As, LDA, m0, H, wk, H, wk, Bs, KC, jc, H, NT, vec1);
+      const W* wk = wd_t + (size_t)k * H * H;
+      tile_gemm<1>(a1, As, LDA, m0, H, wk, H, wk, Bs, KC, jc, H, NT, mode1);
 #pragma unroll
       for (int u = 0; u < TN; ++u)
 #pragma unroll
@@ -355,69 +359,101 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
   }
 }
 
-template <int HC>
+template <int HC, bool BF16>
 auto bptt_instance(bool masked, bool homo) {
-  return masked ? (homo ? pagg_bptt_kernel<true, HC, true> : pagg_bptt_kernel<true, HC, false>)
-                : (homo ? pagg_bptt_kernel<false, HC, true> : pagg_bptt_kernel<false, HC, false>);
+  return masked ? (homo ? pagg_bptt_kernel<true, HC, true, BF16>
+                        : pagg_bptt_kernel<true, HC, false, BF16>)
+                : (homo ? pagg_bptt_kernel<false, HC, true, BF16>
+                        : pagg_bptt_kernel<false, HC, false, BF16>);
+}
+
+template <typename W>
+int launch_attention(const void* g, const void* h, const void* paths, const void* hn,
+                     const void* ego, const void* attw, const void* attb, void* dhn,
+                     void* dego, void* part, int T, int nw, int wl, int H, void* stream) {
+  const int smem = 3 * nw * (int)sizeof(float);
+  const auto kernel =
+      ego ? pagg_attention_bwd_kernel<true, W> : pagg_attention_bwd_kernel<false, W>;
+  if (int e = allow_smem(kernel, smem)) return e;
+  kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
+      (const float*)g, (const W*)h, (const int*)paths, (const float*)hn,
+      (const float*)ego, (const float*)attw, (const float*)attb, (float*)dhn,
+      (float*)dego, (float*)part, nw, wl, H);
+  return (int)cudaGetLastError();
+}
+
+// Launch C at width H: f32, the instance with the tile compiled in where
+// there is one (H = 64, 256); bf16, the H = 64 instance or the run-time one.
+template <bool BF16>
+int launch_bptt(const void* dhn, const void* dists, const void* wd_t, const void* w_t,
+                const void* cs, void* gt, const void* mask, float keep, const void* xin,
+                const void* ego, const void* dego, void* dsel, void* drow, long long B,
+                int wl, int H, void* stream) {
+  using W = Elem<BF16>;
+  const Tile tl = tile_for(H, BF16);
+  const int smem = bptt_smem(H, BF16);
+  const bool masked = mask != nullptr, homo = ego != nullptr;
+  decltype(bptt_instance<0, BF16>(masked, homo)) kernel;
+  if constexpr (BF16)
+    kernel = H == 64 ? bptt_instance<64, true>(masked, homo) : bptt_instance<0, true>(masked, homo);
+  else
+    kernel = H == 64    ? bptt_instance<64, false>(masked, homo)
+             : H == 256 ? bptt_instance<256, false>(masked, homo)
+                        : bptt_instance<0, false>(masked, homo);
+  if (int e = allow_smem(kernel, smem)) return e;
+  kernel<<<(unsigned)((B + tl.M - 1) / tl.M), tl.NT, smem, (cudaStream_t)stream>>>(
+      (const float*)dhn, (const int*)dists, (const W*)wd_t, (const W*)w_t, (const float*)cs,
+      (float*)gt, (const uint8_t*)mask, keep, (const float*)xin, (const float*)ego,
+      (const float*)dego, (float*)dsel, (float*)drow, B, wl, H,
+      alignment((uintptr_t)wd_t | (uintptr_t)w_t));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch A: h_n [T * nw, H] and the streams xr, xin, hp, cs [wl, T * nw, H]
 // and gt [wl, T * nw, 4H]; homo where ego [T * nw, H] is given, which then
-// receives each walk's ego row.
+// receives each walk's ego row; bf16 where bf16 is nonzero (h and the six
+// weights bf16).
 extern "C" int pathnet_pagg_encode_walks_streams(
     const void* h, const void* paths, const void* dists, const void* wd,
     const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
     const void* b_hh, const void* mask, float keep, void* hn, void* xr, void* xin,
-    void* hp, void* cs, void* gt, void* ego, int T, int nw, int wl, int H, void* stream) {
+    void* hp, void* cs, void* gt, void* ego, int T, int nw, int wl, int H, int bf16,
+    void* stream) {
   const Streams st = {(float*)xr, (float*)xin, (float*)hp, (float*)cs, (float*)gt};
   return launch_encode<true>(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep,
-                             hn, ego, st, T, nw, wl, H, stream);
+                             hn, ego, st, T, nw, wl, H, bf16, stream);
 }
 
 // Launch B: d h_n [T * nw, H] from g [T, H] and h_n; writes the ego rows'
 // gradient dego [T * nw, H] and each target's terms of the attention
 // weights' gradient, part [T, 2H + 1] (d attw, then d attb). Homo where ego
-// (launch A's) is given.
+// (launch A's) is given; the hetero ego rows from a bf16 table where bf16
+// is nonzero.
 extern "C" int pathnet_pagg_attention_bwd(
     const void* g, const void* h, const void* paths, const void* hn, const void* ego,
     const void* attw, const void* attb, void* dhn, void* dego, void* part,
-    int T, int nw, int wl, int H, void* stream) {
+    int T, int nw, int wl, int H, int bf16, void* stream) {
   if (T == 0) return 0;
-  const int smem = 3 * nw * (int)sizeof(float);
-  const auto kernel = ego ? pagg_attention_bwd_kernel<true> : pagg_attention_bwd_kernel<false>;
-  if (int e = allow_smem(kernel, smem)) return e;
-  kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
-      (const float*)g, (const float*)h, (const int*)paths, (const float*)hn,
-      (const float*)ego, (const float*)attw, (const float*)attb, (float*)dhn,
-      (float*)dego, (float*)part, nw, wl, H);
-  return (int)cudaGetLastError();
+  return (bf16 ? launch_attention<__nv_bfloat16> : launch_attention<float>)(
+      g, h, paths, hn, ego, attw, attb, dhn, dego, part, T, nw, wl, H, stream);
 }
 
 // Launch C: BPTT from d h_n; overwrites gt with the pre-activation gate
 // gradients and writes dsel and every gathered row's gradient drow, both
 // [wl, T * nw, H]. wd_t = wd transposed per class [wl, H, H]; w_t =
-// [w_ih; w_hh]^T [4H, 2H]. Homo where ego is given, with xin (launch A's)
-// and dego (launch B's).
+// [w_ih; w_hh]^T [4H, 2H]; both bf16 where bf16 is nonzero. Homo where ego
+// is given, with xin (launch A's) and dego (launch B's).
 extern "C" int pathnet_pagg_bptt(const void* dhn, const void* dists,
                                  const void* wd_t, const void* w_t, const void* cs,
                                  void* gt, const void* mask, float keep, const void* xin,
                                  const void* ego, const void* dego, void* dsel,
-                                 void* drow, int T, int nw, int wl, int H, void* stream) {
+                                 void* drow, int T, int nw, int wl, int H, int bf16,
+                                 void* stream) {
   const long long B = (long long)T * nw;
   if (B == 0) return 0;
-  const Tile tl = tile_for(H);
-  const int smem = bptt_smem(H);
-  const bool masked = mask != nullptr, homo = ego != nullptr;
-  auto kernel = H == 64    ? bptt_instance<64>(masked, homo)
-                : H == 256 ? bptt_instance<256>(masked, homo)
-                           : bptt_instance<0>(masked, homo);
-  if (int e = allow_smem(kernel, smem)) return e;
-  kernel<<<(unsigned)((B + tl.M - 1) / tl.M), tl.NT, smem, (cudaStream_t)stream>>>(
-      (const float*)dhn, (const int*)dists, (const float*)wd_t,
-      (const float*)w_t, (const float*)cs, (float*)gt, (const uint8_t*)mask, keep,
-      (const float*)xin, (const float*)ego, (const float*)dego, (float*)dsel,
-      (float*)drow, B, wl, H, ((uintptr_t)wd_t | (uintptr_t)w_t) % 16 == 0);
-  return (int)cudaGetLastError();
+  return (bf16 ? launch_bptt<true> : launch_bptt<false>)(
+      dhn, dists, wd_t, w_t, cs, gt, mask, keep, xin, ego, dego, dsel, drow, B, wl, H,
+      stream);
 }

@@ -6,11 +6,21 @@
 // STREAMS = true, which also writes the per-step values K4's BPTT reads.
 // HOMO = true is the homo variant: steps in sampled order, a ReLU on the
 // selected row, and that row of step 0 (before dropout) stored as the
-// walk's ego row. The design and its bound are described in pagg_encode.cu.
+// walk's ego row. BF16 = true takes the gather table and the cast weights
+// (wd, bd, w_ih, w_hh, b_ih, b_hh) as bf16, W below: the weight chunks are
+// staged as bf16 and widened in the product's B load, every product and
+// the cell stay f32 FMAs, and the values are rounded to bf16 where the JAX
+// package's bf16 encode holds them in bf16 (pathnet_tpu/models/pagg.py:
+// 233-279): the selected row round(round(x W[d]) + b[d]), the dropped-out
+// input round(s / keep) (keep given rounded to bf16), and c_t and h_t at the
+// end of each step. The
+// design and its bound are described in pagg_encode.cu.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -23,7 +33,11 @@ struct Tile {
   int M, CT, NT, KC, LDA, smem;
 };
 
-__host__ __device__ constexpr Tile tile_for(int H) {
+// The element of the table and the cast weights: f32, or bf16 (BF16).
+template <bool BF16>
+using Elem = std::conditional_t<BF16, __nv_bfloat16, float>;
+
+__host__ __device__ constexpr Tile tile_for(int H, bool bf16 = false) {
   const int CT = (H + TN - 1) / TN;
   const int nt = H >= 128 ? NT_MAX : 256;
   const int rt = nt / CT < 1 ? 1 : (nt / CT > 32 ? 32 : nt / CT);
@@ -31,8 +45,9 @@ __host__ __device__ constexpr Tile tile_for(int H) {
   const int KC = kc < 1 ? 1 : (kc > 32 ? 32 : kc);
   const int M = TM * rt;
   const int LDA = M + 4;    // rows of A padded against bank conflicts on stores
+  // A in f32, two weight chunks in the weights' type
   return Tile{M, CT, rt * CT, KC, LDA,
-              (int)((2 * H * LDA + 2 * KC * 4 * H) * sizeof(float))};
+              (int)(2 * H * LDA * sizeof(float) + 2 * KC * 4 * H * (bf16 ? 2 : 4))};
 }
 
 // The widths compiled with H, and so the whole tile, as constants; any
@@ -48,7 +63,12 @@ constexpr int launch_blocks(int HC) { return HC == 64 ? 2 : 1; }
 __device__ __forceinline__ float sigm(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
 __device__ __forceinline__ float tanh_f(float x) { return 2.0f * sigm(2.0f * x) - 1.0f; }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ float ldf(const float* p) { return *p; }
+__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+// x rounded to the nearest bf16, as an f32
+__device__ __forceinline__ float rnd(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
 }
@@ -62,62 +82,89 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
-// Rows ch*KC .. of B (NB floats each; row k from B0 + k*NB below K0, else
-// from B1) into dst, as they lie, in copies of STEP floats.
-template <int STEP>
-__device__ __forceinline__ void stage_rows(float* dst, int ch, int KC, int K,
-                                           const float* __restrict__ B0, int K0,
-                                           const float* __restrict__ B1, int NB, int NT) {
+// How a weight chunk is staged: COPY16 16-byte cp.async copies, COPY4 4-byte
+// ones, PLAIN ordinary loads and stores (bf16 rows at odd offsets, whose
+// pairs are not 4-byte aligned). The widest mode that every row of width
+// NB and every base (aligned to `align` bytes) allow.
+enum { PLAIN = 0, COPY4 = 1, COPY16 = 2 };
+
+template <typename W>
+__host__ __device__ constexpr int copy_mode(int NB, int align) {
+  return align % 16 == 0 && NB % (int)(16 / sizeof(W)) == 0 ? COPY16
+         : align % 4 == 0 && NB % (int)(4 / sizeof(W)) == 0 ? COPY4
+                                                             : PLAIN;
+}
+
+// The largest of 16, 4, 2 and 1 that divides every address.
+__host__ __device__ constexpr int alignment(uintptr_t any) {
+  return any % 16 == 0 ? 16 : any % 4 == 0 ? 4 : any % 2 == 0 ? 2 : 1;
+}
+
+// Rows ch*KC .. of B (NB elements each; row k from B0 + k*NB below K0, else
+// from B1) into dst, as they lie, in copies of STEP elements (0: one
+// element a plain load).
+template <typename W, int STEP>
+__device__ __forceinline__ void stage_rows(W* dst, int ch, int KC, int K,
+                                           const W* __restrict__ B0, int K0,
+                                           const W* __restrict__ B1, int NB, int NT) {
   const int k0 = ch * KC;
   const int rows = K - k0 < KC ? K - k0 : KC;
-  const int per_row = NB / STEP;
+  constexpr int step = STEP ? STEP : 1;
+  const int per_row = NB / step;
   for (int f = threadIdx.x; f < rows * per_row; f += NT) {
-    const int kk = f / per_row, col = f % per_row * STEP;
+    const int kk = f / per_row, col = f % per_row * step;
     const int k = k0 + kk;
-    const float* src = (k < K0 ? B0 + (size_t)k * NB : B1 + (size_t)(k - K0) * NB) + col;
-    if (STEP == 4)
+    const W* src = (k < K0 ? B0 + (size_t)k * NB : B1 + (size_t)(k - K0) * NB) + col;
+    if constexpr (STEP * sizeof(W) == 16)
       cp_async16(dst + kk * NB + col, src);
-    else
+    else if constexpr (STEP * sizeof(W) == 4)
       cp_async4(dst + kk * NB + col, src);
+    else
+      dst[kk * NB + col] = *src;
   }
 }
 
-// 16-byte copies where every row and base is 16-byte aligned (vec), else
-// 4-byte ones; one cp.async group.
-__device__ __forceinline__ void stage_chunk(float* dst, int ch, int KC, int K,
-                                            const float* __restrict__ B0, int K0,
-                                            const float* __restrict__ B1, int NB,
-                                            int NT, bool vec) {
-  if (vec)
-    stage_rows<4>(dst, ch, KC, K, B0, K0, B1, NB, NT);
+// One chunk in the given copy mode; one cp.async group. f32 rows always
+// take cp.async (a float is 4-byte aligned), so PLAIN is compiled for bf16
+// only.
+template <typename W>
+__device__ __forceinline__ void stage_chunk(W* dst, int ch, int KC, int K,
+                                            const W* __restrict__ B0, int K0,
+                                            const W* __restrict__ B1, int NB, int NT,
+                                            int mode) {
+  constexpr int e16 = 16 / sizeof(W), e4 = 4 / sizeof(W);
+  if (mode == COPY16)
+    stage_rows<W, e16>(dst, ch, KC, K, B0, K0, B1, NB, NT);
+  else if (sizeof(W) == 4 || mode == COPY4)
+    stage_rows<W, e4>(dst, ch, KC, K, B0, K0, B1, NB, NT);
   else
-    stage_rows<1>(dst, ch, KC, K, B0, K0, B1, NB, NT);
+    stage_rows<W, 0>(dst, ch, KC, K, B0, K0, B1, NB, NT);
   cp_async_commit();
 }
 
 // acc[i][u][g] += sum_k A[k][m0 + i] * B[k][g * H + 2c + u] over k < K, with
-// B's rows staged through Bs in double-buffered chunks of KC rows. Every
-// thread of the block calls it; it ends with a barrier, so A may be
-// rewritten right after.
-template <int NG>
+// B's rows (f32 or bf16, W) staged through Bs in double-buffered chunks of KC
+// rows in copy mode `mode`. Every thread of the block calls it; it ends with
+// a barrier, so A may be rewritten right after.
+template <int NG, typename W>
 __device__ __forceinline__ void tile_gemm(float (&acc)[TM][TN][NG],
                                           const float* As, int LDA, int m0, int K,
-                                          const float* __restrict__ B0, int K0,
-                                          const float* __restrict__ B1, float* Bs,
+                                          const W* __restrict__ B0, int K0,
+                                          const W* __restrict__ B1, W* Bs,
                                           int KC, const int (&jc)[TN], int H, int NT,
-                                          bool vec) {
+                                          int mode) {
   const int NB = NG * H;
   const int nch = (K + KC - 1) / KC;
-  stage_chunk(Bs, 0, KC, K, B0, K0, B1, NB, NT, vec);
+  stage_chunk(Bs, 0, KC, K, B0, K0, B1, NB, NT, mode);
   for (int ch = 0; ch < nch; ++ch) {
-    const float* cur = Bs + (ch & 1) * KC * NB;
+    const W* cur = Bs + (ch & 1) * KC * NB;
     if (ch + 1 < nch) {
-      stage_chunk(Bs + ((ch + 1) & 1) * KC * NB, ch + 1, KC, K, B0, K0, B1, NB, NT, vec);
+      stage_chunk(Bs + ((ch + 1) & 1) * KC * NB, ch + 1, KC, K, B0, K0, B1, NB, NT, mode);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -138,17 +185,21 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[TM][TN][NG],
         av[i + 2] = q.z;
         av[i + 3] = q.w;
       }
-      const float* bb = cur + kk * NB;
+      const W* bb = cur + kk * NB;
       float bv[NG][TN];
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
-        if (H % 2 == 0) {  // units 2c, 2c + 1 side by side, 8-byte aligned
-          const float2 v = *reinterpret_cast<const float2*>(bb + g * H + jc[0]);
+        if (H % 2 == 0) {  // units 2c, 2c + 1 side by side, a pair aligned
+          float2 v;
+          if constexpr (sizeof(W) == 4)
+            v = *reinterpret_cast<const float2*>(bb + g * H + jc[0]);
+          else
+            v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bb + g * H + jc[0]));
           bv[g][0] = v.x;
           bv[g][1] = v.y;
         } else {
-          bv[g][0] = bb[g * H + jc[0]];
-          bv[g][1] = bb[g * H + jc[1]];
+          bv[g][0] = ldf(bb + g * H + jc[0]);
+          bv[g][1] = ldf(bb + g * H + jc[1]);
         }
       }
 #pragma unroll
@@ -229,7 +280,9 @@ __device__ __forceinline__ void store_pairs(float* __restrict__ s, long long r0,
 
 // K4's per-step streams, rows t * B + b: the gathered row xr, the LSTM input
 // xin after dropout, h_{t-1} as hp, c_t as cs ([.., H] each) and the gate
-// activations (sigmoid i, sigmoid f, tanh g, sigmoid o) as gt [.., 4H].
+// activations (sigmoid i, sigmoid f, tanh g, sigmoid o) as gt [.., 4H]. All
+// f32; under BF16 they hold the forward's rounded values, which f32 holds
+// exactly (the gate activations are not rounded).
 struct Streams {
   float* xr;
   float* xin;
@@ -238,19 +291,58 @@ struct Streams {
   float* gt;
 };
 
+// Walk b's ego row: h[paths[b, 0]] (hetero, the table's type W), the ego
+// scratch's row b (homo, f32). Read its entries with ldf.
+template <bool HOMO, typename W>
+__device__ __forceinline__ const std::conditional_t<HOMO, float, W>* ego_row(
+    const W* __restrict__ h, const int* __restrict__ paths, const float* __restrict__ ego,
+    long long b, int wl, int H) {
+  if constexpr (HOMO)
+    return ego + b * H;
+  else
+    return h + (long long)paths[b * wl] * H;
+}
+
+// Units jc[0], jc[1] of table row v (0 where v < 0) as f32; a bf16 row in
+// one 4-byte load where `pair` says that each pair is aligned.
+__device__ __forceinline__ void gather_units(const float* __restrict__ h, long long v, int H,
+                                             const int (&jc)[TN], bool, float& a, float& b) {
+  a = v >= 0 ? h[v * H + jc[0]] : 0.0f;
+  b = v >= 0 ? h[v * H + jc[1]] : 0.0f;
+}
+
+__device__ __forceinline__ void gather_units(const __nv_bfloat16* __restrict__ h, long long v,
+                                             int H, const int (&jc)[TN], bool pair, float& a,
+                                             float& b) {
+  if (v < 0) {
+    a = b = 0.0f;
+  } else if (pair) {
+    const float2 p =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(h + v * H + jc[0]));
+    a = p.x;
+    b = p.y;
+  } else {
+    a = __bfloat162float(h[v * H + jc[0]]);
+    b = __bfloat162float(h[v * H + jc[1]]);
+  }
+}
+
 // The encode of every walk to h_n [B, H]; with STREAMS, also the per-step
 // values of Streams (K4's forward recompute); with HOMO, also each walk's
-// ego row, the ReLU'd selected row of step 0 before dropout, to ego [B, H].
-template <bool MASKED, int HC, bool STREAMS, bool HOMO>
+// ego row, the ReLU'd selected row of step 0 before dropout, to ego [B, H];
+// with BF16, from a bf16 table and bf16 weights, rounded as described at the
+// top. `align` is the alignment of wd, w_ih and w_hh in bytes.
+template <bool MASKED, int HC, bool STREAMS, bool HOMO, bool BF16>
 __global__ void __launch_bounds__(launch_threads(HC), launch_blocks(HC))
 pagg_encode_walks_kernel(
-    const float* __restrict__ h, const int* __restrict__ paths,
-    const int* __restrict__ dists, const float* __restrict__ wd,
-    const float* __restrict__ bd, const float* __restrict__ w_ih,
-    const float* __restrict__ w_hh, const float* __restrict__ b_ih,
-    const float* __restrict__ b_hh, const uint8_t* __restrict__ mask, float keep,
+    const Elem<BF16>* __restrict__ h, const int* __restrict__ paths,
+    const int* __restrict__ dists, const Elem<BF16>* __restrict__ wd,
+    const Elem<BF16>* __restrict__ bd, const Elem<BF16>* __restrict__ w_ih,
+    const Elem<BF16>* __restrict__ w_hh, const Elem<BF16>* __restrict__ b_ih,
+    const Elem<BF16>* __restrict__ b_hh, const uint8_t* __restrict__ mask, float keep,
     float* __restrict__ hn, float* __restrict__ ego, Streams st, long long B, int wl,
-    int Hrt, bool aligned) {
+    int Hrt, int align) {
+  using W = Elem<BF16>;
   constexpr Tile tc = tile_for(HC ? HC : 64);
   const Tile tr = tile_for(Hrt);
   const int H = HC ? HC : Hrt;
@@ -259,10 +351,12 @@ pagg_encode_walks_kernel(
   const int LDA = HC ? tc.LDA : tr.LDA;
   const int M = HC ? tc.M : tr.M;
   const int NT = HC ? tc.NT : tr.NT;
-  const bool vec4 = aligned, vec1 = aligned && H % 4 == 0;
+  const int mode4 = copy_mode<W>(4 * H, align), mode1 = copy_mode<W>(H, align);
+  // bf16 table rows read in pairs where every pair is 4-byte aligned
+  const bool hpair = BF16 && H % 2 == 0 && (uintptr_t)h % 4 == 0;
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;               // [2H][LDA]: x_t then s_t, then h_{t-1}
-  float* Bs = As + 2 * H * LDA;   // [2][KC][4H] weight chunks
+  float* As = smem;                                  // [2H][LDA]: x_t then s_t, then h_{t-1}
+  W* Bs = reinterpret_cast<W*>(As + 2 * H * LDA);    // [2][KC][4H] weight chunks
   int r, c, jc[TN];
   bool jv[TN];
   tile_thread(CT, M, H, r, c, jc, jv);
@@ -291,8 +385,7 @@ pagg_encode_walks_kernel(
         d = d < 0 ? 0 : (d > wl - 1 ? wl - 1 : d);
       }
       dq[i] = d;
-#pragma unroll
-      for (int u = 0; u < TN; ++u) xv[u][i] = v >= 0 ? h[v * H + jc[u]] : 0.0f;
+      gather_units(h, v, H, jc, hpair, xv[0][i], xv[1][i]);
     }
 #pragma unroll
     for (int u = 0; u < TN; ++u)
@@ -320,14 +413,14 @@ pagg_encode_walks_kernel(
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int u = 0; u < TN; ++u) acc[i][u][0] = 0.0f;
-      const float* wk = wd + (size_t)k * H * H;
-      tile_gemm<1>(acc, As, LDA, m0, H, wk, H, wk, Bs, KC, jc, H, NT, vec1);
+      const W* wk = wd + (size_t)k * H * H;
+      tile_gemm<1>(acc, As, LDA, m0, H, wk, H, wk, Bs, KC, jc, H, NT, mode1);
 #pragma unroll
       for (int u = 0; u < TN; ++u) {
-        const float bk = bd[(size_t)k * H + jc[u]];
+        const float bk = ldf(bd + (size_t)k * H + jc[u]);
 #pragma unroll
         for (int i = 0; i < TM; ++i)
-          if (dq[i] == k) sv[u][i] = acc[i][u][0] + bk;
+          if (dq[i] == k) sv[u][i] = BF16 ? rnd(rnd(acc[i][u][0]) + bk) : acc[i][u][0] + bk;
       }
     }
     if constexpr (HOMO) {
@@ -345,8 +438,10 @@ pagg_encode_walks_kernel(
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
           const long long b = b0 + i;
-          if (b < B)
-            sv[u][i] = mask[((long long)t * B + b) * H + jc[u]] ? sv[u][i] / keep : 0.0f;
+          if (b < B) {
+            const float q = sv[u][i] / keep;
+            sv[u][i] = mask[((long long)t * B + b) * H + jc[u]] ? (BF16 ? rnd(q) : q) : 0.0f;
+          }
         }
       }
       store_rows(As + jc[u] * LDA + m0, sv[u]);
@@ -360,13 +455,14 @@ pagg_encode_walks_kernel(
     for (int u = 0; u < TN; ++u)
 #pragma unroll
       for (int g = 0; g < 4; ++g) {
-        const float bias = b_ih[g * H + jc[u]] + b_hh[g * H + jc[u]];
+        const float bias = ldf(b_ih + g * H + jc[u]) + ldf(b_hh + g * H + jc[u]);
 #pragma unroll
         for (int i = 0; i < TM; ++i) acc[i][u][g] = bias;
       }
-    tile_gemm<4>(acc, As, LDA, m0, 2 * H, w_ih, H, w_hh, Bs, KC, jc, H, NT, vec4);
+    tile_gemm<4>(acc, As, LDA, m0, 2 * H, w_ih, H, w_hh, Bs, KC, jc, H, NT, mode4);
 
-    // cell update in registers; h_t back to A, or out as h_n after the last step
+    // cell update in registers; h_t back to A, or out as h_n after the last
+    // step; BF16 rounds c_t, then h_t from the rounded c_t
     if constexpr (STREAMS) {
       // the same update row by row, so both units of a row are stored at once
       float hv[TN][TM];
@@ -380,7 +476,9 @@ pagg_encode_walks_kernel(
           gv[2][u] = tanh_f(acc[i][u][2]);
           gv[3][u] = sigm(acc[i][u][3]);
           cs[i][u] = gv[1][u] * cs[i][u] + gv[0][u] * gv[2][u];
+          if constexpr (BF16) cs[i][u] = rnd(cs[i][u]);
           hv[u][i] = gv[3][u] * tanh_f(cs[i][u]);
+          if constexpr (BF16) hv[u][i] = rnd(hv[u][i]);
         }
         if (i < B - b0) {
 #pragma unroll
@@ -410,7 +508,9 @@ pagg_encode_walks_kernel(
           const float si = sigm(acc[i][u][0]), sf = sigm(acc[i][u][1]);
           const float tg = tanh_f(acc[i][u][2]), so = sigm(acc[i][u][3]);
           cs[i][u] = sf * cs[i][u] + si * tg;
+          if constexpr (BF16) cs[i][u] = rnd(cs[i][u]);
           hv[i] = so * tanh_f(cs[i][u]);
+          if constexpr (BF16) hv[i] = rnd(hv[i]);
         }
         if (!jv[u]) continue;
         if (t + 1 < wl) {
@@ -425,17 +525,18 @@ pagg_encode_walks_kernel(
   }
 }
 
-using EncodeKernel = void (*)(const float*, const int*, const int*, const float*,
-                              const float*, const float*, const float*, const float*,
-                              const float*, const uint8_t*, float, float*, float*,
-                              Streams, long long, int, int, bool);
+template <bool BF16>
+using EncodeKernel = void (*)(const Elem<BF16>*, const int*, const int*, const Elem<BF16>*,
+                              const Elem<BF16>*, const Elem<BF16>*, const Elem<BF16>*,
+                              const Elem<BF16>*, const Elem<BF16>*, const uint8_t*, float,
+                              float*, float*, Streams, long long, int, int, int);
 
-template <bool STREAMS, int HC>
-EncodeKernel encode_instance(bool masked, bool homo) {
-  return masked ? (homo ? pagg_encode_walks_kernel<true, HC, STREAMS, true>
-                        : pagg_encode_walks_kernel<true, HC, STREAMS, false>)
-                : (homo ? pagg_encode_walks_kernel<false, HC, STREAMS, true>
-                        : pagg_encode_walks_kernel<false, HC, STREAMS, false>);
+template <bool STREAMS, int HC, bool BF16>
+EncodeKernel<BF16> encode_instance(bool masked, bool homo) {
+  return masked ? (homo ? pagg_encode_walks_kernel<true, HC, STREAMS, true, BF16>
+                        : pagg_encode_walks_kernel<true, HC, STREAMS, false, BF16>)
+                : (homo ? pagg_encode_walks_kernel<false, HC, STREAMS, true, BF16>
+                        : pagg_encode_walks_kernel<false, HC, STREAMS, false, BF16>);
 }
 
 template <typename Kernel>
@@ -445,28 +546,46 @@ int allow_smem(Kernel kernel, int bytes) {
                                    bytes);
 }
 
-// The encode on K3's grid of tiles at width H: the instance with the tile
-// compiled in where there is one (H = 64, 256), masked where mask is given,
-// homo where ego is given.
+// The encode on K3's grid of tiles at width H: f32, the instance with the
+// tile compiled in where there is one (H = 64, 256); bf16, the H = 64
+// instance or the run-time one. Masked where mask is given, homo where ego
+// is given.
+template <bool STREAMS, bool BF16>
+int launch_encode_as(const void* h, const void* paths, const void* dists, const void* wd,
+                     const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
+                     const void* b_hh, const void* mask, float keep, void* hn, void* ego,
+                     Streams st, long long B, int wl, int H, void* stream) {
+  using W = Elem<BF16>;
+  const Tile tl = tile_for(H, BF16);
+  const bool masked = mask != nullptr, homo = ego != nullptr;
+  EncodeKernel<BF16> kernel;
+  if constexpr (BF16)
+    kernel = H == 64 ? encode_instance<STREAMS, 64, true>(masked, homo)
+                     : encode_instance<STREAMS, 0, true>(masked, homo);
+  else
+    kernel = H == 64    ? encode_instance<STREAMS, 64, false>(masked, homo)
+             : H == 256 ? encode_instance<STREAMS, 256, false>(masked, homo)
+                        : encode_instance<STREAMS, 0, false>(masked, homo);
+  if (int e = allow_smem(kernel, tl.smem)) return e;
+  kernel<<<(unsigned)((B + tl.M - 1) / tl.M), tl.NT, tl.smem, (cudaStream_t)stream>>>(
+      (const W*)h, (const int*)paths, (const int*)dists, (const W*)wd, (const W*)bd,
+      (const W*)w_ih, (const W*)w_hh, (const W*)b_ih, (const W*)b_hh, (const uint8_t*)mask,
+      keep, (float*)hn, (float*)ego, st, B, wl, H,
+      alignment((uintptr_t)wd | (uintptr_t)w_ih | (uintptr_t)w_hh));
+  return (int)cudaGetLastError();
+}
+
+// The encode, f32 or (bf16) with a bf16 table and bf16 weights.
 template <bool STREAMS>
 int launch_encode(const void* h, const void* paths, const void* dists, const void* wd,
                   const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
                   const void* b_hh, const void* mask, float keep, void* hn, void* ego,
-                  Streams st, int T, int nw, int wl, int H, void* stream) {
+                  Streams st, int T, int nw, int wl, int H, int bf16, void* stream) {
   const long long B = (long long)T * nw;
   if (B == 0) return 0;
-  const Tile tl = tile_for(H);
-  const bool masked = mask != nullptr, homo = ego != nullptr;
-  const EncodeKernel kernel = H == 64    ? encode_instance<STREAMS, 64>(masked, homo)
-                              : H == 256 ? encode_instance<STREAMS, 256>(masked, homo)
-                                         : encode_instance<STREAMS, 0>(masked, homo);
-  if (int e = allow_smem(kernel, tl.smem)) return e;
-  kernel<<<(unsigned)((B + tl.M - 1) / tl.M), tl.NT, tl.smem, (cudaStream_t)stream>>>(
-      (const float*)h, (const int*)paths, (const int*)dists, (const float*)wd,
-      (const float*)bd, (const float*)w_ih, (const float*)w_hh, (const float*)b_ih,
-      (const float*)b_hh, (const uint8_t*)mask, keep, (float*)hn, (float*)ego, st, B, wl,
-      H, ((uintptr_t)wd | (uintptr_t)w_ih | (uintptr_t)w_hh) % 16 == 0);
-  return (int)cudaGetLastError();
+  return (bf16 ? launch_encode_as<STREAMS, true> : launch_encode_as<STREAMS, false>)(
+      h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep, hn, ego, st, B, wl, H,
+      stream);
 }
 
 }  // namespace

@@ -1,4 +1,5 @@
-"""K3 ``pagg_encode_fwd``: the PAGG encode forward and attention readout, f32.
+"""K3 ``pagg_encode_fwd``: the PAGG encode forward and attention readout, in
+f32 or with bf16 compute.
 
 Replaces ``pathnet_tpu/models/pagg.py:235-303`` (the encode block and the
 attention readout of ``pagg_forward``, LSTM / attention, both variants), with
@@ -15,6 +16,29 @@ target: gather its ``nw * wl`` rows of ``h`` and apply ``W[d] x + b[d]`` with
   result is the **mean** over the walks of ``(1 + score) * h_n``.
 
 Either way the result is ``[T, H]``.
+
+**bf16 compute** (the JAX package's ``compute_dtype="bfloat16"``,
+``pagg.py:233-279``): the table ``h`` and the six cast weights ``wd, bd, w_ih,
+w_hh, b_ih, b_hh`` are given as bf16, all of them or none (a mixed set
+raises); ``attw`` and ``attb`` stay f32, and so does the result. Every
+product and the LSTM cell run in f32 on the bf16 values, which are rounded
+to bf16 (:func:`round_bf16`) where JAX's encode holds them in bf16:
+
+- the distance select ``s = round(round(x @ W[d]) + b[d])`` (homo: its
+  ReLU, exact in bf16);
+- the dropout ``round(s / keep_b)``, ``keep_b`` being ``keep`` rounded to
+  bf16 (:func:`dropout_divisor`: JAX divides the bf16 row by the Python
+  float ``keep``, a weak type that takes the row's type);
+- the LSTM: one f32 product ``[s_t | h_{t-1}] @ [w_ih; w_hh] + b_ih + b_hh``
+  and the cell in f32, then ``c_t = round(f c + i g)`` and ``h_t =
+  round(o tanh(c_t))`` at the end of each step (the scan's bf16 carry);
+- the readout in f32, on the hetero walk-start rows of the bf16 table (JAX's
+  ``nei[:, :, 0]``) or the homo rounded step-0 rows.
+
+JAX rounds its input product ``gx`` on its own and runs its cell in bf16;
+those differences stay inside a few bf16 ulps of ``h_n``
+(``tests/test_torch_bf16.py``). The bf16 instances of the kernel are the
+template parameter ``BF16``, compiled at H = 64 and at the run-time width.
 
 Training mode: with ``keep_mask`` (uint8 ``[wl, T * nw, H]``, the layout of
 the LSTM input ``seq`` at ``pagg.py:274``) the selected input of step ``t`` of
@@ -46,8 +70,10 @@ Bound on the H100: f32 FMA work, about 18 H^2 flops per walk step: at one
 8192-target request (nw = 40, wl = 4, H = 64) about 97 GFLOP, 1.4 ms at the
 67 TFLOP/s f32 rate, against about 29 MB of unique bytes (9 us). The kernel
 computes in f32 on the CUDA cores, so the f32 rate, not the bf16 tensor-core
-rate, is its bound in this form. The homo variant adds per-element work
-only (two ReLUs, the ego store): the same bound.
+rate, is its bound in this form, for the bf16 instances too (the same FMAs
+on half the table and weight bytes); the same 97 GFLOP at bf16's dense
+tensor-core rate (989 TFLOP/s) would take about 0.10 ms. The homo variant
+adds per-element work only (two ReLUs, the ego store): the same bound.
 """
 from __future__ import annotations
 
@@ -61,10 +87,85 @@ from ..nn.cells import lstm_scan
 from . import build
 
 
+class _RoundBf16(torch.autograd.Function):
+    """Round to the nearest bf16, kept as f32; the gradient passes as it is."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.to(torch.bfloat16).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to the nearest bf16 (ties to even), as an f32 tensor:
+    the rounding of every bf16 plain version. Its derivative is the
+    identity, as the kernels take it (JAX's convert VJP only changes the
+    cotangent's type)."""
+    return _RoundBf16.apply(t)
+
+
+def is_bf16(h: torch.Tensor, bf16: bool = False) -> bool:
+    """Whether a plain version computes in bf16: asked for, or given a bf16
+    table."""
+    return bf16 or h.dtype == torch.bfloat16
+
+
+def select_plain(x, d, wd, bd, homo=False, bf16=False):
+    """The distance select of rows ``x [R, H]`` with clipped classes ``d [R,
+    1]``: ``x @ wd[d] + bd[d]`` (bf16: ``round(round(x @ wd[d]) + bd[d])``),
+    then the homo ReLU."""
+    sel = torch.zeros_like(x)
+    for k in range(wd.shape[0]):
+        z = round_bf16(round_bf16(x @ wd[k]) + bd[k]) if bf16 else x @ wd[k] + bd[k]
+        sel = torch.where(d == k, z, sel)
+    return torch.relu(sel) if homo else sel
+
+
+def dropout_divisor(keep: float, bf16: bool = False) -> float:
+    """What JAX's ``where(mask, x / keep, 0)`` divides by: ``keep``, or for a
+    bf16 ``x`` ``keep`` rounded to bf16 (0.3 becomes 0.30078125)."""
+    return float(torch.tensor(keep, dtype=torch.bfloat16)) if bf16 else keep
+
+
+def dropout_plain(seq, keep_mask, keep, bf16=False):
+    """JAX's ``where(mask, x / keep, 0)``; bf16: the divisor and the quotient
+    rounded to bf16."""
+    if keep_mask is None:
+        return seq
+    q = seq / dropout_divisor(keep, bf16)
+    return torch.where(keep_mask.bool(), round_bf16(q) if bf16 else q, 0.0)
+
+
+def lstm_bf16_steps(xs, w_ih, w_hh, b_ih, b_hh):
+    """The bf16 LSTM over ``xs [wl, B, H]`` from a zero state, step by step:
+    yields ``(h_{t-1}, gate activations [B, 4H], c_t, h_t)``, with one f32
+    product ``[x_t | h_{t-1}] @ [w_ih; w_hh] + b_ih + b_hh`` and ``c_t``,
+    ``h_t`` rounded to bf16."""
+    w = torch.cat([w_ih, w_hh], 0)
+    b = b_ih + b_hh
+    h = xs.new_zeros(xs.shape[1:])
+    c = torch.zeros_like(h)
+    for x in xs:
+        i, f, g, o = (torch.cat([x, h], 1) @ w + b).chunk(4, dim=1)
+        si, sf, tg, so = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        c = round_bf16(sf * c + si * tg)
+        hp, h = h, round_bf16(so * torch.tanh(c))
+        yield hp, torch.cat([si, sf, tg, so], dim=1), c, h
+
+
 def encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                       keep_mask=None, keep=1.0, homo=False):
+                       keep_mask=None, keep=1.0, homo=False, bf16=False):
     """Plain PyTorch version of K3's first launch: ``h_n`` ``[T * nw, H]``;
-    with ``homo``, ``(h_n, ego)``, ``ego [T * nw, H]`` the walks' ego rows."""
+    with ``homo``, ``(h_n, ego)``, ``ego [T * nw, H]`` the walks' ego rows.
+    ``bf16`` (or a bf16 ``h``): the bf16 rules of the module docstring, on
+    inputs that hold bf16 values, bf16 or f32."""
+    bf16 = is_bf16(h, bf16)
+    if bf16:
+        h, wd, bd, w_ih, w_hh, b_ih, b_hh = (t.float() for t in
+                                             (h, wd, bd, w_ih, w_hh, b_ih, b_hh))
     T, nw, wl = paths.shape
     H = h.shape[1]
     x, d = h[paths.long()], dists
@@ -72,26 +173,25 @@ def encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
         x, d = x.flip(2), d.flip(2)
     x = x.reshape(-1, H)
     d = d.clamp(0, wl - 1).reshape(-1, 1)
-    sel = torch.zeros_like(x)
-    for k in range(wl):
-        sel = torch.where(d == k, x @ wd[k] + bd[k], sel)
-    if homo:
-        sel = torch.relu(sel)
+    sel = select_plain(x, d, wd, bd, homo, bf16)
     seq = sel.reshape(T * nw, wl, H).transpose(0, 1)       # [wl, B, H]
     ego = seq[0].contiguous() if homo else None
-    if keep_mask is not None:
-        seq = torch.where(keep_mask.bool(), seq / keep, 0.0)
-    hn = lstm_scan({"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh}, seq)[1]
+    seq = dropout_plain(seq, keep_mask, keep, bf16)
+    if bf16:
+        *_, hn = list(lstm_bf16_steps(seq, w_ih, w_hh, b_ih, b_hh))[-1]
+    else:
+        hn = lstm_scan({"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh}, seq)[1]
     return (hn, ego) if homo else hn
 
 
 def readout_plain(h, paths, hn, attw, attb, ego=None) -> torch.Tensor:
     """Plain PyTorch version of K3's second launch: the readout ``[T, H]``,
-    homo where ``ego`` (the first launch's) is given."""
+    homo where ``ego`` (the first launch's) is given; ``h`` f32 or the bf16
+    table."""
     T, nw, _ = paths.shape
     H = hn.shape[1]
     h_n = hn.reshape(T, nw, H)
-    e = h[paths[:, :, 0].long()] if ego is None else ego.reshape(T, nw, H)
+    e = h[paths[:, :, 0].long()].float() if ego is None else ego.reshape(T, nw, H)
     score = torch.cat([h_n, e], dim=-1) @ attw + attb           # [T, nw]
     if ego is not None:
         return ((1.0 + score)[:, :, None] * h_n).mean(dim=1)
@@ -101,30 +201,43 @@ def readout_plain(h, paths, hn, attw, attb, ego=None) -> torch.Tensor:
 
 def pagg_encode_fwd_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
                           attw, attb, keep_mask=None, keep=1.0,
-                          homo=False) -> torch.Tensor:
-    """Plain PyTorch version; same arguments and result as :func:`pagg_encode_fwd`."""
+                          homo=False, bf16=False) -> torch.Tensor:
+    """Plain PyTorch version; same arguments and result as
+    :func:`pagg_encode_fwd` (``bf16`` as in :func:`encode_walks_plain`)."""
     out = encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                             keep_mask, keep, homo)
+                             keep_mask, keep, homo, bf16)
     hn, ego = out if homo else (out, None)
     return readout_plain(h, paths, hn, attw, attb, ego)
+
+
+def compute_dtype(*tensors: torch.Tensor) -> torch.dtype:
+    """The encode's compute type, f32 or bf16, which the table ``h`` and the
+    six cast weights share; raises ``TypeError`` for another type or a mixed
+    set."""
+    kinds = {t.dtype for t in tensors}
+    if len(kinds) != 1 or not kinds <= {torch.float32, torch.bfloat16}:
+        raise TypeError("the table h and the weights wd, bd, w_ih, w_hh, b_ih, b_hh must be "
+                        "all float32 or all bfloat16; got "
+                        + ", ".join(str(t.dtype) for t in tensors))
+    return kinds.pop()
 
 
 def _check(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep):
     """Raise unless the encode's inputs fit together and the device is the
     CPU or a CUDA card that takes their width."""
     dev = h.device
-    f32 = torch.float32
-    build.require(h, "h", f32, (None, None), dev)
+    dt = compute_dtype(h, wd, bd, w_ih, w_hh, b_ih, b_hh)
+    build.require(h, "h", dt, (None, None), dev)
     H = h.shape[1]
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
     T, nw, wl = paths.shape
     build.require(dists, "dists", torch.int32, (T, nw, wl), dev)
-    build.require(wd, "wd", f32, (wl, H, H), dev)
-    build.require(bd, "bd", f32, (wl, H), dev)
-    build.require(w_ih, "w_ih", f32, (H, 4 * H), dev)
-    build.require(w_hh, "w_hh", f32, (H, 4 * H), dev)
-    build.require(b_ih, "b_ih", f32, (4 * H,), dev)
-    build.require(b_hh, "b_hh", f32, (4 * H,), dev)
+    build.require(wd, "wd", dt, (wl, H, H), dev)
+    build.require(bd, "bd", dt, (wl, H), dev)
+    build.require(w_ih, "w_ih", dt, (H, 4 * H), dev)
+    build.require(w_hh, "w_hh", dt, (H, 4 * H), dev)
+    build.require(b_ih, "b_ih", dt, (4 * H,), dev)
+    build.require(b_hh, "b_hh", dt, (4 * H,), dev)
     check_keep_mask(keep_mask, keep, wl, T * nw, H, dev)
     if nw < 1 or wl < 1:
         raise ValueError(f"pagg_encode_fwd needs nw, wl >= 1, got {nw}, {wl}")
@@ -144,14 +257,15 @@ def _launch_walks(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, ke
     """Launch 1: ``h_n``, and with ``homo`` ``(h_n, ego)``."""
     T, nw, wl = paths.shape
     H = h.shape[1]
+    bf16 = h.dtype == torch.bfloat16
     hn = torch.empty((T * nw, H), dtype=torch.float32, device=h.device)
     ego = torch.empty_like(hn) if homo else None
     with torch.cuda.device(h.device):
         rc = build.library().pathnet_pagg_encode_walks(
             h.data_ptr(), paths.data_ptr(), dists.data_ptr(), wd.data_ptr(),
             bd.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
-            b_hh.data_ptr(), ptr(keep_mask), float(keep), hn.data_ptr(), ptr(ego),
-            T, nw, wl, H, build.stream_ptr(h))
+            b_hh.data_ptr(), ptr(keep_mask), dropout_divisor(keep, bf16), hn.data_ptr(),
+            ptr(ego), T, nw, wl, H, int(bf16), build.stream_ptr(h))
     build.check(rc, "pagg_encode_fwd (encode)")
     return (hn, ego) if homo else hn
 
@@ -163,7 +277,8 @@ def _launch_readout(h, paths, hn, attw, attb, ego=None):
     with torch.cuda.device(h.device):
         rc = build.library().pathnet_pagg_readout(
             h.data_ptr(), paths.data_ptr(), hn.data_ptr(), ptr(ego), attw.data_ptr(),
-            attb.data_ptr(), out.data_ptr(), T, nw, wl, H, build.stream_ptr(h))
+            attb.data_ptr(), out.data_ptr(), T, nw, wl, H, int(h.dtype == torch.bfloat16),
+            build.stream_ptr(h))
     build.check(rc, "pagg_encode_fwd (readout)")
     return out
 
@@ -176,7 +291,8 @@ def pagg_encode_fwd(h: torch.Tensor, paths: torch.Tensor, dists: torch.Tensor,
                     keep: float = 1.0, homo: bool = False) -> torch.Tensor:
     """Path-aggregated features ``float32 [T, H]`` of the ``T`` targets.
 
-    ``h`` float32 ``[n, H]`` (projected node features), ``paths`` and
+    ``h`` float32 ``[n, H]`` (projected node features; bf16 with the six
+    weights ``wd`` .. ``b_hh`` bf16 for bf16 compute), ``paths`` and
     ``dists`` int32 ``[T, nw, wl]`` (node ids in ``[0, n)``), ``wd``
     ``[wl, H, H]`` and ``bd`` ``[wl, H]`` (the distance transforms, ``x @
     wd[d]``), ``w_ih``/``w_hh`` ``[H, 4H]`` and ``b_ih``/``b_hh`` ``[4H]``
@@ -217,7 +333,7 @@ def readout(h, paths, hn, attw, attb, ego=None) -> torch.Tensor:
     ``hn`` ``[T * nw, H]``, homo where the ego rows ``ego [T * nw, H]`` are
     given. For timing and tests; it counts no launch."""
     dev = h.device
-    build.require(h, "h", torch.float32, (None, None), dev)
+    build.require(h, "h", compute_dtype(h), (None, None), dev)
     H = h.shape[1]
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
     T, nw, _ = paths.shape
@@ -233,12 +349,12 @@ def readout(h, paths, hn, attw, attb, ego=None) -> torch.Tensor:
     return _launch_readout(h, paths, hn, attw, attb, ego)
 
 
-def encode_tile(H: int) -> dict:
-    """K3's tile at width ``H`` as its launcher derives it (needs the built
-    library): walks a block ``M``, ``threads``, ``shared_bytes``, and ``kc``,
-    the weight rows a ``cp.async`` chunk."""
+def encode_tile(H: int, bf16: bool = False) -> dict:
+    """K3's tile at width ``H`` (``bf16``: with bf16 weight chunks) as its
+    launcher derives it (needs the built library): walks a block ``M``,
+    ``threads``, ``shared_bytes``, and ``kc``, the weight rows a chunk."""
     out = (ctypes.c_int * 4)()
-    build.check(build.library().pathnet_pagg_encode_tile(H, out), "encode_tile")
+    build.check(build.library().pathnet_pagg_encode_tile(H, int(bf16), out), "encode_tile")
     return {"M": out[0], "threads": out[1], "shared_bytes": out[2], "kc": out[3]}
 
 

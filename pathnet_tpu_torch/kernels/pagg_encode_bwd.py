@@ -1,4 +1,4 @@
-"""K4 ``pagg_encode_bwd``: the backward of K3, f32.
+"""K4 ``pagg_encode_bwd``: the backward of K3, in f32 or with bf16 compute.
 
 Replaces the VJP of ``pathnet_tpu/models/pagg.py:235-303`` (what ``jax.grad``
 derives for the encode block and the attention readout) together with the
@@ -47,6 +47,18 @@ by the ReLU's derivative, its sign read from ``ego`` at step 0 and from
 ``xin`` after (where the mask dropped an entry its ``dsel`` is 0 whatever
 the sign). So 4. sums ``wl`` rows a walk, not ``wl + 1``.
 
+**bf16 compute** (K3's bf16 instances: ``h`` and ``wd, bd, w_ih, w_hh, b_ih,
+b_hh`` bf16, all or none): 1. is K3's bf16 encode, so the streams hold the
+forward's rounded values, kept in f32, which holds them exactly; 2. reads
+the hetero ego rows from the bf16 table; 3. stages the bf16 weights as K3
+does. Every cotangent stays f32: the derivative of each rounding is taken as
+the identity (JAX's convert VJP only changes the cotangent's type). ``dh``
+(from 4., f32) and the six cast weights' gradients are returned as bf16, the
+type of their inputs, as JAX's cotangents of a bf16 cast are; ``dattw`` and
+``dattb`` stay f32. The plain version differentiates K3's bf16 plain version
+in f32 and rounds those seven gradients once at the end, as the kernel path
+does.
+
 No launch adds with atomics and every reduction has an order fixed by the
 inputs, so one input gives one result, bit for bit, on every run: a seeded
 round on the card is reproducible (``tests/test_torch_reproducible.py``).
@@ -81,23 +93,30 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .pagg_encode import _check as check_encode, check_keep_mask, pagg_encode_fwd_plain, ptr
+from .pagg_encode import (_check as check_encode, check_keep_mask, compute_dtype,
+                          dropout_divisor, dropout_plain, is_bf16, lstm_bf16_steps,
+                          pagg_encode_fwd_plain, ptr, select_plain)
 from .segment_sum import segment_sum
 
 Grads = Tuple[torch.Tensor, ...]
 
 
 def pagg_encode_bwd_plain(g, h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                          attw, attb, keep_mask=None, keep=1.0, homo=False) -> Grads:
+                          attw, attb, keep_mask=None, keep=1.0, homo=False,
+                          bf16=False) -> Grads:
     """Plain PyTorch version: ``torch.autograd.grad`` through
-    :func:`pagg_encode_fwd_plain` with the same mask and variant."""
+    :func:`pagg_encode_fwd_plain` with the same mask and variant, taken in
+    f32; each gradient returned in its input's type (``bf16`` as in
+    :func:`~pathnet_tpu_torch.kernels.pagg_encode.encode_walks_plain`)."""
+    bf16 = is_bf16(h, bf16)
+    inputs = (h, wd, bd, w_ih, w_hh, b_ih, b_hh, attw, attb)
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(True)
-                  for t in (h, wd, bd, w_ih, w_hh, b_ih, b_hh, attw, attb)]
+        leaves = [t.detach().float().requires_grad_(True) for t in inputs]
         lh, lwd, lbd, lwi, lwh, lbi, lbh, law, lab = leaves
         out = pagg_encode_fwd_plain(lh, paths, dists, lwd, lbd, lwi, lwh, lbi,
-                                    lbh, law, lab, keep_mask, keep, homo)
-        return torch.autograd.grad(out, leaves, g)
+                                    lbh, law, lab, keep_mask, keep, homo, bf16)
+        grads = torch.autograd.grad(out, leaves, g)
+    return tuple(d.to(t.dtype) for d, t in zip(grads, inputs))
 
 
 def _step_classes(dists: torch.Tensor, homo: bool = False) -> torch.Tensor:
@@ -109,9 +128,14 @@ def _step_classes(dists: torch.Tensor, homo: bool = False) -> torch.Tensor:
 
 
 def encode_walks_streams_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                               keep_mask=None, keep=1.0, homo=False):
+                               keep_mask=None, keep=1.0, homo=False, bf16=False):
     """Plain version of the forward recompute: ``(h_n, xr, xin, hp, cs, gt)``,
-    and with ``homo`` the ego rows ``ego [T * nw, H]`` after them."""
+    and with ``homo`` the ego rows ``ego [T * nw, H]`` after them; all f32,
+    with ``bf16`` (or a bf16 ``h``) the bf16 forward's rounded values."""
+    bf16 = is_bf16(h, bf16)
+    if bf16:
+        h, wd, bd, w_ih, w_hh, b_ih, b_hh = (t.float() for t in
+                                             (h, wd, bd, w_ih, w_hh, b_ih, b_hh))
     T, nw, wl = paths.shape
     H = h.shape[1]
     B = T * nw
@@ -119,15 +143,13 @@ def encode_walks_streams_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
     if not homo:
         xr = xr.flip(2)
     xr = xr.reshape(B, wl, H).transpose(0, 1).contiguous()
-    d = _step_classes(dists, homo)[:, :, None]
-    xin = torch.zeros_like(xr)
-    for k in range(wl):
-        xin = torch.where(d == k, xr @ wd[k] + bd[k], xin)
-    if homo:
-        xin = torch.relu(xin)
+    xin = select_plain(xr, _step_classes(dists, homo)[:, :, None], wd, bd, homo, bf16)
     ego = xin[0].clone() if homo else None
-    if keep_mask is not None:
-        xin = torch.where(keep_mask.bool(), xin / keep, 0.0)
+    xin = dropout_plain(xin, keep_mask, keep, bf16)
+    if bf16:
+        hp, gt, cs, hn = zip(*lstm_bf16_steps(xin, w_ih, w_hh, b_ih, b_hh))
+        out = (hn[-1], xr, xin, torch.stack(hp), torch.stack(cs), torch.stack(gt))
+        return out + (ego,) if homo else out
     gx = xin @ w_ih + b_ih
     hprev = h.new_zeros((B, H))
     c = h.new_zeros((B, H))
@@ -147,11 +169,12 @@ def encode_walks_streams_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
 def attention_bwd_plain(g, h, paths, hn, attw, attb, ego=None):
     """Plain version of the attention backward: ``(dhn, dego, dattw, dattb)``,
     ``dego [T * nw, H]`` holding each walk's ego row gradient; homo where the
-    ego rows ``ego [T * nw, H]`` (the recompute's) are given."""
+    ego rows ``ego [T * nw, H]`` (the recompute's) are given; ``h`` f32 or
+    the bf16 table."""
     T, nw, _ = paths.shape
     H = h.shape[1]
     h_n = hn.reshape(T, nw, H)
-    e = h[paths[:, :, 0].long()] if ego is None else ego.reshape(T, nw, H)
+    e = h[paths[:, :, 0].long()].float() if ego is None else ego.reshape(T, nw, H)
     score = h_n @ attw[:H] + e @ attw[H:] + attb                     # [T, nw]
     datt = (h_n * g[:, None, :]).sum(-1)
     if ego is None:
@@ -169,14 +192,18 @@ def attention_bwd_plain(g, h, paths, hn, attw, attb, ego=None):
 
 
 def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0,
-               homo=None):
+               homo=None, bf16=False):
     """Plain version of the BPTT: ``(drow, dgates, dsel)``, ``drow [wl, T * nw,
     H]`` holding every gathered row's gradient (row ``t * T * nw + b`` is
     position ``wl - 1 - t`` of walk ``b``, homo position ``t``), ``dgates [wl,
     T * nw, 4H]`` the pre-activation gate gradients and ``dsel [wl, T * nw,
     H]`` the gradient of the selected row (homo: before its ReLU). ``homo``
     is None (hetero) or ``(xin, ego, dego)``: the recompute's ``xin`` and
-    ``ego`` and the attention backward's ``dego``."""
+    ``ego`` and the attention backward's ``dego``. ``bf16`` (or bf16
+    weights): the same f32 math on the weights' values (each rounding's
+    derivative is 1), the dropout's divisor rounded as the forward's."""
+    keep = dropout_divisor(keep, is_bf16(wd, bf16))
+    wd, w_ih, w_hh = wd.float(), w_ih.float(), w_hh.float()
     d = _step_classes(dists, homo is not None)
     wl, _, H = cs.shape
     drow = torch.empty_like(cs)
@@ -275,13 +302,15 @@ def _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, 
     (which receives the ego rows) is given; returns ``h_n``."""
     T, nw, wl = paths.shape
     H = h.shape[1]
+    bf16 = h.dtype == torch.bfloat16
     hn = torch.empty((T * nw, H), dtype=torch.float32, device=h.device)
     with torch.cuda.device(h.device):
         rc = build.library().pathnet_pagg_encode_walks_streams(
             h.data_ptr(), paths.data_ptr(), dists.data_ptr(), wd.data_ptr(),
             bd.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
-            b_hh.data_ptr(), ptr(keep_mask), float(keep), hn.data_ptr(),
-            *(s.data_ptr() for s in streams), ptr(ego), T, nw, wl, H, build.stream_ptr(h))
+            b_hh.data_ptr(), ptr(keep_mask), dropout_divisor(keep, bf16), hn.data_ptr(),
+            *(s.data_ptr() for s in streams), ptr(ego), T, nw, wl, H, int(bf16),
+            build.stream_ptr(h))
     build.check(rc, "pagg_encode_bwd (forward recompute)")
     return hn
 
@@ -298,15 +327,16 @@ def _launch_attention(g, h, paths, hn, attw, attb, dego, ego=None):
         rc = build.library().pathnet_pagg_attention_bwd(
             g.data_ptr(), h.data_ptr(), paths.data_ptr(), hn.data_ptr(), ptr(ego),
             attw.data_ptr(), attb.data_ptr(), dhn.data_ptr(), dego.data_ptr(),
-            part.data_ptr(), T, nw, wl, H, build.stream_ptr(h))
+            part.data_ptr(), T, nw, wl, H, int(h.dtype == torch.bfloat16),
+            build.stream_ptr(h))
     build.check(rc, "pagg_encode_bwd (attention)")
     dpart = part.sum(dim=0)
     return dhn, dpart[:2 * H], dpart[2 * H:]
 
 
 def bptt_weights(wd, w_ih, w_hh):
-    """The BPTT launch's operands: ``wd`` transposed per class and
-    ``[w_ih; w_hh]^T`` ``[4H, 2H]``."""
+    """The BPTT launch's operands, in the weights' type: ``wd`` transposed
+    per class and ``[w_ih; w_hh]^T`` ``[4H, 2H]``."""
     return (wd.transpose(1, 2).contiguous(),
             torch.cat([w_ih, w_hh], 0).t().contiguous())
 
@@ -316,13 +346,14 @@ def _launch_bptt(dhn, dists, wd_t, w_t, cs, gt, keep_mask, keep, dsel, drow, hom
     ``homo`` as in :func:`bptt_plain`."""
     T, nw, wl = dists.shape
     H = dhn.shape[1]
+    bf16 = wd_t.dtype == torch.bfloat16
     xin, ego, dego = homo if homo is not None else (None, None, None)
     with torch.cuda.device(dhn.device):
         rc = build.library().pathnet_pagg_bptt(
-            dhn.data_ptr(), dists.data_ptr(), wd_t.data_ptr(),
-            w_t.data_ptr(), cs.data_ptr(), gt.data_ptr(), ptr(keep_mask), float(keep),
+            dhn.data_ptr(), dists.data_ptr(), wd_t.data_ptr(), w_t.data_ptr(),
+            cs.data_ptr(), gt.data_ptr(), ptr(keep_mask), dropout_divisor(keep, bf16),
             ptr(xin), ptr(ego), ptr(dego), dsel.data_ptr(), drow.data_ptr(), T, nw, wl, H,
-            build.stream_ptr(dhn))
+            int(bf16), build.stream_ptr(dhn))
     build.check(rc, "pagg_encode_bwd (bptt)")
 
 
@@ -335,23 +366,24 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
     """``(dh, dwd, dbd, dw_ih, dw_hh, db_ih, db_hh, dattw, dattb)``.
 
     ``g`` float32 ``[T, H]``; the other arguments are K3's
-    (:func:`~pathnet_tpu_torch.kernels.pagg_encode.pagg_encode_fwd`), and each
-    gradient has its input's shape.
+    (:func:`~pathnet_tpu_torch.kernels.pagg_encode.pagg_encode_fwd`, f32 or
+    bf16), and each gradient has its input's shape and type.
     """
     dev = h.device
     f32 = torch.float32
-    build.require(h, "h", f32, (None, None), dev)
+    dt = compute_dtype(h, wd, bd, w_ih, w_hh, b_ih, b_hh)
+    build.require(h, "h", dt, (None, None), dev)
     n, H = h.shape
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
     T, nw, wl = paths.shape
     build.require(g, "g", f32, (T, H), dev)
     build.require(dists, "dists", torch.int32, (T, nw, wl), dev)
-    build.require(wd, "wd", f32, (wl, H, H), dev)
-    build.require(bd, "bd", f32, (wl, H), dev)
-    build.require(w_ih, "w_ih", f32, (H, 4 * H), dev)
-    build.require(w_hh, "w_hh", f32, (H, 4 * H), dev)
-    build.require(b_ih, "b_ih", f32, (4 * H,), dev)
-    build.require(b_hh, "b_hh", f32, (4 * H,), dev)
+    build.require(wd, "wd", dt, (wl, H, H), dev)
+    build.require(bd, "bd", dt, (wl, H), dev)
+    build.require(w_ih, "w_ih", dt, (H, 4 * H), dev)
+    build.require(w_hh, "w_hh", dt, (H, 4 * H), dev)
+    build.require(b_ih, "b_ih", dt, (4 * H,), dev)
+    build.require(b_hh, "b_hh", dt, (4 * H,), dev)
     build.require(attw, "attw", f32, (2 * H,), dev)
     build.require(attb, "attb", f32, (1,), dev)
     check_keep_mask(keep_mask, keep, wl, T * nw, H, dev)
@@ -380,7 +412,10 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
     dh = segment_sum(rows.view(-1, H), row_nodes(paths, homo), n)
     del rows
     dwd, dbd, dw_ih, dw_hh, db = contractions(xr, xin, hp, dsel, gt, dists, homo)
-    return dh, dwd, dbd, dw_ih, dw_hh, db, db.clone(), dattw, dattb
+    if dt == f32:
+        return dh, dwd, dbd, dw_ih, dw_hh, db, db.clone(), dattw, dattb
+    # the cast inputs' gradients in their type
+    return (*(t.to(dt) for t in (dh, dwd, dbd, dw_ih, dw_hh, db, db)), dattw, dattb)
 
 
 pagg_encode_bwd.launches = 0
@@ -413,7 +448,7 @@ def attention_bwd(g, h, paths, hn, attw, attb, ego=None):
     launch."""
     dev = h.device
     f32 = torch.float32
-    build.require(h, "h", f32, (None, None), dev)
+    build.require(h, "h", compute_dtype(h), (None, None), dev)
     H = h.shape[1]
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
     T, nw, _ = paths.shape
@@ -446,9 +481,10 @@ def bptt(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0, ho
     build.require(dhn, "dhn", f32, (B, None), dev)
     H = dhn.shape[1]
     build.require(dists, "dists", torch.int32, (T, nw, wl), dev)
-    build.require(wd, "wd", f32, (wl, H, H), dev)
-    build.require(w_ih, "w_ih", f32, (H, 4 * H), dev)
-    build.require(w_hh, "w_hh", f32, (H, 4 * H), dev)
+    dt = compute_dtype(wd, w_ih, w_hh)
+    build.require(wd, "wd", dt, (wl, H, H), dev)
+    build.require(w_ih, "w_ih", dt, (H, 4 * H), dev)
+    build.require(w_hh, "w_hh", dt, (H, 4 * H), dev)
     build.require(cs, "cs", f32, (wl, B, H), dev)
     build.require(gt, "gt", f32, (wl, B, 4 * H), dev)
     if homo is not None:

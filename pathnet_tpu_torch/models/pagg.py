@@ -19,10 +19,21 @@ Gradients flow through two autograd functions: ``PaggEncode``
 (forward K3, backward K4, ``kernels/pagg_encode_bwd.py``) and ``RowGather``
 (forward and backward K5). K4 sums the row gradients into ``dh [n, H]``
 (its segment sum, in an order fixed by the paths) and autograd takes ``dW0 = X^T dh`` through ``h = X @ W0 + b0``: JAX's "h"
-gather mode. Its "x" mode computes the same gradient, so
-``PaggSpec.gather_mode`` does not change the port's math; nor do
+gather mode. In f32 its "x" mode computes the same values and gradient, so
+``PaggSpec.gather_mode`` does not change the port's f32 math; nor do
 ``dist_mode`` (one formulation of the distance select) and ``remat`` (K4
 recomputes the forward).
+
+bf16 compute (``compute_dtype="bfloat16"``, JAX's ``pagg.py:233-279``): K3
+and K4 read a bf16 table ``hb [n, H]`` and bf16 copies of ``wd, bd, w_ih,
+w_hh, b_ih, b_hh``; the attention, ``fc2``, the ego rows through K5 (from
+the f32 ``h``) and every reduction stay f32. Here the gather mode does
+change the result, so the port follows JAX's choice
+(:meth:`PaggSpec.resolved_gather_mode`): "x" (``F <= 128`` under "auto")
+projects the bf16 rows, ``hb = round(round(X_bf16 @ W0_bf16) + b0_bf16)``
+(homo: its ReLU), and "h" rounds the f32 projection, ``hb = round(h)``.
+Each cast is an autograd op, so each cast parameter gets the gradient of
+the bf16 path, as JAX's does through ``astype``.
 
 Parameters keep the reference's ``state_dict`` names (``fc0``, ``nets.k``,
 ``LSTM.*_l0``, ``attw``, ``fc2``), so ``data/reference_checkpoints/cornell.pth``
@@ -62,21 +73,31 @@ class PaggSpec:
     quirk_compat: bool = False
     # Accepted so JAX specs carry over; K4 always recomputes the forward.
     remat: bool = False
+    # "float32", or "bfloat16": K3 and K4 on a bf16 table and bf16 weights
     compute_dtype: str = "float32"
-    # Which table JAX's per-walk gather reads ("h", "x" or "auto"). Both give
-    # the same gradient; the port always gathers h and scatters into dh.
+    # Which table JAX's per-walk gather reads ("h", "x" or "auto"). In f32
+    # both give the same values and gradient; in bf16 they round differently
+    # and the port builds its bf16 table as the resolved mode says.
     gather_mode: str = "auto"
     # JAX's two formulations of the distance select ("onehot", "mask"): the
     # same math, summed in different orders; the port has one.
     dist_mode: str = "onehot"
 
+    def resolved_gather_mode(self) -> str:
+        """JAX's ``PaggSpec.resolved_gather_mode`` (``pagg.py:106-114``):
+        "auto" is "x" for feature rows of at most 128 entries, else "h"."""
+        if self.gather_mode != "auto":
+            return self.gather_mode
+        return "x" if self.feat_dim <= 128 else "h"
+
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` for a choice the port does not run yet."""
         if self.variant not in ("hetero", "homo"):
             raise ValueError(f"variant={self.variant!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype={self.compute_dtype!r}")
         todo = {"rnn": (self.rnn, "lstm"), "agg": (self.agg, "attention"),
-                "quirk_compat": (self.quirk_compat, False),
-                "compute_dtype": (self.compute_dtype, "float32")}
+                "quirk_compat": (self.quirk_compat, False)}
         for name, (value, ported) in todo.items():
             if value != ported:
                 raise NotImplementedError(
@@ -91,8 +112,9 @@ class PaggSpec:
 
 
 class PaggEncode(torch.autograd.Function):
-    """K3 forward, K4 backward: ``h_agg [T, H]`` from ``h`` and the encode
-    weights in K3's layout, with an optional dropout keep mask."""
+    """K3 forward, K4 backward: ``h_agg [T, H]`` from the table ``h`` and the
+    encode weights in K3's layout (f32, or bf16 table and weights), with an
+    optional dropout keep mask."""
 
     @staticmethod
     def forward(ctx, h, paths, dists, keep_mask, keep, homo, wd, bd, w_ih, w_hh,
@@ -168,11 +190,15 @@ class PathNet(nn.Module):
             torch_linear_init_(layer, g)
         torch_lstm_init_(self.LSTM, g)
         self.homo = spec.variant == "homo"
+        self.bf16 = spec.compute_dtype == "bfloat16"
         if self.homo:
             xavier_uniform_(self.fc0.weight, g)
             xavier_uniform_(self.fc2.weight, g)
 
     def _encode_inputs(self, X: torch.Tensor):
+        """``(h, weights)``: ``h = X @ W0 + b0`` (homo: its ReLU) in f32,
+        from which K5 gathers the ego rows, and the f32 weights in K3's
+        layout."""
         h = F.linear(X, self.fc0.weight, self.fc0.bias)
         if self.homo:
             h = torch.relu(h)
@@ -185,13 +211,31 @@ class PathNet(nn.Module):
             self.attw.weight.reshape(-1), self.attw.bias))
         return h, weights
 
+    def _k3_inputs(self, X: torch.Tensor, h: torch.Tensor, weights):
+        """K3's table and weights: ``h`` and ``weights`` in f32; under bf16
+        compute the bf16 table ``hb`` of the resolved gather mode and the
+        first six weights cast to bf16."""
+        if not self.bf16:
+            return h, weights
+        bf = torch.bfloat16
+        if self.spec.resolved_gather_mode() == "x":
+            # JAX's project() on bf16 rows: the product rounded, then the bias
+            z = (X.to(bf).float() @ self.fc0.weight.to(bf).float().t()).to(bf)
+            hb = z + self.fc0.bias.to(bf)
+            if self.homo:
+                hb = torch.relu(hb)
+        else:
+            hb = h.to(bf)
+        return hb, tuple(w.to(bf) for w in weights[:6]) + weights[6:]
+
     @torch.no_grad()
     def encode_inputs(self, X: torch.Tensor):
-        """``h = X @ W0 + b0`` (homo: its ReLU) and the weights in K3's
-        layout, in K3's order after ``(h, paths, dists)``, detached from the
-        parameters."""
-        h, weights = self._encode_inputs(X)
-        return h, tuple(w.detach() for w in weights)
+        """K3's table and weights, in K3's order after ``(h, paths, dists)``,
+        detached from the parameters: ``h = X @ W0 + b0`` (homo: its ReLU)
+        and the f32 weights, or under bf16 compute the bf16 table and the
+        six cast weights (``attw``, ``attb`` f32)."""
+        table, weights = self._k3_inputs(X, *self._encode_inputs(X))
+        return table, tuple(w.detach() for w in weights)
 
     def forward(self, X: torch.Tensor, paths: torch.Tensor, dists: torch.Tensor,
                 ego_idx: torch.Tensor, train: bool = False,
@@ -208,13 +252,15 @@ class PathNet(nn.Module):
         if not train:
             with torch.no_grad():
                 h, weights = self._encode_inputs(X)
-                h_agg = pagg_encode_fwd(h, paths, dists, *weights, homo=self.homo)
+                table, weights = self._k3_inputs(X, h, weights)
+                h_agg = pagg_encode_fwd(table, paths, dists, *weights, homo=self.homo)
                 out = torch.cat([row_gather(h, ego_idx), h_agg], dim=-1)
                 return F.linear(out, self.fc2.weight, self.fc2.bias)
         keep = 1.0 - self.spec.dropout
         m1, m2 = masks if masks is not None else (None, None)
         h, weights = self._encode_inputs(X)
-        h_agg = PaggEncode.apply(h, paths, dists, m1, keep, self.homo, *weights)
+        table, weights = self._k3_inputs(X, h, weights)
+        h_agg = PaggEncode.apply(table, paths, dists, m1, keep, self.homo, *weights)
         out = torch.cat([RowGather.apply(h, ego_idx), h_agg], dim=-1)
         if m2 is not None:
             out = torch.where(m2.bool(), out / keep, 0.0)

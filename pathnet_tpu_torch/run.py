@@ -5,10 +5,12 @@
 The same flags and defaults as ``python -m pathnet_tpu.run``, with
 ``--device`` in place of ``--platform`` (default: the CUDA card). Choices the
 port does not run yet raise ``NotImplementedError`` naming ROADMAP.md:
-``--mesh``, ``--shard-features``, ``--dtype bfloat16``, ``--rnn`` other than
-lstm, ``--agg`` other than attention, ``--quirk-compat``, ``-mk uniform``,
-and the baseline models (``--model``). The homophily datasets (cora,
-citeseer, pubmed) train the homo variant, as in the JAX CLI.
+``--mesh``, ``--shard-features``, ``--rnn`` other than lstm, ``--agg`` other
+than attention, ``--quirk-compat``, ``-mk uniform``, and the baseline models
+(``--model``). The homophily datasets (cora, citeseer, pubmed) train the
+homo variant, as in the JAX CLI. ``--dtype bfloat16`` computes the encode in
+bf16 through K3's and K4's bf16 instances (the bgp band's configuration:
+``-data bgp --dtype bfloat16 --microbatch 8192``).
 ``--no-scan``, ``--scan-chunk`` and ``--remat`` are accepted and change
 nothing. The result line and the JSONL record go to ``--results-dir`` as in
 the JAX CLI. The port's defaults are ``--results-dir results_torch`` and
@@ -63,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "backward always recomputes its forward")
     p.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="compute dtype; only float32 is ported")
+                   help="compute dtype of the encode (gather, distance "
+                        "transform, LSTM); params, attention and head stay "
+                        "float32")
     p.add_argument("--results-dir", type=str, default="results_torch")
     p.add_argument("--ckpt-dir", type=str, default="saved_models_torch")
     p.add_argument("--resume", action="store_true")
@@ -123,8 +127,6 @@ def check_ported(args) -> None:
         todo.append(("--mesh", "the multi-device layer, ROADMAP §1 item 11"))
     if args.shard_features:
         todo.append(("--shard-features", "the multi-device layer, ROADMAP §1 item 11"))
-    if args.dtype != "float32":
-        todo.append((f"--dtype {args.dtype}", "bf16 compute, ROADMAP §1 item 3"))
     if args.rnn != "lstm":
         todo.append((f"--rnn {args.rnn}", "the GRU and MLP encoders, ROADMAP §1 item 3"))
     if args.agg != "attention":

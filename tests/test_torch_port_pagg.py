@@ -117,10 +117,23 @@ def test_weights_are_seeded_torch_default_draws():
 
 @pytest.mark.parametrize("kw", [{"rnn": "gru"}, {"rnn": "mlp"},
                                 {"agg": "mean"}, {"agg": "sum"},
-                                {"quirk_compat": True}, {"compute_dtype": "bfloat16"}])
+                                {"quirk_compat": True}])
 def test_unported_model_choices_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PathNet(PaggSpec(feat_dim=F, hidden=H, out_dim=C, walk_len=4, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("variant", ["hetero", "homo"])
+def test_spec_accepts_bf16_compute_and_refuses_other_dtypes(variant):
+    spec = PaggSpec(feat_dim=F, hidden=H, out_dim=C, walk_len=4, variant=variant,
+                    compute_dtype="bfloat16")
+    model = PathNet(spec, device="cpu")
+    assert model.bf16 and all(p.dtype == torch.float32 for p in model.parameters())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        PaggSpec(feat_dim=F, hidden=H, out_dim=C, walk_len=4,
+                 compute_dtype="float16").check_ported()
+    assert PaggSpec(feat_dim=128, hidden=H, out_dim=C, walk_len=4).resolved_gather_mode() == "x"
+    assert PaggSpec(feat_dim=129, hidden=H, out_dim=C, walk_len=4).resolved_gather_mode() == "h"
 
 
 def test_confusion_matrix_and_metrics_match_jax():

@@ -396,12 +396,14 @@ def test_a_homo_training_step_on_the_card_matches_the_host(cuda):
     training_step_on_the_card_and_the_host(cuda, "homo")
 
 
-def training_step_on_the_card_and_the_host(cuda, variant):
+def training_step_on_the_card_and_the_host(cuda, variant, compute_dtype="float32"):
     """One training step with dropout on the card and on the host from the
     same weights, walks and masks: logits and every gradient within 1e-4 of
-    the host's largest entry."""
+    the host's largest entry (bf16 compute: four bf16 ulps of it)."""
     g = Graph.from_edge_input(CORNELL)
-    spec = PaggSpec(feat_dim=32, hidden=64, out_dim=5, walk_len=4, variant=variant)
+    spec = PaggSpec(feat_dim=32, hidden=64, out_dim=5, walk_len=4, variant=variant,
+                    compute_dtype=compute_dtype)
+    tol = 1e-4 if compute_dtype == "float32" else BF16_TOL
     gen = torch.Generator().manual_seed(0)
     X = torch.randn((g.n, 32), generator=gen)
     idx = torch.arange(0, g.n, 2, dtype=torch.int32)
@@ -428,4 +430,117 @@ def training_step_on_the_card_and_the_host(cuda, variant):
             # a sum over all walks of score gradients that cancel to near 0;
             # its summands are those of attw.weight's gradient
             scale = max(scale, float(grads[0]["attw.weight"].abs().max()))
-        assert err <= 1e-4 * scale, (k, err)
+        assert err <= tol * scale, (k, err)
+
+
+@pytest.mark.gpu
+def test_a_bf16_training_step_on_the_card_matches_the_host(cuda):
+    training_step_on_the_card_and_the_host(cuda, "hetero", "bfloat16")
+
+
+@pytest.mark.gpu
+def test_a_bf16_homo_training_step_on_the_card_matches_the_host(cuda):
+    training_step_on_the_card_and_the_host(cuda, "homo", "bfloat16")
+
+
+# bf16 compute: four bf16 ulps of each output's largest entry. The kernel and
+# its plain version round at the same points, but the kernel's sigmoid and
+# tanh differ from torch's by a few f32 ulps, which can move a rounding of
+# c_t or h_t by one bf16 ulp; such a flip carries on through later steps.
+BF16_TOL = 4 * 2.0 ** -8
+GRADS = ("dh", "dwd", "dbd", "dw_ih", "dw_hh", "db_ih", "db_hh", "dattw", "dattb")
+
+
+def bf16_inputs(h, w):
+    """The bf16 table and the six cast weights; ``attw``, ``attb`` stay f32."""
+    return h.bfloat16(), tuple(t.bfloat16() for t in w[:6]) + tuple(w[6:])
+
+
+def as_f32(ts):
+    return [t.float() for t in ts]
+
+
+# the bf16 instances: the compiled H = 64 and the run-time width (Nba's 256,
+# an odd H, whose weight rows and table pairs are not 4-byte aligned, and
+# the 1024 limit), both variants, one target, a ragged last tile, wild
+# distances
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,wl,nw,T,wild,homo", [
+    (64, 4, 40, None, False, False), (64, 4, 40, None, False, True),
+    (256, 4, 40, 30, True, False), (13, 4, 6, None, False, False),
+    (13, 4, 6, None, False, True), (37, 5, 6, 183, True, True), (16, 2, 6, None, False, False),
+    (64, 4, 40, 1, False, False), (1024, 2, 3, 20, True, False)])
+def test_bf16_encode_and_its_backward_match_plain_on_the_card(cuda, H, wl, nw, T, wild, homo):
+    if wild:
+        starts, paths, dists, h, w, mask, gout = wild_case(H, wl, nw, T, device=cuda)
+    else:
+        starts, paths, dists, h, w, mask, gout = case(nw=nw, wl=wl, H=H, T=T, device=cuda)
+    hb, wb = bf16_inputs(h, w)
+    for m, keep in ((None, 1.0), (mask, KEEP)):
+        got = K.pagg_encode_fwd(hb, paths, dists, *wb, m, keep, homo)
+        want = K.pagg_encode_fwd_plain(hb, paths, dists, *wb, m, keep, homo)
+        assert got.dtype == torch.float32
+        assert_within([got], [want], ["out"], BF16_TOL)
+        got = K.pagg_encode_bwd(gout, hb, paths, dists, *wb, m, keep, homo)
+        want = K.pagg_encode_bwd_plain(gout, hb, paths, dists, *wb, m, keep, homo)
+        assert [t.dtype for t in got] == [t.dtype for t in want] == (
+            [torch.bfloat16] * 7 + [torch.float32] * 2)
+        assert_within(as_f32(got), as_f32(want), GRADS, BF16_TOL, cancel=("dattw", "dattb"),
+                      cancel_scale=float(want[0].abs().max()))
+        # each launch alone against its plain stage, on the plain stage's inputs
+        want = K.encode_walks_streams_plain(hb, paths, dists, *wb[:6], m, keep, homo)
+        got = K.encode_walks_streams(hb, paths, dists, *wb[:6], m, keep, homo)
+        assert_within(got, want, ("hn", "xr", "xin", "hp", "cs", "gt", "ego"), BF16_TOL)
+        hn, xr, xin, hp, cs, gt = want[:6]
+        ego = want[6] if homo else None
+        assert_within([K.readout(hb, paths, hn, *wb[6:], ego)],
+                      [K.readout_plain(hb, paths, hn, *wb[6:], ego)], ["readout"], BF16_TOL)
+        want = K.attention_bwd_plain(gout, hb, paths, hn, *wb[6:], ego)
+        got = K.attention_bwd(gout, hb, paths, hn, *wb[6:], ego)
+        assert_within(got, want, ("dhn", "dego", "dattw", "dattb"), BF16_TOL,
+                      cancel=("dattw", "dattb"), cancel_scale=float(want[1].abs().max()))
+        dhn, hargs = want[0], ((xin, ego, want[1]) if homo else None)
+        want = K.bptt_plain(dhn, paths, dists, wb[0], wb[2], wb[3], cs, gt, m, keep, hargs)
+        got = K.bptt(dhn, paths, dists, wb[0], wb[2], wb[3], cs, gt.clone(), m, keep, hargs)
+        assert_within(got, want, ("drow", "dgates", "dsel"), BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_bf16_encode_takes_weights_and_a_table_at_any_alignment(cuda):
+    # bf16 weight rows are staged 16 bytes at a time where every base allows
+    # it, else 4 bytes (2 values), else value by value; table rows are read
+    # in pairs only where the table is 4-byte aligned
+    starts, paths, dists, h, w, mask, gout = case(nw=40, wl=4, H=64, device=cuda)
+    hb, wb = bf16_inputs(h, w)
+
+    def shift(t, by):
+        buf = torch.empty(t.numel() + by, dtype=t.dtype, device=cuda)
+        buf[by:] = t.reshape(-1)
+        return buf[by:].view(t.shape)
+
+    want_f = K.pagg_encode_fwd_plain(hb, paths, dists, *wb, mask, KEEP)
+    want_b = K.pagg_encode_bwd_plain(gout, hb, paths, dists, *wb, mask, KEEP)
+    for by in (1, 2):
+        table = shift(hb, by)
+        shifted = tuple(shift(t, by) for t in wb[:6]) + wb[6:]
+        assert table.data_ptr() % 4 != 0 or by == 2
+        got = K.pagg_encode_fwd(table, paths, dists, *shifted, mask, KEEP)
+        assert_within([got], [want_f], ["out"], BF16_TOL)
+        got = K.pagg_encode_bwd(gout, table, paths, dists, *shifted, mask, KEEP)
+        assert_within(as_f32(got), as_f32(want_b), GRADS, BF16_TOL, cancel=("dattw", "dattb"),
+                      cancel_scale=float(want_b[0].float().abs().max()))
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_refuse_a_mixed_set_on_the_card(cuda):
+    starts, paths, dists, h, w, mask, gout = case(nw=6, wl=4, H=16, device=cuda)
+    hb, wb = bf16_inputs(h, w)
+    K.reset_launch_counts()
+    for table, weights in ((h, wb), (hb, w), (hb, wb[:3] + w[3:])):
+        with pytest.raises(TypeError, match="float32 or all bfloat16"):
+            K.pagg_encode_fwd(table, paths, dists, *weights, mask, KEEP)
+        with pytest.raises(TypeError, match="float32 or all bfloat16"):
+            K.pagg_encode_bwd(gout, table, paths, dists, *weights, mask, KEEP)
+        with pytest.raises(TypeError, match="float32 or all bfloat16"):
+            K.encode_walks(table, paths, dists, *weights[:6])
+    assert all(c == 0 for c in K.launch_counts().values())

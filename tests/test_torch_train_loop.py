@@ -216,11 +216,34 @@ def test_cli_takes_the_jax_flags():
 
 
 @pytest.mark.parametrize("argv", [["--model", "gcn"], ["--mesh", "4"], ["--shard-features"],
-                                  ["--dtype", "bfloat16"], ["--rnn", "gru"],
+                                  ["--rnn", "gru"],
                                   ["--agg", "mean"], ["--quirk-compat"], ["-mk", "uniform"]])
 def test_cli_refuses_unported_choices(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run.main(["-data", "cornell", *argv])
+
+
+def test_cli_runs_a_short_bf16_protocol_on_the_host(cornell_root, capsys, monkeypatch):
+    """``--dtype bfloat16`` trains at bf16 through the CLI: one round of 2
+    epochs on the host, in microbatches, checkpointed under the JAX
+    package's key with its ``.bfloat16`` suffix, and recorded as bf16."""
+    specs = []
+    real = trainer.run_round
+    monkeypatch.setattr(trainer, "run_round",
+                        lambda *a, **k: specs.append(a[3]) or real(*a, **k))
+    agg = run.main(["-data", "cornell", "-pr", str(cornell_root), "-e", "2", "-r", "1",
+                    "-hid", "8", "-nw", "4", "--dtype", "bfloat16", "--microbatch", "64",
+                    "--device", "cpu", "--results-dir", str(cornell_root / "res"),
+                    "--ckpt-dir", str(cornell_root / "ck"), "--resume"])
+    assert [s.compute_dtype for s in specs] == ["bfloat16"]
+    assert 0.0 <= agg["accuracy"][0] <= 1.0
+    assert "pathnet Avg for cornell: acc" in capsys.readouterr().out
+    key = "cornell.89c32d97.e2.h8.s0.nw4.wl4.dr0.7.merw.lstm.attention.bfloat16"
+    assert completed_rounds(str(cornell_root / "ck"), key) == 1
+    assert all(v.dtype == torch.float32
+               for v in load_round(str(cornell_root / "ck"), key, 0)["params"].values())
+    text = (cornell_root / "res" / "result_for_cornell.txt").read_text()
+    assert "dtype: bfloat16" in text and "microbatch: 64" in text
 
 
 @pytest.mark.parametrize("name", ["cora", "citeseer"])
