@@ -109,7 +109,30 @@ one card). Phases, each with a start and an end line:
     (as 7b); then the bgp protocol through the CLI at its band's
     configuration (``--dtype bfloat16 --microbatch 8192``, payload 276b674c,
     else the phase fails) for ``BGP_ROUNDS`` x 1000, and cora at bf16 for
-    ``CORA_BF16_ROUNDS`` x 1000.
+    ``CORA_BF16_ROUNDS`` x 1000;
+14. the GRU (``--rnn gru``, K3's and K4's ``GRU`` instances on packed
+    weights) and the mean and sum readouts (``--agg mean|sum``, the ``AGG``
+    branches of K3's readout and K4's attention backward): K3's GRU
+    instance on one 8192-target bgp request, the mean and sum readouts of
+    its ``h_n`` against their plain versions and ``torch.mean``/``torch.sum``
+    (the readouts' library yardsticks), K3 (with and without the keep mask)
+    and K4 with each of its three launches, GRU and LSTM-mean, on one bgp
+    microbatch, the attention backward's mean and sum branches alone
+    (rtol 1e-6, zeros exact; their library yardstick ``repeat_interleave``
+    of ``g / nw`` or ``g``, their bound g read and d h_n written), the homo
+    GRU instances on cora with all 2,708 targets, and the bf16 instances
+    under mean (the bgp microbatch) and sum (cora, homo) with their stages,
+    each timed as phase 5 with its bound at the flops the GRU needs (14 H^2
+    a walk step in K3, 42 in K4), the bf16 ones untimed; ``predict`` and one training step on the
+    card against the host (cornell at full width, ``--rnn gru`` and ``--agg
+    mean``); two seeded GRU rounds bit-equal (as 7b); then through the CLI
+    the cora and citeseer ``--agg mean`` protocols (``CORA_MEAN_ROUNDS``,
+    ``CITESEER_MEAN_ROUNDS`` x 1000, gated on 80.09 +- 2.11 and 75.82 +- 1.54,
+    ``results/results.jsonl:73,76``, on the payloads ec4121ed and 907bb672,
+    else the phase fails), cornell ``--rnn gru`` (``CORNELL_GRU_ROUNDS`` x
+    1000, gated on the JAX package's host band 80.00 +- 5.30, payload
+    89c32d97), and one round each of cornell ``--agg sum`` and cora ``--rnn
+    gru`` (no JAX band: above chance).
 
 The protocol phases gate on their band when they run 10 rounds of 1000
 epochs, and on accuracy above chance when a rehearsal cuts them shorter;
@@ -122,7 +145,11 @@ K5, and launches K1 and K2 no time: ``walk_dists`` replaces them there, as
 each one's ``note`` says; K6's from phase 8; the homo instances of K3 and
 K4, named ``... homo``, from phase 12's cora protocol; the bf16 instances,
 named ``... bf16``, from phase 13's bgp and cora protocols, each with an
-``f32_bound_ms`` beside its bound at bf16's rate);
+``f32_bound_ms`` beside its bound at bf16's rate; the GRU instances, named
+``... gru``, from phase 14's cornell and cora ``--rnn gru`` protocols; the
+readouts' branches, ``pagg_readout mean|sum`` and ``pagg_attention_bwd
+mean|sum``, whose launches are K3's and K4's in phase 14's ``--agg mean``
+(cora) and ``--agg sum`` (cornell) protocols);
 the last is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
 prints no result. Without a CUDA card, or outside a checkout, it exits
 non-zero.
@@ -205,6 +232,21 @@ BF16_KERNELS = tuple(f"{n}{v} bf16" for v in ("", " homo") for n in HOMO_KERNELS
 BGP_BAND = (0.7030006766319274, 0.004238089026796824)
 BGP_PAYLOAD, BGP_ROUNDS, BGP_MICROBATCH = "276b674c", 1, 8192
 CORA_BF16_ROUNDS = 1
+# the GRU and the mean and sum readouts: the JAX bands of cora and citeseer
+# under --agg mean (results/results.jsonl:73,76, the payloads of
+# HOMO_PAYLOADS), and of cornell under --rnn gru, the JAX package's 10 x 1000
+# on the host (JAX_PLATFORMS=cpu python -m pathnet_tpu.run -data cornell
+# --rnn gru, payload 89c32d97; PERF.md §2). A run of fewer rounds holds each
+# round to 3 std of its band.
+CORA_MEAN_BAND = (0.8009224712848664, 0.02107605412287394)       # :73
+CITESEER_MEAN_BAND = (0.7581954956054687, 0.015376636141646069)  # :76
+CORNELL_GRU_BAND = (0.800000011920929, 0.05296194166694395)
+CORNELL_PAYLOAD = "89c32d97"
+CORA_MEAN_ROUNDS = CITESEER_MEAN_ROUNDS = CORNELL_GRU_ROUNDS = 1
+# the records of the GRU's instances and the readouts' branches
+CHOICE_KERNELS = ("pagg_encode_fwd gru", "pagg_encode_bwd gru", "pagg_encode_fwd gru homo",
+                  "pagg_encode_bwd gru homo", "pagg_readout mean", "pagg_readout sum",
+                  "pagg_attention_bwd mean", "pagg_attention_bwd sum")
 
 def say(msg: str) -> None:
     print(msg, flush=True)
@@ -464,20 +506,22 @@ def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None,
         f"{b / 1e6:.1f} MB, {o / 1e9:.3f} G ops)")
 
 
-def time_k3_stages(tag, h, paths, dists, w, mask_args=(None, 1.0), homo=False):
+def time_k3_stages(tag, h, paths, dists, w, mask_args=(None, 1.0), homo=False,
+                   agg="attention", cell="lstm"):
     """Each of K3's two launches alone, per launch in a CUDA graph."""
     from pathnet_tpu_torch import kernels as K
 
-    enc = (h, paths, dists, *w[:6], *mask_args, homo)
+    enc = (h, paths, dists, *w[:6], *mask_args, homo, cell)
     out = K.encode_walks(*enc)
     hn, ego = out if homo else (out, None)
     enc_ms = graph_ms(lambda: K.encode_walks(*enc), 20)
-    read_ms = graph_ms(lambda: K.readout(h, paths, hn, *w[6:], ego), 50)
+    read_ms = graph_ms(lambda: K.readout(h, paths, hn, *w[6:], ego, agg), 50)
     say(f"  {tag}: K3's encode launch {enc_ms:.4f} ms, its readout launch "
         f"{read_ms:.4f} ms, per launch in a CUDA graph")
 
 
-def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_TOL):
+def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_TOL,
+                    agg="attention", cell="lstm"):
     """Each of K4's three launches against its plain stage, on the plain
     stage's inputs: every output within ``tol`` of its plain version's
     largest entry (``dattw``, ``dattb``, sums that cancel, of the ego rows'
@@ -490,6 +534,10 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_T
 
     def hold(stage, names, got, want, cancel_scale=0.0):
         for name, a, b in zip(names, got, want):
+            if b is None:   # the GRU's recompute writes no cs
+                if a is not None:
+                    raise AssertionError(f"{tag}: K4's {stage} launch returned a {name}")
+                continue
             err = float((a - b).abs().max())
             top = float(b.abs().max())
             scale = max(top, cancel_scale) if name in ("dattw", "dattb") else top
@@ -499,20 +547,22 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_T
             parts.append(f"{name} {err / max(top, 1e-30):.1e}")
 
     enc = (h, paths, dists, *w[:6], mask, keep, homo)
-    want = K.encode_walks_streams_plain(*enc)
+    want = K.encode_walks_streams_plain(*enc, cell=cell)
     hold("recompute", ("hn", "xr", "xin", "hp", "cs", "gt", "ego"),
-         K.encode_walks_streams(*enc), want)
-    hn, _, xin, _, cs, gt = want[:6]
+         K.encode_walks_streams(*enc, cell), want)
+    hn, _, xin, hp, cs, gt = want[:6]
     ego = want[6] if homo else None
-    want = K.attention_bwd_plain(g, h, paths, hn, *w[6:], ego)
+    want = K.attention_bwd_plain(g, h, paths, hn, *w[6:], ego, agg)
     hold("attention", ("dhn", "dego", "dattw", "dattb"),
-         K.attention_bwd(g, h, paths, hn, *w[6:], ego), want, float(want[1].abs().max()))
+         K.attention_bwd(g, h, paths, hn, *w[6:], ego, agg), want,
+         max(float(want[1].abs().max()), float(want[0].abs().max()) if agg != "attention"
+             else 0.0))
     dego = want[1]
-    bargs = (want[0], paths, dists, w[0], w[2], w[3], cs)
+    bargs = (want[0], paths, dists, w[0], w[2], w[3], hp if cell == "gru" else cs)
     hargs = (xin, ego, dego) if homo else None
-    want = K.bptt_plain(*bargs, gt, mask, keep, hargs)
-    hold("bptt", ("drow", "dgates", "dsel"), K.bptt(*bargs, gt.clone(), mask, keep, hargs),
-         want)
+    want = K.bptt_plain(*bargs, gt, mask, keep, hargs, cell=cell)
+    hold("bptt", ("drow", "dgates", "dsel"),
+         K.bptt(*bargs, gt.clone(), mask, keep, hargs, cell), want)
     say(f"  {tag}: K4's three launches each within {tol:.3g} of its plain stage (error "
         "over each plain max: " + ", ".join(parts) + ")")
     H = h.shape[1]
@@ -520,19 +570,20 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_T
     return drow if homo else torch.cat([drow, dego])   # the row gradients
 
 
-def time_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False):
+def time_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, agg="attention",
+                   cell="lstm"):
     """Each of K4's three launches and the wrapper's weight contractions
     alone, per launch in a CUDA graph."""
     from pathnet_tpu_torch import kernels as K
 
-    enc = (h, paths, dists, *w[:6], mask, keep, homo)
+    enc = (h, paths, dists, *w[:6], mask, keep, homo, cell)
     hn, xr, xin, hp, cs, gt, *ego = K.encode_walks_streams(*enc)
     ego = ego[0] if homo else None
     rec_ms = graph_ms(lambda: K.encode_walks_streams(*enc), 5)
-    dhn, dego = K.attention_bwd(g, h, paths, hn, *w[6:], ego)[:2]
-    att_ms = graph_ms(lambda: K.attention_bwd(g, h, paths, hn, *w[6:], ego), 20)
-    bargs = (dhn, paths, dists, w[0], w[2], w[3], cs, gt, mask, keep,
-             (xin, ego, dego) if homo else None)
+    dhn, dego = K.attention_bwd(g, h, paths, hn, *w[6:], ego, agg)[:2]
+    att_ms = graph_ms(lambda: K.attention_bwd(g, h, paths, hn, *w[6:], ego, agg), 20)
+    bargs = (dhn, paths, dists, w[0], w[2], w[3], hp if cell == "gru" else cs, gt, mask,
+             keep, (xin, ego, dego) if homo else None, cell)
     _, dg, dsel = K.bptt(*bargs)
     # each replay writes over gt again; the time does not depend on the values
     bptt_ms = graph_ms(lambda: K.bptt(*bargs), 5)
@@ -546,10 +597,11 @@ def record_err(rec, name, err):
     rec[name]["max_abs_err"] = max(rec[name].get("max_abs_err", 0.0), err)
 
 
-def homo_name(name, homo, bf16=False):
-    """A kernel's record: its homo and its bf16 instances' records have their
-    own names."""
-    return name + (" homo" if homo else "") + (" bf16" if bf16 else "")
+def homo_name(name, homo, bf16=False, cell="lstm"):
+    """A kernel's record: its GRU, homo and bf16 instances' records have
+    their own names."""
+    return (name + (" gru" if cell == "gru" else "") + (" homo" if homo else "")
+            + (" bf16" if bf16 else ""))
 
 
 def check_k4(tag, got, want, tol=K4_TOL):
@@ -575,6 +627,17 @@ def check_k4(tag, got, want, tol=K4_TOL):
     return worst
 
 
+def unpacked(grads, cell):
+    """K4's gradients, the GRU's packed weights' unpacked: the kernel leaves
+    the entries of the packing's zero blocks as its contractions give them
+    (autograd drops them there), the plain version zeros."""
+    if cell != "gru":
+        return grads
+    from pathnet_tpu_torch.kernels.pagg_encode import unpack_gru
+    dh, dwd, dbd, *wb, dattw, dattb = grads
+    return (dh, dwd, dbd, *unpack_gru(*wb).values(), dattw, dattb)
+
+
 def k3_close(agg, agg_p, bf16):
     """K3 against its plain version: f32 within atol = rtol = K3_TOL; bf16
     within BF16_TOL of the plain version's largest entry."""
@@ -584,19 +647,21 @@ def k3_close(agg, agg_p, bf16):
     return torch.allclose(agg, agg_p, atol=K3_TOL, rtol=K3_TOL)
 
 
-def encode_bounds(h, paths, dists, m1, agg, g, w):
+def encode_bounds(h, paths, dists, m1, agg, g, w, cell="lstm"):
     """(bytes, ops) of K3 with a mask and of K4 on these inputs. K3: per walk
     step 2H^2 (select) + 16H^2 (gates), per walk 6H (readout). K4: the
     forward recompute (18 H^2 per walk step), the backward products (18 H^2)
     and the weight contractions (18 H^2), and ~14 H per walk for the
-    attention."""
+    attention. The GRU needs 14 H^2 a walk step in K3 (2 + 12) and 42 in K4,
+    though the packed products run the LSTM's."""
     T, nw, wl = paths.shape
     H = h.shape[1]
     walks = T * nw
+    step = 14 if cell == "gru" else 18
     b3 = nbytes(h, paths, dists, m1, agg, *w)
-    o3 = walks * (wl * 18 * H * H + 6 * H)
+    o3 = walks * (wl * step * H * H + 6 * H)
     b4 = nbytes(g, h, paths, dists, m1, *w) + nbytes(h, *w)
-    o4 = walks * (wl * 54 * H * H + 14 * H)
+    o4 = walks * (wl * 3 * step * H * H + 14 * H)
     return b3, o3, b4, o4
 
 
@@ -615,29 +680,39 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False
     h, w = model.encode_inputs(X)
     H = h.shape[1]
     homo, bf16 = model.homo, model.bf16
+    choice = dict(agg=model.spec.agg, cell=model.spec.rnn)
+    # the records of K3's and K4's instances; the mean and sum readouts'
+    # branches record their own launches' errors (check_choice_kernels)
+    names = {k: homo_name(k, homo, bf16, choice["cell"]) if choice["agg"] == "attention"
+             else None for k in ("pagg_encode_fwd", "pagg_encode_bwd")}
     keep = 1.0 - model.spec.dropout
     m1, _ = draw_dropout_masks(model.spec, T, nw, gen, X.device)
     for mask_args, what in (((None, 1.0), "without a mask"), ((m1, keep), "with the keep mask")):
-        agg = K.pagg_encode_fwd(h, paths, dists, *w, *mask_args, homo)
-        agg_p = K.pagg_encode_fwd_plain(h, paths, dists, *w, *mask_args, homo)
+        agg = K.pagg_encode_fwd(h, paths, dists, *w, *mask_args, homo, **choice)
+        agg_p = K.pagg_encode_fwd_plain(h, paths, dists, *w, *mask_args, homo, **choice)
         torch.cuda.synchronize()
         err3 = float((agg - agg_p).abs().max())
         if not k3_close(agg, agg_p, bf16):
             raise AssertionError(f"{tag}: pagg_encode_fwd {what} max abs err {err3}")
-        record_err(rec, homo_name("pagg_encode_fwd", homo, bf16), err3)
+        if names["pagg_encode_fwd"]:
+            record_err(rec, names["pagg_encode_fwd"], err3)
         say(f"  {tag}: pagg_encode_fwd {what} max abs err {err3:.3e} within "
             + (f"{BF16_TOL:.4g} x max {float(agg_p.abs().max()):.3f}" if bf16 else
                f"atol = rtol = {K3_TOL}")
             + f" (T={T}, nw={nw}, wl={wl}, H={H}, keep={keep:.2f}, {h.dtype})")
     g = torch.randn((T, H), generator=gen, device=X.device)
     bwd_args = (g, h, paths, dists, *w, m1, keep, homo)
-    got = K.pagg_encode_bwd(*bwd_args)
-    want = K.pagg_encode_bwd_plain(*bwd_args)
+    got = K.pagg_encode_bwd(*bwd_args, **choice)
+    want = K.pagg_encode_bwd_plain(*bwd_args, **choice)
     torch.cuda.synchronize()
     tol = BF16_TOL if bf16 else K4_TOL
-    record_err(rec, homo_name("pagg_encode_bwd", homo, bf16), check_k4(tag, got, want, tol))
+    err4 = check_k4(tag, unpacked(got, choice["cell"]), unpacked(want, choice["cell"]), tol)
+    if names["pagg_encode_bwd"]:
+        record_err(rec, names["pagg_encode_bwd"], err4)
+    if choice["agg"] != "attention" and (got[7].any() or got[8].any()):
+        raise AssertionError(f"{tag}: dattw, dattb not zero under {choice['agg']}")
     del got, want
-    rows = check_k4_stages(tag, g, h, paths, dists, w, m1, keep, homo, tol)
+    rows = check_k4_stages(tag, g, h, paths, dists, w, m1, keep, homo, tol, **choice)
     check_segment_sum(tag, paths, rows, h.shape[0], rec,
                       homo_name("segment_sum", homo) if time_segment else None, homo)
     del rows
@@ -901,11 +976,12 @@ def rounds_bit_equal(tag, X, y, ps, masks, classes, cfg, spec):
         f"{float(a.losses[-1]):.6f}, best val {a.best_val_acc:.4f})")
 
 
-def check_reproducible(dev, gc, Xc, X, z, psc, ps, dtype="float32"):
+def check_reproducible(dev, gc, Xc, X, z, psc, ps, dtype="float32", rnn="lstm"):
     """Two ``run_round`` calls with one seed give bit-equal validation
     accuracies, losses and best params: cornell at full width with dropout
     (full batch, 30 epochs) and the bgp stand-in (microbatch 8192, the last
-    chunk padded, 2 epochs), at the compute dtype ``dtype``."""
+    chunk padded, 2 epochs), at the compute dtype ``dtype``, with the
+    encoder ``rnn``."""
     import torch
     from pathnet_tpu_torch.config import TrainConfig
     from pathnet_tpu_torch.data.splits import get_whole_mask, ratio_masks
@@ -920,20 +996,22 @@ def check_reproducible(dev, gc, Xc, X, z, psc, ps, dtype="float32"):
               TrainConfig(epochs=2, microbatch=REQUEST)))
     for tag, Xx, yy, psx, masks, classes, cfg in cases:
         spec = PaggSpec(feat_dim=Xx.shape[1], hidden=HIDDEN, out_dim=classes, walk_len=WL,
-                        dropout=0.7, compute_dtype=dtype)
-        rounds_bit_equal(f"{tag} {dtype}", Xx, yy, psx, masks, classes, cfg, spec)
+                        dropout=0.7, compute_dtype=dtype, rnn=rnn)
+        rounds_bit_equal(f"{tag} {dtype} {rnn}", Xx, yy, psx, masks, classes, cfg, spec)
 
 
 def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype="float32",
-                     microbatch=None, round_band=False):
+                     microbatch=None, round_band=False, rnn="lstm", agg="attention"):
     """The protocol through the CLI on the card with temporary results and
-    checkpoint directories (``--dtype dtype``, ``--microbatch`` where
-    given); checks its launches, checkpoints and accuracy, and returns the
-    launch counts. At 10 rounds x 1000 epochs the mean test accuracy must
-    lie inside the JAX ``band``, whose payload fingerprint (``payload``,
-    where given) the dataset's must equal; a shorter run must lie above
-    chance, or with ``round_band`` hold each round's test accuracy within 3
-    std of the band's mean."""
+    checkpoint directories (``--dtype dtype``, ``--rnn rnn``, ``--agg agg``,
+    ``--microbatch`` where given); checks its launches, checkpoints and
+    accuracy, and returns the launch counts. At 10 rounds x 1000 epochs the
+    mean test accuracy must lie inside the JAX ``band``, whose payload
+    fingerprint (``payload``, where given) the dataset's must equal; a
+    shorter run must lie above chance, or with ``round_band`` hold each
+    round's test accuracy within 3 std of the band's mean. ``band`` None:
+    no band (a configuration the JAX package has no run of), above chance
+    only."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch import run
@@ -942,9 +1020,9 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype=
     if payload is not None and payload_fingerprint(DATASETS[name]) != payload:
         raise AssertionError(f"{name}: payload {payload_fingerprint(DATASETS[name])} is not "
                              f"the JAX band's {payload}")
-    out = os.path.join(tmp, f"{name}_h{hidden}_{dtype}")
+    out = os.path.join(tmp, f"{name}_h{hidden}_{dtype}_{rnn}_{agg}")
     argv = ["-data", name, "-pr", root, "-r", str(rounds), "-e", str(PROTOCOL_EPOCHS),
-            "-hid", str(hidden), "--dtype", dtype,
+            "-hid", str(hidden), "--dtype", dtype, "--rnn", rnn, "--agg", agg,
             "--results-dir", os.path.join(out, "results"),
             "--ckpt-dir", os.path.join(out, "ckpt"), "--resume"]
     chunks = (1, 1, 1)   # train, validation, test chunks an epoch
@@ -954,7 +1032,7 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype=
         chunks = tuple(-(-int(m.sum()) // microbatch) for m in masks)
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    agg = run.main(argv)
+    result = run.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = K.launch_counts()
@@ -975,18 +1053,24 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype=
         raise AssertionError(f"{name}: {len(saved)} rounds checkpointed, or no result line")
     if dtype != "float32" and not all(f".{dtype}/" in p for p in saved):
         raise AssertionError(f"{name}: rounds not checkpointed under the .{dtype} key: {saved}")
+    if not all(f".{rnn}.{agg}" in p for p in saved):
+        raise AssertionError(f"{name}: rounds not checkpointed under the .{rnn}.{agg} key")
     accs = []
     for path in saved:
         with open(path) as f:
             accs.append(json.load(f)["metrics"]["accuracy"])
-    mean, std = agg["accuracy"]
-    say(f"  {name}, {rounds} rounds x {PROTOCOL_EPOCHS} epochs at H = {hidden}, {dtype}"
-        + (f", microbatch {microbatch}" if microbatch else "") + f": acc {mean:.4f} +- "
-        f"{std:.4f} (JAX {band[0]:.4f} +- {band[1]:.4f}; rounds "
-        + ", ".join(f"{a:.4f}" for a in accs) + f"); {secs:.1f} s, {secs / rounds:.2f} s "
-        f"per round, {secs / epochs * 1e3:.3f} ms per epoch (loading, MERW and the sampler "
-        "build included)")
-    if rounds == 10 and PROTOCOL_EPOCHS == 1000:
+    mean, std = result["accuracy"]
+    say(f"  {name}, {rounds} rounds x {PROTOCOL_EPOCHS} epochs at H = {hidden}, {dtype}, "
+        f"{rnn}, {agg}" + (f", microbatch {microbatch}" if microbatch else "")
+        + f": acc {mean:.4f} +- {std:.4f} ("
+        + ("no JAX band" if band is None else f"JAX {band[0]:.4f} +- {band[1]:.4f}")
+        + "; rounds " + ", ".join(f"{a:.4f}" for a in accs) + f"); {secs:.1f} s, "
+        f"{secs / rounds:.2f} s per round, {secs / epochs * 1e3:.3f} ms per epoch (loading, "
+        "MERW and the sampler build included)")
+    if band is None:
+        if not mean > 1.0 / DATASETS[name].num_classes:
+            raise AssertionError(f"{name}: mean accuracy {mean} not above chance")
+    elif rounds == 10 and PROTOCOL_EPOCHS == 1000:
         if not abs(mean - band[0]) <= band[1]:
             raise AssertionError(f"{name}: mean accuracy {mean} outside the JAX band {band}")
     elif round_band:
@@ -1210,6 +1294,200 @@ def check_bf16_host(dev, X, ps, z, C, gc, Xc_np, psc, ps_host):
                       BF16_TOL)
 
 
+def check_choice_kernels(root, dev, gen, rec, X, ps, idx, u, C):
+    """The GRU and the mean and sum readouts: K3's GRU instance on one
+    8192-target bgp request; the mean and sum readouts on that request's
+    ``h_n`` against their plain versions and ``torch.mean``/``torch.sum``;
+    K3 (with and without the keep mask) and K4 with each of its three
+    launches, GRU and LSTM-mean, on one bgp microbatch, with the attention
+    backward's mean and sum branches alone; the homo GRU instances on cora
+    with all 2,708 targets; the bf16 instances under mean (that microbatch)
+    and sum (cora, homo). Each against its plain version (the tolerances
+    of phases 2 and 5), timed as phase 5 (the bf16 ones untimed)."""
+    import dataclasses
+
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.data.registry import load_dataset
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+    from pathnet_tpu_torch.sample import PathSampler
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=HIDDEN, out_dim=C, walk_len=WL, rnn="gru")
+    model = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(0))
+    paths, dists = ps.sample(idx, u=u)
+    h, w = model.encode_inputs(X)
+    agg = K.pagg_encode_fwd(h, paths, dists, *w, cell="gru")
+    agg_p = K.pagg_encode_fwd_plain(h, paths, dists, *w, cell="gru")
+    torch.cuda.synchronize()
+    err = float((agg - agg_p).abs().max())
+    if not k3_close(agg, agg_p, False):
+        raise AssertionError(f"bgp request: pagg_encode_fwd gru max abs err {err}")
+    record_err(rec, "pagg_encode_fwd gru", err)
+    say(f"  bgp request: pagg_encode_fwd gru max abs err {err:.3e} within atol = rtol = "
+        f"{K3_TOL}")
+    S, nw, wl = paths.shape
+    H = HIDDEN
+    b3 = nbytes(h, paths, dists, agg, *w)
+    o3 = S * nw * (wl * 14 * H * H + 6 * H)   # what the GRU needs: 2 + 12 H^2 a step
+    timed(rec, "pagg_encode_fwd gru", lambda: K.pagg_encode_fwd(h, paths, dists, *w,
+                                                                cell="gru"),
+          lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, cell="gru"), b3, o3, 50)
+    time_k3_stages("pagg_encode_fwd gru", h, paths, dists, w, cell="gru")
+
+    # the mean and sum readouts of the request's h_n, and the library call
+    hn = K.encode_walks(h, paths, dists, *w[:6], cell="gru")
+    for red in ("mean", "sum"):
+        lib = (lambda: hn.view(S, nw, H).mean(1)) if red == "mean" else (
+            lambda: hn.view(S, nw, H).sum(1))
+        got = K.readout(h, paths, hn, *w[6:], agg=red)
+        want = K.readout_plain(h, paths, hn, *w[6:], agg=red)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        err_lib = float((got - lib()).abs().max())
+        if not (torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+                and torch.allclose(got, lib(), atol=1e-5, rtol=1e-5)):
+            raise AssertionError(f"bgp request: the {red} readout max abs err {err} "
+                                 f"(against torch.{red} {err_lib})")
+        record_err(rec, f"pagg_readout {red}", err)
+        say(f"  bgp request: the {red} readout max abs err {err:.3e} against its plain "
+            f"version, {err_lib:.3e} against torch.{red}, within atol = rtol = 1e-5")
+        # h_n read once, the result written once; one add a value (and a division)
+        timed(rec, f"pagg_readout {red}", lambda: K.readout(h, paths, hn, *w[6:], agg=red),
+              lambda: K.readout_plain(h, paths, hn, *w[6:], agg=red),
+              nbytes(hn, got), float(S * nw * H), 50, library=lib)
+    del hn, agg, agg_p
+
+    # the training kernels on one microbatch: the GRU, then the LSTM with
+    # the mean readout
+    model = PathNet(dataclasses.replace(spec, dropout=0.7), device=dev,
+                    generator=torch.Generator().manual_seed(0))
+    paths, dists, h, w, m1, keep, agg, g, bwd_args = check_encode_kernels(
+        "bgp microbatch gru", ps, model, X, idx, u, gen, rec)
+    b3, o3, b4, o4 = encode_bounds(h, paths, dists, m1, agg, g, w, "gru")
+    name = "pagg_encode_fwd gru with keep mask"
+    timed({name: {}}, name, lambda: K.pagg_encode_fwd(h, paths, dists, *w, m1, keep,
+                                                      cell="gru"),
+          lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, m1, keep, cell="gru"), b3, o3,
+          20)
+    timed(rec, "pagg_encode_bwd gru", lambda: K.pagg_encode_bwd(*bwd_args, cell="gru"),
+          lambda: K.pagg_encode_bwd_plain(*bwd_args, cell="gru"), b4, o4, 5)
+    time_k4_stages("pagg_encode_bwd gru", g, h, paths, dists, w, m1, keep, cell="gru")
+    del paths, dists, h, w, m1, agg, g, bwd_args
+    model = PathNet(dataclasses.replace(spec, dropout=0.7, rnn="lstm", agg="mean"),
+                    device=dev, generator=torch.Generator().manual_seed(0))
+    paths, dists, h, w, m1, keep, agg, g, bwd_args = check_encode_kernels(
+        "bgp microbatch mean", ps, model, X, idx, u, gen, rec)
+    hn = K.encode_walks_streams(h, paths, dists, *w[:6], m1, keep)[0]
+    T = paths.shape[0]
+    for red in ("mean", "sum"):
+        got = K.attention_bwd(g, h, paths, hn, *w[6:], agg=red)
+        want = K.attention_bwd_plain(g, h, paths, hn, *w[6:], agg=red)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        # g / nw or g, and exact zeros (torch divides by multiplying with
+        # 1 / nw on the card: one rounding apart)
+        if not all(torch.allclose(a, b, atol=0.0, rtol=1e-6) for a, b in zip(got, want)):
+            raise AssertionError(f"bgp microbatch: the {red} attention backward differs "
+                                 f"from its plain version by {err}")
+        record_err(rec, f"pagg_attention_bwd {red}", err)
+        # the function's bytes: g read once, d h_n written once (a division a
+        # value under mean); the library call computes d h_n alone
+        lib = (lambda: (g / nw).repeat_interleave(nw, 0)) if red == "mean" else (
+            lambda: g.repeat_interleave(nw, 0))
+        err_lib = float((got[0] - lib()).abs().max())
+        if not torch.allclose(got[0], lib(), atol=0.0, rtol=1e-6):
+            raise AssertionError(f"bgp microbatch: the {red} attention backward's d h_n "
+                                 f"differs from repeat_interleave by {err_lib}")
+        timed(rec, f"pagg_attention_bwd {red}",
+              lambda: K.attention_bwd(g, h, paths, hn, *w[6:], agg=red),
+              lambda: K.attention_bwd_plain(g, h, paths, hn, *w[6:], agg=red),
+              nbytes(g, got[0]), float(T * nw * H) if red == "mean" else 0.0, 20,
+              library=lib)
+        # what the row layout adds: the zero ego-row gradients and partial sums
+        extra = nbytes(got[1]) + T * (2 * H + 1) * 4
+        say(f"  pagg_attention_bwd {red}: the layout's zero ego rows and partial sums add "
+            f"{extra / 1e6:.1f} MB of writes, {bound(extra, 0.0)[0]:.4f} ms at HBM's rate, "
+            "outside the bound")
+    say("  bgp microbatch: the mean and sum attention backward within rtol 1e-6 of their "
+        "plain versions and of repeat_interleave, their zeros exact")
+    time_k4_stages("pagg_encode_bwd mean", g, h, paths, dists, w, m1, keep, agg="mean")
+    del paths, dists, h, w, m1, agg, g, bwd_args, hn
+    # the bf16 instances under the mean readout (the sum's: on cora below)
+    model = PathNet(dataclasses.replace(spec, dropout=0.7, rnn="lstm", agg="mean",
+                                        compute_dtype="bfloat16"),
+                    device=dev, generator=torch.Generator().manual_seed(0))
+    check_encode_kernels("bgp microbatch mean bf16", ps, model, X, idx, u, gen, rec)
+
+    gc, _, _, _, spec_d = load_dataset("cora", root, 0)
+    psc = PathSampler.build(gc, NW, WL, device=dev)
+    Xc = torch.from_numpy(np.array(gc.features, np.float32)).to(dev)
+    spec = PaggSpec(feat_dim=Xc.shape[1], hidden=HIDDEN, out_dim=spec_d.num_classes,
+                    walk_len=WL, dropout=0.7, variant="homo", rnn="gru")
+    model = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(5))
+    every = torch.arange(gc.n, dtype=torch.int32, device=dev)
+    uc = draw_uniforms(WL, gc.n * NW, gen, dev)
+    paths, dists, h, w, m1, keep, agg, g, bwd_args = check_encode_kernels(
+        f"cora homo gru, all {gc.n} targets", psc, model, Xc, every, uc, gen, rec,
+        time_segment=False)
+    b3, o3, b4, o4 = encode_bounds(h, paths, dists, m1, agg, g, w, "gru")
+    timed(rec, "pagg_encode_fwd gru homo",
+          lambda: K.pagg_encode_fwd(h, paths, dists, *w, homo=True, cell="gru"),
+          lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, homo=True, cell="gru"),
+          nbytes(h, paths, dists, agg, *w), o3, 20)
+    timed(rec, "pagg_encode_bwd gru homo",
+          lambda: K.pagg_encode_bwd(*bwd_args, cell="gru"),
+          lambda: K.pagg_encode_bwd_plain(*bwd_args, cell="gru"), b4, o4, 5)
+    time_k4_stages("pagg_encode_bwd gru homo", g, h, paths, dists, w, m1, keep, homo=True,
+                   cell="gru")
+    del paths, dists, h, w, m1, agg, g, bwd_args
+    model = PathNet(dataclasses.replace(spec, rnn="lstm", agg="sum", compute_dtype="bfloat16"),
+                    device=dev, generator=torch.Generator().manual_seed(5))
+    check_encode_kernels(f"cora homo sum bf16, all {gc.n} targets", psc, model, Xc, every, uc,
+                         gen, rec)
+
+
+def check_choice_host(dev, gc, Xc_np, psc, ps_host):
+    """The GRU and the mean readout on the card against the host, cornell
+    at full width (F = 1,703): ``predict`` over all nodes with the same
+    draws (within K3_TOL), and one training step, its logits and every
+    gradient within 1e-4 of the host's largest entry (under mean ``attw``'s
+    gradient exactly 0 on both)."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.data.splits import ratio_masks
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+    from pathnet_tpu_torch.train import predict
+
+    allc = torch.arange(gc.n, dtype=torch.int32)
+    trc = ratio_masks(gc.n, 1000, val_size=59)[0]
+    idx7 = torch.from_numpy(np.flatnonzero(trc).astype(np.int32))
+    yc = torch.from_numpy(np.random.default_rng(1).integers(0, 5, size=gc.n))
+    Xh = torch.from_numpy(Xc_np)
+    for rnn, agg in (("gru", "attention"), ("lstm", "mean")):
+        spec = PaggSpec(feat_dim=1703, hidden=HIDDEN, out_dim=5, walk_len=WL, rnn=rnn,
+                        agg=agg)
+        m = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(6))
+        m_host = PathNet(spec, device="cpu")
+        m_host.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+        u = draw_uniforms(WL, gc.n * NW, torch.Generator().manual_seed(9), "cpu")
+        K.reset_launch_counts()
+        logp = predict(m, Xh.to(dev), psc, idx=allc.to(dev), u=u[None].to(dev))
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        if counts != {name: int(name in FORWARD_PATH) for name in KERNELS}:
+            raise AssertionError(f"cornell {rnn} {agg} request launch counts {counts}")
+        err = float((logp.cpu() - predict(m_host, Xh, ps_host, idx=allc, u=u[None])).abs().max())
+        say(f"  cornell {rnn} {agg} predict on the card vs the host (same draws, all {gc.n} "
+            f"nodes): max abs err {err:.3e}")
+        if not torch.isfinite(logp).all() or err > K3_TOL:
+            raise AssertionError(f"cornell {rnn} {agg} log-probs differ from the host's by {err}")
+        step_card_vs_host(f"cornell {rnn} {agg}", PaggSpec(
+            feat_dim=1703, hidden=HIDDEN, out_dim=5, walk_len=WL, dropout=0.7, rnn=rnn,
+            agg=agg), dev, (psc, ps_host), (Xh.to(dev), Xh), idx7, yc)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1150, exit=True)
     import torch
@@ -1236,7 +1514,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rec = {name: {} for name in KERNELS + tuple(homo_name(n, True) for n in HOMO_KERNELS)
-           + BF16_KERNELS}
+           + BF16_KERNELS + CHOICE_KERNELS}
     meta = {
         "cdf_walk": ("pathnet_tpu_torch/csrc/walk_dists.cu", "pathnet_tpu/sample/alias.py:142"),
         "membership_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
@@ -1258,10 +1536,28 @@ def main() -> int:
     }
     meta.update({homo_name(n, True): meta[n] for n in HOMO_KERNELS})
     meta.update({homo_name(n, v, True): meta[n] for n in HOMO_KERNELS for v in (False, True)})
+    # the GRU instances are built in translation units of their own
+    meta.update({homo_name(n, v, cell="gru"): (meta[n][0].replace(".cu", "_gru.cu"),
+                                               meta[n][1])
+                 for n in HOMO_KERNELS for v in (False, True)})
+    meta.update({f"pagg_readout {a}": ("pathnet_tpu_torch/csrc/pagg_encode.cu",
+                                       "pathnet_tpu/models/pagg.py:304")
+                 for a in ("mean", "sum")})
+    meta.update({f"pagg_attention_bwd {a}": ("pathnet_tpu_torch/csrc/pagg_encode_bwd.cu",
+                                             "pathnet_tpu/models/pagg.py:304")
+                 for a in ("mean", "sum")})
     notes = dict(NOTES)
     notes.update({homo_name(n, v, True): f"{k}'s bf16 instances (BF16 = true)"
                   + (", homo" if v else "")
                   for n, k in zip(HOMO_KERNELS, ("K3", "K4")) for v in (False, True)})
+    notes.update({homo_name(n, v, cell="gru"): f"{k}'s GRU instances (GRU = true, "
+                  "nn/cells.py:49-68), the bound at the 14 H^2 (K3) or 42 H^2 (K4) a walk "
+                  "step the GRU needs" + (", homo" if v else "")
+                  for n, k in zip(HOMO_KERNELS, ("K3", "K4")) for v in (False, True)})
+    notes.update({f"pagg_readout {a}": f"K3's second launch, AGG = {a.upper()}; launches "
+                  "are K3's in the run" for a in ("mean", "sum")})
+    notes.update({f"pagg_attention_bwd {a}": f"K4's second launch, AGG = {a.upper()}; "
+                  "launches are K4's in the run" for a in ("mean", "sum")})
 
     with Phase("0 device"):
         kind = torch.cuda.get_device_name(0)
@@ -1489,6 +1785,32 @@ def main() -> int:
                                       HOMO_PAYLOADS["cora"], "bfloat16")
             for name in HOMO_KERNELS:
                 rec[homo_name(name, True, True)]["launches"] = counts[name]
+
+        with Phase(f"14 GRU and mean/sum readouts: kernels (bgp, cora), card vs host, seeded "
+                   f"GRU rounds, cora and citeseer --agg mean, cornell --rnn gru, cornell "
+                   f"--agg sum, cora --rnn gru"):
+            check_choice_kernels(root, dev, gen, rec, X, ps, idx, u, C)
+            check_choice_host(dev, gc, Xc_np, psc, ps_host)
+            check_reproducible(dev, gc, Xc, X, z, psc, ps, rnn="gru")
+            counts = run_protocol_cli("cora", root, tmp, CORA_MEAN_ROUNDS, HIDDEN,
+                                      CORA_MEAN_BAND, HOMO_PAYLOADS["cora"], agg="mean",
+                                      round_band=True)
+            rec["pagg_readout mean"]["launches"] = counts["pagg_encode_fwd"]
+            rec["pagg_attention_bwd mean"]["launches"] = counts["pagg_encode_bwd"]
+            run_protocol_cli("citeseer", root, tmp, CITESEER_MEAN_ROUNDS, HIDDEN,
+                             CITESEER_MEAN_BAND, HOMO_PAYLOADS["citeseer"], agg="mean",
+                             round_band=True)
+            counts = run_protocol_cli("cornell", root, tmp, CORNELL_GRU_ROUNDS, HIDDEN,
+                                      CORNELL_GRU_BAND, CORNELL_PAYLOAD, rnn="gru",
+                                      round_band=True)
+            for name in HOMO_KERNELS:
+                rec[homo_name(name, False, cell="gru")]["launches"] = counts[name]
+            counts = run_protocol_cli("cornell", root, tmp, 1, HIDDEN, None, agg="sum")
+            rec["pagg_readout sum"]["launches"] = counts["pagg_encode_fwd"]
+            rec["pagg_attention_bwd sum"]["launches"] = counts["pagg_encode_bwd"]
+            counts = run_protocol_cli("cora", root, tmp, 1, HIDDEN, None, rnn="gru")
+            for name in HOMO_KERNELS:
+                rec[homo_name(name, True, cell="gru")]["launches"] = counts[name]
 
     say(smi)
     say(json.dumps({"kernels": [

@@ -12,7 +12,7 @@ find:
 - ``pathnet_tpu_torch.sample``  — the inverse-CDF walk sampler and the
   membership hop distances.
 - ``pathnet_tpu_torch.nn``      — torch-default initializers, the plain LSTM
-  scan, classification metrics.
+  and GRU scans, classification metrics.
 - ``pathnet_tpu_torch.models``  — the PAGG model (``PathNet``) and the
   parameter conversion from the JAX package's pytree.
 - ``pathnet_tpu_torch.train``   — training (``run_round``, ``run_protocol``,

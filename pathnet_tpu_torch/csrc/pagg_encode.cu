@@ -1,9 +1,9 @@
-// K3: PAGG encode forward for the LSTM / attention model, hetero and homo
-// variants, f32 and bf16 compute.
+// K3: PAGG encode forward, hetero and homo variants, the LSTM and the GRU,
+// the attention, mean and sum readouts, f32 and bf16 compute.
 //
-// Replaces pathnet_tpu/models/pagg.py:235-303 (the encode block and the
-// attention readout of pagg_forward) with _dist_select (:150-177) and
-// nn/cells.py:22-46 (lstm_scan). For every walk b = target * nw + walk:
+// Replaces pathnet_tpu/models/pagg.py:235-307 (the encode block and the
+// readout of pagg_forward) with _dist_select (:150-177) and nn/cells.py:
+// 22-68 (lstm_scan, gru_scan). For every walk b = target * nw + walk:
 //   x_t   = h[paths[p_t]],  p_t = wl-1-t (hetero: far -> near), t (homo)
 //   s_t   = x_t @ W[d] + b[d],  d = clip(dists[p_t], 0, wl-1)
 //   s_t   = relu(s_t)                            (homo only, pagg.py:269)
@@ -14,6 +14,22 @@
 // and per target, with score = attw . [h_n, ego] + attb:
 //   hetero: softmax over nw of leaky_relu(score); out = sum of softmax * h_n
 //   homo:   out = mean over nw of (1 + score) * h_n          -> [T, H]
+// or, under the mean and sum readouts (AGG, pagg.py:304-307, either
+// variant), out = the mean or the sum over nw of h_n: no score, no ego row.
+// The GRU (GRU, nn/cells.py:49-68, f32 only) takes its weights packed by the
+// wrapper into the LSTM's [H, 4H] layout: w_ih = [W_ir, W_iz, W_in, 0],
+// w_hh = [W_hr, W_hz, 0, W_hn], b_ih = [b_ir, b_iz, b_in, 0], b_hh =
+// [b_hr, b_hz, 0, b_hn]. The gate product below is then unchanged, and its
+// four column groups are r and z before their sigmoids, x W_in + b_in, and
+// h W_hn + b_hn kept apart, so the epilogue forms
+//   r = sig(g0), z = sig(g1), n = tanh(g2 + r g3), h_t = (1 - z) n + z h_{t-1}
+// with b_hn inside the product with r, as torch.nn.GRU and JAX have it.
+// The packed product does 16 H^2 flops a step where the GRU needs 12 H^2
+// (a first kernel: a [2H, 3H] product with a split n group is for later).
+// h_{t-1} is read back from A's h half, where the last step left it. The
+// GRU and AGG are template parameters, so the LSTM / attention instances
+// are the code they were; the GRU instances are compiled at H = 64 and at
+// the run-time width, in pagg_encode_gru.cu.
 // HOMO is a template parameter of both launches, so the hetero instances
 // are the code they were; the homo encode also stores the walk's ego row
 // to a scratch [T * nw, H] that the readout reads in place of h[paths[0]].
@@ -34,7 +50,8 @@
 // Bound on the H100: f32 FMA work on the CUDA cores, 18 H^2 flops per walk
 // step (2 H^2 for the selected distance transform, 16 H^2 for the gates):
 // 1.44 ms for an 8192-target request at H = 64 (nw = 40, wl = 4) at
-// 67 TFLOP/s, against ~29 MB of unique bytes (9 us). The weights are small
+// 67 TFLOP/s, against ~29 MB of unique bytes (9 us); the GRU needs 14 H^2
+// (1.12 ms), the mean and sum readouts read h_n once (84 MB, 0.025 ms). The weights are small
 // (w_ih + w_hh = 32 H^2 bytes, wd 4 H^2 bytes a class) but every step reads
 // all of them, so what a design pays beyond the bound is how often they
 // cross from L2 and how many shared or L1 loads feed each FMA. The design
@@ -69,7 +86,12 @@
 //    time.
 // 2. pagg_readout_kernel: one block per target; a warp per walk scores it,
 //    warp 0 reduces the max and the denominator once (hetero), and the
-//    block forms the weighted sum over nw.
+//    block forms the weighted sum over nw. Under mean and sum the block's
+//    threads split a row's loads (H / 4 float4s where H is a multiple of 4
+//    and h_n is 16-byte aligned, else H floats) and the walks into groups
+//    (blockDim / loads, one where a row has more loads than the block has
+//    threads), each thread summing its units over its group's walks, and
+//    the groups' sums are added in group order: a fixed order, no atomics.
 // M and KC are derived from H in tile_for; nothing is a knob.
 //
 // The tile machinery and the encode kernel live in pagg_tile.cuh, which K4
@@ -78,7 +100,7 @@
 
 namespace {
 
-template <bool HOMO, typename W>
+template <int AGG, bool HOMO, typename W>
 __global__ void pagg_readout_kernel(const W* __restrict__ h,
                                     const int* __restrict__ paths,
                                     const float* __restrict__ hn,
@@ -87,6 +109,40 @@ __global__ void pagg_readout_kernel(const W* __restrict__ h,
                                     const float* __restrict__ attb,
                                     float* __restrict__ out, int nw, int wl, int H) {
   extern __shared__ float sc[];  // [nw] scores, then the walks' weights
+  if constexpr (AGG != ATTENTION) {
+    // part holds [G][H] partial sums: group q adds walks q, q + G, ..., a
+    // float4 of units at a time where the rows allow it
+    extern __shared__ __align__(16) float part[];
+    const long long b0 = (long long)blockIdx.x * nw;
+    const bool v4 = agg_vec4(H, (uintptr_t)hn);
+    const int G = agg_groups(H, blockDim.x, v4);
+    const int L = v4 ? H / 4 : H;  // loads a row
+    for (int e = threadIdx.x; e < G * L; e += blockDim.x) {
+      const int q = e / L, c = e % L;
+      if (v4) {
+        float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int p = q; p < nw; p += G) {
+          const float4 v = reinterpret_cast<const float4*>(hn + (b0 + p) * H)[c];
+          s.x += v.x;
+          s.y += v.y;
+          s.z += v.z;
+          s.w += v.w;
+        }
+        reinterpret_cast<float4*>(part + q * H)[c] = s;
+      } else {
+        float s = 0.0f;
+        for (int p = q; p < nw; p += G) s += hn[(b0 + p) * H + c];
+        part[e] = s;
+      }
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < H; j += blockDim.x) {
+      float o = 0.0f;
+      for (int q = 0; q < G; ++q) o += part[q * H + j];
+      out[(long long)blockIdx.x * H + j] = AGG == MEAN ? o / nw : o;
+    }
+    return;
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const long long b0 = (long long)blockIdx.x * nw;
@@ -119,11 +175,19 @@ __global__ void pagg_readout_kernel(const W* __restrict__ h,
 template <typename W>
 int launch_readout(const void* h, const void* paths, const void* hn, const void* ego,
                    const void* attw, const void* attb, void* out, int T, int nw, int wl,
-                   int H, void* stream) {
-  const int smem = nw * (int)sizeof(float);
-  const auto kernel = ego ? pagg_readout_kernel<true, W> : pagg_readout_kernel<false, W>;
+                   int H, int agg, void* stream) {
+  const int threads = H > 128 ? 256 : 128;
+  // attention: nw scores; mean, sum: the groups' partial sums (see the kernel)
+  const int smem =
+      (agg == ATTENTION ? nw : agg_groups(H, threads, agg_vec4(H, (uintptr_t)hn)) * H) *
+      (int)sizeof(float);
+  // mean and sum read neither the table nor the ego rows
+  const auto kernel = agg == MEAN ? pagg_readout_kernel<MEAN, false, W>
+                      : agg == SUM ? pagg_readout_kernel<SUM, false, W>
+                      : ego        ? pagg_readout_kernel<ATTENTION, true, W>
+                                   : pagg_readout_kernel<ATTENTION, false, W>;
   if (int e = allow_smem(kernel, smem)) return e;
-  kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
+  kernel<<<T, threads, smem, (cudaStream_t)stream>>>(
       (const W*)h, (const int*)paths, (const float*)hn, (const float*)ego,
       (const float*)attw, (const float*)attb, (float*)out, nw, wl, H);
   return (int)cudaGetLastError();
@@ -145,23 +209,26 @@ extern "C" int pathnet_pagg_encode_tile(int H, int bf16, void* out) {
 
 // Launch 1: h_n [T * nw, H] of every walk; homo where ego [T * nw, H] is
 // given, which then receives each walk's ego row; bf16 where bf16 is
-// nonzero (h and the six weights bf16).
+// nonzero (h and the six weights bf16); the GRU on packed weights where gru
+// is nonzero (f32 only).
 extern "C" int pathnet_pagg_encode_walks(
     const void* h, const void* paths, const void* dists, const void* wd,
     const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
     const void* b_hh, const void* mask, float keep, void* hn, void* ego, int T, int nw,
-    int wl, int H, int bf16, void* stream) {
+    int wl, int H, int bf16, int gru, void* stream) {
   return launch_encode<false>(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep,
-                              hn, ego, Streams{}, T, nw, wl, H, bf16, stream);
+                              hn, ego, Streams{}, T, nw, wl, H, bf16, gru, stream);
 }
 
-// Launch 2: the attention readout [T, H] from h_n; homo where ego (launch
-// 1's) is given; the hetero ego rows from a bf16 table where bf16 is nonzero.
+// Launch 2: the readout [T, H] from h_n: agg 0 attention (homo where ego,
+// launch 1's, is given; the hetero ego rows from a bf16 table where bf16 is
+// nonzero), 1 mean, 2 sum (h, paths, ego, attw and attb not read).
 extern "C" int pathnet_pagg_readout(const void* h, const void* paths,
                                     const void* hn, const void* ego, const void* attw,
                                     const void* attb, void* out, int T, int nw,
-                                    int wl, int H, int bf16, void* stream) {
+                                    int wl, int H, int bf16, int agg, void* stream) {
   if (T == 0) return 0;
+  if (agg < ATTENTION || agg > SUM) return (int)cudaErrorInvalidValue;
   return (bf16 ? launch_readout<__nv_bfloat16> : launch_readout<float>)(
-      h, paths, hn, ego, attw, attb, out, T, nw, wl, H, stream);
+      h, paths, hn, ego, attw, attb, out, T, nw, wl, H, agg, stream);
 }

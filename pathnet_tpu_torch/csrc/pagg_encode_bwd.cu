@@ -1,8 +1,8 @@
-// K4: PAGG encode backward for the LSTM / attention model, hetero and homo
-// variants, f32 and bf16 compute.
+// K4: PAGG encode backward, hetero and homo variants, the LSTM and the GRU,
+// the attention, mean and sum readouts, f32 and bf16 compute.
 //
-// Replaces the VJP of pathnet_tpu/models/pagg.py:235-303 (the encode block
-// and attention readout that K3 computes), with the gather VJP of the "h"
+// Replaces the VJP of pathnet_tpu/models/pagg.py:235-307 (the encode block
+// and readout that K3 computes), with the gather VJP of the "h"
 // gather mode (pagg.py:83-93): given g = d h_agg [T, H] it writes the
 // gradient of every gathered row, one row per (walk, position) plus, for
 // the hetero variant, one per walk for its ego row h[paths[0]] (the homo
@@ -36,6 +36,27 @@
 // copy of the inputs: its extra scratch is the ego rows and d ego, 2 H floats
 // a walk (168 MB at the bgp-sized microbatch) against the H floats a walk of
 // the hetero ego-row gradients it does not write.
+//
+// The mean and sum readouts (AGG, either variant): launch B writes
+// d h_n = g / nw (mean) or g (sum) to every walk, zero ego-row gradients
+// and zero partial sums. Zero ego rows, not fewer rows: the segment sum sees
+// the rows of the attention readout's layout (hetero: wl + 1 a walk, the
+// ego rows adding exact zeros) and homo's launch C adds a zero d ego at
+// step 0, so launch C and the row layout are the attention instances'. The
+// homo launch C still reads launch A's ego rows for the ReLU's sign.
+//
+// The GRU (GRU, f32; K3's packed weights, see pagg_encode.cu): launch A
+// writes gt as (r, z, n, h W_hn + b_hn), hp, and no cs. Launch C reads
+// h_{t-1} from hp in place of cs and carries only dh: with dn = dh (1 - z),
+// dz = dh (h_{t-1} - n) and da = dn (1 - n^2), the packed pre-activation
+// gate gradients are (da (h W_hn + b_hn) r (1 - r), dz z (1 - z), da, da r),
+// the shared product with [w_ih; w_hh]^T gives d xin and the gates' part of
+// dh_{t-1}, and the direct term z dh, kept in the LSTM's dc registers, is
+// added after it. The contractions then give the packed weights' gradients.
+// Bound: 42 H^2 flops a walk step (3.37 ms at the bgp microbatch), though
+// the packed products run the LSTM's 54. The GRU instances of launches A
+// and C are compiled in pagg_encode_bwd_gru.cu, launch C's kernel being in
+// pagg_bptt.cuh.
 //
 // bf16 compute (BF16, the table and the six cast weights bf16): launch A is
 // K3's bf16 encode with STREAMS, so the streams hold exactly the forward's
@@ -71,38 +92,51 @@
 //    select loop), and each gathered row's gradient is stored to its row of
 //    the [wl, T * nw, H] row gradients, dsel's layout. Shared memory 4H (M + 4) + 4 KC H floats: 102,400 B at
 //    H = 64 (two blocks a SM, as K3), 229,376 B at H = 1024.
-#include "pagg_tile.cuh"
+#include "pagg_bptt.cuh"
 
 namespace {
 
-// Launch C's shared bytes at width H: A [4H][LDA] in f32, then two chunks of
-// KC rows of the [4H, 2H] weight in its type (the [H][LDA] dsel and [H, H]
-// chunks fit inside).
-__host__ __device__ constexpr int bptt_smem(int H, bool bf16 = false) {
-  return (int)(4 * H * tile_for(H).LDA * sizeof(float) +
-               4 * tile_for(H).KC * H * (bf16 ? 2 : 4));
-}
-
-// Units 2c, 2c + 1 of row r of a row-major stream of width W at column
-// off (the loads' counterpart of store_units): one 8-byte load where H is
-// even, else one load per unit held, 0 in a slot without one.
-__device__ __forceinline__ float2 load_units(const float* __restrict__ s, long long r, int W,
-                                             int off, int H, const int (&jc)[TN],
-                                             const bool (&jv)[TN]) {
-  const float* p = s + r * W + off;
-  if (H % 2 == 0) return *reinterpret_cast<const float2*>(p + jc[0]);
-  return make_float2(jv[0] ? p[jc[0]] : 0.0f, jv[1] ? p[jc[1]] : 0.0f);
-}
-
 __device__ __forceinline__ float leaky(float s) { return s > 0.0f ? s : 0.01f * s; }
 
-template <bool HOMO, typename W>
+template <int AGG, bool HOMO, typename W>
 __global__ void pagg_attention_bwd_kernel(
     const float* __restrict__ g, const W* __restrict__ h,
     const int* __restrict__ paths, const float* __restrict__ hn,
     const float* __restrict__ ego, const float* __restrict__ attw,
     const float* __restrict__ attb, float* __restrict__ dhn, float* __restrict__ dego,
     float* __restrict__ part, int nw, int wl, int H) {
+  if constexpr (AGG != ATTENTION) {
+    // g / nw (mean) or g to every walk; zero ego rows and partial sums; a
+    // float4 at a time where the rows allow it
+    const long long b0 = (long long)blockIdx.x * nw;
+    const float* gr = g + (long long)blockIdx.x * H;
+    if (agg_vec4(H, (uintptr_t)g | (uintptr_t)dhn | (uintptr_t)dego)) {
+      const int L = H / 4;
+      const float4* g4 = reinterpret_cast<const float4*>(gr);
+      float4* d4 = reinterpret_cast<float4*>(dhn + b0 * H);
+      float4* e4 = reinterpret_cast<float4*>(dego + b0 * H);
+      for (int e = threadIdx.x; e < nw * L; e += blockDim.x) {
+        float4 v = g4[e % L];
+        if (AGG == MEAN) {
+          v.x /= nw;
+          v.y /= nw;
+          v.z /= nw;
+          v.w /= nw;
+        }
+        d4[e] = v;
+        e4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    } else {
+      for (int e = threadIdx.x; e < nw * H; e += blockDim.x) {
+        const int j = e % H;
+        dhn[b0 * H + e] = AGG == MEAN ? gr[j] / nw : gr[j];
+        dego[b0 * H + e] = 0.0f;
+      }
+    }
+    float* pr = part + (long long)blockIdx.x * (2 * H + 1);
+    for (int j = threadIdx.x; j < 2 * H + 1; j += blockDim.x) pr[j] = 0.0f;
+    return;
+  }
   extern __shared__ float sm[];
   float* sc = sm;        // [nw] scores (hetero: before the leaky relu)
   float* at = sc + nw;   // [nw] each walk's weight on g: softmax, or (1 + score) / nw
@@ -174,206 +208,17 @@ __global__ void pagg_attention_bwd_kernel(
   }
 }
 
-// HOMO also reads xin and ego (launch A's) and dego (launch B's); BF16 takes
-// the weights as bf16. `align` is the alignment of wd_t and w_t in bytes.
-template <bool MASKED, int HC, bool HOMO, bool BF16>
-__global__ void __launch_bounds__(launch_threads(HC), launch_blocks(HC))
-pagg_bptt_kernel(const float* __restrict__ dhn,
-                 const int* __restrict__ dists, const Elem<BF16>* __restrict__ wd_t,
-                 const Elem<BF16>* __restrict__ w_t, const float* __restrict__ cs,
-                 float* __restrict__ gt, const uint8_t* __restrict__ mask, float keep,
-                 const float* __restrict__ xin, const float* __restrict__ ego,
-                 const float* __restrict__ dego, float* __restrict__ dsel,
-                 float* __restrict__ drow, long long B, int wl, int Hrt, int align) {
-  using W = Elem<BF16>;
-  constexpr Tile tc = tile_for(HC ? HC : 64);
-  const Tile tr = tile_for(Hrt);
-  const int H = HC ? HC : Hrt;
-  const int CT = HC ? tc.CT : tr.CT;
-  const int KC = HC ? tc.KC : tr.KC;
-  const int LDA = HC ? tc.LDA : tr.LDA;
-  const int M = HC ? tc.M : tr.M;
-  const int NT = HC ? tc.NT : tr.NT;
-  const int mode2 = copy_mode<W>(2 * H, align), mode1 = copy_mode<W>(H, align);
-  const bool mask2 = H % 2 == 0 && (uintptr_t)mask % 2 == 0;  // mask pairs in one load
-  // one division here: a division in the loop calls a slow path that spills
-  const float rkeep = 1.0f / keep;
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;               // [4H][LDA]: gate gradients, then dsel [H][LDA]
-  W* Bs = reinterpret_cast<W*>(As + 4 * H * LDA);  // [2][KC][2H] weight chunks
-  int r, c, jc[TN];
-  bool jv[TN];
-  tile_thread(CT, M, H, r, c, jc, jv);
-  const int m0 = r * TM;
-  const long long b0 = (long long)blockIdx.x * M + m0;
-  const long long left = B - b0;  // walks of the launch from b0 on
-  // dh, dc and c_t of the thread's walks and units, carried down the steps
-  float dhv[TM][TN], dcv[TM][TN], cv[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int u = 0; u < TN; ++u) {
-      const bool ok = i < left && jv[u];
-      dhv[i][u] = ok ? dhn[(b0 + i) * H + jc[u]] : 0.0f;
-      cv[i][u] = ok ? cs[((long long)(wl - 1) * B + b0 + i) * H + jc[u]] : 0.0f;
-      dcv[i][u] = 0.0f;
-    }
-
-  for (int t = wl - 1; t >= 0; --t) {
-    const int pos = HOMO ? t : wl - 1 - t;
-    const long long r0 = (long long)t * B + b0;  // stream row of walk b0
-    // gate gradients, rows in halves of 4 so that both units of a row move
-    // through global memory in one access: over gt, and into A transposed
-#pragma unroll
-    for (int ih = 0; ih < TM; ih += 4) {
-      float q[TN][4][4];  // [unit][gate][row]
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int i = ih + ii;
-        float2 gv[4] = {}, cp = {};
-        if (i < left) {
-#pragma unroll
-          for (int g = 0; g < 4; ++g) gv[g] = load_units(gt, r0 + i, 4 * H, g * H, H, jc, jv);
-          if (t > 0) cp = load_units(cs, r0 - B + i, H, 0, H, jc, jv);
-        }
-#pragma unroll
-        for (int u = 0; u < TN; ++u) {
-          const float si = u ? gv[0].y : gv[0].x, sf = u ? gv[1].y : gv[1].x;
-          const float tg = u ? gv[2].y : gv[2].x, so = u ? gv[3].y : gv[3].x;
-          const float tcv = tanhf(cv[i][u]);
-          const float dc = dcv[i][u] + dhv[i][u] * so * (1.0f - tcv * tcv);
-          q[u][0][ii] = dc * tg * si * (1.0f - si);
-          q[u][1][ii] = dc * (u ? cp.y : cp.x) * sf * (1.0f - sf);
-          q[u][2][ii] = dc * si * (1.0f - tg * tg);
-          q[u][3][ii] = dhv[i][u] * tcv * so * (1.0f - so);
-          dcv[i][u] = dc * sf;
-          cv[i][u] = u ? cp.y : cp.x;
-        }
-        if (i < left) {
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            store_units(gt, r0 + i, 4 * H, g * H, H, jc, jv, q[0][g][ii], q[1][g][ii]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < TN; ++u) {
-        if (!jv[u]) continue;
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          *reinterpret_cast<float4*>(As + (g * H + jc[u]) * LDA + m0 + ih) =
-              make_float4(q[u][g][0], q[u][g][1], q[u][g][2], q[u][g][3]);
-      }
-    }
-    __syncthreads();
-
-    // [d xin | dh_{t-1}] = dgates @ [w_ih; w_hh]^T
-    float acc[TM][TN][2];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int u = 0; u < TN; ++u) acc[i][u][0] = acc[i][u][1] = 0.0f;
-    tile_gemm<2>(acc, As, LDA, m0, 4 * H, w_t, 4 * H, w_t, Bs, KC, jc, H, NT, mode2);
-
-    // dh_{t-1} stays in registers; d xin, dropped out, is dsel: to its
-    // stream and over A (the product ended with a barrier)
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-      for (int u = 0; u < TN; ++u) dhv[i][u] = acc[i][u][1];
-      if (i >= left) continue;
-      if (MASKED) {
-        const uint8_t* mr = mask + (r0 + i) * H;
-        bool k0, k1;
-        if (mask2) {
-          const uchar2 mk = *reinterpret_cast<const uchar2*>(mr + jc[0]);
-          k0 = mk.x;
-          k1 = mk.y;
-        } else {
-          k0 = mr[jc[0]];
-          k1 = mr[jc[1]];
-        }
-        acc[i][0][0] = k0 ? acc[i][0][0] * rkeep : 0.0f;
-        acc[i][1][0] = k1 ? acc[i][1][0] * rkeep : 0.0f;
-      }
-      if constexpr (HOMO) {
-        // step 0 also takes the ego row's gradient; then the ReLU's derivative,
-        // the sign of s read from the ego row (step 0) or from xin (see above)
-        const float2 sgn = t == 0 ? load_units(ego, b0 + i, H, 0, H, jc, jv)
-                                  : load_units(xin, r0 + i, H, 0, H, jc, jv);
-        if (t == 0) {
-          const float2 de = load_units(dego, b0 + i, H, 0, H, jc, jv);
-          acc[i][0][0] += de.x;
-          acc[i][1][0] += de.y;
-        }
-        acc[i][0][0] = sgn.x > 0.0f ? acc[i][0][0] : 0.0f;
-        acc[i][1][0] = sgn.y > 0.0f ? acc[i][1][0] : 0.0f;
-      }
-      store_units(dsel, r0 + i, H, 0, H, jc, jv, acc[i][0][0], acc[i][1][0]);
-    }
-#pragma unroll
-    for (int u = 0; u < TN; ++u) {
-      if (!jv[u]) continue;
-      float v[TM];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) v[i] = acc[i][u][0];
-      store_rows(As + jc[u] * LDA + m0, v);
-    }
-
-    // dx = dsel @ wd[d]^T: one product per class present in the tile
-    int dq[TM];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      int d = 0;
-      if (i < left) {
-        d = dists[(b0 + i) * wl + pos];
-        d = d < 0 ? 0 : (d > wl - 1 ? wl - 1 : d);
-      }
-      dq[i] = d;
-    }
-    float dx[TN][TM];
-#pragma unroll
-    for (int u = 0; u < TN; ++u)
-#pragma unroll
-      for (int i = 0; i < TM; ++i) dx[u][i] = 0.0f;
-    for (int k = 0; k < wl; ++k) {
-      bool mine = false;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) mine |= dq[i] == k;
-      if (!__syncthreads_or(mine)) continue;
-      float a1[TM][TN][1];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int u = 0; u < TN; ++u) a1[i][u][0] = 0.0f;
-      const W* wk = wd_t + (size_t)k * H * H;
-      tile_gemm<1>(a1, As, LDA, m0, H, wk, H, wk, Bs, KC, jc, H, NT, mode1);
-#pragma unroll
-      for (int u = 0; u < TN; ++u)
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-          if (dq[i] == k) dx[u][i] = a1[i][u][0];
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-      if (i < left) store_units(drow, r0 + i, H, 0, H, jc, jv, dx[0][i], dx[1][i]);
-  }
-}
-
-template <int HC, bool BF16>
-auto bptt_instance(bool masked, bool homo) {
-  return masked ? (homo ? pagg_bptt_kernel<true, HC, true, BF16>
-                        : pagg_bptt_kernel<true, HC, false, BF16>)
-                : (homo ? pagg_bptt_kernel<false, HC, true, BF16>
-                        : pagg_bptt_kernel<false, HC, false, BF16>);
-}
-
 template <typename W>
 int launch_attention(const void* g, const void* h, const void* paths, const void* hn,
                      const void* ego, const void* attw, const void* attb, void* dhn,
-                     void* dego, void* part, int T, int nw, int wl, int H, void* stream) {
-  const int smem = 3 * nw * (int)sizeof(float);
-  const auto kernel =
-      ego ? pagg_attention_bwd_kernel<true, W> : pagg_attention_bwd_kernel<false, W>;
+                     void* dego, void* part, int T, int nw, int wl, int H, int agg,
+                     void* stream) {
+  const int smem = agg == ATTENTION ? 3 * nw * (int)sizeof(float) : 0;
+  // mean and sum read neither the table nor the ego rows
+  const auto kernel = agg == MEAN ? pagg_attention_bwd_kernel<MEAN, false, W>
+                      : agg == SUM ? pagg_attention_bwd_kernel<SUM, false, W>
+                      : ego        ? pagg_attention_bwd_kernel<ATTENTION, true, W>
+                                   : pagg_attention_bwd_kernel<ATTENTION, false, W>;
   if (int e = allow_smem(kernel, smem)) return e;
   kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
       (const float*)g, (const W*)h, (const int*)paths, (const float*)hn,
@@ -382,78 +227,57 @@ int launch_attention(const void* g, const void* h, const void* paths, const void
   return (int)cudaGetLastError();
 }
 
-// Launch C at width H: f32, the instance with the tile compiled in where
-// there is one (H = 64, 256); bf16, the H = 64 instance or the run-time one.
-template <bool BF16>
-int launch_bptt(const void* dhn, const void* dists, const void* wd_t, const void* w_t,
-                const void* cs, void* gt, const void* mask, float keep, const void* xin,
-                const void* ego, const void* dego, void* dsel, void* drow, long long B,
-                int wl, int H, void* stream) {
-  using W = Elem<BF16>;
-  const Tile tl = tile_for(H, BF16);
-  const int smem = bptt_smem(H, BF16);
-  const bool masked = mask != nullptr, homo = ego != nullptr;
-  decltype(bptt_instance<0, BF16>(masked, homo)) kernel;
-  if constexpr (BF16)
-    kernel = H == 64 ? bptt_instance<64, true>(masked, homo) : bptt_instance<0, true>(masked, homo);
-  else
-    kernel = H == 64    ? bptt_instance<64, false>(masked, homo)
-             : H == 256 ? bptt_instance<256, false>(masked, homo)
-                        : bptt_instance<0, false>(masked, homo);
-  if (int e = allow_smem(kernel, smem)) return e;
-  kernel<<<(unsigned)((B + tl.M - 1) / tl.M), tl.NT, smem, (cudaStream_t)stream>>>(
-      (const float*)dhn, (const int*)dists, (const W*)wd_t, (const W*)w_t, (const float*)cs,
-      (float*)gt, (const uint8_t*)mask, keep, (const float*)xin, (const float*)ego,
-      (const float*)dego, (float*)dsel, (float*)drow, B, wl, H,
-      alignment((uintptr_t)wd_t | (uintptr_t)w_t));
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Launch A: h_n [T * nw, H] and the streams xr, xin, hp, cs [wl, T * nw, H]
 // and gt [wl, T * nw, 4H]; homo where ego [T * nw, H] is given, which then
 // receives each walk's ego row; bf16 where bf16 is nonzero (h and the six
-// weights bf16).
+// weights bf16); the GRU on packed weights where gru is nonzero (f32; cs is
+// not written and may be null).
 extern "C" int pathnet_pagg_encode_walks_streams(
     const void* h, const void* paths, const void* dists, const void* wd,
     const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
     const void* b_hh, const void* mask, float keep, void* hn, void* xr, void* xin,
     void* hp, void* cs, void* gt, void* ego, int T, int nw, int wl, int H, int bf16,
-    void* stream) {
+    int gru, void* stream) {
   const Streams st = {(float*)xr, (float*)xin, (float*)hp, (float*)cs, (float*)gt};
   return launch_encode<true>(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep,
-                             hn, ego, st, T, nw, wl, H, bf16, stream);
+                             hn, ego, st, T, nw, wl, H, bf16, gru, stream);
 }
 
 // Launch B: d h_n [T * nw, H] from g [T, H] and h_n; writes the ego rows'
 // gradient dego [T * nw, H] and each target's terms of the attention
-// weights' gradient, part [T, 2H + 1] (d attw, then d attb). Homo where ego
-// (launch A's) is given; the hetero ego rows from a bf16 table where bf16
-// is nonzero.
+// weights' gradient, part [T, 2H + 1] (d attw, then d attb). agg 0
+// attention (homo where ego, launch A's, is given; the hetero ego rows from
+// a bf16 table where bf16 is nonzero), 1 mean, 2 sum (dego and part zeros).
 extern "C" int pathnet_pagg_attention_bwd(
     const void* g, const void* h, const void* paths, const void* hn, const void* ego,
     const void* attw, const void* attb, void* dhn, void* dego, void* part,
-    int T, int nw, int wl, int H, int bf16, void* stream) {
+    int T, int nw, int wl, int H, int bf16, int agg, void* stream) {
   if (T == 0) return 0;
+  if (agg < ATTENTION || agg > SUM) return (int)cudaErrorInvalidValue;
   return (bf16 ? launch_attention<__nv_bfloat16> : launch_attention<float>)(
-      g, h, paths, hn, ego, attw, attb, dhn, dego, part, T, nw, wl, H, stream);
+      g, h, paths, hn, ego, attw, attb, dhn, dego, part, T, nw, wl, H, agg, stream);
 }
 
 // Launch C: BPTT from d h_n; overwrites gt with the pre-activation gate
 // gradients and writes dsel and every gathered row's gradient drow, both
 // [wl, T * nw, H]. wd_t = wd transposed per class [wl, H, H]; w_t =
 // [w_ih; w_hh]^T [4H, 2H]; both bf16 where bf16 is nonzero. Homo where ego
-// is given, with xin (launch A's) and dego (launch B's).
+// is given, with xin (launch A's) and dego (launch B's). cs is launch A's
+// cs, or (gru nonzero, f32 only) its hp.
 extern "C" int pathnet_pagg_bptt(const void* dhn, const void* dists,
                                  const void* wd_t, const void* w_t, const void* cs,
                                  void* gt, const void* mask, float keep, const void* xin,
                                  const void* ego, const void* dego, void* dsel,
                                  void* drow, int T, int nw, int wl, int H, int bf16,
-                                 void* stream) {
+                                 int gru, void* stream) {
   const long long B = (long long)T * nw;
   if (B == 0) return 0;
-  return (bf16 ? launch_bptt<true> : launch_bptt<false>)(
+  if (gru && bf16) return (int)cudaErrorInvalidValue;
+  return (gru    ? pagg_bptt_gru
+          : bf16 ? launch_bptt<true, false>
+                 : launch_bptt<false, false>)(
       dhn, dists, wd_t, w_t, cs, gt, mask, keep, xin, ego, dego, dsel, drow, B, wl, H,
       stream);
 }

@@ -13,7 +13,9 @@
 // package's bf16 encode holds them in bf16 (pathnet_tpu/models/pagg.py:
 // 233-279): the selected row round(round(x W[d]) + b[d]), the dropped-out
 // input round(s / keep) (keep given rounded to bf16), and c_t and h_t at the
-// end of each step. The
+// end of each step. GRU = true runs the GRU (gates r, z, n) on weights
+// packed into the LSTM's layout (see pagg_encode.cu): the same product, and
+// an epilogue that reads h_{t-1} from the h half of A. The
 // design and its bound are described in pagg_encode.cu.
 #pragma once
 #include <cuda_bf16.h>
@@ -21,6 +23,21 @@
 #include <math.h>
 #include <stdint.h>
 #include <type_traits>
+
+// The GRU's encode instances, each built in a translation unit of its own
+// so that nvcc compiles them beside the others: K3's (pagg_encode_gru.cu)
+// and K4's forward recompute (STREAMS, pagg_encode_bwd_gru.cu). The
+// arguments are launch_encode's, the streams as their five pointers.
+int pagg_encode_gru(const void* h, const void* paths, const void* dists, const void* wd,
+                    const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
+                    const void* b_hh, const void* mask, float keep, void* hn, void* ego,
+                    long long B, int wl, int H, void* stream);
+int pagg_encode_gru_streams(const void* h, const void* paths, const void* dists,
+                            const void* wd, const void* bd, const void* w_ih,
+                            const void* w_hh, const void* b_ih, const void* b_hh,
+                            const void* mask, float keep, void* hn, void* ego, float* xr,
+                            float* xin, float* hp, float* cs, float* gt, long long B,
+                            int wl, int H, void* stream);
 
 namespace {
 
@@ -32,6 +49,24 @@ static_assert(TN == 2, "tile_gemm unpacks B in pairs of units");
 struct Tile {
   int M, CT, NT, KC, LDA, smem;
 };
+
+// The readouts (K3's second launch, K4's attention backward, template
+// parameter AGG); the values are the wrappers' codes.
+enum { ATTENTION = 0, MEAN = 1, SUM = 2 };
+
+// Whether the mean and sum branches move rows of width H four floats at a
+// time: H a multiple of 4 and every pointer (any, or-ed) 16-byte aligned.
+__host__ __device__ inline bool agg_vec4(int H, uintptr_t any) {
+  return H % 4 == 0 && any % 16 == 0;
+}
+
+// The mean and sum readout's walk groups: a block of `threads` splits the
+// row's loads (H / 4 float4s, or H floats) among itself and the walks
+// among the groups, one where a row has more loads than the block threads.
+__host__ __device__ inline int agg_groups(int H, int threads, bool vec4) {
+  const int loads = vec4 ? H / 4 : H;
+  return loads < threads ? threads / loads : 1;
+}
 
 // The element of the table and the cast weights: f32, or bf16 (BF16).
 template <bool BF16>
@@ -282,7 +317,8 @@ __device__ __forceinline__ void store_pairs(float* __restrict__ s, long long r0,
 // xin after dropout, h_{t-1} as hp, c_t as cs ([.., H] each) and the gate
 // activations (sigmoid i, sigmoid f, tanh g, sigmoid o) as gt [.., 4H]. All
 // f32; under BF16 they hold the forward's rounded values, which f32 holds
-// exactly (the gate activations are not rounded).
+// exactly (the gate activations are not rounded). The GRU writes no cs, and
+// gt as (r, z, n, h_{t-1} W_hn + b_hn).
 struct Streams {
   float* xr;
   float* xin;
@@ -331,8 +367,9 @@ __device__ __forceinline__ void gather_units(const __nv_bfloat16* __restrict__ h
 // values of Streams (K4's forward recompute); with HOMO, also each walk's
 // ego row, the ReLU'd selected row of step 0 before dropout, to ego [B, H];
 // with BF16, from a bf16 table and bf16 weights, rounded as described at the
-// top. `align` is the alignment of wd, w_ih and w_hh in bytes.
-template <bool MASKED, int HC, bool STREAMS, bool HOMO, bool BF16>
+// top; with GRU, the GRU on packed weights. `align` is the alignment of wd,
+// w_ih and w_hh in bytes.
+template <bool MASKED, int HC, bool STREAMS, bool HOMO, bool BF16, bool GRU = false>
 __global__ void __launch_bounds__(launch_threads(HC), launch_blocks(HC))
 pagg_encode_walks_kernel(
     const Elem<BF16>* __restrict__ h, const int* __restrict__ paths,
@@ -463,7 +500,44 @@ pagg_encode_walks_kernel(
 
     // cell update in registers; h_t back to A, or out as h_n after the last
     // step; BF16 rounds c_t, then h_t from the rounded c_t
-    if constexpr (STREAMS) {
+    if constexpr (GRU) {
+      // acc holds r and z before their sigmoids, x W_in + b_in and
+      // h W_hn + b_hn; h_{t-1} is this thread's own entries of A's h half,
+      // which no other thread writes, read before any is written over
+      float hv[TN][TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        float gv[4][TN];
+#pragma unroll
+        for (int u = 0; u < TN; ++u) {
+          const float hq = As[(H + jc[u]) * LDA + m0 + i];
+          gv[0][u] = sigm(acc[i][u][0]);
+          gv[1][u] = sigm(acc[i][u][1]);
+          gv[3][u] = acc[i][u][3];
+          gv[2][u] = tanh_f(acc[i][u][2] + gv[0][u] * gv[3][u]);
+          hv[u][i] = (1.0f - gv[1][u]) * gv[2][u] + gv[1][u] * hq;
+        }
+        if constexpr (STREAMS) {
+          if (i < B - b0) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              store_units(st.gt, r0 + i, 4 * H, g * H, H, jc, jv, gv[g][0], gv[g][1]);
+            if (t + 1 < wl) store_units(st.hp, r0 + B + i, H, 0, H, jc, jv, hv[0][i], hv[1][i]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < TN; ++u) {
+        if (!jv[u]) continue;
+        if (t + 1 < wl) {
+          store_rows(As + (H + jc[u]) * LDA + m0, hv[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+            if (b0 + i < B) hn[(b0 + i) * H + jc[u]] = hv[u][i];
+        }
+      }
+    } else if constexpr (STREAMS) {
       // the same update row by row, so both units of a row are stored at once
       float hv[TN][TM];
 #pragma unroll
@@ -531,12 +605,12 @@ using EncodeKernel = void (*)(const Elem<BF16>*, const int*, const int*, const E
                               const Elem<BF16>*, const Elem<BF16>*, const uint8_t*, float,
                               float*, float*, Streams, long long, int, int, int);
 
-template <bool STREAMS, int HC, bool BF16>
+template <bool STREAMS, int HC, bool BF16, bool GRU = false>
 EncodeKernel<BF16> encode_instance(bool masked, bool homo) {
-  return masked ? (homo ? pagg_encode_walks_kernel<true, HC, STREAMS, true, BF16>
-                        : pagg_encode_walks_kernel<true, HC, STREAMS, false, BF16>)
-                : (homo ? pagg_encode_walks_kernel<false, HC, STREAMS, true, BF16>
-                        : pagg_encode_walks_kernel<false, HC, STREAMS, false, BF16>);
+  return masked ? (homo ? pagg_encode_walks_kernel<true, HC, STREAMS, true, BF16, GRU>
+                        : pagg_encode_walks_kernel<true, HC, STREAMS, false, BF16, GRU>)
+                : (homo ? pagg_encode_walks_kernel<false, HC, STREAMS, true, BF16, GRU>
+                        : pagg_encode_walks_kernel<false, HC, STREAMS, false, BF16, GRU>);
 }
 
 template <typename Kernel>
@@ -547,10 +621,10 @@ int allow_smem(Kernel kernel, int bytes) {
 }
 
 // The encode on K3's grid of tiles at width H: f32, the instance with the
-// tile compiled in where there is one (H = 64, 256); bf16, the H = 64
-// instance or the run-time one. Masked where mask is given, homo where ego
-// is given.
-template <bool STREAMS, bool BF16>
+// tile compiled in where there is one (H = 64, 256); bf16 and the GRU (f32
+// only), the H = 64 instance or the run-time one. Masked where mask is
+// given, homo where ego is given.
+template <bool STREAMS, bool BF16, bool GRU>
 int launch_encode_as(const void* h, const void* paths, const void* dists, const void* wd,
                      const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
                      const void* b_hh, const void* mask, float keep, void* hn, void* ego,
@@ -559,9 +633,9 @@ int launch_encode_as(const void* h, const void* paths, const void* dists, const 
   const Tile tl = tile_for(H, BF16);
   const bool masked = mask != nullptr, homo = ego != nullptr;
   EncodeKernel<BF16> kernel;
-  if constexpr (BF16)
-    kernel = H == 64 ? encode_instance<STREAMS, 64, true>(masked, homo)
-                     : encode_instance<STREAMS, 0, true>(masked, homo);
+  if constexpr (BF16 || GRU)
+    kernel = H == 64 ? encode_instance<STREAMS, 64, BF16, GRU>(masked, homo)
+                     : encode_instance<STREAMS, 0, BF16, GRU>(masked, homo);
   else
     kernel = H == 64    ? encode_instance<STREAMS, 64, false>(masked, homo)
              : H == 256 ? encode_instance<STREAMS, 256, false>(masked, homo)
@@ -575,15 +649,29 @@ int launch_encode_as(const void* h, const void* paths, const void* dists, const 
   return (int)cudaGetLastError();
 }
 
-// The encode, f32 or (bf16) with a bf16 table and bf16 weights.
+// The encode, f32 or (bf16) with a bf16 table and bf16 weights; the LSTM,
+// or (gru) the GRU on packed weights, f32 only, whose instances are built
+// apart (see pagg_encode_gru above).
 template <bool STREAMS>
 int launch_encode(const void* h, const void* paths, const void* dists, const void* wd,
                   const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
                   const void* b_hh, const void* mask, float keep, void* hn, void* ego,
-                  Streams st, int T, int nw, int wl, int H, int bf16, void* stream) {
+                  Streams st, int T, int nw, int wl, int H, int bf16, int gru,
+                  void* stream) {
   const long long B = (long long)T * nw;
   if (B == 0) return 0;
-  return (bf16 ? launch_encode_as<STREAMS, true> : launch_encode_as<STREAMS, false>)(
+  if (gru && bf16) return (int)cudaErrorInvalidValue;
+  if (gru) {
+    if constexpr (STREAMS)
+      return pagg_encode_gru_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask,
+                                     keep, hn, ego, st.xr, st.xin, st.hp, st.cs, st.gt, B,
+                                     wl, H, stream);
+    else
+      return pagg_encode_gru(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep,
+                             hn, ego, B, wl, H, stream);
+  }
+  return (bf16 ? launch_encode_as<STREAMS, true, false>
+               : launch_encode_as<STREAMS, false, false>)(
       h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep, hn, ego, st, B, wl, H,
       stream);
 }

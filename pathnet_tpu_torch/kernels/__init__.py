@@ -5,8 +5,8 @@
 | K1 ``cdf_walk`` | ``kernels/cdf_walk.py`` | ``sample/alias.py:142-147`` ``CdfSampler.step``, scanned by ``sample/walk.py:36-55`` |
 | K2 ``membership_dists`` | ``kernels/membership_dists.py`` | ``sample/distance.py:77-139`` |
 | K1 + K2 ``walk_dists`` | ``kernels/walk_dists.py`` | both above in one launch (the sampler's path); ``cdf_walk`` and ``membership_dists`` run its device code |
-| K3 ``pagg_encode_fwd`` | ``kernels/pagg_encode.py`` | ``models/pagg.py:235-303`` encode + readout (serving, and training with a dropout mask; hetero and homo, ``homo=True``); two launches (``encode_walks``, ``readout``) behind one wrapper |
-| K4 ``pagg_encode_bwd`` | ``kernels/pagg_encode_bwd.py`` | the VJP of ``models/pagg.py:235-303`` with the gather VJP ``:83-93``; three launches (``encode_walks_streams``, ``attention_bwd``, ``bptt``) behind one wrapper, then the weight ``contractions``; both variants |
+| K3 ``pagg_encode_fwd`` | ``kernels/pagg_encode.py`` | ``models/pagg.py:235-307`` encode + readout (serving, and training with a dropout mask; hetero and homo, ``homo=True``; the LSTM or the GRU, ``cell``; the attention, mean or sum readout, ``agg``); two launches (``encode_walks``, ``readout``) behind one wrapper |
+| K4 ``pagg_encode_bwd`` | ``kernels/pagg_encode_bwd.py`` | the VJP of ``models/pagg.py:235-307`` with the gather VJP ``:83-93``; three launches (``encode_walks_streams``, ``attention_bwd``, ``bptt``) behind one wrapper, then the weight ``contractions``; every variant, cell and readout of K3 |
 | ``segment_sum`` | ``kernels/segment_sum.py`` | the scatter-add of the gather VJP, ``models/pagg.py:83-93``: K4's row gradients into ``dh`` in a fixed order |
 | K5 ``row_gather``, ``row_gather_bwd`` | ``kernels/row_gather.py`` | ``scripts/pallas_gather_probe.py:68``, the ``gather_fn`` of ``models/pagg.py:209,309`` |
 | K6 ``lane_gather`` | ``kernels/lane_gather.py`` | ``scripts/pallas_gather_probe.py:68``, body ``lane_gather_axis1`` ``:45-50`` (the gather probe only) |

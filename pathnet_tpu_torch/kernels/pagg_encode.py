@@ -1,21 +1,39 @@
-"""K3 ``pagg_encode_fwd``: the PAGG encode forward and attention readout, in
-f32 or with bf16 compute.
+"""K3 ``pagg_encode_fwd``: the PAGG encode forward and its readout, in f32 or
+with bf16 compute.
 
-Replaces ``pathnet_tpu/models/pagg.py:235-303`` (the encode block and the
-attention readout of ``pagg_forward``, LSTM / attention, both variants), with
-``_dist_select`` (``:150-177``) and ``nn/cells.py:22-46`` (``lstm_scan``). Per
+Replaces ``pathnet_tpu/models/pagg.py:235-307`` (the encode block and the
+readout of ``pagg_forward``, both variants), with ``_dist_select``
+(``:150-177``) and ``nn/cells.py:22-68`` (``lstm_scan``, ``gru_scan``). Per
 target: gather its ``nw * wl`` rows of ``h`` and apply ``W[d] x + b[d]`` with
-``d`` clipped to ``[0, wl - 1]``, then run the ``wl``-step LSTM.
+``d`` clipped to ``[0, wl - 1]``, then run the ``wl``-step recurrence
+(``cell``: "lstm", the default, or "gru"), then read the walks out (``agg``):
 
-- **hetero** (the default): each walk flipped (far to near); each walk
-  scored by ``leaky_relu(attw . [h_n, h[walk start]] + attb)``, softmax
-  over the walks; the result is the weighted **sum** of the ``h_n``.
-- **homo** (``homo=True``, ``pagg.py:257-303``): the walk in sampled order,
-  a ReLU on each selected row, whose step-0 row (before dropout) is the
-  walk's ego row; each walk scored by ``attw . [h_n, ego] + attb``; the
-  result is the **mean** over the walks of ``(1 + score) * h_n``.
+- **attention** (the default), **hetero**: each walk flipped (far to near);
+  each walk scored by ``leaky_relu(attw . [h_n, h[walk start]] + attb)``,
+  softmax over the walks; the result is the weighted **sum** of the ``h_n``.
+- **attention**, **homo** (``homo=True``, ``pagg.py:257-303``): the walk in
+  sampled order, a ReLU on each selected row, whose step-0 row (before
+  dropout) is the walk's ego row; each walk scored by ``attw . [h_n, ego] +
+  attb``; the result is the **mean** over the walks of ``(1 + score) * h_n``.
+- **mean** and **sum** (``pagg.py:304-307``), either variant: the mean or
+  the sum of the ``h_n`` over the walks; no score, no ego row, and
+  ``attw``, ``attb`` are not read.
 
 Either way the result is ``[T, H]``.
+
+**The GRU** (``cell="gru"``, ``nn/cells.py:49-68``, gates r, z, n): K3 takes
+its weights in the LSTM's ``[H, 4H]`` layout, packed by :func:`pack_gru` as
+``w_ih = [W_ir, W_iz, W_in, 0]``, ``w_hh = [W_hr, W_hz, 0, W_hn]``, ``b_ih =
+[b_ir, b_iz, b_in, 0]`` and ``b_hh = [b_hr, b_hz, 0, b_hn]``, so the gate
+product ``[s_t | h_{t-1}] @ [w_ih; w_hh] + b_ih + b_hh`` is the LSTM's and its
+four column groups are ``r`` and ``z`` before their sigmoids, ``x W_in +
+b_in`` and ``h W_hn + b_hn`` apart, as ``n = tanh(x W_in + b_in + r (h W_hn +
+b_hn))`` needs them (``b_hn`` inside the product with ``r``, as
+``torch.nn.GRU`` and JAX have it). The zero blocks must stay zero: the
+kernel multiplies by them, the plain version (:func:`unpack_gru`, then
+``gru_scan``) drops them. The product then does 16 H^2 flops a step where
+the GRU needs 12 H^2. GRU instances are f32 only (bf16 with the GRU raises
+``NotImplementedError``).
 
 **bf16 compute** (the JAX package's ``compute_dtype="bfloat16"``,
 ``pagg.py:233-279``): the table ``h`` and the six cast weights ``wd, bd, w_ih,
@@ -47,7 +65,9 @@ walk ``b`` becomes ``keep_mask[t, b] ? s / keep : 0``, JAX's
 the kernel and its plain version see the same draws. Without a mask the
 kernel is the serving kernel unchanged (a separate template instance); the
 variant is a template parameter too (``HOMO``), so the hetero instances are
-what they were before the homo variant came.
+what they were before the homo variant came; so are the cell (``GRU``, the
+encode) and the readout (``AGG``, the second launch), so the LSTM and
+attention instances are what they were before them.
 
 Source: ``pathnet_tpu_torch/csrc/pagg_encode.cu``, two launches behind the
 one wrapper (one count a call). The first runs the encode over the flat walk
@@ -61,7 +81,9 @@ accumulators, so the cell update is the GEMM's epilogue in registers and
 class present in the tile. It writes ``h_n`` ``[T * nw, H]`` to a scratch
 (and, homo, the ego rows to a second one); the second launch, one block per
 target, scores the walks, reduces the softmax once (hetero) and forms the
-weighted sum. :func:`encode_walks` and
+weighted sum; under mean or sum it only adds each target's ``h_n`` rows
+(its threads split the walks, then add the parts in a fixed order).
+:func:`encode_walks` and
 :func:`readout` launch each stage alone (for timing and tests; they count no
 launch), with plain versions :func:`encode_walks_plain` and
 :func:`readout_plain`, whose composition is :func:`pagg_encode_fwd_plain`.
@@ -73,7 +95,11 @@ computes in f32 on the CUDA cores, so the f32 rate, not the bf16 tensor-core
 rate, is its bound in this form, for the bf16 instances too (the same FMAs
 on half the table and weight bytes); the same 97 GFLOP at bf16's dense
 tensor-core rate (989 TFLOP/s) would take about 0.10 ms. The homo variant
-adds per-element work only (two ReLUs, the ego store): the same bound.
+adds per-element work only (two ReLUs, the ego store): the same bound. The
+GRU needs 14 H^2 flops a walk step (2 for the select, 12 for its gates): 75
+GFLOP, 1.12 ms at the bgp request, though the packed product runs the
+LSTM's 18 H^2. The mean and sum readouts read ``h_n`` once (84 MB at the bgp
+request, 0.025 ms at 3.35 TB/s).
 """
 from __future__ import annotations
 
@@ -83,8 +109,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..nn.cells import lstm_scan
+from ..nn.cells import gru_scan, lstm_scan
 from . import build
+
+# the readouts and cells K3 and K4 run; AGGS' index is the C entries' AGG code
+AGGS = ("attention", "mean", "sum")
+CELLS = ("lstm", "gru")
 
 
 class _RoundBf16(torch.autograd.Function):
@@ -156,13 +186,34 @@ def lstm_bf16_steps(xs, w_ih, w_hh, b_ih, b_hh):
         yield hp, torch.cat([si, sf, tg, so], dim=1), c, h
 
 
+def pack_gru(w_ih, w_hh, b_ih, b_hh):
+    """A GRU's weights ``w_ih, w_hh [H, 3H]`` and biases ``[3H]`` (gates r,
+    z, n; ``x @ w``) in K3's ``[H, 4H]`` / ``[4H]`` layout: ``[W_ir, W_iz,
+    W_in, 0]``, ``[W_hr, W_hz, 0, W_hn]``, ``[b_ir, b_iz, b_in, 0]``, ``[b_hr,
+    b_hz, 0, b_hn]`` (autograd ops: a packed gradient flows back unpacked)."""
+    H = w_hh.shape[0]
+    zw, zb = w_hh.new_zeros((H, H)), b_hh.new_zeros(H)
+    return (torch.cat([w_ih, zw], 1), torch.cat([w_hh[:, :2 * H], zw, w_hh[:, 2 * H:]], 1),
+            torch.cat([b_ih, zb]), torch.cat([b_hh[:2 * H], zb, b_hh[2 * H:]]))
+
+
+def unpack_gru(w_ih, w_hh, b_ih, b_hh) -> dict:
+    """Inverse of :func:`pack_gru`: ``gru_scan``'s parameters, the zero
+    blocks dropped."""
+    H = w_hh.shape[0]
+    return {"w_ih": w_ih[:, :3 * H], "w_hh": torch.cat([w_hh[:, :2 * H], w_hh[:, 3 * H:]], 1),
+            "b_ih": b_ih[:3 * H], "b_hh": torch.cat([b_hh[:2 * H], b_hh[3 * H:]])}
+
+
 def encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                       keep_mask=None, keep=1.0, homo=False, bf16=False):
+                       keep_mask=None, keep=1.0, homo=False, bf16=False, cell="lstm"):
     """Plain PyTorch version of K3's first launch: ``h_n`` ``[T * nw, H]``;
     with ``homo``, ``(h_n, ego)``, ``ego [T * nw, H]`` the walks' ego rows.
     ``bf16`` (or a bf16 ``h``): the bf16 rules of the module docstring, on
-    inputs that hold bf16 values, bf16 or f32."""
+    inputs that hold bf16 values, bf16 or f32. ``cell="gru"``: ``gru_scan``
+    on the unpacked weights (:func:`unpack_gru`), f32 only."""
     bf16 = is_bf16(h, bf16)
+    check_choices(cell=cell, dtype=torch.bfloat16 if bf16 else torch.float32)
     if bf16:
         h, wd, bd, w_ih, w_hh, b_ih, b_hh = (t.float() for t in
                                              (h, wd, bd, w_ih, w_hh, b_ih, b_hh))
@@ -177,20 +228,27 @@ def encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
     seq = sel.reshape(T * nw, wl, H).transpose(0, 1)       # [wl, B, H]
     ego = seq[0].contiguous() if homo else None
     seq = dropout_plain(seq, keep_mask, keep, bf16)
-    if bf16:
+    if cell == "gru":
+        hn = gru_scan(unpack_gru(w_ih, w_hh, b_ih, b_hh), seq)[1]
+    elif bf16:
         *_, hn = list(lstm_bf16_steps(seq, w_ih, w_hh, b_ih, b_hh))[-1]
     else:
         hn = lstm_scan({"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh}, seq)[1]
     return (hn, ego) if homo else hn
 
 
-def readout_plain(h, paths, hn, attw, attb, ego=None) -> torch.Tensor:
-    """Plain PyTorch version of K3's second launch: the readout ``[T, H]``,
-    homo where ``ego`` (the first launch's) is given; ``h`` f32 or the bf16
-    table."""
+def readout_plain(h, paths, hn, attw, attb, ego=None, agg="attention") -> torch.Tensor:
+    """Plain PyTorch version of K3's second launch: the readout ``[T, H]``;
+    ``agg`` "mean" or "sum" of ``h_n`` over the walks, or the attention
+    readout, homo where ``ego`` (the first launch's) is given; ``h`` f32 or
+    the bf16 table."""
     T, nw, _ = paths.shape
     H = hn.shape[1]
     h_n = hn.reshape(T, nw, H)
+    if agg == "mean":
+        return h_n.mean(dim=1)
+    if agg == "sum":
+        return h_n.sum(dim=1)
     e = h[paths[:, :, 0].long()].float() if ego is None else ego.reshape(T, nw, H)
     score = torch.cat([h_n, e], dim=-1) @ attw + attb           # [T, nw]
     if ego is not None:
@@ -201,13 +259,14 @@ def readout_plain(h, paths, hn, attw, attb, ego=None) -> torch.Tensor:
 
 def pagg_encode_fwd_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
                           attw, attb, keep_mask=None, keep=1.0,
-                          homo=False, bf16=False) -> torch.Tensor:
+                          homo=False, bf16=False, agg="attention",
+                          cell="lstm") -> torch.Tensor:
     """Plain PyTorch version; same arguments and result as
     :func:`pagg_encode_fwd` (``bf16`` as in :func:`encode_walks_plain`)."""
     out = encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                             keep_mask, keep, homo, bf16)
+                             keep_mask, keep, homo, bf16, cell)
     hn, ego = out if homo else (out, None)
-    return readout_plain(h, paths, hn, attw, attb, ego)
+    return readout_plain(h, paths, hn, attw, attb, ego, agg)
 
 
 def compute_dtype(*tensors: torch.Tensor) -> torch.dtype:
@@ -222,11 +281,26 @@ def compute_dtype(*tensors: torch.Tensor) -> torch.dtype:
     return kinds.pop()
 
 
-def _check(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep):
+def check_choices(agg: str = "attention", cell: str = "lstm",
+                  dtype: torch.dtype = torch.float32) -> None:
+    """Raise ``ValueError`` for a readout or cell K3 and K4 do not know, and
+    ``NotImplementedError`` for the GRU with bf16 compute (no instance)."""
+    if agg not in AGGS:
+        raise ValueError(f"agg={agg!r}: expected one of {AGGS}")
+    if cell not in CELLS:
+        raise ValueError(f"cell={cell!r}: expected one of {CELLS}")
+    if cell == "gru" and dtype == torch.bfloat16:
+        raise NotImplementedError("the GRU with bf16 compute is not ported yet "
+                                  "(ROADMAP §1 item 3)")
+
+
+def _check(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep,
+           cell="lstm"):
     """Raise unless the encode's inputs fit together and the device is the
     CPU or a CUDA card that takes their width."""
     dev = h.device
     dt = compute_dtype(h, wd, bd, w_ih, w_hh, b_ih, b_hh)
+    check_choices(cell=cell, dtype=dt)
     build.require(h, "h", dt, (None, None), dev)
     H = h.shape[1]
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
@@ -253,7 +327,7 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _launch_walks(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep,
-                  homo):
+                  homo, cell="lstm"):
     """Launch 1: ``h_n``, and with ``homo`` ``(h_n, ego)``."""
     T, nw, wl = paths.shape
     H = h.shape[1]
@@ -265,12 +339,12 @@ def _launch_walks(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, ke
             h.data_ptr(), paths.data_ptr(), dists.data_ptr(), wd.data_ptr(),
             bd.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
             b_hh.data_ptr(), ptr(keep_mask), dropout_divisor(keep, bf16), hn.data_ptr(),
-            ptr(ego), T, nw, wl, H, int(bf16), build.stream_ptr(h))
+            ptr(ego), T, nw, wl, H, int(bf16), int(cell == "gru"), build.stream_ptr(h))
     build.check(rc, "pagg_encode_fwd (encode)")
     return (hn, ego) if homo else hn
 
 
-def _launch_readout(h, paths, hn, attw, attb, ego=None):
+def _launch_readout(h, paths, hn, attw, attb, ego=None, agg="attention"):
     T, nw, wl = paths.shape
     H = h.shape[1]
     out = torch.empty((T, H), dtype=torch.float32, device=h.device)
@@ -278,7 +352,7 @@ def _launch_readout(h, paths, hn, attw, attb, ego=None):
         rc = build.library().pathnet_pagg_readout(
             h.data_ptr(), paths.data_ptr(), hn.data_ptr(), ptr(ego), attw.data_ptr(),
             attb.data_ptr(), out.data_ptr(), T, nw, wl, H, int(h.dtype == torch.bfloat16),
-            build.stream_ptr(h))
+            AGGS.index(agg), build.stream_ptr(h))
     build.check(rc, "pagg_encode_fwd (readout)")
     return out
 
@@ -288,7 +362,8 @@ def pagg_encode_fwd(h: torch.Tensor, paths: torch.Tensor, dists: torch.Tensor,
                     w_hh: torch.Tensor, b_ih: torch.Tensor, b_hh: torch.Tensor,
                     attw: torch.Tensor, attb: torch.Tensor,
                     keep_mask: Optional[torch.Tensor] = None,
-                    keep: float = 1.0, homo: bool = False) -> torch.Tensor:
+                    keep: float = 1.0, homo: bool = False, agg: str = "attention",
+                    cell: str = "lstm") -> torch.Tensor:
     """Path-aggregated features ``float32 [T, H]`` of the ``T`` targets.
 
     ``h`` float32 ``[n, H]`` (projected node features; bf16 with the six
@@ -296,42 +371,47 @@ def pagg_encode_fwd(h: torch.Tensor, paths: torch.Tensor, dists: torch.Tensor,
     ``dists`` int32 ``[T, nw, wl]`` (node ids in ``[0, n)``), ``wd``
     ``[wl, H, H]`` and ``bd`` ``[wl, H]`` (the distance transforms, ``x @
     wd[d]``), ``w_ih``/``w_hh`` ``[H, 4H]`` and ``b_ih``/``b_hh`` ``[4H]``
-    (LSTM, gates i, f, g, o), ``attw`` ``[2H]`` and ``attb`` ``[1]``;
-    ``keep_mask`` uint8 ``[wl, T * nw, H]`` and ``keep`` in ``(0, 1]`` for
-    the training forward's dropout; ``homo`` picks the homo variant (see the
-    module docstring).
+    (LSTM, gates i, f, g, o; ``cell="gru"``: the GRU packed by
+    :func:`pack_gru`), ``attw`` ``[2H]`` and ``attb`` ``[1]`` (read by the
+    attention readout only); ``keep_mask`` uint8 ``[wl, T * nw, H]`` and
+    ``keep`` in ``(0, 1]`` for the training forward's dropout; ``homo``
+    picks the homo variant and ``agg`` the readout (see the module
+    docstring).
     """
     enc = (h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep)
-    _check(*enc)
+    _check(*enc, cell)
+    check_choices(agg)
     build.require(attw, "attw", torch.float32, (2 * h.shape[1],), h.device)
     build.require(attb, "attb", torch.float32, (1,), h.device)
     if h.device.type == "cpu":
-        return pagg_encode_fwd_plain(*enc[:9], attw, attb, keep_mask, keep, homo)
-    walks = _launch_walks(*enc, homo)
+        return pagg_encode_fwd_plain(*enc[:9], attw, attb, keep_mask, keep, homo,
+                                     agg=agg, cell=cell)
+    walks = _launch_walks(*enc, homo, cell)
     hn, ego = walks if homo else (walks, None)
-    out = _launch_readout(h, paths, hn, attw, attb, ego)
+    out = _launch_readout(h, paths, hn, attw, attb, ego, agg)
     pagg_encode_fwd.launches += 1
     return out
 
 
 def encode_walks(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                 keep_mask=None, keep=1.0, homo=False):
+                 keep_mask=None, keep=1.0, homo=False, cell="lstm"):
     """K3's first launch alone: ``h_n`` ``[T * nw, H]`` of every walk; with
     ``homo``, ``(h_n, ego)`` as :func:`encode_walks_plain` returns them.
 
     For timing and tests; it counts no launch (the model calls
     :func:`pagg_encode_fwd`)."""
     enc = (h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep)
-    _check(*enc)
+    _check(*enc, cell)
     if h.device.type == "cpu":
-        return encode_walks_plain(*enc, homo)
-    return _launch_walks(*enc, homo)
+        return encode_walks_plain(*enc, homo, cell=cell)
+    return _launch_walks(*enc, homo, cell)
 
 
-def readout(h, paths, hn, attw, attb, ego=None) -> torch.Tensor:
-    """K3's second launch alone: the attention readout ``[T, H]`` from
-    ``hn`` ``[T * nw, H]``, homo where the ego rows ``ego [T * nw, H]`` are
-    given. For timing and tests; it counts no launch."""
+def readout(h, paths, hn, attw, attb, ego=None, agg="attention") -> torch.Tensor:
+    """K3's second launch alone: the readout ``[T, H]`` (``agg``) from ``hn``
+    ``[T * nw, H]``, homo where the ego rows ``ego [T * nw, H]`` are given.
+    For timing and tests; it counts no launch."""
+    check_choices(agg)
     dev = h.device
     build.require(h, "h", compute_dtype(h), (None, None), dev)
     H = h.shape[1]
@@ -343,10 +423,10 @@ def readout(h, paths, hn, attw, attb, ego=None) -> torch.Tensor:
     build.require(attw, "attw", torch.float32, (2 * H,), dev)
     build.require(attb, "attb", torch.float32, (1,), dev)
     if dev.type == "cpu":
-        return readout_plain(h, paths, hn, attw, attb, ego)
+        return readout_plain(h, paths, hn, attw, attb, ego, agg)
     if dev.type != "cuda":
         raise ValueError(f"readout: unsupported device {dev}")
-    return _launch_readout(h, paths, hn, attw, attb, ego)
+    return _launch_readout(h, paths, hn, attw, attb, ego, agg)
 
 
 def encode_tile(H: int, bf16: bool = False) -> dict:

@@ -6,8 +6,12 @@ gather VJP of the "h" gather mode (``pagg.py:83-93``). Given ``g``, the
 gradient of K3's output ``[T, H]``, it returns the gradients of K3's inputs:
 ``dh [n, H]`` and those of ``wd, bd, w_ih, w_hh, b_ih, b_hh, attw, attb``.
 
-Both variants of K3 (``homo=False``, hetero, and ``homo=True``) have their
-backward here; the variant is a template parameter (``HOMO``) of each launch.
+Both variants of K3 (``homo=False``, hetero, and ``homo=True``), its three
+readouts (``agg``) and its two cells (``cell``, the GRU in K3's packed
+layout, f32) have their backward here; the variant is a template parameter
+(``HOMO``) of each launch, the readout (``AGG``) of the attention backward
+and the cell (``GRU``) of the recompute and the BPTT, so the LSTM and
+attention instances are the code they were before the others came.
 
 Source: ``pathnet_tpu_torch/csrc/pagg_encode_bwd.cu`` on K3's walk tile
 (``csrc/pagg_tile.cuh``), three launches behind the one wrapper (one count a
@@ -35,6 +39,31 @@ forward.
 4. :func:`~pathnet_tpu_torch.kernels.segment_sum.segment_sum` adds the row
    gradients of 2. and 3. into ``dh [n, H]``, each node's in the order of a
    stable sort of the paths' node ids (its own launch and count).
+
+**Mean and sum** (``pagg.py:304-307``): 2. writes ``d h_n = g / nw`` (mean)
+or ``g`` (sum) to every walk, zero ego-row gradients (so 4. sums the rows
+of the attention readout's layout, the hetero ego rows adding exact zeros;
+homo's step 0 adds a zero ``d ego``) and zero partial sums, so ``dattw``
+and ``dattb`` are exact zero tensors (not None: the trainer's additive L2
+still decays them, as JAX's does). The homo BPTT still reads ``ego`` for
+the ReLU's sign at step 0.
+
+**The GRU** (K3's packed weights, :func:`~pathnet_tpu_torch.kernels.pagg_encode.pack_gru`):
+1. writes ``gt`` as ``(r, z, n, h W_hn + b_hn)`` and ``hp``, and no ``cs``
+(the GRU has no cell state); 3. reads ``h_{t-1}`` from ``hp`` and carries
+only ``dh``: ``dn = dh (1 - z)``, ``dz = dh (h_{t-1} - n)``, ``da = dn (1 -
+n^2)``, and the four packed gate gradients ``(da (h W_hn + b_hn) r (1 - r),
+dz z (1 - z), da, da r)``; after the shared ``[4H] -> [2H]`` product it adds
+the direct term ``z dh`` into ``dh_{t-1}``. The contractions then give the
+packed weights' gradients, ``xin^T dgates`` and ``hp^T dgates`` and ``db``
+for both biases, which autograd unpacks through the model's packing
+(:func:`~pathnet_tpu_torch.kernels.pagg_encode.pack_gru`): ``dW_ih`` is
+``xin^T dgates``' groups 0-2, ``dW_hh`` is ``hp^T dgates``' groups 0, 1
+and 3, ``db_ih = db[0:3H]`` and ``db_hh = [db_r, db_z, db_3]``. The entries
+in the zero blocks (``dW_ih``'s and ``db_ih``'s group 3, ``dW_hh``'s and
+``db_hh``'s group 2) are the packing's constants' and are dropped there; the
+plain version returns zeros in them, so the two agree after
+:func:`~pathnet_tpu_torch.kernels.pagg_encode.unpack_gru`.
 
 Homo (``pagg.py:257-303``): the steps run in sampled order (step ``t`` holds
 position ``t``); 1. also writes the ego rows ``ego [T * nw, H]``, the ReLU'd
@@ -83,7 +112,8 @@ compose to :func:`pagg_encode_bwd_plain`.
 Bound on the H100: f32 operations, about 54 ``H^2`` flops per walk step
 (forward recompute 18, backward products 18, weight-gradient contractions
 18), about 290 GFLOP or 4.3 ms at 67 TFLOP/s per bgp microbatch, for either
-variant (homo's extra work is per element).
+variant (homo's extra work is per element). The GRU needs 42 H^2 (14 each),
+3.4 ms there, though the packed products run the LSTM's 54.
 """
 from __future__ import annotations
 
@@ -93,9 +123,9 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .pagg_encode import (_check as check_encode, check_keep_mask, compute_dtype,
-                          dropout_divisor, dropout_plain, is_bf16, lstm_bf16_steps,
-                          pagg_encode_fwd_plain, ptr, select_plain)
+from .pagg_encode import (AGGS, _check as check_encode, check_choices, check_keep_mask,
+                          compute_dtype, dropout_divisor, dropout_plain, is_bf16,
+                          lstm_bf16_steps, pagg_encode_fwd_plain, ptr, select_plain)
 from .segment_sum import segment_sum
 
 Grads = Tuple[torch.Tensor, ...]
@@ -103,20 +133,23 @@ Grads = Tuple[torch.Tensor, ...]
 
 def pagg_encode_bwd_plain(g, h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
                           attw, attb, keep_mask=None, keep=1.0, homo=False,
-                          bf16=False) -> Grads:
+                          bf16=False, agg="attention", cell="lstm") -> Grads:
     """Plain PyTorch version: ``torch.autograd.grad`` through
-    :func:`pagg_encode_fwd_plain` with the same mask and variant, taken in
-    f32; each gradient returned in its input's type (``bf16`` as in
-    :func:`~pathnet_tpu_torch.kernels.pagg_encode.encode_walks_plain`)."""
+    :func:`pagg_encode_fwd_plain` with the same mask, variant, readout and
+    cell, taken in f32; each gradient returned in its input's type (``bf16``
+    as in :func:`~pathnet_tpu_torch.kernels.pagg_encode.encode_walks_plain`),
+    and as zeros where the output does not depend on the input (``attw``,
+    ``attb`` under mean and sum)."""
     bf16 = is_bf16(h, bf16)
     inputs = (h, wd, bd, w_ih, w_hh, b_ih, b_hh, attw, attb)
     with torch.enable_grad():
         leaves = [t.detach().float().requires_grad_(True) for t in inputs]
         lh, lwd, lbd, lwi, lwh, lbi, lbh, law, lab = leaves
         out = pagg_encode_fwd_plain(lh, paths, dists, lwd, lbd, lwi, lwh, lbi,
-                                    lbh, law, lab, keep_mask, keep, homo, bf16)
-        grads = torch.autograd.grad(out, leaves, g)
-    return tuple(d.to(t.dtype) for d, t in zip(grads, inputs))
+                                    lbh, law, lab, keep_mask, keep, homo, bf16, agg, cell)
+        grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
+    return tuple((torch.zeros_like(t) if d is None else d).to(t.dtype)
+                 for d, t in zip(grads, inputs))
 
 
 def _step_classes(dists: torch.Tensor, homo: bool = False) -> torch.Tensor:
@@ -128,11 +161,15 @@ def _step_classes(dists: torch.Tensor, homo: bool = False) -> torch.Tensor:
 
 
 def encode_walks_streams_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                               keep_mask=None, keep=1.0, homo=False, bf16=False):
+                               keep_mask=None, keep=1.0, homo=False, bf16=False,
+                               cell="lstm"):
     """Plain version of the forward recompute: ``(h_n, xr, xin, hp, cs, gt)``,
     and with ``homo`` the ego rows ``ego [T * nw, H]`` after them; all f32,
-    with ``bf16`` (or a bf16 ``h``) the bf16 forward's rounded values."""
+    with ``bf16`` (or a bf16 ``h``) the bf16 forward's rounded values. The
+    GRU (packed weights) has ``cs`` None and ``gt`` ``(r, z, n, h W_hn +
+    b_hn)``."""
     bf16 = is_bf16(h, bf16)
+    check_choices(cell=cell, dtype=torch.bfloat16 if bf16 else torch.float32)
     if bf16:
         h, wd, bd, w_ih, w_hh, b_ih, b_hh = (t.float() for t in
                                              (h, wd, bd, w_ih, w_hh, b_ih, b_hh))
@@ -154,6 +191,16 @@ def encode_walks_streams_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
     hprev = h.new_zeros((B, H))
     c = h.new_zeros((B, H))
     hp, cs, gt = [], [], []
+    if cell == "gru":
+        for t in range(wl):
+            ar, az, an, a3 = (gx[t] + hprev @ w_hh + b_hh).chunk(4, dim=1)
+            r, z = torch.sigmoid(ar), torch.sigmoid(az)
+            n = torch.tanh(an + r * a3)
+            hp.append(hprev)
+            gt.append(torch.cat([r, z, n, a3], dim=1))
+            hprev = (1.0 - z) * n + z * hprev
+        out = (hprev, xr, xin, torch.stack(hp), None, torch.stack(gt))
+        return out + (ego,) if homo else out
     for t in range(wl):
         i, f, gg, o = (gx[t] + hprev @ w_hh + b_hh).chunk(4, dim=1)
         si, sf, tg, so = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg), torch.sigmoid(o)
@@ -166,13 +213,17 @@ def encode_walks_streams_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
     return out + (ego,) if homo else out
 
 
-def attention_bwd_plain(g, h, paths, hn, attw, attb, ego=None):
+def attention_bwd_plain(g, h, paths, hn, attw, attb, ego=None, agg="attention"):
     """Plain version of the attention backward: ``(dhn, dego, dattw, dattb)``,
     ``dego [T * nw, H]`` holding each walk's ego row gradient; homo where the
     ego rows ``ego [T * nw, H]`` (the recompute's) are given; ``h`` f32 or
-    the bf16 table."""
+    the bf16 table. Under ``agg`` mean or sum: ``g / nw`` or ``g`` for every
+    walk and zeros for the rest."""
     T, nw, _ = paths.shape
     H = h.shape[1]
+    if agg != "attention":
+        dhn = (g / nw if agg == "mean" else g).repeat_interleave(nw, dim=0)
+        return dhn, torch.zeros_like(hn), attw.new_zeros(2 * H), attb.new_zeros(1)
     h_n = hn.reshape(T, nw, H)
     e = h[paths[:, :, 0].long()].float() if ego is None else ego.reshape(T, nw, H)
     score = h_n @ attw[:H] + e @ attw[H:] + attb                     # [T, nw]
@@ -191,36 +242,48 @@ def attention_bwd_plain(g, h, paths, hn, attw, attb, ego=None):
     return dhn.reshape(T * nw, H), dego.reshape(T * nw, H), dattw, ds.sum().reshape(1)
 
 
-def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0,
-               homo=None, bf16=False):
+def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, state, gt, keep_mask=None, keep=1.0,
+               homo=None, bf16=False, cell="lstm"):
     """Plain version of the BPTT: ``(drow, dgates, dsel)``, ``drow [wl, T * nw,
     H]`` holding every gathered row's gradient (row ``t * T * nw + b`` is
     position ``wl - 1 - t`` of walk ``b``, homo position ``t``), ``dgates [wl,
     T * nw, 4H]`` the pre-activation gate gradients and ``dsel [wl, T * nw,
-    H]`` the gradient of the selected row (homo: before its ReLU). ``homo``
-    is None (hetero) or ``(xin, ego, dego)``: the recompute's ``xin`` and
-    ``ego`` and the attention backward's ``dego``. ``bf16`` (or bf16
-    weights): the same f32 math on the weights' values (each rounding's
-    derivative is 1), the dropout's divisor rounded as the forward's."""
+    H]`` the gradient of the selected row (homo: before its ReLU). ``state``
+    is the recompute's ``cs`` (LSTM) or ``hp`` (``cell="gru"``, packed
+    weights). ``homo`` is None (hetero) or ``(xin, ego, dego)``: the
+    recompute's ``xin`` and ``ego`` and the attention backward's ``dego``.
+    ``bf16`` (or bf16 weights): the same f32 math on the weights' values
+    (each rounding's derivative is 1), the dropout's divisor rounded as the
+    forward's."""
     keep = dropout_divisor(keep, is_bf16(wd, bf16))
     wd, w_ih, w_hh = wd.float(), w_ih.float(), w_hh.float()
     d = _step_classes(dists, homo is not None)
-    wl, _, H = cs.shape
-    drow = torch.empty_like(cs)
+    wl, _, H = state.shape
+    drow = torch.empty_like(state)
     dgates = torch.empty_like(gt)
-    dsel = torch.empty_like(cs)
+    dsel = torch.empty_like(state)
     dht, dc = dhn, torch.zeros_like(dhn)
     for t in range(wl - 1, -1, -1):
-        si, sf, tg, so = (gt[t, :, k * H:(k + 1) * H] for k in range(4))
-        cp = cs[t - 1] if t > 0 else torch.zeros_like(dc)
-        tc = torch.tanh(cs[t])
-        dct = dc + dht * so * (1 - tc * tc)
-        dg = torch.cat([dct * tg * si * (1 - si), dct * cp * sf * (1 - sf),
-                        dct * si * (1 - tg * tg), dht * tc * so * (1 - so)], dim=1)
-        dc = dct * sf
+        if cell == "gru":
+            r, z, n, a3 = (gt[t, :, k * H:(k + 1) * H] for k in range(4))
+            dn = dht * (1 - z)
+            da = dn * (1 - n * n)
+            dg = torch.cat([da * a3 * r * (1 - r), dht * (state[t] - n) * z * (1 - z),
+                            da, da * r], dim=1)
+            direct = dht * z
+        else:
+            si, sf, tg, so = (gt[t, :, k * H:(k + 1) * H] for k in range(4))
+            cp = state[t - 1] if t > 0 else torch.zeros_like(dc)
+            tc = torch.tanh(state[t])
+            dct = dc + dht * so * (1 - tc * tc)
+            dg = torch.cat([dct * tg * si * (1 - si), dct * cp * sf * (1 - sf),
+                            dct * si * (1 - tg * tg), dht * tc * so * (1 - so)], dim=1)
+            dc = dct * sf
         dgates[t] = dg
         dxin = dg @ w_ih.t()
         dht = dg @ w_hh.t()
+        if cell == "gru":
+            dht = dht + direct
         if keep_mask is not None:
             dxin = torch.where(keep_mask[t].bool(), dxin / keep, 0.0)
         if homo is not None:
@@ -297,9 +360,10 @@ def _require_device(dev: torch.device, what: str) -> None:
 
 
 def _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep,
-                    streams, ego=None):
-    """Launch A into ``streams = (xr, xin, hp, cs, gt)``, homo where ``ego``
-    (which receives the ego rows) is given; returns ``h_n``."""
+                    streams, ego=None, cell="lstm"):
+    """Launch A into ``streams = (xr, xin, hp, cs, gt)`` (``cs`` None for the
+    GRU), homo where ``ego`` (which receives the ego rows) is given; returns
+    ``h_n``."""
     T, nw, wl = paths.shape
     H = h.shape[1]
     bf16 = h.dtype == torch.bfloat16
@@ -309,16 +373,16 @@ def _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, 
             h.data_ptr(), paths.data_ptr(), dists.data_ptr(), wd.data_ptr(),
             bd.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
             b_hh.data_ptr(), ptr(keep_mask), dropout_divisor(keep, bf16), hn.data_ptr(),
-            *(s.data_ptr() for s in streams), ptr(ego), T, nw, wl, H, int(bf16),
-            build.stream_ptr(h))
+            *(ptr(s) for s in streams), ptr(ego), T, nw, wl, H, int(bf16),
+            int(cell == "gru"), build.stream_ptr(h))
     build.check(rc, "pagg_encode_bwd (forward recompute)")
     return hn
 
 
-def _launch_attention(g, h, paths, hn, attw, attb, dego, ego=None):
+def _launch_attention(g, h, paths, hn, attw, attb, dego, ego=None, agg="attention"):
     """Launch B: the ego rows' gradient into ``dego [T * nw, H]``, homo where
     ``ego`` is given; returns ``(d h_n, dattw, dattb)``, the last two summed
-    over the targets' partial sums."""
+    over the targets' partial sums (zeros under mean and sum)."""
     T, nw, wl = paths.shape
     H = h.shape[1]
     dhn = torch.empty((T * nw, H), dtype=torch.float32, device=h.device)
@@ -327,7 +391,7 @@ def _launch_attention(g, h, paths, hn, attw, attb, dego, ego=None):
         rc = build.library().pathnet_pagg_attention_bwd(
             g.data_ptr(), h.data_ptr(), paths.data_ptr(), hn.data_ptr(), ptr(ego),
             attw.data_ptr(), attb.data_ptr(), dhn.data_ptr(), dego.data_ptr(),
-            part.data_ptr(), T, nw, wl, H, int(h.dtype == torch.bfloat16),
+            part.data_ptr(), T, nw, wl, H, int(h.dtype == torch.bfloat16), AGGS.index(agg),
             build.stream_ptr(h))
     build.check(rc, "pagg_encode_bwd (attention)")
     dpart = part.sum(dim=0)
@@ -341,9 +405,10 @@ def bptt_weights(wd, w_ih, w_hh):
             torch.cat([w_ih, w_hh], 0).t().contiguous())
 
 
-def _launch_bptt(dhn, dists, wd_t, w_t, cs, gt, keep_mask, keep, dsel, drow, homo=None):
+def _launch_bptt(dhn, dists, wd_t, w_t, state, gt, keep_mask, keep, dsel, drow, homo=None,
+                 cell="lstm"):
     """Launch C: gate gradients over ``gt``, ``dsel``, row gradients ``drow``;
-    ``homo`` as in :func:`bptt_plain`."""
+    ``state`` and ``homo`` as in :func:`bptt_plain`."""
     T, nw, wl = dists.shape
     H = dhn.shape[1]
     bf16 = wd_t.dtype == torch.bfloat16
@@ -351,9 +416,9 @@ def _launch_bptt(dhn, dists, wd_t, w_t, cs, gt, keep_mask, keep, dsel, drow, hom
     with torch.cuda.device(dhn.device):
         rc = build.library().pathnet_pagg_bptt(
             dhn.data_ptr(), dists.data_ptr(), wd_t.data_ptr(), w_t.data_ptr(),
-            cs.data_ptr(), gt.data_ptr(), ptr(keep_mask), dropout_divisor(keep, bf16),
+            state.data_ptr(), gt.data_ptr(), ptr(keep_mask), dropout_divisor(keep, bf16),
             ptr(xin), ptr(ego), ptr(dego), dsel.data_ptr(), drow.data_ptr(), T, nw, wl, H,
-            int(bf16), build.stream_ptr(dhn))
+            int(bf16), int(cell == "gru"), build.stream_ptr(dhn))
     build.check(rc, "pagg_encode_bwd (bptt)")
 
 
@@ -362,16 +427,22 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
                     w_ih: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
                     b_hh: torch.Tensor, attw: torch.Tensor, attb: torch.Tensor,
                     keep_mask: Optional[torch.Tensor] = None,
-                    keep: float = 1.0, homo: bool = False) -> Grads:
+                    keep: float = 1.0, homo: bool = False, agg: str = "attention",
+                    cell: str = "lstm") -> Grads:
     """``(dh, dwd, dbd, dw_ih, dw_hh, db_ih, db_hh, dattw, dattb)``.
 
     ``g`` float32 ``[T, H]``; the other arguments are K3's
     (:func:`~pathnet_tpu_torch.kernels.pagg_encode.pagg_encode_fwd`, f32 or
-    bf16), and each gradient has its input's shape and type.
+    bf16; the GRU's weights packed), and each gradient has its input's shape
+    and type (``dattw``, ``dattb`` zeros under mean and sum; the GRU's
+    packed gradients hold zeros in the packing's zero blocks on the CPU and
+    the contractions' entries on the card, which the packing's autograd
+    drops: compare them after ``unpack_gru``).
     """
     dev = h.device
     f32 = torch.float32
     dt = compute_dtype(h, wd, bd, w_ih, w_hh, b_ih, b_hh)
+    check_choices(agg, cell, dt)
     build.require(h, "h", dt, (None, None), dev)
     n, H = h.shape
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
@@ -391,22 +462,25 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
         raise ValueError(f"pagg_encode_bwd needs nw, wl >= 1, got {nw}, {wl}")
     if dev.type == "cpu":
         return pagg_encode_bwd_plain(g, h, paths, dists, wd, bd, w_ih, w_hh,
-                                     b_ih, b_hh, attw, attb, keep_mask, keep, homo)
+                                     b_ih, b_hh, attw, attb, keep_mask, keep, homo,
+                                     agg=agg, cell=cell)
     _require_device(dev, "pagg_encode_bwd")
     if H > 1024:
         raise ValueError(f"pagg_encode_bwd: hidden {H} > 1024 is not supported")
     B = T * nw
-    xr, xin, hp, cs, dsel = torch.empty((5, wl, B, H), dtype=f32, device=dev)
+    gru = cell == "gru"
+    xr, xin, hp, dsel, *cs = torch.empty((5 - gru, wl, B, H), dtype=f32, device=dev)
+    cs = cs[0] if cs else None   # the GRU keeps no cell state
     gt = torch.empty((wl, B, 4 * H), dtype=f32, device=dev)
     # the row gradients: drow, then (hetero) the ego rows'
     rows = torch.empty((wl + (not homo), B, H), dtype=f32, device=dev)
     ego, dego = torch.empty((2, B, H), dtype=f32, device=dev) if homo else (None, rows[wl])
     hn = _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask,
-                         keep, (xr, xin, hp, cs, gt), ego)
-    dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, dego, ego)
+                         keep, (xr, xin, hp, cs, gt), ego, cell)
+    dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, dego, ego, agg)
     del hn
-    _launch_bptt(dhn, dists, *bptt_weights(wd, w_ih, w_hh), cs, gt, keep_mask, keep,
-                 dsel, rows[:wl], (xin, ego, dego) if homo else None)
+    _launch_bptt(dhn, dists, *bptt_weights(wd, w_ih, w_hh), hp if gru else cs, gt,
+                 keep_mask, keep, dsel, rows[:wl], (xin, ego, dego) if homo else None, cell)
     pagg_encode_bwd.launches += 1
     del ego, dego
     dh = segment_sum(rows.view(-1, H), row_nodes(paths, homo), n)
@@ -422,30 +496,33 @@ pagg_encode_bwd.launches = 0
 
 
 def encode_walks_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-                         keep_mask=None, keep=1.0, homo=False):
-    """K4's forward recompute alone: ``(h_n, xr, xin, hp, cs, gt)``, and with
-    ``homo`` the ego rows after them (see the module docstring). For timing
-    and tests; it counts no launch."""
+                         keep_mask=None, keep=1.0, homo=False, cell="lstm"):
+    """K4's forward recompute alone: ``(h_n, xr, xin, hp, cs, gt)`` (the GRU:
+    ``cs`` None), and with ``homo`` the ego rows after them (see the module
+    docstring). For timing and tests; it counts no launch."""
     enc = (h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep)
-    check_encode(*enc)
+    check_encode(*enc, cell)
     if h.device.type == "cpu":
-        return encode_walks_streams_plain(*enc, homo)
+        return encode_walks_streams_plain(*enc, homo, cell=cell)
     T, nw, wl = paths.shape
     H = h.shape[1]
-    xr, xin, hp, cs = torch.empty((4, wl, T * nw, H), dtype=torch.float32,
-                                  device=h.device)
+    gru = cell == "gru"
+    xr, xin, hp, *cs = torch.empty((4 - gru, wl, T * nw, H), dtype=torch.float32,
+                                   device=h.device)
+    cs = cs[0] if cs else None
     gt = torch.empty((wl, T * nw, 4 * H), dtype=torch.float32, device=h.device)
     ego = torch.empty((T * nw, H), dtype=torch.float32, device=h.device) if homo else None
-    hn = _launch_streams(*enc, (xr, xin, hp, cs, gt), ego)
+    hn = _launch_streams(*enc, (xr, xin, hp, cs, gt), ego, cell)
     out = (hn, xr, xin, hp, cs, gt)
     return out + (ego,) if homo else out
 
 
-def attention_bwd(g, h, paths, hn, attw, attb, ego=None):
+def attention_bwd(g, h, paths, hn, attw, attb, ego=None, agg="attention"):
     """K4's attention backward alone: ``(dhn, dego, dattw, dattb)``, ``dego
     [T * nw, H]`` holding each walk's ego row gradient; homo where the ego
-    rows ``ego [T * nw, H]`` are given. For timing and tests; it counts no
-    launch."""
+    rows ``ego [T * nw, H]`` are given; ``agg`` the readout. For timing and
+    tests; it counts no launch."""
+    check_choices(agg)
     dev = h.device
     f32 = torch.float32
     build.require(h, "h", compute_dtype(h), (None, None), dev)
@@ -460,16 +537,18 @@ def attention_bwd(g, h, paths, hn, attw, attb, ego=None):
     build.require(attb, "attb", f32, (1,), dev)
     _require_device(dev, "attention_bwd")
     if dev.type == "cpu":
-        return attention_bwd_plain(g, h, paths, hn, attw, attb, ego)
+        return attention_bwd_plain(g, h, paths, hn, attw, attb, ego, agg)
     dego = torch.empty((T * nw, H), dtype=f32, device=dev)
-    dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, dego, ego)
+    dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, dego, ego, agg)
     return dhn, dego, dattw, dattb
 
 
-def bptt(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0, homo=None):
+def bptt(dhn, paths, dists, wd, w_ih, w_hh, state, gt, keep_mask=None, keep=1.0, homo=None,
+         cell="lstm"):
     """K4's BPTT alone: ``(drow, dgates, dsel)`` from ``d h_n`` ``[T * nw, H]``
-    and the recompute's ``cs`` and ``gt``; ``drow [wl, T * nw, H]`` holds every
-    gathered row's gradient, and ``homo`` is None or ``(xin, ego, dego)`` (see
+    and the recompute's ``gt`` and ``state``, its ``cs`` (LSTM) or ``hp``
+    (``cell="gru"``); ``drow [wl, T * nw, H]`` holds every gathered row's
+    gradient, and ``homo`` is None or ``(xin, ego, dego)`` (see
     :func:`bptt_plain`). As in the whole backward, the gate gradients are
     written over ``gt``, which is returned as ``dgates``. For timing and
     tests; it counts no launch."""
@@ -482,10 +561,11 @@ def bptt(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0, ho
     H = dhn.shape[1]
     build.require(dists, "dists", torch.int32, (T, nw, wl), dev)
     dt = compute_dtype(wd, w_ih, w_hh)
+    check_choices(cell=cell, dtype=dt)
     build.require(wd, "wd", dt, (wl, H, H), dev)
     build.require(w_ih, "w_ih", dt, (H, 4 * H), dev)
     build.require(w_hh, "w_hh", dt, (H, 4 * H), dev)
-    build.require(cs, "cs", f32, (wl, B, H), dev)
+    build.require(state, "state", f32, (wl, B, H), dev)
     build.require(gt, "gt", f32, (wl, B, 4 * H), dev)
     if homo is not None:
         for name, t, shape in zip(("xin", "ego", "dego"), homo,
@@ -494,12 +574,12 @@ def bptt(dhn, paths, dists, wd, w_ih, w_hh, cs, gt, keep_mask=None, keep=1.0, ho
     check_keep_mask(keep_mask, keep, wl, B, H, dev)
     _require_device(dev, "bptt")
     if dev.type == "cpu":
-        drow, dgates, dsel = bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, cs, gt,
-                                        keep_mask, keep, homo)
+        drow, dgates, dsel = bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, state, gt,
+                                        keep_mask, keep, homo, cell=cell)
         return drow, gt.copy_(dgates), dsel
     if H > 1024:
         raise ValueError(f"bptt: hidden {H} > 1024 is not supported")
     drow, dsel = torch.empty((2, wl, B, H), dtype=f32, device=dev)
-    _launch_bptt(dhn, dists, *bptt_weights(wd, w_ih, w_hh), cs, gt, keep_mask, keep,
-                 dsel, drow, homo)
+    _launch_bptt(dhn, dists, *bptt_weights(wd, w_ih, w_hh), state, gt, keep_mask, keep,
+                 dsel, drow, homo, cell)
     return drow, gt, dsel

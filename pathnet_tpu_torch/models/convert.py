@@ -8,7 +8,7 @@ the port keeps torch's ``[out, in]`` under the reference's names:
 |---|---|
 | ``fc0.w`` / ``fc0.b`` | ``fc0.weight`` (T) / ``fc0.bias`` |
 | ``dist.w[k]`` / ``dist.b[k]`` | ``nets.k.weight`` (T) / ``nets.k.bias`` |
-| ``rnn.w_ih`` / ``w_hh`` / ``b_ih`` / ``b_hh`` | ``LSTM.weight_ih_l0`` (T) / ``weight_hh_l0`` (T) / ``bias_ih_l0`` / ``bias_hh_l0`` |
+| ``rnn.w_ih`` / ``w_hh`` / ``b_ih`` / ``b_hh`` | ``LSTM.weight_ih_l0`` (T) / ``weight_hh_l0`` (T) / ``bias_ih_l0`` / ``bias_hh_l0``; ``GRU.*`` under ``rnn="gru"`` |
 | ``attw.w`` / ``attw.b`` | ``attw.weight`` (T) / ``attw.bias`` |
 | ``fc2.w`` / ``fc2.b`` | ``fc2.weight`` (T) / ``fc2.bias`` |
 """
@@ -22,6 +22,12 @@ import torch
 from .pagg import PaggSpec
 
 
+def _rnn_name(spec: PaggSpec) -> str:
+    """The recurrent module's name in the ``state_dict``, as the reference's
+    and ``pathnet_tpu/models/torch_compat.py:41-61`` have it."""
+    return "GRU" if spec.rnn == "gru" else "LSTM"
+
+
 def params_from_jax(np_params: Mapping, spec: PaggSpec) -> Dict[str, torch.Tensor]:
     """``np_params``: the JAX pytree with every leaf as a numpy array."""
     spec.check_ported()
@@ -31,12 +37,13 @@ def params_from_jax(np_params: Mapping, spec: PaggSpec) -> Dict[str, torch.Tenso
         return torch.tensor(a.T if transpose else a)
 
     p = np_params
+    rnn = _rnn_name(spec)
     sd = {
         "fc0.weight": t(p["fc0"]["w"], True), "fc0.bias": t(p["fc0"]["b"]),
-        "LSTM.weight_ih_l0": t(p["rnn"]["w_ih"], True),
-        "LSTM.weight_hh_l0": t(p["rnn"]["w_hh"], True),
-        "LSTM.bias_ih_l0": t(p["rnn"]["b_ih"]),
-        "LSTM.bias_hh_l0": t(p["rnn"]["b_hh"]),
+        f"{rnn}.weight_ih_l0": t(p["rnn"]["w_ih"], True),
+        f"{rnn}.weight_hh_l0": t(p["rnn"]["w_hh"], True),
+        f"{rnn}.bias_ih_l0": t(p["rnn"]["b_ih"]),
+        f"{rnn}.bias_hh_l0": t(p["rnn"]["b_hh"]),
         "attw.weight": t(p["attw"]["w"], True), "attw.bias": t(p["attw"]["b"]),
         "fc2.weight": t(p["fc2"]["w"], True), "fc2.bias": t(p["fc2"]["b"]),
     }
@@ -57,13 +64,14 @@ def params_to_jax(tensors: Mapping[str, torch.Tensor], spec: PaggSpec) -> Dict:
         return np.ascontiguousarray(x.T if transpose else x)
 
     wl = spec.walk_len
+    rnn = _rnn_name(spec)
     return {
         "fc0": {"w": a("fc0.weight", True), "b": a("fc0.bias")},
         "dist": {"w": np.stack([a(f"nets.{k}.weight", True) for k in range(wl)]),
                  "b": np.stack([a(f"nets.{k}.bias") for k in range(wl)])},
-        "rnn": {"w_ih": a("LSTM.weight_ih_l0", True),
-                "w_hh": a("LSTM.weight_hh_l0", True),
-                "b_ih": a("LSTM.bias_ih_l0"), "b_hh": a("LSTM.bias_hh_l0")},
+        "rnn": {"w_ih": a(f"{rnn}.weight_ih_l0", True),
+                "w_hh": a(f"{rnn}.weight_hh_l0", True),
+                "b_ih": a(f"{rnn}.bias_ih_l0"), "b_hh": a(f"{rnn}.bias_hh_l0")},
         "attw": {"w": a("attw.weight", True), "b": a("attw.bias")},
         "fc2": {"w": a("fc2.weight", True), "b": a("fc2.bias")},
     }

@@ -1,16 +1,22 @@
 """The PAGG model (port of ``pathnet_tpu/models/pagg.py:56-114,142-147,191-313``).
 
-Forward of PathNet with an LSTM encoder and attention readout, in both of
-JAX's variants (``PaggSpec.variant``): ``h = X @ W0 + b0`` (one plain large
+Forward of PathNet with an LSTM or GRU encoder (``PaggSpec.rnn``) and the
+attention, mean or sum readout (``PaggSpec.agg``), in both of JAX's
+variants (``PaggSpec.variant``): ``h = X @ W0 + b0`` (one plain large
 product, as the JAX package also leaves it; the homo variant takes its
 ReLU), then kernel K3 (``kernels/pagg_encode.py``) for the encode and the
-path attention, the ego rows ``h[ego_idx]`` through kernel K5
+readout, the ego rows ``h[ego_idx]`` through kernel K5
 (``kernels/row_gather.py``), then ``[h[target], h_agg] @ fc2``. The homo
 variant (``pagg.py:9-20``) also runs each walk in sampled order, takes a
 ReLU after the distance select, scores each walk against its selected
 step-0 row and reads out ``mean((1 + score) h_n)`` (all inside K3 and K4,
 ``homo=True``), and redraws the ``fc0`` and ``fc2`` weights from xavier's
-uniform.
+uniform. The mean and sum readouts (either variant) read out ``mean(h_n)`` or
+``sum(h_n)``: ``attw`` stays in the model and gets a zero gradient (which
+Adam's additive L2 still decays, as in JAX). The GRU's weights reach K3 and
+K4 packed into the LSTM's layout (:func:`~pathnet_tpu_torch.kernels.pagg_encode.pack_gru`,
+autograd ops, so the packed gradients flow back unpacked); the GRU runs in
+f32 only.
 
 Training (``train=True``) runs the same forward with both of JAX's dropouts,
 taken as explicit keep masks: the first on the LSTM input (``pagg.py:274``,
@@ -36,9 +42,10 @@ Each cast is an autograd op, so each cast parameter gets the gradient of
 the bf16 path, as JAX's does through ``astype``.
 
 Parameters keep the reference's ``state_dict`` names (``fc0``, ``nets.k``,
-``LSTM.*_l0``, ``attw``, ``fc2``), so ``data/reference_checkpoints/cornell.pth``
-loads with ``strict=True``. The ``nn.LSTM`` only holds the weights: its cuDNN
-forward is never called.
+``LSTM.*_l0`` or ``GRU.*_l0``, ``attw``, ``fc2``), so
+``data/reference_checkpoints/cornell.pth`` loads with ``strict=True``. The
+``nn.LSTM`` or ``nn.GRU`` only holds the weights: its cuDNN forward is never
+called.
 """
 from __future__ import annotations
 
@@ -50,10 +57,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..kernels.pagg_encode import pagg_encode_fwd
+from ..kernels.pagg_encode import pack_gru, pagg_encode_fwd
 from ..kernels.pagg_encode_bwd import pagg_encode_bwd
 from ..kernels.row_gather import row_gather, row_gather_bwd
-from ..nn.init import torch_linear_init_, torch_lstm_init_, xavier_uniform_
+from ..nn.init import torch_gru_init_, torch_linear_init_, torch_lstm_init_, xavier_uniform_
 
 Masks = Tuple[torch.Tensor, torch.Tensor]
 
@@ -96,13 +103,20 @@ class PaggSpec:
             raise ValueError(f"variant={self.variant!r}")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype={self.compute_dtype!r}")
-        todo = {"rnn": (self.rnn, "lstm"), "agg": (self.agg, "attention"),
-                "quirk_compat": (self.quirk_compat, False)}
-        for name, (value, ported) in todo.items():
-            if value != ported:
-                raise NotImplementedError(
-                    f"PaggSpec.{name}={value!r} is not ported yet; the port "
-                    f"runs {name}={ported!r} (ROADMAP §1 item 3)")
+        if self.rnn not in ("lstm", "gru", "mlp"):
+            raise ValueError(f"rnn={self.rnn!r}")
+        if self.agg not in ("attention", "mean", "sum"):
+            raise ValueError(f"agg={self.agg!r}")
+        if self.rnn == "mlp":
+            raise NotImplementedError("PaggSpec.rnn='mlp' is not ported yet; the port "
+                                      "runs 'lstm' and 'gru' (ROADMAP §1 item 3)")
+        if self.quirk_compat:
+            raise NotImplementedError("PaggSpec.quirk_compat=True is not ported yet "
+                                      "(ROADMAP §1 item 3)")
+        if self.rnn == "gru" and self.compute_dtype == "bfloat16":
+            raise NotImplementedError("PaggSpec.rnn='gru' with compute_dtype='bfloat16' is "
+                                      "not ported yet; the GRU runs in float32 (ROADMAP §1 "
+                                      "item 3)")
         if self.gather_mode not in ("auto", "h", "x"):
             raise ValueError(f"gather_mode={self.gather_mode!r}")
         if self.dist_mode not in ("onehot", "mask"):
@@ -117,20 +131,21 @@ class PaggEncode(torch.autograd.Function):
     optional dropout keep mask."""
 
     @staticmethod
-    def forward(ctx, h, paths, dists, keep_mask, keep, homo, wd, bd, w_ih, w_hh,
-                b_ih, b_hh, attw, attb):
-        ctx.keep, ctx.homo = keep, homo
+    def forward(ctx, h, paths, dists, keep_mask, keep, homo, agg, cell, wd, bd, w_ih,
+                w_hh, b_ih, b_hh, attw, attb):
+        ctx.keep, ctx.homo, ctx.agg, ctx.cell = keep, homo, agg, cell
         ctx.save_for_backward(h, paths, dists, keep_mask, wd, bd, w_ih, w_hh,
                               b_ih, b_hh, attw, attb)
         return pagg_encode_fwd(h, paths, dists, wd, bd, w_ih, w_hh, b_ih,
-                               b_hh, attw, attb, keep_mask, keep, homo)
+                               b_hh, attw, attb, keep_mask, keep, homo, agg, cell)
 
     @staticmethod
     def backward(ctx, g):
         h, paths, dists, keep_mask, *weights = ctx.saved_tensors
         dh, *dweights = pagg_encode_bwd(g.contiguous(), h, paths, dists,
-                                        *weights, keep_mask, ctx.keep, ctx.homo)
-        return (dh, None, None, None, None, None, *dweights)
+                                        *weights, keep_mask, ctx.keep, ctx.homo,
+                                        ctx.agg, ctx.cell)
+        return (dh, None, None, None, None, None, None, None, *dweights)
 
 
 class RowGather(torch.autograd.Function):
@@ -165,10 +180,12 @@ def draw_dropout_masks(spec: PaggSpec, T: int, nw: int,
 
 
 class PathNet(nn.Module):
-    """PathNet, hetero or homo (``spec.variant``). Weights are torch-default
-    draws from ``generator`` (a CPU generator; seed 0 when omitted); the homo
-    variant then redraws the ``fc0`` and ``fc2`` weights from xavier's
-    uniform, as the reference does (``pathnet_tpu/models/pagg.py:124-127``)."""
+    """PathNet, hetero or homo (``spec.variant``), with an ``nn.LSTM`` named
+    ``LSTM`` or (``spec.rnn == "gru"``) an ``nn.GRU`` named ``GRU``. Weights
+    are torch-default draws from ``generator`` (a CPU generator; seed 0 when
+    omitted); the homo variant then redraws the ``fc0`` and ``fc2`` weights
+    from xavier's uniform, as the reference does
+    (``pathnet_tpu/models/pagg.py:124-127``)."""
 
     def __init__(self, spec: PaggSpec,
                  device: Optional[Union[str, torch.device]] = None,
@@ -181,14 +198,20 @@ class PathNet(nn.Module):
         with torch.device("meta"):   # no draws from the global generator
             self.fc0 = nn.Linear(spec.feat_dim, H)
             self.nets = nn.ModuleList(nn.Linear(H, H) for _ in range(wl))
-            self.LSTM = nn.LSTM(H, H)
+            if spec.rnn == "gru":
+                self.GRU = nn.GRU(H, H)
+            else:
+                self.LSTM = nn.LSTM(H, H)
             self.attw = nn.Linear(2 * H, 1)
             self.fc2 = nn.Linear(2 * H, spec.out_dim)
         self.to_empty(device=dev)
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         for layer in (self.fc0, *self.nets, self.attw, self.fc2):
             torch_linear_init_(layer, g)
-        torch_lstm_init_(self.LSTM, g)
+        if spec.rnn == "gru":
+            torch_gru_init_(self.GRU, g)
+        else:
+            torch_lstm_init_(self.LSTM, g)
         self.homo = spec.variant == "homo"
         self.bf16 = spec.compute_dtype == "bfloat16"
         if self.homo:
@@ -198,17 +221,22 @@ class PathNet(nn.Module):
     def _encode_inputs(self, X: torch.Tensor):
         """``(h, weights)``: ``h = X @ W0 + b0`` (homo: its ReLU) in f32,
         from which K5 gathers the ego rows, and the f32 weights in K3's
-        layout."""
+        layout (the GRU's packed)."""
         h = F.linear(X, self.fc0.weight, self.fc0.bias)
         if self.homo:
             h = torch.relu(h)
-        lstm = self.LSTM
+        if self.spec.rnn == "gru":
+            rnn = self.GRU
+            cell = pack_gru(rnn.weight_ih_l0.t(), rnn.weight_hh_l0.t(), rnn.bias_ih_l0,
+                            rnn.bias_hh_l0)
+        else:
+            rnn = self.LSTM
+            cell = (rnn.weight_ih_l0.t(), rnn.weight_hh_l0.t(), rnn.bias_ih_l0,
+                    rnn.bias_hh_l0)
         weights = tuple(w.contiguous() for w in (
             torch.stack([l.weight.t() for l in self.nets]),
             torch.stack([l.bias for l in self.nets]),
-            lstm.weight_ih_l0.t(), lstm.weight_hh_l0.t(),
-            lstm.bias_ih_l0, lstm.bias_hh_l0,
-            self.attw.weight.reshape(-1), self.attw.bias))
+            *cell, self.attw.weight.reshape(-1), self.attw.bias))
         return h, weights
 
     def _k3_inputs(self, X: torch.Tensor, h: torch.Tensor, weights):
@@ -253,14 +281,16 @@ class PathNet(nn.Module):
             with torch.no_grad():
                 h, weights = self._encode_inputs(X)
                 table, weights = self._k3_inputs(X, h, weights)
-                h_agg = pagg_encode_fwd(table, paths, dists, *weights, homo=self.homo)
+                h_agg = pagg_encode_fwd(table, paths, dists, *weights, homo=self.homo,
+                                        agg=self.spec.agg, cell=self.spec.rnn)
                 out = torch.cat([row_gather(h, ego_idx), h_agg], dim=-1)
                 return F.linear(out, self.fc2.weight, self.fc2.bias)
         keep = 1.0 - self.spec.dropout
         m1, m2 = masks if masks is not None else (None, None)
         h, weights = self._encode_inputs(X)
         table, weights = self._k3_inputs(X, h, weights)
-        h_agg = PaggEncode.apply(table, paths, dists, m1, keep, self.homo, *weights)
+        h_agg = PaggEncode.apply(table, paths, dists, m1, keep, self.homo, self.spec.agg,
+                                 self.spec.rnn, *weights)
         out = torch.cat([RowGather.apply(h, ego_idx), h_agg], dim=-1)
         if m2 is not None:
             out = torch.where(m2.bool(), out / keep, 0.0)

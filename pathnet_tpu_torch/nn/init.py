@@ -1,8 +1,8 @@
 """Torch-default initial distributions drawn from an explicit generator.
 
-Port of ``pathnet_tpu/nn/init.py:26-56``: ``nn.Linear`` draws weight and bias
-from U(-1/sqrt(fan_in), 1/sqrt(fan_in)); ``nn.LSTM`` draws every tensor from
-U(-1/sqrt(hidden), 1/sqrt(hidden)); the homo PathNet redraws its ``fc0`` and
+Port of ``pathnet_tpu/nn/init.py:26-68``: ``nn.Linear`` draws weight and bias
+from U(-1/sqrt(fan_in), 1/sqrt(fan_in)); ``nn.LSTM`` and ``nn.GRU`` draw every
+tensor from U(-1/sqrt(hidden), 1/sqrt(hidden)); the homo PathNet redraws its ``fc0`` and
 ``fc2`` weights from xavier's U(-sqrt(6 / (fan_in + fan_out)), ...). Draws come from a CPU generator and are
 copied to the parameter's device, so one seed gives the same weights on the
 host and on the card.
@@ -41,4 +41,12 @@ def xavier_uniform_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor
 def torch_lstm_init_(lstm: nn.LSTM, generator: torch.Generator) -> None:
     bound = 1.0 / math.sqrt(lstm.hidden_size)
     for p in lstm.parameters():
+        uniform_(p, bound, generator)
+
+
+def torch_gru_init_(gru: nn.GRU, generator: torch.Generator) -> None:
+    """``weight_ih``, ``weight_hh``, ``bias_ih``, ``bias_hh`` in that order,
+    each from U(-1/sqrt(hidden), 1/sqrt(hidden))."""
+    bound = 1.0 / math.sqrt(gru.hidden_size)
+    for p in gru.parameters():
         uniform_(p, bound, generator)

@@ -3,7 +3,9 @@
 The same numpy-seeded inputs and the parameters carried across by
 ``models/convert.py`` go through JAX's bf16 path (``pathnet_tpu/models/
 pagg.py:233-279``) and the port's, hetero and homo, in JAX's "x" and "h"
-gather modes, at nw = 8, wl = 4, H = 16 and the odd H = 13, on cornell's walks.
+gather modes, at nw = 8, wl = 4, H = 16 and the odd H = 13, on cornell's walks;
+the logits and gradients also under the mean and sum readouts (``agg``),
+whose attention weights' gradients are exact zeros as JAX's are.
 
 Tolerances, each resting on a host measurement (JAX 0.9 on the CPU, these
 cases):
@@ -19,6 +21,12 @@ cases):
 - logits: within **one bf16 ulp of the largest logit**, ``2**-8 *
   max|logits|`` (measured: at most 0.33 of it, 3.1e-3 where the homo
   logits reach 5.4; JAX's own bf16 logits lie as far from its f32 ones);
+- logits under the mean and sum readouts: within the larger of that ulp
+  and **2 times** the distance of JAX's own f32 logits from its bf16 ones.
+  The sum adds ``nw`` walks' ``h_n``, each within the 4 ulps above, where
+  the softmax and the mean average them (measured: mean 0.06 to 0.32 ulps,
+  as attention; sum 0.41 to 1.68 ulps against JAX's own f32-to-bf16 gap of
+  0.50 to 1.37 ulps, at most 1.38 times that gap);
 - gradients: each leaf within the larger of **2**-5** of the largest entry
   of JAX's bf16 ``jax.grad`` leaf (``attw.b``, a sum over all walks, of the
   larger of its and ``attw.w``'s, as in the f32 tests) and **3 times** the
@@ -61,6 +69,7 @@ ULP = 2.0 ** -8          # a bf16 ulp relative to the value
 HN_ULPS = 4
 GRAD_TOL = 2.0 ** -5
 GRAD_F32_GAPS = 3        # times JAX's own f32-to-bf16 gradient distance
+LOGIT_F32_GAPS = 2       # times JAX's own f32-to-bf16 logit distance (mean, sum)
 BF = jnp.bfloat16
 # (F, gather_mode, H): "auto" resolves to "x" at F = 24 and to "h" at F = 200
 CASES = [(24, "auto", 16), (200, "auto", 16), (24, "h", 13), (200, "x", 13)]
@@ -72,10 +81,10 @@ def cornell():
     return JGraph.from_edge_input(CORNELL)
 
 
-def bf16_model(F, H, variant, gather_mode, dropout=0.0):
+def bf16_model(F, H, variant, gather_mode, dropout=0.0, agg="attention"):
     """A JAX bf16 spec and params, and the port's model holding the same."""
     kw = dict(feat_dim=F, hidden=H, out_dim=C, walk_len=WL, variant=variant,
-              dropout=dropout, gather_mode=gather_mode, compute_dtype="bfloat16")
+              dropout=dropout, gather_mode=gather_mode, compute_dtype="bfloat16", agg=agg)
     jspec = JPaggSpec(**kw)
     params = init_pagg_params(jax.random.PRNGKey(H + F), jspec)
     spec = PaggSpec(**kw)
@@ -180,15 +189,35 @@ def test_bf16_h_n_within_4_ulps_of_jax(cornell, variant, F, gather_mode, H):
 @pytest.mark.parametrize("F,gather_mode,H", CASES)
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_bf16_logits_match_pagg_forward(cornell, variant, F, gather_mode, H):
-    jspec, params, spec, model = bf16_model(F, H, variant, gather_mode)
+    check_bf16_logits(cornell, variant, F, gather_mode, H)
+
+
+@pytest.mark.parametrize("agg", ["mean", "sum"])
+@pytest.mark.parametrize("F,gather_mode,H", [CASES[0], CASES[3]])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_bf16_mean_and_sum_logits_match_pagg_forward(cornell, variant, F, gather_mode, H,
+                                                     agg):
+    check_bf16_logits(cornell, variant, F, gather_mode, H, agg, LOGIT_F32_GAPS)
+
+
+def check_bf16_logits(cornell, variant, F, gather_mode, H, agg="attention", f32_gaps=0):
+    """Every node's logits against ``pagg_forward`` at bf16, within one bf16
+    ulp of the largest logit, or ``f32_gaps`` times as far as JAX's own f32
+    logits lie from its bf16 ones."""
+    jspec, params, spec, model = bf16_model(F, H, variant, gather_mode, agg=agg)
     X, paths, dists = inputs(cornell, F)
     idx = np.arange(cornell.n, dtype=np.int32)
-    want = np.asarray(pagg_forward(params, jnp.asarray(X), jnp.asarray(paths),
-                                   jnp.asarray(dists), jnp.asarray(idx), jspec))
+    args = (jnp.asarray(X), jnp.asarray(paths), jnp.asarray(dists), jnp.asarray(idx))
+    want = np.asarray(pagg_forward(params, *args, jspec))
+    tol = ULP * np.abs(want).max()
+    if f32_gaps:
+        want32 = pagg_forward(params, *args, dataclasses.replace(jspec,
+                                                                 compute_dtype="float32"))
+        tol = max(tol, f32_gaps * np.abs(np.asarray(want32) - want).max())
     got = model(torch.from_numpy(X), torch.from_numpy(paths), torch.from_numpy(dists),
                 torch.from_numpy(idx))
     assert got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, atol=ULP * np.abs(want).max(), rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=0)
 
 
 def jax_masks(key, jspec, T_):
@@ -205,12 +234,27 @@ def jax_masks(key, jspec, T_):
 @pytest.mark.parametrize("F,gather_mode,H", CASES)
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_bf16_grads_match_jax_grad(cornell, variant, F, gather_mode, H, dropout):
+    check_bf16_grads(cornell, variant, F, gather_mode, H, dropout)
+
+
+@pytest.mark.parametrize("agg", ["mean", "sum"])
+@pytest.mark.parametrize("dropout", [0.0, 0.7])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_bf16_mean_and_sum_grads_match_jax_grad(cornell, variant, dropout, agg):
+    # under mean and sum the attention weights' gradients are JAX's exact
+    # zeros: their tolerance below is 0
+    got = check_bf16_grads(cornell, variant, *CASES[0], dropout, agg)
+    assert not got["attw"]["w"].any() and not got["attw"]["b"].any()
+
+
+def check_bf16_grads(cornell, variant, F, gather_mode, H, dropout, agg="attention"):
     """``T`` targets through ``jax.grad(_loss_fn)`` at bf16 and the port's
     autograd (K3 forward, K4 backward, the casts' gradients): every
     gradient within ``GRAD_TOL`` of the largest entry of JAX's leaf, or
     ``GRAD_F32_GAPS`` times as far as JAX's f32 gradient lies from it; with
-    dropout, JAX's masks from the same key."""
-    jspec, params, spec, model = bf16_model(F, H, variant, gather_mode, dropout)
+    dropout, JAX's masks from the same key. Returns the port's gradients
+    (JAX's layout)."""
+    jspec, params, spec, model = bf16_model(F, H, variant, gather_mode, dropout, agg)
     jspec32 = dataclasses.replace(jspec, compute_dtype="float32")
     X, paths, dists = inputs(cornell, F)
     rng = np.random.default_rng(F + H)
@@ -236,6 +280,7 @@ def test_bf16_grads_match_jax_grad(cornell, variant, F, gather_mode, H, dropout)
         tol = max(GRAD_TOL * scale, GRAD_F32_GAPS * gap32)
         assert got[a][b].dtype == np.float32, (a, b)
         assert np.abs(got[a][b] - want).max() <= tol, (a, b)
+    return got
 
 
 def test_bf16_model_keeps_f32_params_and_follows_the_gather_mode():

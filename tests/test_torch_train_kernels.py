@@ -338,6 +338,117 @@ def test_homo_encode_and_its_backward_match_plain_on_the_card(cuda, H, wl, nw, T
         assert_within(got, want, ("drow", "dgates", "dsel"))
 
 
+def gru_weights(w):
+    """K3's weights ``w`` with a GRU in the cell's slots: the first 3H
+    columns of the LSTM's, packed into K3's layout."""
+    from pathnet_tpu_torch.kernels.pagg_encode import pack_gru
+    H = w[0].shape[1]
+    return (*w[:2], *pack_gru(w[2][:, :3 * H], w[3][:, :3 * H], w[4][:3 * H], w[5][:3 * H]),
+            *w[6:])
+
+
+def unpacked(grads, cell="gru"):
+    """K4's gradients with the GRU's packed weights' unpacked: the kernel
+    leaves the entries of the packing's zero blocks as its contractions give
+    them (the model's packing drops them), the plain version zeros."""
+    from pathnet_tpu_torch.kernels.pagg_encode import unpack_gru
+    if cell != "gru":
+        return grads
+    dh, dwd, dbd, *wb, dattw, dattb = grads
+    return (dh, dwd, dbd, *unpack_gru(*wb).values(), dattw, dattb)
+
+
+def assert_stages_within(got, want, names):
+    """``assert_within`` over the stages' outputs that exist (the GRU's
+    recompute has no ``cs``)."""
+    for name, a, b in zip(names, got, want):
+        assert (a is None) == (b is None), name
+        if b is not None:
+            assert_within((a,), (b,), (name,))
+
+
+# the GRU (GRU = true: compiled at H = 64 and at the run-time width) and the
+# mean and sum readouts (AGG) of K3's two and K4's three launches, hetero
+# and homo, at the tile's edges, against their plain versions and stages;
+# the readouts' split of the walks into blockDim / H groups at H = 1, 16,
+# 37, 64 and one group at H = 256 and 1024
+@pytest.mark.gpu
+@pytest.mark.parametrize("homo", [False, True])
+@pytest.mark.parametrize("H,wl,nw,T,wild", [
+    (64, 4, 40, None, False), (256, 4, 40, 30, True), (37, 5, 6, 183, True),
+    (16, 2, 6, None, False), (1, 3, 6, None, False), (64, 4, 40, 1, False),
+    (1024, 2, 3, 20, True)])
+def test_gru_and_readout_instances_match_plain_on_the_card(cuda, homo, H, wl, nw, T, wild):
+    if wild:
+        starts, paths, dists, h, w, mask, gout = wild_case(H, wl, nw, T, device=cuda)
+    else:
+        starts, paths, dists, h, w, mask, gout = case(nw=nw, wl=wl, H=H, T=T, device=cuda)
+    names = ("dh", "dwd", "dbd", "dw_ih", "dw_hh", "db_ih", "db_hh", "dattw", "dattb")
+    for cell, agg in (("gru", "attention"), ("gru", "mean"), ("gru", "sum"),
+                      ("lstm", "mean"), ("lstm", "sum")):
+        wc = gru_weights(w) if cell == "gru" else w
+        for m, keep in ((None, 1.0), (mask, KEEP)):
+            kw = dict(homo=homo, agg=agg, cell=cell)
+            got = K.pagg_encode_fwd(h, paths, dists, *wc, m, keep, **kw)
+            want = K.pagg_encode_fwd_plain(h, paths, dists, *wc, m, keep, **kw)
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+            got = unpacked(K.pagg_encode_bwd(gout, h, paths, dists, *wc, m, keep, **kw), cell)
+            want = unpacked(K.pagg_encode_bwd_plain(gout, h, paths, dists, *wc, m, keep, **kw),
+                            cell)
+            assert_within(got, want, names, cancel=("dattw", "dattb"),
+                          cancel_scale=float(want[0].abs().max()))
+            if agg != "attention":
+                assert not got[7].any() and not got[8].any()
+            want = K.encode_walks_streams_plain(h, paths, dists, *wc[:6], m, keep, homo,
+                                                cell=cell)
+            got = K.encode_walks_streams(h, paths, dists, *wc[:6], m, keep, homo, cell)
+            assert_stages_within(got, want, ("hn", "xr", "xin", "hp", "cs", "gt", "ego"))
+            hn, xr, xin, hp, cs, gt, *ego = want
+            ego = ego[0] if homo else None
+            torch.testing.assert_close(K.readout(h, paths, hn, *wc[6:], ego, agg),
+                                       K.readout_plain(h, paths, hn, *wc[6:], ego, agg),
+                                       atol=1e-4, rtol=1e-4)
+            want = K.attention_bwd_plain(gout, h, paths, hn, *wc[6:], ego, agg)
+            got = K.attention_bwd(gout, h, paths, hn, *wc[6:], ego, agg)
+            assert_within(got, want, ("dhn", "dego", "dattw", "dattb"),
+                          cancel=("dattw", "dattb"), cancel_scale=float(want[1].abs().max()))
+            dhn, dego = want[:2]
+            state = hp if cell == "gru" else cs
+            hargs = (xin, ego, dego) if homo else None
+            want = K.bptt_plain(dhn, paths, dists, wc[0], wc[2], wc[3], state, gt, m, keep,
+                                hargs, cell=cell)
+            got = K.bptt(dhn, paths, dists, wc[0], wc[2], wc[3], state, gt.clone(), m, keep,
+                         hargs, cell)
+            assert_within(got, want, ("drow", "dgates", "dsel"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agg", ["mean", "sum"])
+def test_mean_and_sum_readouts_take_rows_at_any_alignment_on_the_card(cuda, agg):
+    # the mean and sum branches move float4s only where every row is
+    # 16-byte aligned; views 4 bytes into their storage take floats
+    gen = torch.Generator().manual_seed(1)
+    T, nw, H = 33, 40, 64
+    paths = torch.zeros((T, nw, 4), dtype=torch.int32, device=cuda)
+    h = torch.zeros((5, H), device=cuda)
+    att = (torch.zeros(2 * H, device=cuda), torch.zeros(1, device=cuda))
+
+    def shifted(*shape):
+        buf = torch.randn(int(np.prod(shape)) + 1, generator=gen).to(cuda)
+        return buf[1:].view(shape)
+
+    hn, g = shifted(T * nw, H), shifted(T, H)
+    assert hn.data_ptr() % 16 != 0 and g.data_ptr() % 16 != 0
+    for x, y in ((hn, g), (hn.clone(), g.clone())):
+        torch.testing.assert_close(K.readout(h, paths, x, *att, agg=agg),
+                                   K.readout_plain(h, paths, x, *att, agg=agg),
+                                   atol=1e-5, rtol=1e-5)
+        got = K.attention_bwd(y, h, paths, x, *att, agg=agg)
+        want = K.attention_bwd_plain(y, h, paths, x, *att, agg=agg)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=0.0, rtol=1e-6)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,C,m", [(512, 128, 512), (63977, 64, 8192), (183, 5, 1000),
                                    (1000, 3, 4097), (300, 130, 999), (77, 1, 50),
@@ -499,6 +610,48 @@ def test_bf16_encode_and_its_backward_match_plain_on_the_card(cuda, H, wl, nw, T
         got = K.attention_bwd(gout, hb, paths, hn, *wb[6:], ego)
         assert_within(got, want, ("dhn", "dego", "dattw", "dattb"), BF16_TOL,
                       cancel=("dattw", "dattb"), cancel_scale=float(want[1].abs().max()))
+        dhn, hargs = want[0], ((xin, ego, want[1]) if homo else None)
+        want = K.bptt_plain(dhn, paths, dists, wb[0], wb[2], wb[3], cs, gt, m, keep, hargs)
+        got = K.bptt(dhn, paths, dists, wb[0], wb[2], wb[3], cs, gt.clone(), m, keep, hargs)
+        assert_within(got, want, ("drow", "dgates", "dsel"), BF16_TOL)
+
+
+# the bf16 instances under the mean and sum readouts (K3's readout and K4's
+# attention backward with AGG on a bf16 table), both variants, one target,
+# a ragged last tile, wild distances
+@pytest.mark.gpu
+@pytest.mark.parametrize("agg", ["mean", "sum"])
+@pytest.mark.parametrize("H,wl,nw,T,wild,homo", [
+    (64, 4, 40, None, False, False), (64, 4, 40, None, False, True),
+    (256, 4, 40, 30, True, False), (37, 5, 6, 183, True, True), (64, 4, 40, 1, False, False)])
+def test_bf16_mean_and_sum_instances_match_plain_on_the_card(cuda, agg, H, wl, nw, T, wild,
+                                                             homo):
+    if wild:
+        starts, paths, dists, h, w, mask, gout = wild_case(H, wl, nw, T, device=cuda)
+    else:
+        starts, paths, dists, h, w, mask, gout = case(nw=nw, wl=wl, H=H, T=T, device=cuda)
+    hb, wb = bf16_inputs(h, w)
+    for m, keep in ((None, 1.0), (mask, KEEP)):
+        kw = dict(homo=homo, agg=agg)
+        got = K.pagg_encode_fwd(hb, paths, dists, *wb, m, keep, **kw)
+        want = K.pagg_encode_fwd_plain(hb, paths, dists, *wb, m, keep, **kw)
+        assert_within([got], [want], ["out"], BF16_TOL)
+        got = K.pagg_encode_bwd(gout, hb, paths, dists, *wb, m, keep, **kw)
+        want = K.pagg_encode_bwd_plain(gout, hb, paths, dists, *wb, m, keep, **kw)
+        assert [t.dtype for t in got] == [t.dtype for t in want] == (
+            [torch.bfloat16] * 7 + [torch.float32] * 2)
+        assert_within(as_f32(got[:7]), as_f32(want[:7]), GRADS[:7], BF16_TOL)
+        assert not got[7].any() and not got[8].any()
+        # the readout's and the attention backward's launches alone
+        want = K.encode_walks_streams_plain(hb, paths, dists, *wb[:6], m, keep, homo)
+        hn, xr, xin, hp, cs, gt = want[:6]
+        ego = want[6] if homo else None
+        assert_within([K.readout(hb, paths, hn, *wb[6:], ego, agg)],
+                      [K.readout_plain(hb, paths, hn, *wb[6:], ego, agg)], ["readout"], 1e-5)
+        want = K.attention_bwd_plain(gout, hb, paths, hn, *wb[6:], ego, agg)
+        got = K.attention_bwd(gout, hb, paths, hn, *wb[6:], ego, agg)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=0.0, rtol=1e-6)
         dhn, hargs = want[0], ((xin, ego, want[1]) if homo else None)
         want = K.bptt_plain(dhn, paths, dists, wb[0], wb[2], wb[3], cs, gt, m, keep, hargs)
         got = K.bptt(dhn, paths, dists, wb[0], wb[2], wb[3], cs, gt.clone(), m, keep, hargs)
