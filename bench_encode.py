@@ -39,6 +39,15 @@ JSON line:
   above), ``request_bf16_ms``, ``bgp_bf16_epoch_ms``: the same at bf16
   compute (``compute_dtype="bfloat16"``: K3's and K4's bf16 instances),
   where the checkout runs it;
+- ``k3_bgp_h32_ms``, ``k4_bgp_h32_ms`` and their launches' keys (as
+  above, ``k3_bgp_h32_encode_ms``, ``k4_bgp_h32_recompute_ms``, ...), at f32
+  and (``..._h32_bf16_...``) at bf16: K3 and K4 at H = 32 (Electronics'
+  width) on the same request and microbatch, seeded weights;
+- ``k4_bgp_mean_ms``: K4 under the mean readout (``agg="mean"``) on the
+  bgp microbatch, with ``k4_bgp_mean_attn_ms`` (its attention backward
+  launch alone) and ``k4_bgp_mean_dhsum_ms`` (the segment sum of the rows
+  it gives, ego rows included where the checkout writes them), where the
+  checkout runs it;
 - ``k1_{shape}_ms``, ``k2_{shape}_ms``, ``walk_dists_{shape}_ms``: K1
   (``cdf_walk``), K2 (``membership_dists`` on K1's walks) and, where the
   checkout has it, the fused ``walk_dists``, per launch in a CUDA graph, at
@@ -47,6 +56,13 @@ JSON line:
   and ``nba`` (all 403 nodes, D = 442).
 
 Every line carries the card's ``nvidia-smi`` name and power limit.
+
+    python3 bench_encode.py --regs OTHER    # registers and spills, OTHER against this
+
+builds the kernels of both checkouts from nothing (one ``nvcc -c`` per
+source, as ``pathnet_tpu_torch.kernels.build`` does) and prints each
+kernel instance's registers and spill bytes from ``ptxas -v``, keyed by
+kernel and template arguments, with the instances that differ.
 """
 from __future__ import annotations
 
@@ -172,6 +188,104 @@ def k4_stage_times(K, tag, g, h, paths, dists, w, mask_args, out):
         out[f"k4_{tag}_dhsum_kernels_us"] = kernel_us(lambda: K.segment_sum(rows, nodes, n))
 
 
+def mean_times(K, g, h, paths, dists, w, mask_args, out):
+    """K4 under the mean readout, its attention backward alone and the
+    segment sum of its row gradients, where the checkout takes ``agg``."""
+    import torch
+    if "agg" not in K.pagg_encode_bwd.__code__.co_varnames:
+        return
+    n = h.shape[0]
+    out["k4_bgp_mean_ms"] = graph_ms(
+        lambda: K.pagg_encode_bwd(g, h, paths, dists, *w, *mask_args, agg="mean"), 5)
+    hn, xr, xin, hp, cs, gt = K.encode_walks_streams(h, paths, dists, *w[:6], *mask_args)
+    dhn, dego = K.attention_bwd(g, h, paths, hn, *w[6:], agg="mean")[:2]
+    out["k4_bgp_mean_attn_ms"] = graph_ms(
+        lambda: K.attention_bwd(g, h, paths, hn, *w[6:], agg="mean"), 20)
+    drow = K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt, *mask_args)[0]
+    rows = drow.reshape(-1, drow.shape[-1])
+    if dego is None:   # no ego rows under mean
+        nodes = K.row_nodes(paths, agg="mean")
+    else:              # the attention layout, its ego rows zeros
+        rows, nodes = torch.cat([rows, dego]), K.row_nodes(paths)
+    out["k4_bgp_mean_dhsum_ms"] = graph_ms(lambda: K.segment_sum(rows, nodes, n), 20)
+
+
+def width_times(K, X, C, paths, dists, gen, out, H=32):
+    """K3 and K4 (with their launches) at hidden width ``H``, f32 and, where
+    the checkout runs it, bf16, with seeded weights."""
+    import torch
+    from pathnet_tpu_torch.models import PaggSpec, PathNet, draw_dropout_masks
+
+    T, nw, wl = paths.shape
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=H, out_dim=C, walk_len=wl, dropout=0.7)
+    m1, _ = draw_dropout_masks(spec, T, nw, gen, X.device)
+    g = torch.randn((T, H), generator=gen, device=X.device)
+    for tag, sp in ((f"bgp_h{H}", spec),
+                    (f"bgp_h{H}_bf16", dataclasses.replace(spec, compute_dtype="bfloat16"))):
+        try:
+            model = PathNet(sp, device=X.device, generator=torch.Generator().manual_seed(0))
+        except NotImplementedError:
+            continue
+        h, w = model.encode_inputs(X)
+        encode_times(K, tag, h, paths, dists, w, (), out)
+        out[f"k4_{tag}_ms"] = graph_ms(
+            lambda: K.pagg_encode_bwd(g, h, paths, dists, *w, m1, 0.3), 5)
+        k4_stage_times(K, tag, g, h, paths, dists, w, (m1, 0.3), out)
+        out.pop(f"k4_{tag}_dhsum_kernels_us", None)
+
+
+def ptxas_report(root: str) -> str:
+    """The ``ptxas -v`` report of a build from nothing of ``root``'s kernels,
+    in a process of its own that imports ``root``'s build module."""
+    code = ("import pathlib, shutil, sys, tempfile\n"
+            f"sys.path.insert(0, {root!r})\n"
+            "from pathnet_tpu_torch.kernels import build\n"
+            "d = pathlib.Path(tempfile.mkdtemp())\n"
+            "try:\n    sys.stdout.write(build._compile(build._nvcc(), d))\n"
+            "finally:\n    shutil.rmtree(d, ignore_errors=True)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=900, check=True)
+    return r.stdout
+
+
+def kernel_regs(report: str) -> dict:
+    """``{kernel<template args>: (registers, spill stores, spill loads)}`` from
+    a ptxas report, each instance keyed by ``kernel_instance``."""
+    import re
+    from pathnet_tpu_torch.kernels.build import kernel_instance
+
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = "{}<{}>".format(*kernel_instance(m.group(1)))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = out.get(name, (0,)) + (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)),) + out.get(name, (0, 0, 0))[1:]
+    return out
+
+
+def compare_regs(other: str) -> None:
+    """Registers and spills of ``other``'s kernels and this checkout's."""
+    import re
+    a, b = kernel_regs(ptxas_report(other)), kernel_regs(ptxas_report(HERE))
+    # an instance that gained a last bool template argument defaulting to
+    # true is the other's instance without it
+    for k in [k for k in b if k not in a]:
+        k0 = re.sub(r"Lb1E(E*>)$", r"\1", k)
+        if k0 in a and k0 not in b:
+            a[k] = a.pop(k0)
+    same = [k for k in a if b.get(k) == a[k]]
+    print(json.dumps({"device": smi(), "equal": len(same),
+                      "differ": {k: [a[k], b[k]] for k in sorted(a) if k in b and a[k] != b[k]},
+                      "only_other": {k: a[k] for k in sorted(set(a) - set(b))},
+                      "only_this": {k: b[k] for k in sorted(set(b) - set(a))}}), flush=True)
+
+
 def walk_times(K, shapes, gen, out):
     """K1, K2 and the fused walk-and-distance launch at each of ``shapes``,
     ``{tag: (sampler, starts)}``."""
@@ -263,6 +377,8 @@ def measure(root: str) -> dict:
     out["k4_bgp_ms"] = graph_ms(lambda: K.pagg_encode_bwd(gout, h, paths, dists, *w, m1, 0.3),
                                 5)
     k4_stage_times(K, "bgp", gout, h, paths, dists, w, (m1, 0.3), out)
+    mean_times(K, gout, h, paths, dists, w, (m1, 0.3), out)
+    width_times(K, X, C, paths, dists, gen, out)
 
     times = []
     for r in np.resize(order, 9 * 8192).reshape(9, 8192):
@@ -364,8 +480,13 @@ def main(argv=None) -> int:
     ap.add_argument("--ab", metavar="OTHER", help="root of the checkout to compare with")
     ap.add_argument("--profile", action="store_true",
                     help="profile two bgp epochs instead (with --ab: OTHER, then this)")
+    ap.add_argument("--regs", metavar="OTHER",
+                    help="registers and spills of OTHER's kernels and this checkout's")
     ap.add_argument("--root", default=HERE, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.regs is not None:
+        compare_regs(os.path.abspath(args.regs))
+        return 0
     if args.profile and args.ab is None:
         profile_bgp_epochs(os.path.abspath(args.root))
         return 0

@@ -9,7 +9,10 @@ one card). Phases, each with a start and an end line:
    source, all at once) into ``build/pathnet_tpu_torch/<hash>/lib.so``
    (ptxas registers and spills shown, those of K4's three launches
    among them), and K3's tile (walks a block M, threads, shared bytes),
-   which K4 shares, at H = 64 and H = 256;
+   which K4 shares, at H = 64 and H = 256, and its bf16 tensor-core tile at
+   H = 64; the SASS (``cuobjdump``) of every BF16 instance of the encode and
+   of K4's BPTT must hold HMMA (the tensor-core product) and that of every
+   f32 instance none;
 2. kernels: K1 ``cdf_walk``, K2 ``membership_dists``, the fused
    ``walk_dists`` (K1 and K2 in one launch, the sampler's path) and K3
    ``pagg_encode_fwd`` against their plain PyTorch versions on one
@@ -103,7 +106,10 @@ one card). Phases, each with a start and an end line:
     on cora with all 2,708 targets, each within ``BF16_TOL`` (four bf16
     ulps) of its plain version's largest entry and timed as in phase 5, its
     bound at bf16's tensor-core rate with the f32 CUDA-core bound beside
-    it; ``predict`` at bf16 on the card against the host (cornell at full
+    it; the bf16 instances' times beside the f32 instances' of phases 2, 5
+    and 12 (K3 and its encode launch, K4 and its launches A and C, cora),
+    K3 and launches A and C required faster at bf16; ``predict`` at bf16 on
+    the card against the host (cornell at full
     width, the "h" table; 1024 bgp targets, the "x" table) and one cornell
     training step, within ``BF16_TOL``; two seeded bf16 rounds bit-equal
     (as 7b); then the bgp protocol through the CLI at its band's
@@ -118,8 +124,10 @@ one card). Phases, each with a start and an end line:
     (the readouts' library yardsticks), K3 (with and without the keep mask)
     and K4 with each of its three launches, GRU and LSTM-mean, on one bgp
     microbatch, the attention backward's mean and sum branches alone
-    (rtol 1e-6, zeros exact; their library yardstick ``repeat_interleave``
-    of ``g / nw`` or ``g``, their bound g read and d h_n written), the homo
+    (``d h_n`` alone, rtol 1e-6, no ego-row gradient, ``dattw`` and
+    ``dattb`` exact zeros; their library yardstick ``repeat_interleave``
+    of ``g / nw`` or ``g``, their bound g read and d h_n written) and K4's
+    whole mean and sum calls (``wl`` rows a walk into the segment sum), the homo
     GRU instances on cora with all 2,708 targets, and the bf16 instances
     under mean (the bgp microbatch) and sum (cora, homo) with their stages,
     each timed as phase 5 with its bound at the flops the GRU needs (14 H^2
@@ -417,7 +425,7 @@ def check_kernels(tag, ps, model, X, idx, u, rec, timed):
         say(f"  {name}: {ms:.4f} ms per launch in a CUDA graph, {call_ms:.4f} ms per "
             f"eager wrapper call (plain {plain_ms:.4f} ms eager, bound {bound_ms:.4f} ms "
             f"by {bound_by}: {b / 1e6:.1f} MB, {o / 1e9:.3f} G ops)")
-    time_k3_stages("pagg_encode_fwd", h, paths, dists, w)
+    rec["pagg_encode_fwd"]["stages"] = time_k3_stages("pagg_encode_fwd", h, paths, dists, w)
 
 
 def check_walk_dists(tag, smp, idx, u, nw, want, rec):
@@ -435,18 +443,21 @@ def check_walk_dists(tag, smp, idx, u, nw, want, rec):
     record_err(rec, "walk_dists", 0.0)
 
 
-def check_segment_sum(tag, paths, rows, n, rec, time_as=None, homo=False):
+def check_segment_sum(tag, paths, rows, n, rec, time_as=None, homo=False, agg="attention"):
     """The segment sum of K4's row gradients against its plain version
     (within SEGMENT_TOL of the plain maximum, two calls bit-equal) and its
     grouping (``segments``) against the plain grouping (exact); timed as
     ``time_as`` when given, with ``index_add_`` as its library yardstick.
     ``homo``: the rows are the homo variant's (``wl`` a walk, in sampled
-    order)."""
+    order); ``agg`` mean or sum: hetero rows without the ego rows' (``wl``
+    a walk)."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.kernels.segment_sum import segments, segments_plain
 
-    nodes = K.row_nodes(paths, homo)
+    nodes = K.row_nodes(paths, homo, agg)
+    if nodes.shape[0] != rows.shape[0]:
+        raise AssertionError(f"{tag}: {rows.shape[0]} row gradients, {nodes.shape[0]} nodes")
     units, offsets = segments(nodes, n)
     units_p, offsets_p = segments_plain(nodes, n)
     U = int(offsets_p[-1])
@@ -508,7 +519,8 @@ def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None,
 
 def time_k3_stages(tag, h, paths, dists, w, mask_args=(None, 1.0), homo=False,
                    agg="attention", cell="lstm"):
-    """Each of K3's two launches alone, per launch in a CUDA graph."""
+    """Each of K3's two launches alone, per launch in a CUDA graph; returns
+    their ms by launch."""
     from pathnet_tpu_torch import kernels as K
 
     enc = (h, paths, dists, *w[:6], *mask_args, homo, cell)
@@ -518,6 +530,7 @@ def time_k3_stages(tag, h, paths, dists, w, mask_args=(None, 1.0), homo=False,
     read_ms = graph_ms(lambda: K.readout(h, paths, hn, *w[6:], ego, agg), 50)
     say(f"  {tag}: K3's encode launch {enc_ms:.4f} ms, its readout launch "
         f"{read_ms:.4f} ms, per launch in a CUDA graph")
+    return {"encode": enc_ms, "readout": read_ms}
 
 
 def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_TOL,
@@ -525,8 +538,9 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_T
     """Each of K4's three launches against its plain stage, on the plain
     stage's inputs: every output within ``tol`` of its plain version's
     largest entry (``dattw``, ``dattb``, sums that cancel, of the ego rows'
-    ``dh`` if larger). Returns the row gradients that ``segment_sum`` adds
-    (hetero: the BPTT's and the ego rows'; homo: the BPTT's)."""
+    ``dh`` if larger; under mean and sum no ``dego`` and zero ``dattw``,
+    ``dattb``). Returns the row gradients that ``segment_sum`` adds
+    (hetero attention: the BPTT's and the ego rows'; else the BPTT's)."""
     import torch
     from pathnet_tpu_torch import kernels as K
 
@@ -534,7 +548,7 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_T
 
     def hold(stage, names, got, want, cancel_scale=0.0):
         for name, a, b in zip(names, got, want):
-            if b is None:   # the GRU's recompute writes no cs
+            if b is None:   # the GRU's recompute writes no cs; mean, sum no dego
                 if a is not None:
                     raise AssertionError(f"{tag}: K4's {stage} launch returned a {name}")
                 continue
@@ -553,10 +567,11 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_T
     hn, _, xin, hp, cs, gt = want[:6]
     ego = want[6] if homo else None
     want = K.attention_bwd_plain(g, h, paths, hn, *w[6:], ego, agg)
-    hold("attention", ("dhn", "dego", "dattw", "dattb"),
-         K.attention_bwd(g, h, paths, hn, *w[6:], ego, agg), want,
-         max(float(want[1].abs().max()), float(want[0].abs().max()) if agg != "attention"
-             else 0.0))
+    got = K.attention_bwd(g, h, paths, hn, *w[6:], ego, agg)
+    if agg != "attention" and (got[2].any() or got[3].any()):
+        raise AssertionError(f"{tag}: K4's attention launch, dattw, dattb not zero under {agg}")
+    hold("attention", ("dhn", "dego", "dattw", "dattb"), got, want,
+         float(want[1 if agg == "attention" else 0].abs().max()))
     dego = want[1]
     bargs = (want[0], paths, dists, w[0], w[2], w[3], hp if cell == "gru" else cs)
     hargs = (xin, ego, dego) if homo else None
@@ -567,13 +582,13 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_T
         "over each plain max: " + ", ".join(parts) + ")")
     H = h.shape[1]
     drow = want[0].reshape(-1, H)
-    return drow if homo else torch.cat([drow, dego])   # the row gradients
+    return drow if dego is None or homo else torch.cat([drow, dego])   # the row gradients
 
 
 def time_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, agg="attention",
                    cell="lstm"):
     """Each of K4's three launches and the wrapper's weight contractions
-    alone, per launch in a CUDA graph."""
+    alone, per launch in a CUDA graph; returns their ms by stage."""
     from pathnet_tpu_torch import kernels as K
 
     enc = (h, paths, dists, *w[:6], mask, keep, homo, cell)
@@ -591,6 +606,7 @@ def time_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, agg="atte
     say(f"  {tag}: K4's forward recompute {rec_ms:.4f} ms, attention backward "
         f"{att_ms:.4f} ms, BPTT {bptt_ms:.4f} ms, weight contractions {con_ms:.4f} ms "
         "(torch.matmul, bmm), each per launch in a CUDA graph")
+    return {"recompute": rec_ms, "attention": att_ms, "bptt": bptt_ms, "contractions": con_ms}
 
 
 def record_err(rec, name, err):
@@ -714,7 +730,8 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False
     del got, want
     rows = check_k4_stages(tag, g, h, paths, dists, w, m1, keep, homo, tol, **choice)
     check_segment_sum(tag, paths, rows, h.shape[0], rec,
-                      homo_name("segment_sum", homo) if time_segment else None, homo)
+                      homo_name("segment_sum", homo) if time_segment else None, homo,
+                      choice["agg"])
     del rows
     return paths, dists, h, w, m1, keep, agg, g, bwd_args
 
@@ -762,7 +779,8 @@ def check_training_kernels(ps, model, X, idx, u, gen, rec):
     time_k3_stages("pagg_encode_fwd with keep mask", h, paths, dists, w, (m1, keep))
     timed(rec, "pagg_encode_bwd", lambda: K.pagg_encode_bwd(*bwd_args),
           lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 5)
-    time_k4_stages("pagg_encode_bwd", g, h, paths, dists, w, m1, keep)
+    rec["pagg_encode_bwd"]["stages"] = time_k4_stages("pagg_encode_bwd", g, h, paths, dists,
+                                                      w, m1, keep)
     timed(rec, "row_gather", lambda: K.row_gather(h, idx),
           lambda: K.row_gather_plain(h, idx), b5, 0.0, 50,
           library=lambda: torch.index_select(h, 0, idx_l))
@@ -1205,7 +1223,8 @@ def check_bf16_kernels(root, dev, gen, rec, X, ps, idx, u, C):
     o3 = S * nw * (wl * 18 * HIDDEN * HIDDEN + 6 * HIDDEN)
     timed(rec, "pagg_encode_fwd bf16", lambda: K.pagg_encode_fwd(h, paths, dists, *w),
           lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w), b3, o3, 50, bf16=True)
-    time_k3_stages("pagg_encode_fwd bf16", h, paths, dists, w)
+    rec["pagg_encode_fwd bf16"]["stages"] = time_k3_stages("pagg_encode_fwd bf16", h, paths,
+                                                           dists, w)
 
     model = PathNet(dataclasses.replace(spec, dropout=0.7), device=dev,
                     generator=torch.Generator().manual_seed(0))
@@ -1219,7 +1238,8 @@ def check_bf16_kernels(root, dev, gen, rec, X, ps, idx, u, C):
     time_k3_stages(name, h, paths, dists, w, (m1, keep))
     timed(rec, "pagg_encode_bwd bf16", lambda: K.pagg_encode_bwd(*bwd_args),
           lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 5, bf16=True)
-    time_k4_stages("pagg_encode_bwd bf16", g, h, paths, dists, w, m1, keep)
+    rec["pagg_encode_bwd bf16"]["stages"] = time_k4_stages("pagg_encode_bwd bf16", g, h,
+                                                           paths, dists, w, m1, keep)
     del paths, dists, h, w, m1, agg, g, bwd_args
 
     gc, _, _, _, spec_d = load_dataset("cora", root, 0)
@@ -1240,6 +1260,47 @@ def check_bf16_kernels(root, dev, gen, rec, X, ps, idx, u, C):
     timed(rec, "pagg_encode_bwd homo bf16", lambda: K.pagg_encode_bwd(*bwd_args),
           lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 5, bf16=True)
     time_k4_stages("pagg_encode_bwd homo bf16", g, h, paths, dists, w, m1, keep, homo=True)
+    compare_bf16_with_f32(rec)
+
+
+def compare_bf16_with_f32(rec):
+    """The bf16 instances' times beside the f32 instances' at the same
+    shapes in this run (phases 2, 5 and 12): K3 and its encode launch at the
+    bgp request, K4 and its launches A (the recompute) and C (the BPTT) at
+    the bgp microbatch, K3 and K4 homo at cora. The tensor-core products
+    must make K3 and launches A and C faster than the f32 CUDA-core ones."""
+    pairs = [("K3, bgp request", rec["pagg_encode_fwd"]["ms"],
+              rec["pagg_encode_fwd bf16"]["ms"], True),
+             ("K3's encode launch, bgp request", rec["pagg_encode_fwd"]["stages"]["encode"],
+              rec["pagg_encode_fwd bf16"]["stages"]["encode"], True),
+             ("K4, bgp microbatch", rec["pagg_encode_bwd"]["ms"],
+              rec["pagg_encode_bwd bf16"]["ms"], False)]
+    pairs += [(f"K4's launch {x} ({stage}), bgp microbatch",
+               rec["pagg_encode_bwd"]["stages"][stage],
+               rec["pagg_encode_bwd bf16"]["stages"][stage],
+               stage != "contractions")
+              for x, stage in (("A", "recompute"), ("C", "bptt"), ("", "contractions"))]
+    pairs += [(f"{k} homo, cora", rec[f"{n} homo"]["ms"], rec[f"{n} homo bf16"]["ms"], False)
+              for k, n in (("K3", "pagg_encode_fwd"), ("K4", "pagg_encode_bwd"))]
+    for what, f32, bf16, gate in pairs:
+        say(f"  {what}: bf16 {bf16:.4f} ms against f32 {f32:.4f} ms ({f32 / bf16:.2f}x)")
+        if gate and not bf16 < f32:
+            raise AssertionError(f"{what}: the bf16 instance ({bf16:.4f} ms) is not faster "
+                                 f"than the f32 one ({f32:.4f} ms)")
+
+
+def check_tensor_cores():
+    """Every BF16 instance of the encode (K3, and K4's recompute) and of
+    K4's BPTT multiplies on the tensor cores (HMMA in its SASS); no f32
+    instance, the GRU's among them, does."""
+    from pathnet_tpu_torch.kernels import build
+
+    for kernel, flag in (("pagg_encode_walks_kernel", 4), ("pagg_bptt_kernel", 3)):
+        counts = build.hmma_counts(kernel, flag)   # by the BF16 argument
+        if not counts.get(1) or min(counts[1]) == 0 or any(counts.get(0, [])):
+            raise AssertionError(f"{kernel}: HMMA a bf16 / f32 instance {counts}")
+        say(f"  {kernel}: {len(counts[1])} bf16 instances with {min(counts[1])}-"
+            f"{max(counts[1])} HMMA each, {len(counts.get(0, []))} f32 instances with none")
 
 
 def check_bf16_host(dev, X, ps, z, C, gc, Xc_np, psc, ps_host):
@@ -1384,6 +1445,10 @@ def check_choice_kernels(root, dev, gen, rec, X, ps, idx, u, C):
         got = K.attention_bwd(g, h, paths, hn, *w[6:], agg=red)
         want = K.attention_bwd_plain(g, h, paths, hn, *w[6:], agg=red)
         torch.cuda.synchronize()
+        if got[1] is not None or want[1] is not None:
+            raise AssertionError(f"bgp microbatch: the {red} attention backward gave the "
+                                 "ego rows a gradient")
+        got, want = (got[0], *got[2:]), (want[0], *want[2:])
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
         # g / nw or g, and exact zeros (torch divides by multiplying with
         # 1 / nw on the card: one rounding apart)
@@ -1404,13 +1469,19 @@ def check_choice_kernels(root, dev, gen, rec, X, ps, idx, u, C):
               lambda: K.attention_bwd_plain(g, h, paths, hn, *w[6:], agg=red),
               nbytes(g, got[0]), float(T * nw * H) if red == "mean" else 0.0, 20,
               library=lib)
-        # what the row layout adds: the zero ego-row gradients and partial sums
-        extra = nbytes(got[1]) + T * (2 * H + 1) * 4
-        say(f"  pagg_attention_bwd {red}: the layout's zero ego rows and partial sums add "
-            f"{extra / 1e6:.1f} MB of writes, {bound(extra, 0.0)[0]:.4f} ms at HBM's rate, "
-            "outside the bound")
+        r = rec[f"pagg_attention_bwd {red}"]
+        say(f"  pagg_attention_bwd {red}: {r['ms']:.4f} ms against repeat_interleave's "
+            f"{r['library_ms']:.4f} ms ({'at or under' if r['ms'] <= r['library_ms'] else 'over'}"
+            " it), d h_n alone written")
     say("  bgp microbatch: the mean and sum attention backward within rtol 1e-6 of their "
-        "plain versions and of repeat_interleave, their zeros exact")
+        "plain versions and of repeat_interleave, dattw and dattb exact zeros, no dego")
+    # K4's whole call under mean and sum (no ego rows: wl rows a walk into
+    # the segment sum)
+    for red in ("mean", "sum"):
+        name = f"pagg_encode_bwd {red}"
+        timed({name: {}}, name, lambda: K.pagg_encode_bwd(*bwd_args, agg=red),
+              lambda: K.pagg_encode_bwd_plain(*bwd_args, agg=red),
+              *encode_bounds(h, paths, dists, m1, agg, g, w)[2:], 5)
     time_k4_stages("pagg_encode_bwd mean", g, h, paths, dists, w, m1, keep, agg="mean")
     del paths, dists, h, w, m1, agg, g, bwd_args, hn
     # the bf16 instances under the mean readout (the sum's: on cora below)
@@ -1578,6 +1649,9 @@ def main() -> int:
         for H in (HIDDEN, NBA_HIDDEN):
             say(f"  K3 tile at H = {H}: " + ", ".join(
                 f"{k} {v}" for k, v in K.encode_tile(H).items()))
+        say(f"  K3 bf16 tile at H = {HIDDEN}: " + ", ".join(
+            f"{k} {v}" for k, v in K.encode_tile(HIDDEN, True).items()))
+        check_tensor_cores()
 
     gen = torch.Generator(device=dev).manual_seed(0)
     with Phase("2 kernels vs plain (bgp, one 8192-target request)"):

@@ -14,11 +14,11 @@ int pagg_bptt_gru(const void* dhn, const void* dists, const void* wd_t, const vo
 
 namespace {
 // Launch C's shared bytes at width H: A [4H][LDA] in f32, then two chunks of
-// KC rows of the [4H, 2H] weight in its type (the [H][LDA] dsel and [H, H]
-// chunks fit inside).
+// KC rows of the [4H, 2H] weight (the [H][LDA] dsel and [H, H] chunks fit
+// inside); bf16, the tensor-core tile's (bf16_smem).
 __host__ __device__ constexpr int bptt_smem(int H, bool bf16 = false) {
-  return (int)(4 * H * tile_for(H).LDA * sizeof(float) +
-               4 * tile_for(H).KC * H * (bf16 ? 2 : 4));
+  return bf16 ? bf16_smem(H, tile_for(H, true).M, tile_for(H, true).NT, true)
+              : (int)(4 * H * tile_for(H).LDA * sizeof(float) + 4 * tile_for(H).KC * H * 4);
 }
 
 // Units 2c, 2c + 1 of row r of a row-major stream of width W at column
@@ -32,10 +32,12 @@ __device__ __forceinline__ float2 load_units(const float* __restrict__ s, long l
   return make_float2(jv[0] ? p[jc[0]] : 0.0f, jv[1] ? p[jc[1]] : 0.0f);
 }
 
-// HOMO also reads xin and ego (launch A's) and dego (launch B's); BF16 takes
-// the weights as bf16; GRU runs the GRU's BPTT, cs then being the hp stream.
+// HOMO also reads xin and ego (launch A's) and, with DEGO (the attention
+// readout), dego (launch B's); BF16 takes the weights as bf16 and multiplies
+// on the tensor cores, A's f32 cotangents split into bf16 hi and lo halves
+// (pagg_tile.cuh); GRU runs the GRU's BPTT, cs then being the hp stream.
 // `align` is the alignment of wd_t and w_t in bytes.
-template <bool MASKED, int HC, bool HOMO, bool BF16, bool GRU = false>
+template <bool MASKED, int HC, bool HOMO, bool BF16, bool GRU = false, bool DEGO = true>
 __global__ void __launch_bounds__(launch_threads(HC), launch_blocks(HC))
 pagg_bptt_kernel(const float* __restrict__ dhn,
                  const int* __restrict__ dists, const Elem<BF16>* __restrict__ wd_t,
@@ -45,13 +47,14 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
                  const float* __restrict__ dego, float* __restrict__ dsel,
                  float* __restrict__ drow, long long B, int wl, int Hrt, int align) {
   using W = Elem<BF16>;
-  constexpr Tile tc = tile_for(HC ? HC : 64);
-  const Tile tr = tile_for(Hrt);
+  constexpr Tile tc = tile_for(HC ? HC : 64, BF16);
+  const Tile tr = tile_for(Hrt, BF16);
   const int H = HC ? HC : Hrt;
   const int CT = HC ? tc.CT : tr.CT;
   const int KC = HC ? tc.KC : tr.KC;
   const int LDA = HC ? tc.LDA : tr.LDA;
   const int M = HC ? tc.M : tr.M;
+  const int Mp = HC ? tc.Mp : tr.Mp;
   const int NT = HC ? tc.NT : tr.NT;
   const int mode2 = copy_mode<W>(2 * H, align), mode1 = copy_mode<W>(H, align);
   const bool mask2 = H % 2 == 0 && (uintptr_t)mask % 2 == 0;  // mask pairs in one load
@@ -60,11 +63,26 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
   extern __shared__ __align__(16) float smem[];
   float* As = smem;               // [4H][LDA]: gate gradients, then dsel [H][LDA]
   W* Bs = reinterpret_cast<W*>(As + 4 * H * LDA);  // [2][KC][2H] weight chunks
+  // BF16: A as its bf16 halves hi and lo, [roundup(4H, 16)][LDA] each, then
+  // mma_gemm's chunks and C tiles
+  auto* Ahi = reinterpret_cast<__nv_bfloat16*>(smem);
+  auto* Alo = Ahi + round_up(4 * H, 16) * LDA;
+  void* region = Alo + round_up(4 * H, 16) * LDA;
   int r, c, jc[TN];
   bool jv[TN];
   tile_thread(CT, M, H, r, c, jc, jv);
   const int m0 = r * TM;
-  const long long b0 = (long long)blockIdx.x * M + m0;
+  // BF16: a thread past the tile's row groups (the block is whole warps)
+  // holds no walk and no unit, but takes its part in the products
+  const bool idle = BF16 && threadIdx.x >= M / TM * CT;
+  if (idle) jv[0] = jv[1] = false;
+  const long long b0 = idle ? B : (long long)blockIdx.x * M + m0;
+  if constexpr (BF16) {
+    // A's rows past 4H (to a multiple of 16) meet zero weight rows: finite
+    const int pad = (round_up(4 * H, 16) - 4 * H) * LDA;
+    for (int e = threadIdx.x; e < pad; e += NT)
+      Ahi[4 * H * LDA + e] = Alo[4 * H * LDA + e] = __float2bfloat16_rn(0.0f);
+  }
   const long long left = B - b0;  // walks of the launch from b0 on
   // dh, dc and c_t of the thread's walks and units, carried down the steps
   // (the GRU: dh, and in dcv the direct term z dh of the step)
@@ -134,20 +152,31 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
       for (int u = 0; u < TN; ++u) {
         if (!jv[u]) continue;
 #pragma unroll
-        for (int g = 0; g < 4; ++g)
-          *reinterpret_cast<float4*>(As + (g * H + jc[u]) * LDA + m0 + ih) =
-              make_float4(q[u][g][0], q[u][g][1], q[u][g][2], q[u][g][3]);
+        for (int g = 0; g < 4; ++g) {
+          if constexpr (BF16) {
+            const int e = (g * H + jc[u]) * LDA + m0 + ih;
+            store_split4(Ahi + e, Alo + e, q[u][g][0], q[u][g][1], q[u][g][2], q[u][g][3]);
+          } else {
+            *reinterpret_cast<float4*>(As + (g * H + jc[u]) * LDA + m0 + ih) =
+                make_float4(q[u][g][0], q[u][g][1], q[u][g][2], q[u][g][3]);
+          }
+        }
       }
     }
     __syncthreads();
 
     // [d xin | dh_{t-1}] = dgates @ [w_ih; w_hh]^T
     float acc[TM][TN][2];
+    if constexpr (BF16) {
+      mma_gemm<2, mma_tiles(HC)>(acc, Ahi, Alo, LDA, Mp, m0, 4 * H, w_t, 4 * H, w_t, nullptr,
+                                 nullptr, region, jc, jv, H, NT, mode1);
+    } else {
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-      for (int u = 0; u < TN; ++u) acc[i][u][0] = acc[i][u][1] = 0.0f;
-    tile_gemm<2>(acc, As, LDA, m0, 4 * H, w_t, 4 * H, w_t, Bs, KC, jc, H, NT, mode2);
+        for (int u = 0; u < TN; ++u) acc[i][u][0] = acc[i][u][1] = 0.0f;
+      tile_gemm<2>(acc, As, LDA, m0, 4 * H, w_t, 4 * H, w_t, Bs, KC, jc, H, NT, mode2);
+    }
 
     // dh_{t-1} stays in registers (the GRU adds its direct term); d xin,
     // dropped out, is dsel: to its stream and over A (the product ended with
@@ -176,7 +205,7 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
         // the sign of s read from the ego row (step 0) or from xin (see above)
         const float2 sgn = t == 0 ? load_units(ego, b0 + i, H, 0, H, jc, jv)
                                   : load_units(xin, r0 + i, H, 0, H, jc, jv);
-        if (t == 0) {
+        if (DEGO && t == 0) {  // no dego under the mean and sum readouts
           const float2 de = load_units(dego, b0 + i, H, 0, H, jc, jv);
           acc[i][0][0] += de.x;
           acc[i][1][0] += de.y;
@@ -192,7 +221,13 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
       float v[TM];
 #pragma unroll
       for (int i = 0; i < TM; ++i) v[i] = acc[i][u][0];
-      store_rows(As + jc[u] * LDA + m0, v);
+      if constexpr (BF16) {
+        const int e = jc[u] * LDA + m0;
+        store_split4(Ahi + e, Alo + e, v[0], v[1], v[2], v[3]);
+        store_split4(Ahi + e + 4, Alo + e + 4, v[4], v[5], v[6], v[7]);
+      } else {
+        store_rows(As + jc[u] * LDA + m0, v);
+      }
     }
 
     // dx = dsel @ wd[d]^T: one product per class present in the tile
@@ -222,7 +257,11 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
 #pragma unroll
         for (int u = 0; u < TN; ++u) a1[i][u][0] = 0.0f;
       const W* wk = wd_t + (size_t)k * H * H;
-      tile_gemm<1>(a1, As, LDA, m0, H, wk, H, wk, Bs, KC, jc, H, NT, mode1);
+      if constexpr (BF16)
+        mma_gemm<1, mma_tiles(HC)>(a1, Ahi, Alo, LDA, Mp, m0, H, wk, H, wk, nullptr, nullptr,
+                                   region, jc, jv, H, NT, mode1);
+      else
+        tile_gemm<1>(a1, As, LDA, m0, H, wk, H, wk, Bs, KC, jc, H, NT, mode1);
 #pragma unroll
       for (int u = 0; u < TN; ++u)
 #pragma unroll
@@ -241,8 +280,13 @@ using BpttKernel = void (*)(const float*, const int*, const Elem<BF16>*, const E
                             const float*, const float*, float*, float*, long long, int, int,
                             int);
 
+// The homo instances without d ego (the mean and sum readouts) are apart
+// (DEGO false), so the attention instances are the code they were.
 template <int HC, bool BF16, bool GRU = false>
-BpttKernel<BF16> bptt_instance(bool masked, bool homo) {
+BpttKernel<BF16> bptt_instance(bool masked, bool homo, bool dego) {
+  if (homo && !dego)
+    return masked ? pagg_bptt_kernel<true, HC, true, BF16, GRU, false>
+                  : pagg_bptt_kernel<false, HC, true, BF16, GRU, false>;
   return masked ? (homo ? pagg_bptt_kernel<true, HC, true, BF16, GRU>
                         : pagg_bptt_kernel<true, HC, false, BF16, GRU>)
                 : (homo ? pagg_bptt_kernel<false, HC, true, BF16, GRU>
@@ -260,17 +304,21 @@ int launch_bptt(const void* dhn, const void* dists, const void* wd_t, const void
   using W = Elem<BF16>;
   const Tile tl = tile_for(H, BF16);
   const int smem = bptt_smem(H, BF16);
-  const bool masked = mask != nullptr, homo = ego != nullptr;
+  const bool masked = mask != nullptr, homo = ego != nullptr, de = dego != nullptr;
   // a named type, not one deduced from an instance: deducing it would
   // compile the f32 LSTM instances into the GRU's translation unit too
   BpttKernel<BF16> kernel;
-  if constexpr (BF16 || GRU)
-    kernel = H == 64 ? bptt_instance<64, BF16, GRU>(masked, homo)
-                     : bptt_instance<0, BF16, GRU>(masked, homo);
+  if constexpr (BF16)
+    kernel = H == 64   ? bptt_instance<64, true>(masked, homo, de)
+             : H == 32 ? bptt_instance<32, true>(masked, homo, de)
+                       : bptt_instance<0, true>(masked, homo, de);
+  else if constexpr (GRU)
+    kernel = H == 64 ? bptt_instance<64, false, true>(masked, homo, de)
+                     : bptt_instance<0, false, true>(masked, homo, de);
   else
-    kernel = H == 64    ? bptt_instance<64, false>(masked, homo)
-             : H == 256 ? bptt_instance<256, false>(masked, homo)
-                        : bptt_instance<0, false>(masked, homo);
+    kernel = H == 64    ? bptt_instance<64, false>(masked, homo, de)
+             : H == 256 ? bptt_instance<256, false>(masked, homo, de)
+                        : bptt_instance<0, false>(masked, homo, de);
   if (int e = allow_smem(kernel, smem)) return e;
   kernel<<<(unsigned)((B + tl.M - 1) / tl.M), tl.NT, smem, (cudaStream_t)stream>>>(
       (const float*)dhn, (const int*)dists, (const W*)wd_t, (const W*)w_t, (const float*)cs,

@@ -37,15 +37,19 @@
 // bf16 compute (the JAX package's compute_dtype="bfloat16", pagg.py:233-279)
 // is the template parameter BF16 of the encode and the table's type in the
 // readout: the table and wd, bd, w_ih, w_hh, b_ih, b_hh are bf16 (the
-// weight chunks staged as bf16 at half the bytes, widened in the product),
-// every product and the cell are the f32 FMAs below, and the encode rounds
+// weight chunks staged as bf16 at half the bytes), A = [s_t | h_{t-1}] is
+// held in bf16 (it holds bf16 values only), both products run on the bf16
+// tensor cores with f32 accumulators (mma_gemm in pagg_tile.cuh; the bias
+// the accumulators' initial value, as below) and hand their sums to the
+// f32 epilogue below unchanged; the encode rounds
 // s_t = round(round(x_t @ W[d]) + b[d]), the dropped-out round(s_t / keep)
 // (the wrapper passes keep rounded to bf16, as JAX divides by it),
 // c_t and h_t to bf16; the readout runs in f32 on the bf16 table's ego rows
-// (hetero) or the rounded step-0 rows (homo). The same FMA count, so the
-// same f32 bound: bf16's tensor-core rate (~989 TFLOP/s dense, a bound of
-// ~0.10 ms at the bgp request) is for a tensor-core design to reach. The
-// bf16 instances are compiled at H = 64 and at the run-time width only.
+// (hetero) or the rounded step-0 rows (homo). Its bound is the same flops at
+// bf16's tensor-core rate (~989 TFLOP/s dense: ~0.10 ms at the bgp request);
+// the tile's shared-memory traffic and its epilogue keep it well above that
+// (pagg_tile.cuh). The bf16 instances are compiled at H = 64 (bgp) and 32
+// (Electronics) and at the run-time width.
 //
 // Bound on the H100: f32 FMA work on the CUDA cores, 18 H^2 flops per walk
 // step (2 H^2 for the selected distance transform, 16 H^2 for the gates):

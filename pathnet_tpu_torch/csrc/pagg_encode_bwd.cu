@@ -37,13 +37,17 @@
 // a walk (168 MB at the bgp-sized microbatch) against the H floats a walk of
 // the hetero ego-row gradients it does not write.
 //
-// The mean and sum readouts (AGG, either variant): launch B writes
-// d h_n = g / nw (mean) or g (sum) to every walk, zero ego-row gradients
-// and zero partial sums. Zero ego rows, not fewer rows: the segment sum sees
-// the rows of the attention readout's layout (hetero: wl + 1 a walk, the
-// ego rows adding exact zeros) and homo's launch C adds a zero d ego at
-// step 0, so launch C and the row layout are the attention instances'. The
-// homo launch C still reads launch A's ego rows for the ReLU's sign.
+// The mean and sum readouts (AGG, either variant) write only what the VJP
+// of a mean or a sum needs. Launch B is pagg_agg_bwd_kernel: it reads g and
+// writes d h_n = g / nw (mean) or g (sum) to every walk, and nothing else;
+// the wrapper makes d attw and d attb exact zero tensors. The hetero ego
+// rows get no gradient, so the segment sum adds wl rows a walk (20% fewer
+// than attention's wl + 1 at wl = 4), and the homo launch C is given no
+// d ego: it skips that read, and still takes the ReLU's sign at step 0 from
+// launch A's ego rows. Its bound is bytes, 86 MB at the bgp microbatch
+// (0.0257 ms); the design before this one also wrote zero ego-row
+// gradients and zero partial sums (88 MB more) to keep the attention
+// layout, and lost to one repeat_interleave.
 //
 // The GRU (GRU, f32; K3's packed weights, see pagg_encode.cu): launch A
 // writes gt as (r, z, n, h W_hn + b_hn), hp, and no cs. Launch C reads
@@ -62,10 +66,15 @@
 // K3's bf16 encode with STREAMS, so the streams hold exactly the forward's
 // rounded values (in f32, which holds them exactly); launch B reads the
 // hetero ego rows from the bf16 table; launch C stages the bf16 weights as
-// K3 does. Every cotangent stays f32: rounding's derivative is taken as the
-// identity, as JAX's convert VJP is. The wrapper returns dh and the cast
+// K3 does and multiplies on the bf16 tensor cores too. Every cotangent stays
+// f32: rounding's derivative is taken as the identity, as JAX's convert VJP
+// is. Launch C's A holds f32 cotangents, which a bf16 operand would round,
+// so it holds each as two bf16 halves, hi = bf16(a) and lo = bf16(a - hi),
+// and both are multiplied into the same f32 accumulators: within ~2^-16
+// relative of the f32 product, at twice the tensor-core work (still far
+// under the CUDA cores' time). The wrapper returns dh and the cast
 // weights' gradients as bf16, the type of their inputs. The bf16 instances
-// are compiled at H = 64 and at the run-time width only.
+// are compiled at H = 64, 32 and the run-time width.
 //
 // Design: three launches on K3's walk tile (pagg_tile.cuh); nothing is kept
 // between K3 and K4, so launch A recomputes the forward.
@@ -73,7 +82,8 @@
 //    K3's grid and tile, which also stores per step the values launch C and
 //    the contractions read (xr, xin, hp, cs, gt: see Streams) and writes
 //    h_n [T * nw, H] to a scratch.
-// B. pagg_attention_bwd_kernel: one block per target, shaped like K3's
+// B. pagg_attention_bwd_kernel (attention; pagg_agg_bwd_kernel under mean
+//    and sum, above): one block per target, shaped like K3's
 //    readout. A warp per walk recomputes its score and d att = g . h_n;
 //    warp 0 forms the softmax and each walk's d score; the block writes
 //    d h_n [T * nw, H] to a second scratch, the ego rows' gradient to its
@@ -90,53 +100,51 @@
 //    written to its stream and over A as [H][M + 4]; one tile_gemm<1> per
 //    distance class present in the tile multiplies it by wd[k]^T (K3's
 //    select loop), and each gathered row's gradient is stored to its row of
-//    the [wl, T * nw, H] row gradients, dsel's layout. Shared memory 4H (M + 4) + 4 KC H floats: 102,400 B at
-//    H = 64 (two blocks a SM, as K3), 229,376 B at H = 1024.
+//    the [wl, T * nw, H] row gradients, dsel's layout. Shared memory
+//    4H (M + 4) + 4 KC H floats: 102,400 B at H = 64 (two blocks a SM, as
+//    K3), 229,376 B at H = 1024. BF16: A's two bf16 halves and mma_gemm's
+//    region (bf16_smem in pagg_tile.cuh), 107,520 B at H = 64.
 #include "pagg_bptt.cuh"
 
 namespace {
 
 __device__ __forceinline__ float leaky(float s) { return s > 0.0f ? s : 0.01f * s; }
 
-template <int AGG, bool HOMO, typename W>
+// Launch B under the mean and sum readouts: d h_n = g / nw (mean) or g
+// (sum) to every walk, and nothing else, one float4 (or, where a row or a
+// pointer does not allow it, one float) a thread over the flat [T * nw, H].
+// What bounds it is the bytes: g read, d h_n written (86 MB at the bgp
+// microbatch, 0.0257 ms at 3.35 TB/s); the flat grid keeps every thread on
+// one 16-byte store, consecutive threads on consecutive addresses.
+template <int AGG>
+__global__ void pagg_agg_bwd_kernel(const float* __restrict__ g, float* __restrict__ dhn,
+                                    int nw, int H, long long n, bool vec4) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  if (vec4) {
+    const int L = H / 4;
+    const long long b = e / L;  // the walk
+    float4 v = reinterpret_cast<const float4*>(g)[b / nw * L + e % L];
+    if (AGG == MEAN) {
+      v.x /= nw;
+      v.y /= nw;
+      v.z /= nw;
+      v.w /= nw;
+    }
+    reinterpret_cast<float4*>(dhn)[e] = v;
+  } else {
+    const float v = g[e / H / nw * H + e % H];
+    dhn[e] = AGG == MEAN ? v / nw : v;
+  }
+}
+
+template <bool HOMO, typename W>
 __global__ void pagg_attention_bwd_kernel(
     const float* __restrict__ g, const W* __restrict__ h,
     const int* __restrict__ paths, const float* __restrict__ hn,
     const float* __restrict__ ego, const float* __restrict__ attw,
     const float* __restrict__ attb, float* __restrict__ dhn, float* __restrict__ dego,
     float* __restrict__ part, int nw, int wl, int H) {
-  if constexpr (AGG != ATTENTION) {
-    // g / nw (mean) or g to every walk; zero ego rows and partial sums; a
-    // float4 at a time where the rows allow it
-    const long long b0 = (long long)blockIdx.x * nw;
-    const float* gr = g + (long long)blockIdx.x * H;
-    if (agg_vec4(H, (uintptr_t)g | (uintptr_t)dhn | (uintptr_t)dego)) {
-      const int L = H / 4;
-      const float4* g4 = reinterpret_cast<const float4*>(gr);
-      float4* d4 = reinterpret_cast<float4*>(dhn + b0 * H);
-      float4* e4 = reinterpret_cast<float4*>(dego + b0 * H);
-      for (int e = threadIdx.x; e < nw * L; e += blockDim.x) {
-        float4 v = g4[e % L];
-        if (AGG == MEAN) {
-          v.x /= nw;
-          v.y /= nw;
-          v.z /= nw;
-          v.w /= nw;
-        }
-        d4[e] = v;
-        e4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      }
-    } else {
-      for (int e = threadIdx.x; e < nw * H; e += blockDim.x) {
-        const int j = e % H;
-        dhn[b0 * H + e] = AGG == MEAN ? gr[j] / nw : gr[j];
-        dego[b0 * H + e] = 0.0f;
-      }
-    }
-    float* pr = part + (long long)blockIdx.x * (2 * H + 1);
-    for (int j = threadIdx.x; j < 2 * H + 1; j += blockDim.x) pr[j] = 0.0f;
-    return;
-  }
   extern __shared__ float sm[];
   float* sc = sm;        // [nw] scores (hetero: before the leaky relu)
   float* at = sc + nw;   // [nw] each walk's weight on g: softmax, or (1 + score) / nw
@@ -213,12 +221,18 @@ int launch_attention(const void* g, const void* h, const void* paths, const void
                      const void* ego, const void* attw, const void* attb, void* dhn,
                      void* dego, void* part, int T, int nw, int wl, int H, int agg,
                      void* stream) {
-  const int smem = agg == ATTENTION ? 3 * nw * (int)sizeof(float) : 0;
-  // mean and sum read neither the table nor the ego rows
-  const auto kernel = agg == MEAN ? pagg_attention_bwd_kernel<MEAN, false, W>
-                      : agg == SUM ? pagg_attention_bwd_kernel<SUM, false, W>
-                      : ego        ? pagg_attention_bwd_kernel<ATTENTION, true, W>
-                                   : pagg_attention_bwd_kernel<ATTENTION, false, W>;
+  if (agg != ATTENTION) {
+    const long long B = (long long)T * nw;
+    const bool v4 = agg_vec4(H, (uintptr_t)g | (uintptr_t)dhn);
+    const long long n = B * (v4 ? H / 4 : H);
+    const auto kernel = agg == MEAN ? pagg_agg_bwd_kernel<MEAN> : pagg_agg_bwd_kernel<SUM>;
+    kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+        (const float*)g, (float*)dhn, nw, H, n, v4);
+    return (int)cudaGetLastError();
+  }
+  const int smem = 3 * nw * (int)sizeof(float);
+  const auto kernel = ego ? pagg_attention_bwd_kernel<true, W>
+                          : pagg_attention_bwd_kernel<false, W>;
   if (int e = allow_smem(kernel, smem)) return e;
   kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
       (const float*)g, (const W*)h, (const int*)paths, (const float*)hn,
@@ -245,11 +259,13 @@ extern "C" int pathnet_pagg_encode_walks_streams(
                              hn, ego, st, T, nw, wl, H, bf16, gru, stream);
 }
 
-// Launch B: d h_n [T * nw, H] from g [T, H] and h_n; writes the ego rows'
-// gradient dego [T * nw, H] and each target's terms of the attention
-// weights' gradient, part [T, 2H + 1] (d attw, then d attb). agg 0
-// attention (homo where ego, launch A's, is given; the hetero ego rows from
-// a bf16 table where bf16 is nonzero), 1 mean, 2 sum (dego and part zeros).
+// Launch B: d h_n [T * nw, H] from g [T, H] and h_n; under agg 0
+// (attention; homo where ego, launch A's, is given; the hetero ego rows from
+// a bf16 table where bf16 is nonzero) also the ego rows' gradient dego
+// [T * nw, H] and each target's terms of the attention weights' gradient,
+// part [T, 2H + 1] (d attw, then d attb). Under agg 1 (mean) and 2 (sum) it
+// reads g alone and writes d h_n alone: h, paths, hn, ego, attw, attb, dego
+// and part may be null.
 extern "C" int pathnet_pagg_attention_bwd(
     const void* g, const void* h, const void* paths, const void* hn, const void* ego,
     const void* attw, const void* attb, void* dhn, void* dego, void* part,
@@ -264,7 +280,8 @@ extern "C" int pathnet_pagg_attention_bwd(
 // gradients and writes dsel and every gathered row's gradient drow, both
 // [wl, T * nw, H]. wd_t = wd transposed per class [wl, H, H]; w_t =
 // [w_ih; w_hh]^T [4H, 2H]; both bf16 where bf16 is nonzero. Homo where ego
-// is given, with xin (launch A's) and dego (launch B's). cs is launch A's
+// is given, with xin (launch A's) and dego (launch B's; null under the mean
+// and sum readouts, which give the ego row no gradient). cs is launch A's
 // cs, or (gru nonzero, f32 only) its hp.
 extern "C" int pathnet_pagg_bptt(const void* dhn, const void* dists,
                                  const void* wd_t, const void* w_t, const void* cs,

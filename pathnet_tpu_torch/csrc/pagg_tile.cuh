@@ -1,22 +1,37 @@
 // The walk tile shared by K3 (pagg_encode.cu) and K4 (pagg_encode_bwd.cu):
 // the tile's shape from H (tile_for), the cp.async staging of weight rows
-// through shared memory, the register-tiled f32 product tile_gemm<NG>, and
-// the encode over walk tiles, pagg_encode_walks_kernel. K3 serves with
-// STREAMS = false; K4's forward recompute runs the same kernel with
-// STREAMS = true, which also writes the per-step values K4's BPTT reads.
+// through shared memory, the register-tiled f32 product tile_gemm<NG>, the
+// bf16 tensor-core product mma_gemm<NG>, and the encode over walk tiles,
+// pagg_encode_walks_kernel. K3 serves with STREAMS = false; K4's forward
+// recompute runs the same kernel with STREAMS = true, which also writes the
+// per-step values K4's BPTT reads.
 // HOMO = true is the homo variant: steps in sampled order, a ReLU on the
 // selected row, and that row of step 0 (before dropout) stored as the
 // walk's ego row. BF16 = true takes the gather table and the cast weights
-// (wd, bd, w_ih, w_hh, b_ih, b_hh) as bf16, W below: the weight chunks are
-// staged as bf16 and widened in the product's B load, every product and
-// the cell stay f32 FMAs, and the values are rounded to bf16 where the JAX
-// package's bf16 encode holds them in bf16 (pathnet_tpu/models/pagg.py:
-// 233-279): the selected row round(round(x W[d]) + b[d]), the dropped-out
-// input round(s / keep) (keep given rounded to bf16), and c_t and h_t at the
-// end of each step. GRU = true runs the GRU (gates r, z, n) on weights
-// packed into the LSTM's layout (see pagg_encode.cu): the same product, and
-// an epilogue that reads h_{t-1} from the h half of A. The
-// design and its bound are described in pagg_encode.cu.
+// (wd, bd, w_ih, w_hh, b_ih, b_hh) as bf16, W below, and rounds the values
+// to bf16 where the JAX package's bf16 encode holds them in bf16
+// (pathnet_tpu/models/pagg.py:233-279): the selected row
+// round(round(x W[d]) + b[d]), the dropped-out input round(s / keep) (keep
+// given rounded to bf16), and c_t and h_t at the end of each step. GRU =
+// true runs the GRU (gates r, z, n) on weights packed into the LSTM's layout
+// (see pagg_encode.cu): the same product, and an epilogue that reads h_{t-1}
+// from the h half of A. The design and its bound are described in
+// pagg_encode.cu.
+//
+// The BF16 instances' products run on the bf16 tensor cores (mma_gemm,
+// mma.sync m16n8k16 with f32 accumulators). A [s_t | h_{t-1}] holds bf16
+// values only (the gathered row, the rounded selected row, the rounded
+// h_{t-1}), so it is kept in bf16 and its operands are exact; the products
+// then differ from the f32 CUDA-core product (tile_gemm, which the f32 and
+// GRU instances keep) only in the order of the f32 sums. What bounds them
+// on the H100 is not the tensor cores (18 H^2 flops a walk step are 0.098
+// ms at the bgp request at 989 TFLOP/s) but shared memory and the tile's
+// epilogue: mma_gemm stages each product's f32 result through a C tile in
+// shared memory, so the LSTM and select epilogues take their accumulators
+// in the CUDA-core tile's layout (a thread's 8 walks x 2 units x 4 gates)
+// and stay as they were; the weights pass through shared memory once per
+// block and step as for tile_gemm, in half the bytes. The tile (tile_for
+// with bf16) keeps two blocks a SM at H = 64.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,7 +62,7 @@ constexpr int NT_MAX = 512;  // threads per block at most
 static_assert(TN == 2, "tile_gemm unpacks B in pairs of units");
 
 struct Tile {
-  int M, CT, NT, KC, LDA, smem;
+  int M, CT, NT, KC, LDA, smem, Mp;
 };
 
 // The readouts (K3's second launch, K4's attention backward, template
@@ -72,17 +87,88 @@ __host__ __device__ inline int agg_groups(int H, int threads, bool vec4) {
 template <bool BF16>
 using Elem = std::conditional_t<BF16, __nv_bfloat16, float>;
 
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// A bf16 row of at least n elements holding an odd number of 16-byte units,
+// so that ldmatrix's eight rows fall in eight bank groups.
+__host__ __device__ constexpr int odd_units(int n) { return n / 8 % 2 ? n : n + 8; }
+
+// The tensor-core product of the BF16 instances (mma_gemm below) at width H
+// for NG column groups of H units (each padded to Hp, a multiple of 8),
+// on a tile of Mp walks (8, the top half of one m16-tile, or a power of two
+// times 16) and NT threads: each of the NT / 32 warps takes WN n8-tiles of
+// all the m16-tiles (at most TILES tiles, 4 f32 accumulators each a thread,
+// and at most 4 n8-tiles); the columns go in chunks of CW, each staged
+// through shared memory as KC rows of LDB bf16 and written back as an f32 C
+// tile [Mp][LDC], from which each thread takes its entries.
+struct MmaShape {
+  int WN, CW, LDB, LDC, KC;
+};
+
+// The BF16 instances' compiled widths: bgp's H = 64 and Electronics' 32;
+// any other width runs the run-time instance (HC = 0).
+__host__ __device__ constexpr bool bf16_compiled(int H) { return H == 64 || H == 32; }
+
+// A warp's tiles: 16 where H is compiled in and the tile shape is
+// constants; in the run-time instance, which also holds the shape in
+// registers, 8 and one n8-tile a warp (more spilled there). Host and device
+// agree on it.
+__host__ __device__ constexpr int mma_tiles(int H) { return bf16_compiled(H) ? 16 : 8; }
+
+__host__ __device__ constexpr MmaShape mma_shape(int NG, int H, int Mp, int NT) {
+  const int N = NG * ((H + 7) / 8 * 8);
+  const int MT = Mp < 16 ? 1 : Mp / 16, nwp = NT / 32, tiles = mma_tiles(H) / MT;
+  // a warp spans one column tile where every warp then has one (the select
+  // at H = 64), else as many as its tiles allow, at most 4
+  const int WN = nwp >= N / 8 || !bf16_compiled(H) ? 1 : (tiles < 4 ? tiles : 4);
+  const int CW = nwp * WN * 8 < N ? nwp * WN * 8 : N;
+  const int LDB = odd_units(CW);
+  return MmaShape{WN, CW, LDB, CW + 4, 2 * 32 * LDB * 2 <= 40960 ? 32 : 16};
+}
+
+// The shared bytes of one product: its two weight chunks or its C tile,
+// which reuses them.
+__host__ __device__ constexpr int mma_bytes(int NG, int H, int Mp, int NT) {
+  const MmaShape s = mma_shape(NG, H, Mp, NT);
+  const int b = 2 * s.KC * s.LDB * 2, c = Mp * s.LDC * 4;
+  return b > c ? b : c;
+}
+
+// The shared bytes of the BF16 encode (bptt false: A [roundup(2H, 16)][LDA]
+// bf16, then the larger of its two products' regions) and of the BF16 BPTT
+// (A's two bf16 halves [roundup(4H, 16)][LDA], then its products' region)
+// on a tile of Mp walks and NT threads.
+__host__ __device__ constexpr int bf16_smem(int H, int Mp, int NT, bool bptt) {
+  const int LDA = odd_units(Mp);
+  const int a = bptt ? mma_bytes(2, H, Mp, NT) : mma_bytes(4, H, Mp, NT);
+  const int b = mma_bytes(1, H, Mp, NT);
+  return (bptt ? 2 * round_up(4 * H, 16) : round_up(2 * H, 16)) * LDA * 2 + (a > b ? a : b);
+}
+
+constexpr int SMEM_MAX = 232448;  // the shared bytes a block may use on the H100
+
 __host__ __device__ constexpr Tile tile_for(int H, bool bf16 = false) {
   const int CT = (H + TN - 1) / TN;
   const int nt = H >= 128 ? NT_MAX : 256;
   const int rt = nt / CT < 1 ? 1 : (nt / CT > 32 ? 32 : nt / CT);
   const int kc = 2048 / H;  // a weight chunk of at most 32 KB
   const int KC = kc < 1 ? 1 : (kc > 32 ? 32 : kc);
+  if (bf16) {
+    // the tensor-core tile, shared by the BF16 encode and BPTT: row groups a
+    // power of two (M = 8, or a power of two times 16, the m-tiles), as many
+    // as the BPTT's shared bytes allow; whole warps (a thread past rt * CT
+    // holds no walk); A in bf16 (see bf16_smem)
+    int r2 = 1;
+    while (r2 * 2 <= rt && TM * r2 * 2 <= 16 * mma_tiles(H)) r2 *= 2;
+    while (r2 > 1 && bf16_smem(H, TM * r2, round_up(r2 * CT, 32), true) > SMEM_MAX) r2 /= 2;
+    const int M = TM * r2, NT = round_up(r2 * CT, 32);
+    return Tile{M, CT, NT, KC, odd_units(M), bf16_smem(H, M, NT, false), M};
+  }
   const int M = TM * rt;
   const int LDA = M + 4;    // rows of A padded against bank conflicts on stores
-  // A in f32, two weight chunks in the weights' type
-  return Tile{M, CT, rt * CT, KC, LDA,
-              (int)(2 * H * LDA * sizeof(float) + 2 * KC * 4 * H * (bf16 ? 2 : 4))};
+  // A in f32, two weight chunks
+  return Tile{M, CT, rt * CT, KC, LDA, (int)(2 * H * LDA * sizeof(float) + 2 * KC * 4 * H * 4),
+              M};
 }
 
 // The widths compiled with H, and so the whole tile, as constants; any
@@ -90,7 +176,7 @@ __host__ __device__ constexpr Tile tile_for(int H, bool bf16 = false) {
 // Two blocks a SM at H = 64 cap a thread at 128 registers (a few spill); one
 // block of 256 threads without the cap, 8 warps a SM, ran slower on the H100.
 constexpr int launch_threads(int HC) { return HC ? tile_for(HC).NT : NT_MAX; }
-constexpr int launch_blocks(int HC) { return HC == 64 ? 2 : 1; }
+constexpr int launch_blocks(int HC) { return HC == 64 || HC == 32 ? 2 : 1; }
 
 // The fast exponential and division: a few 1e-6 relative from the accurate
 // ones over the gates' range, and without their slow-path calls, which
@@ -248,6 +334,300 @@ __device__ __forceinline__ void tile_gemm(float (&acc)[TM][TN][NG],
   }
 }
 
+// ---- The BF16 instances' products on bf16 tensor cores ----
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) with fragments from ldmatrix.
+// A lies k-major in shared memory ([k][LDA] bf16, so .trans gives the
+// row-major A fragment); B's chunks lie [k][LDB] (.trans gives the col-major
+// B fragment). The encode's A and B hold bf16 values, so its operands are
+// exact and only the f32 sums' order differs from the CUDA-core product's.
+// The BPTT's A holds f32 cotangents as two bf16 halves, hi = bf16(a) and
+// lo = bf16(a - hi), each multiplied into the same accumulators: within
+// ~2^-16 relative of the f32 product.
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(unsigned& r0, unsigned& r1, const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rows k0 .. k0 + KC of B (row k from B0 + k * NB below K0, else from B1;
+// zero at k >= K) at the padded columns c0 .. c0 + cw (column n is unit
+// n % Hp of group n / Hp, zero past H) into dst [KC][LDB], in pieces of 8
+// (16-byte cp.async), 2 (4-byte cp.async) or 1 (plain) elements by `mode`;
+// one cp.async group.
+__device__ __forceinline__ void stage_mma_chunk(__nv_bfloat16* dst, int k0, int KC, int K,
+                                                const __nv_bfloat16* __restrict__ B0, int K0,
+                                                const __nv_bfloat16* __restrict__ B1, int NB,
+                                                int c0, int cw, int Hp, int H, int LDB,
+                                                int NT, int mode) {
+  const int step = mode == COPY16 ? 8 : mode == COPY4 ? 2 : 1;
+  const int per_row = cw / step;
+  for (int f = threadIdx.x; f < KC * per_row; f += NT) {
+    const int kk = f / per_row, col = f % per_row * step;
+    const int k = k0 + kk, n = c0 + col;
+    const int g = n / Hp, j = n - g * Hp;
+    __nv_bfloat16* d = dst + kk * LDB + col;
+    const bool real = k < K && j < H;
+    const __nv_bfloat16* src =
+        (k < K0 ? B0 + (size_t)k * NB : B1 + (size_t)(k - K0) * NB) + g * H + j;
+    if (mode == COPY16) {
+      if (real)
+        cp_async16(d, src);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    } else if (mode == COPY4) {
+      if (real)
+        cp_async4(d, src);
+      else
+        *reinterpret_cast<unsigned*>(d) = 0u;
+    } else {
+      *d = real ? *src : __float2bfloat16_rn(0.0f);
+    }
+  }
+  cp_async_commit();
+}
+
+// What one product's arguments hold: A (and, for an f32 A, its low half
+// A2, else null) k-major [.][LDA] over Mp walks, K rows of it used; B's
+// rows of NB elements (B0 below K0, then B1); the initial value of column
+// (g, j), bias0[g * H + j] + bias1[g * H + j] (0 without them); the shared
+// region for B's chunks and C's; the chunk [c0, c0 + cw) being computed.
+struct MmaArgs {
+  float* Cs;
+  const __nv_bfloat16* As;
+  const __nv_bfloat16* As2;
+  int LDA, K;
+  const __nv_bfloat16* B0;
+  int K0;
+  const __nv_bfloat16* B1;
+  int NB;
+  const __nv_bfloat16* bias0;
+  const __nv_bfloat16* bias1;
+  __nv_bfloat16* Bs;
+  MmaShape s;
+  int c0, cw, Hp, H, NT, mode;
+};
+
+// One chunk of columns of C = init + A B on the tensor cores, written to
+// Cs [Mp][s.LDC] (f32): warp w takes n-tiles w * WN .. w * WN + WN - 1 of the
+// chunk over WM m16-tiles (HALF: one tile of which rows 0-7 hold walks and
+// rows 8-15 are zeros that are neither loaded nor stored). Every thread of
+// the block calls it; it ends with a barrier.
+template <int WM, int WN, bool HALF = false>
+__device__ __forceinline__ void mma_chunk(const MmaArgs& p) {
+  const MmaShape& s = p.s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nt0 = warp * WN;  // the warp's first n-tile of the chunk
+  const int ntl = p.cw / 8;
+  float d[WM][WN][4];
+#pragma unroll
+  for (int q = 0; q < WN; ++q) {
+    float b[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int n = p.c0 + (nt0 + q) * 8 + (lane & 3) * 2 + e;
+      const int g = n / p.Hp, j = n - g * p.Hp;
+      if (p.bias0 && nt0 + q < ntl && j < p.H)
+        b[e] = __bfloat162float(p.bias0[g * p.H + j]) + __bfloat162float(p.bias1[g * p.H + j]);
+    }
+#pragma unroll
+    for (int m = 0; m < WM; ++m) {
+      d[m][q][0] = d[m][q][2] = b[0];
+      d[m][q][1] = d[m][q][3] = b[1];
+    }
+  }
+  const int Kp = round_up(p.K, 16);
+  const int nch = (Kp + s.KC - 1) / s.KC;
+  const int halves = p.As2 ? 2 : 1;
+  stage_mma_chunk(p.Bs, 0, s.KC, p.K, p.B0, p.K0, p.B1, p.NB, p.c0, p.cw, p.Hp, p.H, s.LDB,
+                  p.NT, p.mode);
+  for (int ch = 0; ch < nch; ++ch) {
+    const __nv_bfloat16* cur = p.Bs + (ch & 1) * s.KC * s.LDB;
+    if (ch + 1 < nch) {
+      stage_mma_chunk(p.Bs + ((ch + 1) & 1) * s.KC * s.LDB, (ch + 1) * s.KC, s.KC, p.K, p.B0,
+                      p.K0, p.B1, p.NB, p.c0, p.cw, p.Hp, p.H, s.LDB, p.NT, p.mode);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = ch * s.KC;
+    const int kn = Kp - k0 < s.KC ? Kp - k0 : s.KC;
+    if (nt0 < ntl) {
+      // lane l points ldmatrix at row l % 8 of matrix l / 8
+      const int mi = lane >> 3, mr = lane & 7;
+      for (int kk = 0; kk < kn; kk += 16) {
+        // B: matrices (k 0-7, tile q), (k 8-15, tile q), then tile q + 1's
+        unsigned b[WN][2];
+        const __nv_bfloat16* bp = cur + (kk + (mi & 1) * 8 + mr) * s.LDB + nt0 * 8;
+        if constexpr (WN == 1) {
+          ldsm_x2_t(b[0][0], b[0][1], bp);
+        } else {
+#pragma unroll
+          for (int q = 0; q < WN; q += 2) {
+            if (nt0 + q + 1 < ntl) {
+              unsigned r[4];
+              ldsm_x4_t(r, bp + (q + (mi >> 1)) * 8);
+              b[q][0] = r[0];
+              b[q][1] = r[1];
+              b[q + 1][0] = r[2];
+              b[q + 1][1] = r[3];
+            } else if (nt0 + q < ntl) {  // the chunk's last tile alone
+              ldsm_x2_t(b[q][0], b[q][1], bp + q * 8);
+            }
+          }
+        }
+        const int krow = k0 + kk + (mi >> 1) * 8 + mr;
+        for (int half = 0; half < halves; ++half) {
+          const __nv_bfloat16* A = half ? p.As2 : p.As;
+#pragma unroll
+          for (int m = 0; m < WM; ++m) {
+            unsigned a[4];
+            if constexpr (HALF) {
+              // (rows 0-7, k 0-7) and (rows 0-7, k 8-15): lanes 0-7 and 8-15
+              ldsm_x2_t(a[0], a[2], A + (k0 + kk + (mi & 1) * 8 + mr) * p.LDA);
+              a[1] = a[3] = 0u;
+            } else {
+              ldsm_x4_t(a, A + krow * p.LDA + m * 16 + (mi & 1) * 8);
+            }
+#pragma unroll
+            for (int q = 0; q < WN; ++q)
+              if (nt0 + q < ntl) mma_bf16(d[m][q], a, b[q][0], b[q][1]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  // the accumulators to C: rows lane / 4 and lane / 4 + 8 of each m-tile
+#pragma unroll
+  for (int q = 0; q < WN; ++q) {
+    if (nt0 + q >= ntl) break;
+    const int col = (nt0 + q) * 8 + (lane & 3) * 2;
+#pragma unroll
+    for (int m = 0; m < WM; ++m) {
+      const int row = m * 16 + (lane >> 2);
+      *reinterpret_cast<float2*>(p.Cs + row * s.LDC + col) = make_float2(d[m][q][0], d[m][q][1]);
+      if (!HALF)
+        *reinterpret_cast<float2*>(p.Cs + (row + 8) * s.LDC + col) =
+            make_float2(d[m][q][2], d[m][q][3]);
+    }
+  }
+  __syncthreads();
+}
+
+// acc[i][u][g] = init + sum_k A[k][m0 + i] * B[k][g * H + jc[u]] over k < K
+// for the thread's walks and held units (jv; 0 in the units it does not
+// hold), as tile_gemm's accumulators (tile_gemm adds to them; this sets
+// them): A bf16 k-major [.][LDA] over Mp walks (A2, if given, its low half:
+// both are multiplied in), B bf16 rows of NB = NG * H as tile_gemm takes
+// them, init the sum of bias0 and bias1 at the column (0 where they are
+// null). The region holds the weight chunks, then the C chunks; `mode` is
+// copy_mode<bf16>(H, align); TILES is mma_tiles(H). Every thread of the
+// block calls it; it ends with a barrier, so A may be rewritten right after.
+template <int NG, int TILES>
+__device__ __forceinline__ void mma_gemm(float (&acc)[TM][TN][NG], const __nv_bfloat16* As,
+                                         const __nv_bfloat16* As2, int LDA, int Mp, int m0,
+                                         int K, const __nv_bfloat16* __restrict__ B0, int K0,
+                                         const __nv_bfloat16* __restrict__ B1,
+                                         const __nv_bfloat16* __restrict__ bias0,
+                                         const __nv_bfloat16* __restrict__ bias1, void* region,
+                                         const int (&jc)[TN], const bool (&jv)[TN], int H,
+                                         int NT, int mode) {
+  const MmaShape s = mma_shape(NG, H, Mp, NT);
+  const int Hp = round_up(H, 8), N = NG * Hp;
+  MmaArgs p{reinterpret_cast<float*>(region), As, As2, LDA, K, B0, K0, B1, NG * H, bias0,
+            bias1, reinterpret_cast<__nv_bfloat16*>(region), s, 0, 0, Hp, H, NT, mode};
+  // one warp tile where H is compiled in; the run-time width's with at most
+  // 8 tiles and one n8-tile (TILES)
+  constexpr bool T16 = TILES == 16;
+  for (int c0 = 0; c0 < N; c0 += s.CW) {
+    p.c0 = c0;
+    p.cw = N - c0 < s.CW ? N - c0 : s.CW;
+    // the warp tile (WM m16-tiles, or the top half of one, by WN n8-tiles)
+    // as template constants (mma_shape's choices)
+    if (s.WN == 1) {
+      switch (Mp / 16) {
+        case 0: mma_chunk<1, 1, true>(p); break;
+        case 1: mma_chunk<1, 1>(p); break;
+        case 2: mma_chunk<2, 1>(p); break;
+        case 4: mma_chunk<4, 1>(p); break;
+        case 8: mma_chunk<8, 1>(p); break;
+        default: if constexpr (T16) mma_chunk<16, 1>(p); break;
+      }
+    } else if constexpr (T16) {
+      switch (Mp / 16) {
+        case 0: mma_chunk<1, 4, true>(p); break;
+        case 1: mma_chunk<1, 4>(p); break;
+        case 2: mma_chunk<2, 4>(p); break;
+        case 4: mma_chunk<4, 4>(p); break;
+        default: mma_chunk<8, 2>(p); break;
+      }
+    }
+    const float* Cs = p.Cs;
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+      for (int u = 0; u < TN; ++u) {
+        const int col = g * Hp + jc[u] - c0;
+        if (!jv[u]) {
+          if (c0 == 0)
+#pragma unroll
+            for (int i = 0; i < TM; ++i) acc[i][u][g] = 0.0f;
+          continue;
+        }
+        if (col < 0 || col >= p.cw) continue;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) acc[i][u][g] = Cs[(m0 + i) * s.LDC + col];
+      }
+    __syncthreads();
+  }
+}
+
+// Eight values of a bf16 A's column (bf16 values already: exact), one
+// 16-byte store; and four values of an f32 cotangent as its bf16 halves
+// hi and lo into two such A's, one 8-byte store each.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&v)[TM]) {
+  static_assert(TM == 8, "eight bf16 a 16-byte store");
+  __nv_bfloat162 q[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(q);
+}
+
+__device__ __forceinline__ void store_split4(__nv_bfloat16* hi, __nv_bfloat16* lo, float a,
+                                             float b, float c, float d) {
+  const float v[4] = {a, b, c, d};
+  __nv_bfloat162 qh[2], ql[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    qh[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    const float2 f = __bfloat1622float2(qh[i]);
+    ql[i] = __floats2bfloat162_rn(v[2 * i] - f.x, v[2 * i + 1] - f.y);
+  }
+  *reinterpret_cast<uint2*>(hi) = *reinterpret_cast<const uint2*>(qh);
+  *reinterpret_cast<uint2*>(lo) = *reinterpret_cast<const uint2*>(ql);
+}
+
 __device__ __forceinline__ void store_rows(float* dst, const float (&v)[TM]) {
 #pragma unroll
   for (int i = 0; i < TM; i += 4)
@@ -380,26 +760,39 @@ pagg_encode_walks_kernel(
     float* __restrict__ hn, float* __restrict__ ego, Streams st, long long B, int wl,
     int Hrt, int align) {
   using W = Elem<BF16>;
-  constexpr Tile tc = tile_for(HC ? HC : 64);
-  const Tile tr = tile_for(Hrt);
+  constexpr Tile tc = tile_for(HC ? HC : 64, BF16);
+  const Tile tr = tile_for(Hrt, BF16);
   const int H = HC ? HC : Hrt;
   const int CT = HC ? tc.CT : tr.CT;
   const int KC = HC ? tc.KC : tr.KC;
   const int LDA = HC ? tc.LDA : tr.LDA;
   const int M = HC ? tc.M : tr.M;
+  const int Mp = HC ? tc.Mp : tr.Mp;
   const int NT = HC ? tc.NT : tr.NT;
   const int mode4 = copy_mode<W>(4 * H, align), mode1 = copy_mode<W>(H, align);
   // bf16 table rows read in pairs where every pair is 4-byte aligned
   const bool hpair = BF16 && H % 2 == 0 && (uintptr_t)h % 4 == 0;
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                                  // [2H][LDA]: x_t then s_t, then h_{t-1}
-  W* Bs = reinterpret_cast<W*>(As + 2 * H * LDA);    // [2][KC][4H] weight chunks
+  // A [2H][LDA]: x_t then s_t, then h_{t-1}; f32, or under BF16 bf16 with
+  // its rows padded to a multiple of 16 (zeros)
+  W* As = reinterpret_cast<W*>(smem);
+  W* Bs = reinterpret_cast<W*>(As + 2 * H * LDA);    // f32: [2][KC][4H] weight chunks
+  void* region = As + round_up(2 * H, 16) * LDA;     // BF16: mma_gemm's chunks and C tiles
   int r, c, jc[TN];
   bool jv[TN];
   tile_thread(CT, M, H, r, c, jc, jv);
   const int m0 = r * TM;
-  const long long b0 = (long long)blockIdx.x * M + m0;
-  for (int e = threadIdx.x; e < H * LDA; e += NT) As[H * LDA + e] = 0.0f;
+  // BF16: a thread past the tile's row groups (the block is whole warps)
+  // holds no walk and no unit, but takes its part in the products
+  const bool idle = BF16 && threadIdx.x >= M / TM * CT;
+  if (idle) jv[0] = jv[1] = false;
+  const long long b0 = idle ? B : (long long)blockIdx.x * M + m0;
+  if constexpr (BF16) {
+    for (int e = threadIdx.x; e < round_up(2 * H, 16) * LDA; e += NT)
+      As[e] = __float2bfloat16_rn(0.0f);
+  } else {
+    for (int e = threadIdx.x; e < H * LDA; e += NT) As[H * LDA + e] = 0.0f;
+  }
   float cs[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -451,7 +844,11 @@ pagg_encode_walks_kernel(
 #pragma unroll
         for (int u = 0; u < TN; ++u) acc[i][u][0] = 0.0f;
       const W* wk = wd + (size_t)k * H * H;
-      tile_gemm<1>(acc, As, LDA, m0, H, wk, H, wk, Bs, KC, jc, H, NT, mode1);
+      if constexpr (BF16)
+        mma_gemm<1, mma_tiles(HC)>(acc, As, nullptr, LDA, Mp, m0, H, wk, H, wk, nullptr,
+                                   nullptr, region, jc, jv, H, NT, mode1);
+      else
+        tile_gemm<1>(acc, As, LDA, m0, H, wk, H, wk, Bs, KC, jc, H, NT, mode1);
 #pragma unroll
       for (int u = 0; u < TN; ++u) {
         const float bk = ldf(bd + (size_t)k * H + jc[u]);
@@ -486,17 +883,23 @@ pagg_encode_walks_kernel(
     if constexpr (STREAMS) store_pairs(st.xin, r0, B - b0, H, jc, jv, sv);
     __syncthreads();
 
-    // gates = [s_t | h_{t-1}] @ [w_ih; w_hh] + b_ih + b_hh
+    // gates = [s_t | h_{t-1}] @ [w_ih; w_hh] + b_ih + b_hh, the bias the
+    // accumulators' initial value
     float acc[TM][TN][4];
+    if constexpr (BF16) {
+      mma_gemm<4, mma_tiles(HC)>(acc, As, nullptr, LDA, Mp, m0, 2 * H, w_ih, H, w_hh, b_ih,
+                                 b_hh, region, jc, jv, H, NT, mode1);
+    } else {
 #pragma unroll
-    for (int u = 0; u < TN; ++u)
+      for (int u = 0; u < TN; ++u)
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float bias = ldf(b_ih + g * H + jc[u]) + ldf(b_hh + g * H + jc[u]);
+        for (int g = 0; g < 4; ++g) {
+          const float bias = ldf(b_ih + g * H + jc[u]) + ldf(b_hh + g * H + jc[u]);
 #pragma unroll
-        for (int i = 0; i < TM; ++i) acc[i][u][g] = bias;
-      }
-    tile_gemm<4>(acc, As, LDA, m0, 2 * H, w_ih, H, w_hh, Bs, KC, jc, H, NT, mode4);
+          for (int i = 0; i < TM; ++i) acc[i][u][g] = bias;
+        }
+      tile_gemm<4>(acc, As, LDA, m0, 2 * H, w_ih, H, w_hh, Bs, KC, jc, H, NT, mode4);
+    }
 
     // cell update in registers; h_t back to A, or out as h_n after the last
     // step; BF16 rounds c_t, then h_t from the rounded c_t
@@ -633,9 +1036,13 @@ int launch_encode_as(const void* h, const void* paths, const void* dists, const 
   const Tile tl = tile_for(H, BF16);
   const bool masked = mask != nullptr, homo = ego != nullptr;
   EncodeKernel<BF16> kernel;
-  if constexpr (BF16 || GRU)
-    kernel = H == 64 ? encode_instance<STREAMS, 64, BF16, GRU>(masked, homo)
-                     : encode_instance<STREAMS, 0, BF16, GRU>(masked, homo);
+  if constexpr (BF16)
+    kernel = H == 64   ? encode_instance<STREAMS, 64, true>(masked, homo)
+             : H == 32 ? encode_instance<STREAMS, 32, true>(masked, homo)
+                       : encode_instance<STREAMS, 0, true>(masked, homo);
+  else if constexpr (GRU)
+    kernel = H == 64 ? encode_instance<STREAMS, 64, false, true>(masked, homo)
+                     : encode_instance<STREAMS, 0, false, true>(masked, homo);
   else
     kernel = H == 64    ? encode_instance<STREAMS, 64, false>(masked, homo)
              : H == 256 ? encode_instance<STREAMS, 256, false>(masked, homo)

@@ -18,12 +18,13 @@ import ctypes
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -218,6 +219,43 @@ def library() -> ctypes.CDLL:
         lib.pathnet_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def kernel_instance(mangled: str) -> Tuple[str, str]:
+    """A kernel's name and its template arguments as mangled (``""`` without
+    them) from the mangled name of its instance: the last length-prefixed
+    identifier that ends in ``_kernel`` (a file's hash before it can read as
+    a longer one)."""
+    found = (mangled, "")
+    for m in re.finditer(r"(?=(\d+))", mangled):   # every start of digits
+        end = m.start() + len(m.group(1))
+        ident = mangled[end:end + int(m.group(1))]
+        if ident.endswith("_kernel") and ident[0].isalpha():
+            args = re.match(r"I(.*?)Ev", mangled[end + len(ident):])
+            found = (ident, args.group(1) if args else "")
+    return found
+
+
+def hmma_counts(kernel: str, flag: int) -> Dict[int, List[int]]:
+    """The HMMA (tensor-core) instructions in each instance of ``kernel`` in
+    the built library's SASS (``cuobjdump -sass``, from nvcc's directory),
+    by the value of its integer or bool template argument number ``flag``."""
+    path, _ = build()
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                         text=True, timeout=TIMEOUT_S, check=True).stdout
+    counts: Dict[int, List[int]] = {}
+    key = None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name, args = kernel_instance(m.group(1))
+            key = int(re.findall(r"L[bi](\d+)E", args)[flag]) if name == kernel else None
+            if key is not None:
+                counts.setdefault(key, []).append(0)
+        elif key is not None and "HMMA" in line:
+            counts[key][-1] += 1
+    return counts
 
 
 def check(rc: int, kernel: str) -> None:

@@ -39,8 +39,9 @@ the GRU needs 12 H^2. GRU instances are f32 only (bf16 with the GRU raises
 ``pagg.py:233-279``): the table ``h`` and the six cast weights ``wd, bd, w_ih,
 w_hh, b_ih, b_hh`` are given as bf16, all of them or none (a mixed set
 raises); ``attw`` and ``attb`` stay f32, and so does the result. Every
-product and the LSTM cell run in f32 on the bf16 values, which are rounded
-to bf16 (:func:`round_bf16`) where JAX's encode holds them in bf16:
+product sums in f32 the products of bf16 values (exact), on the card on the
+bf16 tensor cores, and the LSTM cell runs in f32; the values are rounded to
+bf16 (:func:`round_bf16`) where JAX's encode holds them in bf16:
 
 - the distance select ``s = round(round(x @ W[d]) + b[d])`` (homo: its
   ReLU, exact in bf16);
@@ -56,7 +57,11 @@ to bf16 (:func:`round_bf16`) where JAX's encode holds them in bf16:
 JAX rounds its input product ``gx`` on its own and runs its cell in bf16;
 those differences stay inside a few bf16 ulps of ``h_n``
 (``tests/test_torch_bf16.py``). The bf16 instances of the kernel are the
-template parameter ``BF16``, compiled at H = 64 and at the run-time width.
+template parameter ``BF16``, compiled at H = 64 and 32 and at the run-time
+width; their products are ``mma.sync`` on the tensor cores (bf16 operands,
+f32 accumulators), which sum in another order than the plain version's f32
+product, so a rounding to bf16 can fall an ulp apart (the card tests hold
+them within four bf16 ulps of the plain version's largest entry).
 
 Training mode: with ``keep_mask`` (uint8 ``[wl, T * nw, H]``, the layout of
 the LSTM input ``seq`` at ``pagg.py:274``) the selected input of step ``t`` of
@@ -90,11 +95,11 @@ launch), with plain versions :func:`encode_walks_plain` and
 
 Bound on the H100: f32 FMA work, about 18 H^2 flops per walk step: at one
 8192-target request (nw = 40, wl = 4, H = 64) about 97 GFLOP, 1.4 ms at the
-67 TFLOP/s f32 rate, against about 29 MB of unique bytes (9 us). The kernel
-computes in f32 on the CUDA cores, so the f32 rate, not the bf16 tensor-core
-rate, is its bound in this form, for the bf16 instances too (the same FMAs
-on half the table and weight bytes); the same 97 GFLOP at bf16's dense
-tensor-core rate (989 TFLOP/s) would take about 0.10 ms. The homo variant
+67 TFLOP/s f32 rate, against about 29 MB of unique bytes (9 us). The f32
+instances compute on the CUDA cores, so the f32 rate is their bound; the
+bf16 instances run the same 97 GFLOP on the tensor cores, about 0.10 ms at
+bf16's dense rate (989 TFLOP/s), and are held above it by the tile's shared
+memory traffic and its f32 epilogue (``csrc/pagg_tile.cuh``). The homo variant
 adds per-element work only (two ReLUs, the ego store): the same bound. The
 GRU needs 14 H^2 flops a walk step (2 for the select, 12 for its gates): 75
 GFLOP, 1.12 ms at the bgp request, though the packed product runs the
@@ -141,6 +146,14 @@ def is_bf16(h: torch.Tensor, bf16: bool = False) -> bool:
     """Whether a plain version computes in bf16: asked for, or given a bf16
     table."""
     return bf16 or h.dtype == torch.bfloat16
+
+
+def gather_rows(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``h[idx]`` for an integer ``idx`` of any shape, through ``index_select``:
+    its backward adds with ``index_add_``, in the same order on every run,
+    where autograd through ``h[idx]`` adds with ``index_put_``, which a
+    multi-threaded CPU adds in thread order."""
+    return h.index_select(0, idx.reshape(-1).long()).view(*idx.shape, h.shape[1])
 
 
 def select_plain(x, d, wd, bd, homo=False, bf16=False):
@@ -219,7 +232,7 @@ def encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
                                              (h, wd, bd, w_ih, w_hh, b_ih, b_hh))
     T, nw, wl = paths.shape
     H = h.shape[1]
-    x, d = h[paths.long()], dists
+    x, d = gather_rows(h, paths), dists
     if not homo:
         x, d = x.flip(2), d.flip(2)
     x = x.reshape(-1, H)
@@ -249,7 +262,7 @@ def readout_plain(h, paths, hn, attw, attb, ego=None, agg="attention") -> torch.
         return h_n.mean(dim=1)
     if agg == "sum":
         return h_n.sum(dim=1)
-    e = h[paths[:, :, 0].long()].float() if ego is None else ego.reshape(T, nw, H)
+    e = gather_rows(h, paths[:, :, 0]).float() if ego is None else ego.reshape(T, nw, H)
     score = torch.cat([h_n, e], dim=-1) @ attw + attb           # [T, nw]
     if ego is not None:
         return ((1.0 + score)[:, :, None] * h_n).mean(dim=1)

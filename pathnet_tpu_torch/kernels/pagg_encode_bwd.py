@@ -28,7 +28,8 @@ forward.
    again from ``h_n``, ``d h_n`` into a second scratch ``[T * nw, H]``, the
    ego rows' gradient to its rows ``[T * nw, H]``, and the target's terms of
    ``dattw`` and ``dattb`` to its row of ``[T, 2H + 1]`` partial sums, which
-   the wrapper sums over the targets (``torch.sum`` over a fixed shape).
+   the wrapper sums over the targets (``torch.sum`` over a fixed shape);
+   under mean and sum ``d h_n`` alone (below).
 3. BPTT on the same tiles: a thread keeps ``dh`` and ``dc`` of 8 walks x 2
    units in registers down the steps. Each step forms the pre-activation
    gate gradients (written over ``gt``); one register-tiled product with
@@ -40,13 +41,14 @@ forward.
    gradients of 2. and 3. into ``dh [n, H]``, each node's in the order of a
    stable sort of the paths' node ids (its own launch and count).
 
-**Mean and sum** (``pagg.py:304-307``): 2. writes ``d h_n = g / nw`` (mean)
-or ``g`` (sum) to every walk, zero ego-row gradients (so 4. sums the rows
-of the attention readout's layout, the hetero ego rows adding exact zeros;
-homo's step 0 adds a zero ``d ego``) and zero partial sums, so ``dattw``
-and ``dattb`` are exact zero tensors (not None: the trainer's additive L2
-still decays them, as JAX's does). The homo BPTT still reads ``ego`` for
-the ReLU's sign at step 0.
+**Mean and sum** (``pagg.py:304-307``): 2. reads ``g`` alone and writes
+``d h_n = g / nw`` (mean) or ``g`` (sum) to every walk, and nothing else
+(16-byte stores over the flat ``[T * nw, H]``: its bound is those bytes);
+``dattw`` and ``dattb`` are exact zero tensors that the wrapper makes (not
+None: the trainer's additive L2 still decays them, as JAX's does). No ego
+row gets a gradient: the hetero rows are ``wl`` a walk
+(:func:`row_nodes` with ``agg``), and the homo BPTT is given no ``d ego``
+(it still reads ``ego`` for the ReLU's sign at step 0).
 
 **The GRU** (K3's packed weights, :func:`~pathnet_tpu_torch.kernels.pagg_encode.pack_gru`):
 1. writes ``gt`` as ``(r, z, n, h W_hn + b_hn)`` and ``hp``, and no ``cs``
@@ -80,8 +82,12 @@ the sign). So 4. sums ``wl`` rows a walk, not ``wl + 1``.
 b_hh`` bf16, all or none): 1. is K3's bf16 encode, so the streams hold the
 forward's rounded values, kept in f32, which holds them exactly; 2. reads
 the hetero ego rows from the bf16 table; 3. stages the bf16 weights as K3
-does. Every cotangent stays f32: the derivative of each rounding is taken as
-the identity (JAX's convert VJP only changes the cotangent's type). ``dh``
+does and multiplies on the bf16 tensor cores too, each f32 cotangent of its
+products split into two bf16 halves, ``hi = bf16(a)`` and ``lo = bf16(a -
+hi)``, both multiplied into the same f32 sums (within ~2^-16 relative of the
+f32 product). Every cotangent stays f32: the derivative of each rounding is
+taken as the identity (JAX's convert VJP only changes the cotangent's
+type). ``dh``
 (from 4., f32) and the six cast weights' gradients are returned as bf16, the
 type of their inputs, as JAX's cotangents of a bf16 cast are; ``dattw`` and
 ``dattb`` stay f32. The plain version differentiates K3's bf16 plain version
@@ -112,8 +118,9 @@ compose to :func:`pagg_encode_bwd_plain`.
 Bound on the H100: f32 operations, about 54 ``H^2`` flops per walk step
 (forward recompute 18, backward products 18, weight-gradient contractions
 18), about 290 GFLOP or 4.3 ms at 67 TFLOP/s per bgp microbatch, for either
-variant (homo's extra work is per element). The GRU needs 42 H^2 (14 each),
-3.4 ms there, though the packed products run the LSTM's 54.
+variant (homo's extra work is per element); the bf16 instances' at bf16's
+tensor-core rate, 0.29 ms. The GRU needs 42 H^2 (14 each), 3.4 ms there,
+though the packed products run the LSTM's 54.
 """
 from __future__ import annotations
 
@@ -124,7 +131,7 @@ import torch.nn.functional as F
 
 from . import build
 from .pagg_encode import (AGGS, _check as check_encode, check_choices, check_keep_mask,
-                          compute_dtype, dropout_divisor, dropout_plain, is_bf16,
+                          compute_dtype, dropout_divisor, dropout_plain, gather_rows, is_bf16,
                           lstm_bf16_steps, pagg_encode_fwd_plain, ptr, select_plain)
 from .segment_sum import segment_sum
 
@@ -176,7 +183,7 @@ def encode_walks_streams_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
     T, nw, wl = paths.shape
     H = h.shape[1]
     B = T * nw
-    xr = h[paths.long()]
+    xr = gather_rows(h, paths)
     if not homo:
         xr = xr.flip(2)
     xr = xr.reshape(B, wl, H).transpose(0, 1).contiguous()
@@ -218,14 +225,15 @@ def attention_bwd_plain(g, h, paths, hn, attw, attb, ego=None, agg="attention"):
     ``dego [T * nw, H]`` holding each walk's ego row gradient; homo where the
     ego rows ``ego [T * nw, H]`` (the recompute's) are given; ``h`` f32 or
     the bf16 table. Under ``agg`` mean or sum: ``g / nw`` or ``g`` for every
-    walk and zeros for the rest."""
+    walk, ``dego`` None (the ego rows get no gradient) and zero ``dattw``,
+    ``dattb``."""
     T, nw, _ = paths.shape
     H = h.shape[1]
     if agg != "attention":
         dhn = (g / nw if agg == "mean" else g).repeat_interleave(nw, dim=0)
-        return dhn, torch.zeros_like(hn), attw.new_zeros(2 * H), attb.new_zeros(1)
+        return dhn, None, attw.new_zeros(2 * H), attb.new_zeros(1)
     h_n = hn.reshape(T, nw, H)
-    e = h[paths[:, :, 0].long()].float() if ego is None else ego.reshape(T, nw, H)
+    e = gather_rows(h, paths[:, :, 0]).float() if ego is None else ego.reshape(T, nw, H)
     score = h_n @ attw[:H] + e @ attw[H:] + attb                     # [T, nw]
     datt = (h_n * g[:, None, :]).sum(-1)
     if ego is None:
@@ -251,7 +259,8 @@ def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, state, gt, keep_mask=None, kee
     H]`` the gradient of the selected row (homo: before its ReLU). ``state``
     is the recompute's ``cs`` (LSTM) or ``hp`` (``cell="gru"``, packed
     weights). ``homo`` is None (hetero) or ``(xin, ego, dego)``: the
-    recompute's ``xin`` and ``ego`` and the attention backward's ``dego``.
+    recompute's ``xin`` and ``ego`` and the attention backward's ``dego``
+    (None under the mean and sum readouts: no ego row gradient at step 0).
     ``bf16`` (or bf16 weights): the same f32 math on the weights' values
     (each rounding's derivative is 1), the dropout's divisor rounded as the
     forward's."""
@@ -288,7 +297,7 @@ def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, state, gt, keep_mask=None, kee
             dxin = torch.where(keep_mask[t].bool(), dxin / keep, 0.0)
         if homo is not None:
             xin, ego, dego = homo
-            if t == 0:
+            if t == 0 and dego is not None:
                 dxin = dxin + dego
             dxin = torch.where((ego if t == 0 else xin[t]) > 0, dxin, 0.0)
         dsel[t] = dxin
@@ -299,16 +308,18 @@ def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, state, gt, keep_mask=None, kee
     return drow, dgates, dsel
 
 
-def row_nodes(paths: torch.Tensor, homo: bool = False) -> torch.Tensor:
+def row_nodes(paths: torch.Tensor, homo: bool = False,
+              agg: str = "attention") -> torch.Tensor:
     """int32: the node of each row gradient, in the order of the BPTT's
     ``drow`` (step ``t`` holds position ``wl - 1 - t``) followed by the
     attention backward's ego rows, ``(wl + 1) * T * nw`` in all; homo (step
-    ``t`` holds position ``t``, no ego rows) ``wl * T * nw``."""
+    ``t`` holds position ``t``, no ego rows) and the mean and sum readouts
+    (no ego row gradient) ``wl * T * nw``."""
     T, nw, wl = paths.shape
     if homo:
         return paths.reshape(T * nw, wl).t().reshape(-1)
-    steps = paths.flip(2).reshape(T * nw, wl).t()
-    return torch.cat([steps.reshape(-1), paths[:, :, 0].reshape(-1)])
+    steps = paths.flip(2).reshape(T * nw, wl).t().reshape(-1)
+    return torch.cat([steps, paths[:, :, 0].reshape(-1)]) if agg == "attention" else steps
 
 
 def class_contractions(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor,
@@ -380,20 +391,24 @@ def _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, 
 
 
 def _launch_attention(g, h, paths, hn, attw, attb, dego, ego=None, agg="attention"):
-    """Launch B: the ego rows' gradient into ``dego [T * nw, H]``, homo where
-    ``ego`` is given; returns ``(d h_n, dattw, dattb)``, the last two summed
-    over the targets' partial sums (zeros under mean and sum)."""
+    """Launch B: the ego rows' gradient into ``dego [T * nw, H]`` (attention;
+    None under mean and sum), homo where ``ego`` is given; returns ``(d h_n,
+    dattw, dattb)``, the last two summed over the targets' partial sums
+    (zero tensors under mean and sum, whose launch writes ``d h_n`` alone)."""
     T, nw, wl = paths.shape
     H = h.shape[1]
     dhn = torch.empty((T * nw, H), dtype=torch.float32, device=h.device)
-    part = torch.empty((T, 2 * H + 1), dtype=torch.float32, device=h.device)
+    att = agg == "attention"
+    part = torch.empty((T, 2 * H + 1), dtype=torch.float32, device=h.device) if att else None
     with torch.cuda.device(h.device):
         rc = build.library().pathnet_pagg_attention_bwd(
             g.data_ptr(), h.data_ptr(), paths.data_ptr(), hn.data_ptr(), ptr(ego),
-            attw.data_ptr(), attb.data_ptr(), dhn.data_ptr(), dego.data_ptr(),
-            part.data_ptr(), T, nw, wl, H, int(h.dtype == torch.bfloat16), AGGS.index(agg),
+            attw.data_ptr(), attb.data_ptr(), dhn.data_ptr(), ptr(dego), ptr(part),
+            T, nw, wl, H, int(h.dtype == torch.bfloat16), AGGS.index(agg),
             build.stream_ptr(h))
     build.check(rc, "pagg_encode_bwd (attention)")
+    if not att:
+        return dhn, attw.new_zeros(2 * H), attb.new_zeros(1)
     dpart = part.sum(dim=0)
     return dhn, dpart[:2 * H], dpart[2 * H:]
 
@@ -472,9 +487,15 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
     xr, xin, hp, dsel, *cs = torch.empty((5 - gru, wl, B, H), dtype=f32, device=dev)
     cs = cs[0] if cs else None   # the GRU keeps no cell state
     gt = torch.empty((wl, B, 4 * H), dtype=f32, device=dev)
-    # the row gradients: drow, then (hetero) the ego rows'
-    rows = torch.empty((wl + (not homo), B, H), dtype=f32, device=dev)
-    ego, dego = torch.empty((2, B, H), dtype=f32, device=dev) if homo else (None, rows[wl])
+    # the row gradients: drow, then (hetero, attention) the ego rows'; homo
+    # keeps the ego rows and (attention) their gradient apart
+    att = agg == "attention"
+    rows = torch.empty((wl + (att and not homo), B, H), dtype=f32, device=dev)
+    if homo:
+        ego, *dego = torch.empty((1 + att, B, H), dtype=f32, device=dev)
+        dego = dego[0] if att else None
+    else:
+        ego, dego = None, (rows[wl] if att else None)
     hn = _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask,
                          keep, (xr, xin, hp, cs, gt), ego, cell)
     dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, dego, ego, agg)
@@ -483,7 +504,7 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
                  keep_mask, keep, dsel, rows[:wl], (xin, ego, dego) if homo else None, cell)
     pagg_encode_bwd.launches += 1
     del ego, dego
-    dh = segment_sum(rows.view(-1, H), row_nodes(paths, homo), n)
+    dh = segment_sum(rows.view(-1, H), row_nodes(paths, homo, agg), n)
     del rows
     dwd, dbd, dw_ih, dw_hh, db = contractions(xr, xin, hp, dsel, gt, dists, homo)
     if dt == f32:
@@ -519,9 +540,9 @@ def encode_walks_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
 
 def attention_bwd(g, h, paths, hn, attw, attb, ego=None, agg="attention"):
     """K4's attention backward alone: ``(dhn, dego, dattw, dattb)``, ``dego
-    [T * nw, H]`` holding each walk's ego row gradient; homo where the ego
-    rows ``ego [T * nw, H]`` are given; ``agg`` the readout. For timing and
-    tests; it counts no launch."""
+    [T * nw, H]`` holding each walk's ego row gradient (None under the mean
+    and sum readouts); homo where the ego rows ``ego [T * nw, H]`` are
+    given; ``agg`` the readout. For timing and tests; it counts no launch."""
     check_choices(agg)
     dev = h.device
     f32 = torch.float32
@@ -538,7 +559,7 @@ def attention_bwd(g, h, paths, hn, attw, attb, ego=None, agg="attention"):
     _require_device(dev, "attention_bwd")
     if dev.type == "cpu":
         return attention_bwd_plain(g, h, paths, hn, attw, attb, ego, agg)
-    dego = torch.empty((T * nw, H), dtype=f32, device=dev)
+    dego = None if agg != "attention" else torch.empty((T * nw, H), dtype=f32, device=dev)
     dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, dego, ego, agg)
     return dhn, dego, dattw, dattb
 
@@ -548,10 +569,10 @@ def bptt(dhn, paths, dists, wd, w_ih, w_hh, state, gt, keep_mask=None, keep=1.0,
     """K4's BPTT alone: ``(drow, dgates, dsel)`` from ``d h_n`` ``[T * nw, H]``
     and the recompute's ``gt`` and ``state``, its ``cs`` (LSTM) or ``hp``
     (``cell="gru"``); ``drow [wl, T * nw, H]`` holds every gathered row's
-    gradient, and ``homo`` is None or ``(xin, ego, dego)`` (see
-    :func:`bptt_plain`). As in the whole backward, the gate gradients are
-    written over ``gt``, which is returned as ``dgates``. For timing and
-    tests; it counts no launch."""
+    gradient, and ``homo`` is None or ``(xin, ego, dego)``, ``dego`` None
+    under the mean and sum readouts (see :func:`bptt_plain`). As in the
+    whole backward, the gate gradients are written over ``gt``, which is
+    returned as ``dgates``. For timing and tests; it counts no launch."""
     dev = dhn.device
     f32 = torch.float32
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
@@ -570,7 +591,8 @@ def bptt(dhn, paths, dists, wd, w_ih, w_hh, state, gt, keep_mask=None, keep=1.0,
     if homo is not None:
         for name, t, shape in zip(("xin", "ego", "dego"), homo,
                                   ((wl, B, H), (B, H), (B, H))):
-            build.require(t, name, f32, shape, dev)
+            if t is not None or name != "dego":
+                build.require(t, name, f32, shape, dev)
     check_keep_mask(keep_mask, keep, wl, B, H, dev)
     _require_device(dev, "bptt")
     if dev.type == "cpu":

@@ -33,8 +33,9 @@ from . import build
 
 
 def row_gather_plain(tbl: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`row_gather`."""
-    return tbl[idx.long()]
+    """Plain PyTorch version of :func:`row_gather` (``index_select``, whose
+    backward adds in a fixed order on the CPU)."""
+    return tbl.index_select(0, idx.long())
 
 
 def row_gather_bwd_plain(dout: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:

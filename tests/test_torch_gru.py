@@ -153,8 +153,9 @@ def test_gru_bwd_stages_compose_to_autograd_of_the_forward(agg, homo, masked):
     dhn, dego, dattw, dattb = K.attention_bwd(g, h, paths, hn, *w[6:], ego, agg)
     drow, dgates, dsel = K.bptt(dhn, paths, dists, w[0], w[2], w[3], hp, gt, m, keep,
                                 (xin, ego, dego) if homo else None, "gru")
-    rows = drow.reshape(-1, H) if homo else torch.cat([drow.reshape(-1, H), dego])
-    dh = K.segment_sum(rows, K.row_nodes(paths, homo), h.shape[0])
+    rows = drow.reshape(-1, H) if dego is None or homo else torch.cat([drow.reshape(-1, H),
+                                                                        dego])
+    dh = K.segment_sum(rows, K.row_nodes(paths, homo, agg), h.shape[0])
     dwd, dbd, dw_ih, dw_hh, db = K.contractions(xr, xin, hp, dsel, dgates, dists, homo)
     got = unpacked((dh, dwd, dbd, dw_ih, dw_hh, db, db, dattw, dattb))
     for name, a, b in zip(NAMES, got, unpacked(want)):

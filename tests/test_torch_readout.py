@@ -151,8 +151,8 @@ def test_adam_decays_attw_under_mean_as_jax(cornell, variant):
 def test_readout_and_its_backward_match_jax(agg, homo, Tn):
     """K3's readout under mean and sum against ``jnp.mean``/``jnp.sum`` over
     the walks, and K4's attention backward against their ``jax.vjp``: ``d
-    h_n`` within 1e-6, the ego rows' gradient and ``dattw``, ``dattb`` exact
-    zeros. Neither reads ``attw``, ``attb`` or the ego rows. ``d h_n`` is a
+    h_n`` within 1e-6, no ego rows' gradient (None) and ``dattw``, ``dattb``
+    exact zeros. Neither reads ``attw``, ``attb`` or the ego rows. ``d h_n`` is a
     contiguous tensor of its own, one target too (the BPTT takes no view)."""
     rng = np.random.default_rng(int(homo))
     H = 12
@@ -171,7 +171,8 @@ def test_readout_and_its_backward_match_jax(agg, homo, Tn):
     np.testing.assert_allclose(dhn.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), atol=1e-6,
                                rtol=0)
     assert dhn.is_contiguous()
-    for t, shape in ((dego, (Tn * NW, H)), (dattw, (2 * H,)), (dattb, (1,))):
+    assert dego is None
+    for t, shape in ((dattw, (2 * H,)), (dattb, (1,))):
         assert t.shape == shape and not t.any()
 
 
@@ -180,8 +181,8 @@ def test_readout_and_its_backward_match_jax(agg, homo, Tn):
 @pytest.mark.parametrize("masked", [False, True])
 def test_bwd_stages_compose_to_autograd_of_the_forward(agg, homo, masked):
     """K4's plain stages under mean and sum (the recompute, the attention
-    backward, the BPTT, the segment sum of the rows in the attention
-    readout's layout, the contractions) against ``torch.autograd`` of K3's
+    backward, the BPTT, the segment sum of the rows without ego rows, the
+    contractions) against ``torch.autograd`` of K3's
     plain version: every gradient within 1e-5 of its largest entry."""
     from test_torch_train_kernels import case
 
@@ -195,14 +196,37 @@ def test_bwd_stages_compose_to_autograd_of_the_forward(agg, homo, masked):
     drow, dgates, dsel = K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt, m, keep,
                                 (xin, ego, dego) if homo else None)
     H = h.shape[1]
-    rows = drow.reshape(-1, H) if homo else torch.cat([drow.reshape(-1, H), dego])
-    dh = K.segment_sum(rows, K.row_nodes(paths, homo), h.shape[0])
+    assert dego is None
+    rows = drow.reshape(-1, H)
+    dh = K.segment_sum(rows, K.row_nodes(paths, homo, agg), h.shape[0])
     dwd, dbd, dw_ih, dw_hh, db = K.contractions(xr, xin, hp, dsel, dgates, dists, homo)
     got = (dh, dwd, dbd, dw_ih, dw_hh, db, db, dattw, dattb)
     for name, a, b in zip(NAMES, got, want):
         assert a.shape == b.shape, name
         assert float((a - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1e-30), name
     assert not want[7].any() and not want[8].any()
+
+
+@pytest.mark.parametrize("agg", ["mean", "sum"])
+def test_hetero_rows_without_ego_rows_sum_to_the_old_layouts_dh(agg):
+    """Under mean and sum the hetero row gradients leave out the ego rows
+    (``wl`` a walk): through ``segment_sum_plain`` they give, bit for bit,
+    the ``dh`` of the attention layout with its ``wl + 1`` rows a walk, the
+    ego rows' exact zeros added after each node's other rows."""
+    from test_torch_train_kernels import case
+
+    _, paths, dists, h, w, mask, g = case(nw=NW, wl=4, H=16, T=30, seed=4)
+    hn, xr, xin, hp, cs, gt = K.encode_walks_streams(h, paths, dists, *w[:6], mask, KEEP)
+    dhn = K.attention_bwd(g, h, paths, hn, *w[6:], agg=agg)[0]
+    drow = K.bptt(dhn, paths, dists, w[0], w[2], w[3], cs, gt, mask, KEEP)[0]
+    B, H = hn.shape
+    rows = drow.reshape(-1, H)
+    nodes = K.row_nodes(paths, agg=agg)
+    assert nodes.shape[0] == rows.shape[0] == 4 * B
+    old = K.segment_sum_plain(torch.cat([rows, torch.zeros((B, H))]), K.row_nodes(paths),
+                              h.shape[0])
+    assert torch.equal(K.segment_sum_plain(rows, nodes, h.shape[0]), old)
+    assert torch.equal(K.segment_sum(rows, nodes, h.shape[0]), old)
 
 
 def test_cli_runs_a_short_mean_readout_protocol_on_the_host(cornell_root, capsys,

@@ -1,8 +1,11 @@
 """A seeded round is reproducible and keeps its parameters.
 
-On the card (tests marked ``gpu``): two ``run_round`` calls with one seed
-give bit-equal ``history``, ``losses`` and ``best_params``; every sum on the
-training path is taken in an order fixed by the inputs. This file imports
+On the card (tests marked ``gpu``) and on a multi-threaded CPU: two
+``run_round`` calls with one seed give bit-equal ``history``, ``losses`` and
+``best_params``; every sum on the training path is taken in an order fixed
+by the inputs (on the CPU the plain versions gather with ``index_select``,
+whose backward ``index_add_`` adds in row order, where ``h[idx]``'s
+``index_put_`` adds in thread order). This file imports
 no JAX, so the card-only tests also run where JAX is absent:
 ``python -m pytest tests/test_torch_reproducible.py -m gpu --noconftest``.
 """
@@ -60,6 +63,53 @@ def assert_bit_equal(a, b):
     assert a.best_params.keys() == b.best_params.keys()
     for k, v in a.best_params.items():
         assert torch.equal(v, b.best_params[k]), k
+
+
+@pytest.fixture
+def threads():
+    """More than one CPU thread for the test, as the driver's workers have."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(before, 4))
+    yield torch.get_num_threads()
+    torch.set_num_threads(before)
+
+
+def plain_backward_case(homo, bf16, H=16, seed=0):
+    """K4's plain inputs on cornell's walks (183 targets, nw = 40, wl = 4:
+    36,600 gathered rows into 183 nodes) with a keep mask."""
+    g = Graph.from_edge_input(CORNELL)
+    ps = PathSampler.build(g, 40, 4, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    paths, dists = ps.sample(torch.arange(g.n, dtype=torch.int32), generator=gen)
+    h = torch.randn((g.n, H), generator=gen) * 0.5
+    rnd = lambda *s: (torch.rand(s, generator=gen) * 2 - 1) / H ** 0.5
+    w = [rnd(4, H, H), rnd(4, H), rnd(H, 4 * H), rnd(H, 4 * H), rnd(4 * H), rnd(4 * H)]
+    if bf16:
+        h, w = h.bfloat16(), [t.bfloat16() for t in w]
+    mask = (torch.rand((4, g.n * 40, H), generator=gen) < 0.3).to(torch.uint8)
+    gout = torch.randn((g.n, H), generator=gen)
+    return (gout, h, paths, dists, *w, rnd(2 * H), rnd(1), mask, 0.3, homo)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("homo", [False, True], ids=["hetero", "homo"])
+def test_plain_encode_backward_is_bit_equal_on_two_calls_on_the_host(threads, homo, bf16):
+    assert threads > 1
+    args = plain_backward_case(homo, bf16)
+    first = K.pagg_encode_bwd_plain(*args)
+    for _ in range(2):
+        for name, a, b in zip(("dh", "dwd", "dbd", "dw_ih", "dw_hh", "db_ih", "db_hh",
+                               "dattw", "dattb"), K.pagg_encode_bwd_plain(*args), first):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("variant", ["hetero", "homo"])
+def test_two_seeded_rounds_are_bit_equal_on_the_host(threads, variant):
+    assert threads > 1
+    a = cornell_round("cpu", 3, hidden=16, variant=variant)
+    b = cornell_round("cpu", 3, hidden=16, variant=variant)
+    assert np.isfinite(a.losses).all()
+    assert_bit_equal(a, b)
 
 
 @pytest.mark.gpu

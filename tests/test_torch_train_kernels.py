@@ -358,6 +358,19 @@ def unpacked(grads, cell="gru"):
     return (dh, dwd, dbd, *unpack_gru(*wb).values(), dattw, dattb)
 
 
+def assert_attention_bwd_within(got, want, agg):
+    """The attention backward's ``(dhn, dego, dattw, dattb)``: attention
+    within 1e-4 (``dattw``, ``dattb`` of ``dego``'s scale); mean and sum
+    ``dhn`` within 1e-4, no ``dego`` and exact zero ``dattw``, ``dattb``."""
+    if agg == "attention":
+        assert_within(got, want, ("dhn", "dego", "dattw", "dattb"),
+                      cancel=("dattw", "dattb"), cancel_scale=float(want[1].abs().max()))
+        return
+    assert got[1] is None and want[1] is None
+    assert_within(got[:1], want[:1], ("dhn",))
+    assert not got[2].any() and not got[3].any()
+
+
 def assert_stages_within(got, want, names):
     """``assert_within`` over the stages' outputs that exist (the GRU's
     recompute has no ``cs``)."""
@@ -410,8 +423,7 @@ def test_gru_and_readout_instances_match_plain_on_the_card(cuda, homo, H, wl, nw
                                        atol=1e-4, rtol=1e-4)
             want = K.attention_bwd_plain(gout, h, paths, hn, *wc[6:], ego, agg)
             got = K.attention_bwd(gout, h, paths, hn, *wc[6:], ego, agg)
-            assert_within(got, want, ("dhn", "dego", "dattw", "dattb"),
-                          cancel=("dattw", "dattb"), cancel_scale=float(want[1].abs().max()))
+            assert_attention_bwd_within(got, want, agg)
             dhn, dego = want[:2]
             state = hp if cell == "gru" else cs
             hargs = (xin, ego, dego) if homo else None
@@ -420,6 +432,32 @@ def test_gru_and_readout_instances_match_plain_on_the_card(cuda, homo, H, wl, nw
             got = K.bptt(dhn, paths, dists, wc[0], wc[2], wc[3], state, gt.clone(), m, keep,
                          hargs, cell)
             assert_within(got, want, ("drow", "dgates", "dsel"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agg", ["attention", "mean", "sum"])
+def test_mean_and_sum_send_no_ego_rows_to_the_segment_sum_on_the_card(cuda, agg,
+                                                                       monkeypatch):
+    # hetero: the segment sum adds wl rows a walk under mean and sum (no ego
+    # row gets a gradient), wl + 1 under attention
+    import importlib
+    k4 = importlib.import_module("pathnet_tpu_torch.kernels.pagg_encode_bwd")
+    starts, paths, dists, h, w, mask, gout = case(nw=40, wl=4, H=64, device=cuda)
+    seen = []
+    real = k4.segment_sum
+
+    def spy(rows, index, n):
+        seen.append((rows.shape[0], index.shape[0]))
+        return real(rows, index, n)
+
+    monkeypatch.setattr(k4, "segment_sum", spy)
+    got = K.pagg_encode_bwd(gout, h, paths, dists, *w, mask, KEEP, agg=agg)
+    want = K.pagg_encode_bwd_plain(gout, h, paths, dists, *w, mask, KEEP, agg=agg)
+    T, nw, wl = paths.shape
+    rows = (wl + (agg == "attention")) * T * nw
+    assert seen == [(rows, rows)]
+    assert_within(got, want, GRADS, cancel=("dattw", "dattb"),
+                  cancel_scale=float(want[0].abs().max()))
 
 
 @pytest.mark.gpu
@@ -445,7 +483,8 @@ def test_mean_and_sum_readouts_take_rows_at_any_alignment_on_the_card(cuda, agg)
                                    atol=1e-5, rtol=1e-5)
         got = K.attention_bwd(y, h, paths, x, *att, agg=agg)
         want = K.attention_bwd_plain(y, h, paths, x, *att, agg=agg)
-        for a, b in zip(got, want):
+        assert got[1] is None and want[1] is None
+        for a, b in zip((got[0], *got[2:]), (want[0], *want[2:])):
             torch.testing.assert_close(a, b, atol=0.0, rtol=1e-6)
 
 
@@ -650,12 +689,28 @@ def test_bf16_mean_and_sum_instances_match_plain_on_the_card(cuda, agg, H, wl, n
                       [K.readout_plain(hb, paths, hn, *wb[6:], ego, agg)], ["readout"], 1e-5)
         want = K.attention_bwd_plain(gout, hb, paths, hn, *wb[6:], ego, agg)
         got = K.attention_bwd(gout, hb, paths, hn, *wb[6:], ego, agg)
-        for a, b in zip(got, want):
+        assert got[1] is None and want[1] is None
+        for a, b in zip((got[0], *got[2:]), (want[0], *want[2:])):
             torch.testing.assert_close(a, b, atol=0.0, rtol=1e-6)
         dhn, hargs = want[0], ((xin, ego, want[1]) if homo else None)
         want = K.bptt_plain(dhn, paths, dists, wb[0], wb[2], wb[3], cs, gt, m, keep, hargs)
         got = K.bptt(dhn, paths, dists, wb[0], wb[2], wb[3], cs, gt.clone(), m, keep, hargs)
         assert_within(got, want, ("drow", "dgates", "dsel"), BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_bf16_instances_multiply_on_tensor_cores_and_f32_ones_do_not(cuda):
+    # every BF16 instance of the encode (K3, and K4's recompute with STREAMS)
+    # and of K4's BPTT runs its products as mma.sync (HMMA in its SASS); the
+    # f32 instances, the GRU's among them, keep the CUDA-core product
+    from pathnet_tpu_torch.kernels import build
+    # by the BF16 argument: masked x homo x H = 64, 32 or run time bf16
+    # instances (x STREAMS for the encode; the BPTT's homo ones with and
+    # without d ego)
+    for kernel, flag, n in (("pagg_encode_walks_kernel", 4, 24), ("pagg_bptt_kernel", 3, 18)):
+        counts = build.hmma_counts(kernel, flag)
+        assert len(counts[1]) == n and min(counts[1]) > 0, (kernel, counts)
+        assert len(counts[0]) > 0 and not any(counts[0]), (kernel, counts)
 
 
 @pytest.mark.gpu
