@@ -141,6 +141,26 @@ one card). Phases, each with a start and an end line:
     1000, gated on the JAX package's host band 80.00 +- 5.30, payload
     89c32d97), and one round each of cornell ``--agg sum`` and cora ``--rnn
     gru`` (no JAX band: above chance).
+15. walk length 5 (``-wl 5``, the khop distance backend): K7 (its two
+    entries: ``walk_khop_dists``, the walk and its k-hop distances in one
+    launch, the sampler's path; ``khop_dists``, the distances of given
+    walks) exactly against their plain versions on every node of cornell,
+    Nba and cora (their payloads from phase 9's data root, k-hop levels 1-5
+    built on the host) at wl = 4, 5 and 6, at wl = 4 also equal to
+    ``walk_dists``' K2 distances of the same walks; both timed at wl = 5 as
+    phase 2 times its kernels, and ``walk_khop_dists`` beside ``walk_dists``
+    on the same wl = 4 walks, beside the launch floor; the dense and host
+    backends at cornell and Nba wl = 5: khop's walks and distances exactly;
+    K3 (with and without the keep mask), K4 with its three launches and
+    ``segment_sum`` at wl = 5 on cornell's and Nba's nodes (hetero, H = 64)
+    and cora's 2,708 targets (homo), phase 5's tolerances, timed as phase
+    5 beside the same targets at wl = 4; ``predict`` and one training step
+    at cornell wl = 5 on the card
+    against the host (phase 7's tolerances); one round of the cornell
+    protocol through the CLI at ``-wl 5`` (``CORNELL_WL5_ROUNDS`` x 1000,
+    payload 89c32d97, else the phase fails), its test accuracy within 3 std
+    of the JAX length ablation's 79.73 +- 5.70
+    (``results/ablation_length_cornell.json``).
 
 The protocol phases gate on their band when they run 10 rounds of 1000
 epochs, and on accuracy above chance when a rehearsal cuts them shorter;
@@ -157,7 +177,9 @@ named ``... bf16``, from phase 13's bgp and cora protocols, each with an
 ``... gru``, from phase 14's cornell and cora ``--rnn gru`` protocols; the
 readouts' branches, ``pagg_readout mean|sum`` and ``pagg_attention_bwd
 mean|sum``, whose launches are K3's and K4's in phase 14's ``--agg mean``
-(cora) and ``--agg sum`` (cornell) protocols);
+(cora) and ``--agg sum`` (cornell) protocols; K7's two entries from phase
+15's wl = 5 protocol, where ``walk_khop_dists`` runs and ``khop_dists`` does
+not, as its ``note`` says);
 the last is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
 prints no result. Without a CUDA card, or outside a checkout, it exits
 non-zero.
@@ -189,13 +211,17 @@ K3_TOL = 1e-4
 K4_TOL = 1e-4      # of each gradient's largest plain entry
 K5_BWD_TOL = 1e-5  # of the largest plain entry (atomics order the sums)
 KERNELS = ("cdf_walk", "membership_dists", "pagg_encode_fwd", "pagg_encode_bwd",
-           "row_gather", "row_gather_bwd", "lane_gather", "segment_sum", "walk_dists")
+           "row_gather", "row_gather_bwd", "lane_gather", "segment_sum", "walk_dists",
+           "khop_dists", "walk_khop_dists")
 SEGMENT_TOL = 1e-5  # of the largest plain entry
 # kernels that the main path no longer launches, and why
-NOTES = {name: "0 launches on the main path: walk_dists replaces it there; still the "
+NOTES = {name: f"0 launches on the main path: {fused} replaces it there; still the "
                "entry of " + use
-         for name, use in (("cdf_walk", "sample_paths"),
-                           ("membership_dists", "distances of walks from elsewhere"))}
+         for name, fused, use in (("cdf_walk", "walk_dists", "sample_paths"),
+                                  ("membership_dists", "walk_dists",
+                                   "distances of walks from elsewhere"),
+                                  ("khop_dists", "walk_khop_dists",
+                                   "k-hop distances of walks from elsewhere"))}
 # the kernels a request launches, and those a training step adds
 FORWARD_PATH = ("walk_dists", "pagg_encode_fwd", "row_gather")
 BACKWARD_PATH = ("pagg_encode_bwd", "segment_sum", "row_gather_bwd")
@@ -255,6 +281,28 @@ CORA_MEAN_ROUNDS = CITESEER_MEAN_ROUNDS = CORNELL_GRU_ROUNDS = 1
 CHOICE_KERNELS = ("pagg_encode_fwd gru", "pagg_encode_bwd gru", "pagg_encode_fwd gru homo",
                   "pagg_encode_bwd gru homo", "pagg_readout mean", "pagg_readout sum",
                   "pagg_attention_bwd mean", "pagg_attention_bwd sum")
+# walk length 5 (the khop backend, K7): the JAX package's length ablation at
+# the TrainConfig defaults (H = 64, f32, full batch, nw = 40), 10 x 1000
+# (results/ablation_length_cornell.json, results/ablation_length_Nba.json,
+# "accuracy_by_len" "5"); a run of fewer rounds holds each round to 3 std
+WL5 = 5
+CORNELL_WL5_BAND = (0.7972973167896271, 0.057013577308642205)
+NBA_WL5_BAND = (0.5609755903482437, 0.04259572922747398)
+NBA_PAYLOAD = "419bdc07"
+CORNELL_WL5_ROUNDS = 1
+KHOP_DATASETS = ("cornell", "Nba", "cora")
+KHOP_KERNELS = ("khop_dists", "walk_khop_dists")
+
+def walk_kernel(wl: int) -> str:
+    """The sampler's launch at walk length ``wl``: the membership backend's
+    ``walk_dists`` to 4, the khop backend's ``walk_khop_dists`` past it."""
+    return "walk_dists" if wl <= 4 else "walk_khop_dists"
+
+
+def forward_path(wl: int = WL) -> tuple:
+    """The kernels a request launches at walk length ``wl``."""
+    return (walk_kernel(wl),) + FORWARD_PATH[1:]
+
 
 def say(msg: str) -> None:
     print(msg, flush=True)
@@ -924,19 +972,20 @@ def check_wide_encode(root, dev, gen, rec):
     time_k4_stages(name4, gout, h, paths, dists, w, m1, keep)
 
 
-def step_card_vs_host(tag, spec, dev, samplers, Xs, idx, y, tol=1e-4):
+def step_card_vs_host(tag, spec, dev, samplers, Xs, idx, y, tol=1e-4, wl=WL):
     """One training step (dropout masks drawn on the host) on the card and on
     the host from the same weights, walks and masks: one launch of each
     training kernel on the card, and the logits and every gradient within
     ``tol`` of the host's largest entry (``attw.bias``, a sum that cancels to
     near 0, within ``tol`` of the largest entry of ``attw.weight``'s
-    gradient). ``samplers`` and ``Xs`` are (card, host) pairs."""
+    gradient). ``samplers`` and ``Xs`` are (card, host) pairs at walk length
+    ``wl``."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.models import PathNet, draw_dropout_masks
 
     n = samplers[1].sampler.n
-    u = torch.rand((WL - 1, n * NW), generator=torch.Generator().manual_seed(7))
+    u = torch.rand((wl - 1, n * NW), generator=torch.Generator().manual_seed(7))
     masks = draw_dropout_masks(spec, idx.shape[0], NW, torch.Generator().manual_seed(8),
                                "cpu")
     out = []
@@ -953,7 +1002,7 @@ def step_card_vs_host(tag, spec, dev, samplers, Xs, idx, y, tol=1e-4):
             step_counts = K.launch_counts()
         out.append({"logits": logits.detach().cpu(),
                     **{k: q.grad.cpu() for k, q in m.named_parameters()}})
-    if step_counts != {name: int(name in FORWARD_PATH or name in BACKWARD_PATH)
+    if step_counts != {name: int(name in forward_path(wl) or name in BACKWARD_PATH)
                        for name in KERNELS}:
         raise AssertionError(f"{tag} step launch counts {step_counts}, expected 1 of "
                              "each training kernel")
@@ -1019,10 +1068,11 @@ def check_reproducible(dev, gc, Xc, X, z, psc, ps, dtype="float32", rnn="lstm"):
 
 
 def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype="float32",
-                     microbatch=None, round_band=False, rnn="lstm", agg="attention"):
+                     microbatch=None, round_band=False, rnn="lstm", agg="attention", wl=WL):
     """The protocol through the CLI on the card with temporary results and
     checkpoint directories (``--dtype dtype``, ``--rnn rnn``, ``--agg agg``,
-    ``--microbatch`` where given); checks its launches, checkpoints and
+    ``-wl wl``, ``--microbatch`` where given); checks its launches (one
+    sampler launch an epoch, ``walk_kernel(wl)``), checkpoints and
     accuracy, and returns the launch counts. At 10 rounds x 1000 epochs the
     mean test accuracy must lie inside the JAX ``band``, whose payload
     fingerprint (``payload``, where given) the dataset's must equal; a
@@ -1038,9 +1088,9 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype=
     if payload is not None and payload_fingerprint(DATASETS[name]) != payload:
         raise AssertionError(f"{name}: payload {payload_fingerprint(DATASETS[name])} is not "
                              f"the JAX band's {payload}")
-    out = os.path.join(tmp, f"{name}_h{hidden}_{dtype}_{rnn}_{agg}")
+    out = os.path.join(tmp, f"{name}_h{hidden}_{dtype}_{rnn}_{agg}_wl{wl}")
     argv = ["-data", name, "-pr", root, "-r", str(rounds), "-e", str(PROTOCOL_EPOCHS),
-            "-hid", str(hidden), "--dtype", dtype, "--rnn", rnn, "--agg", agg,
+            "-hid", str(hidden), "--dtype", dtype, "--rnn", rnn, "--agg", agg, "-wl", str(wl),
             "--results-dir", os.path.join(out, "results"),
             "--ckpt-dir", os.path.join(out, "ckpt"), "--resume"]
     chunks = (1, 1, 1)   # train, validation, test chunks an epoch
@@ -1058,12 +1108,15 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype=
     say(f"  launches: {counts}")
     fwd = counts["pagg_encode_fwd"]
     ktr, kva, kte = chunks
-    if not (counts["walk_dists"] == epochs and counts["pagg_encode_bwd"] == counts["segment_sum"]
+    walk = walk_kernel(wl)
+    idle = ("lane_gather", "cdf_walk", "membership_dists", "khop_dists",
+            ({"walk_dists", "walk_khop_dists"} - {walk}).pop())
+    if not (counts[walk] == epochs and counts["pagg_encode_bwd"] == counts["segment_sum"]
             == counts["row_gather_bwd"] == ktr * epochs and counts["row_gather"] == fwd
             and (ktr + kva) * epochs <= fwd <= (ktr + kva + kte) * epochs
-            and counts["lane_gather"] == counts["cdf_walk"] == counts["membership_dists"] == 0):
+            and not any(counts[k] for k in idle)):
         raise AssertionError(f"{name} protocol launch counts {counts}: {epochs} epochs make "
-                             f"one walk launch each, {ktr} backward launches and "
+                             f"one {walk} launch each, {ktr} backward launches and "
                              f"{ktr + kva}-{ktr + kva + kte} forwards")
     saved = sorted(glob.glob(os.path.join(out, "ckpt", "*", "round_*", "meta.json")))
     if len(saved) != rounds or not os.path.isfile(
@@ -1079,7 +1132,7 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype=
             accs.append(json.load(f)["metrics"]["accuracy"])
     mean, std = result["accuracy"]
     say(f"  {name}, {rounds} rounds x {PROTOCOL_EPOCHS} epochs at H = {hidden}, {dtype}, "
-        f"{rnn}, {agg}" + (f", microbatch {microbatch}" if microbatch else "")
+        f"{rnn}, {agg}, wl = {wl}" + (f", microbatch {microbatch}" if microbatch else "")
         + f": acc {mean:.4f} +- {std:.4f} ("
         + ("no JAX band" if band is None else f"JAX {band[0]:.4f} +- {band[1]:.4f}")
         + "; rounds " + ", ".join(f"{a:.4f}" for a in accs) + f"); {secs:.1f} s, "
@@ -1559,8 +1612,199 @@ def check_choice_host(dev, gc, Xc_np, psc, ps_host):
             agg=agg), dev, (psc, ps_host), (Xh.to(dev), Xh), idx7, yc)
 
 
+def khop_probes(dists, levels):
+    """The row probes of K7's searches on these distances: at each position
+    t >= 2 of a walk whose node is not its start, levels 1..d tried (1..t-1
+    where d = t, no hit), each a binary search of log2(Dk) + 1 probes."""
+    import torch
+    wl = dists.shape[2]
+    per = [0]
+    for t in levels[:max(wl - 2, 0)]:
+        per.append(per[-1] + int(np.log2(t.shape[1])) + 1)
+    cum = torch.tensor(per, dtype=torch.float64, device=dists.device)
+    probes = 0.0
+    for t in range(2, wl):
+        d = dists[:, :, t].long()
+        probes += float(cum[torch.where(d == t, t - 1, d)].sum())
+    return probes
+
+
+def khop_bounds(smp, tables, starts, u, paths, dists):
+    """(bytes, ops) of K7 alone and of the fused walk-and-K7 launch: the
+    start's rows of the levels the searches read (1..wl-2) once, the walks
+    read or drawn, the distances written; K7's probes, and K1's compares (one
+    a CDF slot and step) in the fused launch."""
+    S, nw, wl = paths.shape
+    rows = sum(S * t.shape[1] * 4 for t in tables.levels[:max(wl - 2, 0)])
+    probes = khop_probes(dists, tables.levels)
+    b7 = nbytes(starts, paths, dists) + rows
+    bw = nbytes(smp.nbr, smp.cdf, starts, u, paths, dists) + rows
+    return b7, probes, bw, probes + S * nw * (wl - 1) * smp.max_deg
+
+
+def check_khop(root, dev, gen, rec, floor_ms):
+    """Walk length 5: K7 (fused with the walk, and alone) exactly against
+    its plain version on every node of cornell, Nba and cora at wl = 4, 5
+    and 6 (at 4 also against K2's distances of the same walks), timed at wl
+    = 5 as phase 2 times its kernels (cornell's into the record); the dense
+    and host backends against khop on the same walks (cornell, Nba); K3 (with
+    and without the keep mask), K4 with its three launches and
+    ``segment_sum`` at wl = 5 on cornell's and Nba's nodes (hetero, H = 64)
+    and cora's 2,708 targets (homo), the tolerances of phase 5, timed as
+    phase 5 beside the same targets at wl = 4; ``predict`` and one training
+    step at cornell wl = 5 on the card against the host."""
+    import dataclasses
+
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.data.registry import load_dataset
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+    from pathnet_tpu_torch.sample import KhopTables, PathSampler, build_khop_tables
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+    from pathnet_tpu_torch.train import predict
+
+    data = {}
+    for name in KHOP_DATASETS:
+        g, train, _, _, spec_d = load_dataset(name, root, 0)
+        t0 = time.perf_counter()
+        tables = KhopTables.pack(build_khop_tables(g, WL5, device=dev))
+        secs = time.perf_counter() - t0
+        ps = PathSampler.build(g, NW, WL5, device=dev)
+        if ps.backend != "khop":
+            raise AssertionError(f"{name}: wl = {WL5} built the {ps.backend} backend, not khop")
+        smp = ps.sampler
+        every = torch.arange(g.n, dtype=torch.int32, device=dev)
+        say(f"  {name}: n={g.n}, D={smp.max_deg}, k-hop levels 1-{WL5} widths "
+            + " / ".join(str(t.shape[1]) for t in tables.levels)
+            + f" ({tables.packed.numel() * 4 / 1e6:.2f} MB, built on the host and moved in "
+            f"{secs:.3f} s)")
+        for wl in (4, 5, 6):
+            u = draw_uniforms(wl, g.n * NW, gen, dev)
+            want = K.walk_khop_dists_plain(smp.nbr, smp.cdf, tables, every, u, NW)
+            got = K.walk_khop_dists(smp.nbr, smp.cdf, tables, every, u, NW)
+            alone = K.khop_dists(tables, every, want[0])
+            torch.cuda.synchronize()
+            for what, a, b in (("walk_khop_dists paths", got[0], want[0]),
+                               ("walk_khop_dists dists", got[1], want[1]),
+                               ("khop_dists", alone, want[1])):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} wl = {wl}: {what} differ from the plain "
+                                         f"version's in {int((a != b).sum())} entries")
+            extra = ""
+            if wl == 4:
+                k2 = K.walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, every, u, NW)
+                torch.cuda.synchronize()
+                if not (torch.equal(k2[0], want[0]) and torch.equal(k2[1], want[1])):
+                    raise AssertionError(f"{name} wl = 4: K7's distances differ from K2's")
+                extra = ", and equal to walk_dists' K2 distances of the same walks"
+            say(f"  {name}, all {g.n} nodes, wl = {wl}: walk_khop_dists (walks and distances) "
+                f"and khop_dists exact against their plain versions{extra} (max distance "
+                f"{int(want[1].max())})")
+        record_err(rec, "khop_dists", 0.0)
+        record_err(rec, "walk_khop_dists", 0.0)
+        data[name] = (g, train, spec_d, ps, tables, every)
+
+    # K7 timed at wl = 5, every node a start (the training path's grid)
+    for name, (g, _, _, ps, tables, every) in data.items():
+        smp = ps.sampler
+        u = draw_uniforms(WL5, g.n * NW, gen, dev)
+        paths, dists = K.walk_khop_dists(smp.nbr, smp.cdf, tables, every, u, NW)
+        b7, o7, bw, ow = khop_bounds(smp, tables, every, u, paths, dists)
+        own = name == "cornell"
+        for kname, kern, plain, b, o in (
+                ("khop_dists", lambda: K.khop_dists(tables, every, paths),
+                 lambda: K.khop_dists_plain(tables.levels, every, paths), b7, o7),
+                ("walk_khop_dists", lambda: K.walk_khop_dists(smp.nbr, smp.cdf, tables, every,
+                                                              u, NW),
+                 lambda: K.walk_khop_dists_plain(smp.nbr, smp.cdf, tables, every, u, NW), bw,
+                 ow)):
+            tag = kname if own else f"{kname} {name}"
+            timed(rec if own else {tag: {}}, tag, kern, plain, b, o, 50)
+        # K7's cost over K2's: both fused launches on the same wl = 4 walks
+        u4 = draw_uniforms(WL, g.n * NW, gen, dev)
+        k2_ms = graph_ms(lambda: K.walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, every, u4, NW),
+                         50)
+        k7_ms = graph_ms(lambda: K.walk_khop_dists(smp.nbr, smp.cdf, tables, every, u4, NW), 50)
+        say(f"  {name}, wl = 4: walk_dists {k2_ms:.4f} ms, walk_khop_dists {k7_ms:.4f} ms per "
+            f"launch in a CUDA graph, the same walks; the launch floor is {floor_ms:.5f} ms "
+            "(phase 8)")
+
+    # the dense and host backends: the khop backend's distances on the same walks
+    for name in ("cornell", "Nba"):
+        g, ps = data[name][0], data[name][3]
+        u = draw_uniforms(WL5, g.n * NW, gen, dev)
+        want = ps.sample(u=u)
+        for backend in ("dense", "host"):
+            t0 = time.perf_counter()
+            psb = PathSampler.build(g, NW, WL5, distance_backend=backend, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = psb.sample(u=u)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{name}: the {backend} backend's walks or distances "
+                                     "differ from khop's")
+            say(f"  {name}, wl = {WL5}: the {backend} backend ([{g.n}, {g.n}] int8 table "
+                f"built in {secs:.3f} s) gives khop's walks and distances exactly")
+            del psb
+
+    # K3, K4 and segment_sum at wl = 5 (phase 5's tolerances), timed beside
+    # the same targets at wl = 4
+    for name, wl in ((n, w) for n in KHOP_DATASETS for w in (WL, WL5)):
+        g, _, spec_d, ps, _, every = data[name]
+        if wl == WL:
+            ps = PathSampler.build(g, NW, WL, device=dev)
+        X = torch.from_numpy(np.array(g.features, np.float32)).to(dev)
+        variant = spec_d.variant
+        model = PathNet(PaggSpec(feat_dim=X.shape[1], hidden=HIDDEN, out_dim=spec_d.num_classes,
+                                 walk_len=wl, dropout=0.7, variant=variant),
+                        device=dev, generator=torch.Generator().manual_seed(15))
+        u = draw_uniforms(wl, g.n * NW, gen, dev)
+        homo = variant == "homo"
+        paths, dists, h, w, m1, keep, agg, gout, bwd_args = check_encode_kernels(
+            f"{name} {variant}, wl = {wl}, all {g.n} targets", ps, model, X, every, u, gen, rec,
+            time_segment=homo and wl == WL5)
+        b3, o3, b4, o4 = encode_bounds(h, paths, dists, m1, agg, gout, w)
+        name3, name4 = (f"pagg_encode_fwd wl={wl} {name} masked",
+                        f"pagg_encode_bwd wl={wl} {name}")
+        timed({name3: {}}, name3,
+              lambda: K.pagg_encode_fwd(h, paths, dists, *w, m1, keep, homo),
+              lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, m1, keep, homo), b3, o3, 20)
+        time_k3_stages(name3, h, paths, dists, w, (m1, keep), homo)
+        timed({name4: {}}, name4, lambda: K.pagg_encode_bwd(*bwd_args),
+              lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 10)
+        time_k4_stages(name4, gout, h, paths, dists, w, m1, keep, homo)
+        del paths, dists, h, w, m1, agg, gout, bwd_args
+
+    # predict and one training step at cornell wl = 5, the card against the host
+    g, train, spec_d, ps, _, every = data["cornell"]
+    X = torch.from_numpy(np.array(g.features, np.float32))
+    y = torch.from_numpy(np.array(g.labels, np.int64))
+    C = spec_d.num_classes
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=HIDDEN, out_dim=C, walk_len=WL5)
+    m = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(16))
+    m_host = PathNet(spec, device="cpu")
+    m_host.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    ps_host = PathSampler.build(g, NW, WL5, device="cpu")
+    u = draw_uniforms(WL5, g.n * NW, torch.Generator().manual_seed(17), "cpu")
+    K.reset_launch_counts()
+    logp = predict(m, X.to(dev), ps, idx=every, u=u[None].to(dev))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    if counts != {name: int(name in forward_path(WL5)) for name in KERNELS}:
+        raise AssertionError(f"cornell wl = {WL5} request launch counts {counts}")
+    err = float((logp.cpu() - predict(m_host, X, ps_host, idx=every.cpu(), u=u[None])).abs().max())
+    say(f"  cornell wl = {WL5} predict on the card vs the host (same draws, all {g.n} nodes): "
+        f"max abs err {err:.3e}")
+    if not torch.isfinite(logp).all() or err > K3_TOL:
+        raise AssertionError(f"cornell wl = {WL5} log-probs differ from the host's by {err}")
+    idx = torch.from_numpy(np.flatnonzero(train).astype(np.int32))
+    step_card_vs_host(f"cornell wl = {WL5}", dataclasses.replace(spec, dropout=0.7), dev,
+                      (ps, ps_host), (X.to(dev), X), idx, y, wl=WL5)
+
+
 def main() -> int:
-    faulthandler.dump_traceback_later(1150, exit=True)
+    faulthandler.dump_traceback_later(1185, exit=True)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1604,6 +1848,10 @@ def main() -> int:
                         "pathnet_tpu/models/pagg.py:83"),
         "walk_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
                        "pathnet_tpu/sample/alias.py:142, pathnet_tpu/sample/distance.py:77"),
+        "khop_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
+                       "pathnet_tpu/sample/distance.py:194"),
+        "walk_khop_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
+                            "pathnet_tpu/sample/alias.py:142, pathnet_tpu/sample/distance.py:194"),
     }
     meta.update({homo_name(n, True): meta[n] for n in HOMO_KERNELS})
     meta.update({homo_name(n, v, True): meta[n] for n in HOMO_KERNELS for v in (False, True)})
@@ -1768,7 +2016,8 @@ def main() -> int:
         expect = {"cdf_walk": 0, "membership_dists": 0, "walk_dists": EPOCHS,
                   "pagg_encode_fwd": fwd, "row_gather": fwd,
                   "pagg_encode_bwd": EPOCHS * chunks[0], "segment_sum": EPOCHS * chunks[0],
-                  "row_gather_bwd": EPOCHS * chunks[0], "lane_gather": 0}
+                  "row_gather_bwd": EPOCHS * chunks[0], "lane_gather": 0, "khop_dists": 0,
+                  "walk_khop_dists": 0}
         say(f"  launches: {counts} ({improved} epochs improved on validation)")
         if counts != expect:
             raise AssertionError(f"training launch counts {counts}, the path makes {expect}")
@@ -1885,6 +2134,16 @@ def main() -> int:
             counts = run_protocol_cli("cora", root, tmp, 1, HIDDEN, None, rnn="gru")
             for name in HOMO_KERNELS:
                 rec[homo_name(name, True, cell="gru")]["launches"] = counts[name]
+
+        with Phase(f"15 walk length {WL5}: K7 (cornell, Nba, cora), the dense and host "
+                   f"backends, K3 and K4 at wl = {WL5}, card vs host, cornell -wl {WL5} "
+                   f"{CORNELL_WL5_ROUNDS} x {PROTOCOL_EPOCHS}"):
+            check_khop(root, dev, gen, rec, floor_ms)
+            counts = run_protocol_cli("cornell", root, tmp, CORNELL_WL5_ROUNDS, HIDDEN,
+                                      CORNELL_WL5_BAND, CORNELL_PAYLOAD, round_band=True,
+                                      wl=WL5)
+            for name in KHOP_KERNELS:
+                rec[name]["launches"] = counts[name]
 
     say(smi)
     say(json.dumps({"kernels": [

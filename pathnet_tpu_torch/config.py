@@ -24,8 +24,9 @@ class SampleConfig:
     # uniform mode symmetrizes + adds self loops like gen.cpp:83-94
     add_self_loops: bool = True
     # distance backend (sample/walk.py PathSampler.build): "auto" picks
-    # "membership" (N1/N2 row tests) for walk_len <= 4,
-    # else "dense" ([n, n] int8 truncated-BFS table); "host" = scipy oracle.
+    # "membership" (N1/N2 row tests) for walk_len <= 4, else "khop" (sorted
+    # k-hop rows, K7), which falls back to "dense" ([n, n] int8
+    # truncated-BFS table) past its byte limit; "host" = scipy oracle.
     distance_backend: str = "auto"
     distance_chunk: int = 1024
     # sampler backend: "cdf" = inverse-CDF row gather (the ported one);

@@ -1,11 +1,16 @@
-// K1 + K2: inverse-CDF random walks and their hop distances, one launch.
+// K1 + K2: inverse-CDF random walks and their hop distances, one launch;
+// K7: the k-hop distance probes, alone or fused with the walk.
 //
 // Replaces pathnet_tpu/sample/alias.py:142-147 (CdfSampler.step) as scanned
-// by pathnet_tpu/sample/walk.py:36-55 (sample_paths), and
-// pathnet_tpu/sample/distance.py:77-139 (membership_dists, wl <= 4). Three
-// entries share this device code: walk_dists (walks and distances, the
-// sampler's path), cdf_walk (walks only, any wl) and membership_dists
-// (distances of given walks).
+// by pathnet_tpu/sample/walk.py:36-55 (sample_paths),
+// pathnet_tpu/sample/distance.py:77-139 (membership_dists, wl <= 4) and
+// pathnet_tpu/sample/distance.py:194-229 (_row_membership, khop_dists, any
+// wl). Five entries share this device code through two C functions:
+// pathnet_walk_dists runs walk_dists (walks and membership distances, the
+// sampler's path at wl <= 4), cdf_walk (walks only, any wl) and
+// membership_dists (distances of given walks); pathnet_khop_dists runs
+// walk_khop_dists (walks and k-hop distances, the sampler's path at wl >= 5)
+// and khop_dists (k-hop distances of given walks).
 //
 // Work split: a lane group of G lanes (1, 16 or 32, picked from D) per
 // walk, the walks laid out flat across the grid, a start's nw walks side by
@@ -38,6 +43,21 @@
 // before every start's walks (PERF.md, section 6). The N2 test reads nbr[v3]
 // coalesced, G entries a chunk, tests each against the row and stops at
 // the group's first hit.
+//
+// K-hop distances (K7): d0 = 0; d1 = v1 != s; at position t >= 2 the
+// smallest level k in 1..t-1 whose sorted row tables[k-1][s] holds v_t,
+// else t, and 0 where v_t == s. The levels of build_khop_tables come packed
+// in one buffer, each level's element offset and width beside it (off,
+// wid); a row is padded with the sentinel n, greater than every node id, so
+// a search over the whole padded row (in_sorted over wid[k-1] slots) needs
+// no row length. Each position's distance is found as the walk reaches it,
+// the levels tried from 1 up and the search stopped at the first hit, so
+// the walk length has no cap and no position is held in a register. In the
+// fused launch every lane of a walk's group runs the same searches (the
+// loads of one address broadcast to the group) and lane 0 writes; the given
+// walks' launch takes one lane a walk. Written for correctness first: at
+// cornell and Nba a launch moves well under a megabyte, so it sits near the
+// launch floor whatever its searches cost.
 //
 // Bound on the H100: latency of each walk's dependent loads (the start, the
 // CDF chunks and nbr[cur, idx] for each step, then deg[v3], nbr[v3] and the
@@ -90,6 +110,31 @@ struct Group {
     return __any_sync(FULL, p);
   }
 };
+
+// K7's walk step from cur, walk_dists_kernel's step as a function: the
+// group counts the CDF entries below x, U * G at a time; returns nbr[cur,
+// idx] (0 past the last walk). walk_dists_kernel keeps the step written out:
+// calling this function there changed the registers of its instances.
+template <int G>
+__device__ __forceinline__ int cdf_step(const int* __restrict__ nbr, const float* __restrict__ cdf,
+                                        int cur, float x, int D, bool live, int gl,
+                                        const Group<G>& grp) {
+  constexpr int U = G >= 8 ? 4 : 8;  // chunks whose loads are in flight together
+  const float* cr = cdf + (long long)cur * D;
+  int idx = 0;
+  for (int j0 = 0; j0 < D; j0 += U * G) {
+    float c[U];
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const int j = j0 + q * G + gl;
+      c[q] = live && j < D ? cr[j] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < U; ++q) idx += grp.count(live && j0 + q * G + gl < D && c[q] < x);
+  }
+  idx = idx < D - 1 ? idx : D - 1;
+  return live ? nbr[(long long)cur * D + idx] : 0;
+}
 
 // WALK: draw the walks from u (else read them from paths); DISTS: write the
 // distances. Walk w of start starts[w / nw] is row w of paths and dists
@@ -214,6 +259,63 @@ int launch_for_width(const int* nbr, const float* cdf, const int* deg, const int
   return launch<32, WALK, DISTS>(nbr, cdf, deg, srt, starts, u, paths, dists, D, S, nw, wl, st);
 }
 
+// K7. WALK: draw the walks from u into paths (else read them from paths);
+// the k-hop distances into dists. tab holds the levels' [n, wid[k]] rows at
+// element offsets off[k]; wl - 2 <= the number of levels.
+template <int G, bool WALK>
+__global__ void __launch_bounds__(256)
+khop_dists_kernel(const int* __restrict__ nbr, const float* __restrict__ cdf,
+                  const int* __restrict__ starts, const float* __restrict__ u,
+                  const int* __restrict__ tab, const long long* __restrict__ off,
+                  const int* __restrict__ wid, int* __restrict__ paths, int* __restrict__ dists,
+                  int D, long long W, int nw, int wl) {
+  const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (G - 1);
+  const Group<G> grp{G == 32 ? FULL : ((1u << G) - 1u) << (lane - gl)};
+  const bool live = w < W;
+  const bool writes = live && gl == 0;
+  const int s = live ? starts[w / nw] : 0;
+  int* po = paths + w * wl;
+  int* dq = dists + w * wl;
+  if (writes) {
+    if (WALK) po[0] = s;
+    dq[0] = 0;
+  }
+  int cur = s;
+  for (int t = 1; t < wl; ++t) {
+    if (WALK) {
+      const float x = live ? u[(long long)(t - 1) * W + w] : 0.0f;
+      cur = cdf_step<G>(nbr, cdf, cur, x, D, live, gl, grp);
+      if (writes) po[t] = cur;
+    } else {
+      cur = live ? po[t] : s;
+    }
+    // the smallest level k < t whose row of s holds cur, else t; 0 at s
+    int d = cur == s ? 0 : t;
+    for (int k = 1; d == t && k < t; ++k) {
+      const int width = wid[k - 1];
+      const int v[1] = {cur};
+      bool hit[1];
+      in_sorted<1>(tab + off[k - 1] + (long long)s * width, width, v, hit);
+      if (hit[0]) d = k;
+    }
+    if (writes) dq[t] = d;
+  }
+}
+
+template <int G, bool WALK>
+int launch_khop(const int* nbr, const float* cdf, const int* starts, const float* u,
+                const int* tab, const long long* off, const int* wid, int* paths, int* dists,
+                int D, int S, int nw, int wl, cudaStream_t stream) {
+  const long long W = (long long)S * nw;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((W * G + threads - 1) / threads);
+  khop_dists_kernel<G, WALK><<<blocks, threads, 0, stream>>>(
+      nbr, cdf, starts, u, tab, off, wid, paths, dists, D, W, nw, wl);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // nbr int32 [n, D]; cdf f32 [n, D]; deg int32 [n]; srt int32 [n, D] (see the
@@ -236,4 +338,31 @@ extern "C" int pathnet_walk_dists(const void* nbr, const void* cdf, const void* 
   if (walk)
     return launch_for_width<true, false>(nb, cd, dg, sr, st, uu, pa, di, D, S, nw, wl, cs);
   return launch_for_width<false, true>(nb, cd, dg, sr, st, uu, pa, di, D, S, nw, wl, cs);
+}
+
+// K7. nbr int32 [n, D]; cdf f32 [n, D]; starts int32 [S]; u f32 [wl - 1,
+// S * nw]; tab int32: the k-hop levels' sorted rows, level k's [n, wid[k]]
+// at element offset off[k] (off int64, wid int32, one entry a level, at
+// least wl - 2 levels, on the card); paths, dists int32 [S, nw, wl]. walk =
+// 1: the walks are drawn from u into paths (the lanes a walk gets from D,
+// as pathnet_walk_dists picks them); walk = 0: the walks are read from
+// paths, one lane a walk (nbr, cdf and u may be NULL).
+extern "C" int pathnet_khop_dists(const void* nbr, const void* cdf, const void* starts,
+                                  const void* u, const void* tab, const void* off,
+                                  const void* wid, void* paths, void* dists, int D, int S,
+                                  int nw, int wl, int walk, void* stream) {
+  if (S == 0 || nw == 0) return 0;
+  const int *nb = (const int*)nbr, *st = (const int*)starts, *tb = (const int*)tab,
+            *wd = (const int*)wid;
+  const long long* of = (const long long*)off;
+  const float *cd = (const float*)cdf, *uu = (const float*)u;
+  int *pa = (int*)paths, *di = (int*)dists;
+  cudaStream_t cs = (cudaStream_t)stream;
+  if (!walk)
+    return launch_khop<1, false>(nb, cd, st, uu, tb, of, wd, pa, di, D, S, nw, wl, cs);
+  if (D <= 32)
+    return launch_khop<1, true>(nb, cd, st, uu, tb, of, wd, pa, di, D, S, nw, wl, cs);
+  if (D <= 512)
+    return launch_khop<16, true>(nb, cd, st, uu, tb, of, wd, pa, di, D, S, nw, wl, cs);
+  return launch_khop<32, true>(nb, cd, st, uu, tb, of, wd, pa, di, D, S, nw, wl, cs);
 }

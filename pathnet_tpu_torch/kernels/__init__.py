@@ -4,7 +4,9 @@
 |---|---|---|
 | K1 ``cdf_walk`` | ``kernels/cdf_walk.py`` | ``sample/alias.py:142-147`` ``CdfSampler.step``, scanned by ``sample/walk.py:36-55`` |
 | K2 ``membership_dists`` | ``kernels/membership_dists.py`` | ``sample/distance.py:77-139`` |
-| K1 + K2 ``walk_dists`` | ``kernels/walk_dists.py`` | both above in one launch (the sampler's path); ``cdf_walk`` and ``membership_dists`` run its device code |
+| K1 + K2 ``walk_dists`` | ``kernels/walk_dists.py`` | both above in one launch (the sampler's path at ``walk_len <= 4``); ``cdf_walk`` and ``membership_dists`` run its device code |
+| K7 ``khop_dists`` | ``kernels/khop_dists.py`` | ``sample/distance.py:194-229`` (``_row_membership``, ``khop_dists``): the k-hop distances of given walks, any walk length |
+| K1 + K7 ``walk_khop_dists`` | ``kernels/khop_dists.py`` | K1's walk and K7 in one launch (the sampler's path at ``walk_len >= 5``, the ``khop`` backend) |
 | K3 ``pagg_encode_fwd`` | ``kernels/pagg_encode.py`` | ``models/pagg.py:235-307`` encode + readout (serving, and training with a dropout mask; hetero and homo, ``homo=True``; the LSTM or the GRU, ``cell``; the attention, mean or sum readout, ``agg``); two launches (``encode_walks``, ``readout``) behind one wrapper |
 | K4 ``pagg_encode_bwd`` | ``kernels/pagg_encode_bwd.py`` | the VJP of ``models/pagg.py:235-307`` with the gather VJP ``:83-93``; three launches (``encode_walks_streams``, ``attention_bwd``, ``bptt``) behind one wrapper, then the weight ``contractions``; every variant, cell and readout of K3 |
 | ``segment_sum`` | ``kernels/segment_sum.py`` | the scatter-add of the gather VJP, ``models/pagg.py:83-93``: K4's row gradients into ``dh`` in a fixed order |
@@ -16,6 +18,8 @@ kernel for a CUDA tensor, or raises; it never falls back. Each wrapper counts
 its kernel launches in a plain integer attribute, ``launches``.
 """
 from .cdf_walk import cdf_walk, cdf_walk_plain
+from .khop_dists import (KhopTables, khop_dists, khop_dists_plain, walk_khop_dists,
+                         walk_khop_dists_plain)
 from .lane_gather import lane_gather, lane_gather_plain
 from .membership_dists import membership_dists, membership_dists_plain
 from .pagg_encode import (encode_tile, encode_walks, encode_walks_plain,
@@ -31,7 +35,8 @@ from .segment_sum import segment_sum, segment_sum_plain
 from .walk_dists import sorted_rows, walk_dists, walk_dists_plain
 
 WRAPPERS = (cdf_walk, membership_dists, pagg_encode_fwd, pagg_encode_bwd,
-            row_gather, row_gather_bwd, lane_gather, segment_sum, walk_dists)
+            row_gather, row_gather_bwd, lane_gather, segment_sum, walk_dists, khop_dists,
+            walk_khop_dists)
 
 
 def reset_launch_counts() -> None:
@@ -52,4 +57,6 @@ __all__ = ["cdf_walk", "cdf_walk_plain", "membership_dists",
            "encode_walks_streams_plain", "attention_bwd", "attention_bwd_plain",
            "bptt", "bptt_plain", "contractions", "row_nodes", "segment_sum",
            "segment_sum_plain", "walk_dists", "walk_dists_plain", "sorted_rows",
+           "KhopTables", "khop_dists", "khop_dists_plain", "walk_khop_dists",
+           "walk_khop_dists_plain",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]

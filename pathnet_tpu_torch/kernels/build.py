@@ -41,6 +41,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     # nbr, cdf, deg, srt, starts, u, paths, dists, D, S, nw, wl, walk, stream
     "pathnet_walk_dists": [_P] * 8 + [_I] * 5 + [_P],
+    # K7: nbr, cdf, starts, u, tab, off, wid, paths, dists, D, S, nw, wl,
+    # walk, stream
+    "pathnet_khop_dists": [_P] * 9 + [_I] * 5 + [_P],
     # h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep, hn, ego,
     # T, nw, wl, H, bf16, gru, stream (ego null: hetero; bf16 nonzero: h and
     # the six weights bf16; gru nonzero: the GRU on packed weights; here and

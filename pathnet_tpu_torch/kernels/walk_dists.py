@@ -6,8 +6,11 @@ by ``pathnet_tpu/sample/distance.py:77-139`` (``membership_dists``): from
 ``(nbr, cdf, deg, starts, u)`` it gives ``(paths, dists)``, exactly
 :func:`~pathnet_tpu_torch.kernels.cdf_walk.cdf_walk` followed by
 :func:`~pathnet_tpu_torch.kernels.membership_dists.membership_dists`, with
-their layouts. ``PathSampler.sample`` calls it; the walks and distances
-never go through device memory between the two.
+their layouts. ``PathSampler.sample`` calls it at ``walk_len <= 4`` (the
+membership backend); the walks and distances never go through device
+memory between the two. Past ``walk_len`` 4 the sampler takes the khop
+backend's fused launch instead, ``walk_khop_dists``
+(``kernels/khop_dists.py``, K1's walk and K7 in the same source).
 
 Source: ``pathnet_tpu_torch/csrc/walk_dists.cu``, which ``cdf_walk`` and
 ``membership_dists`` also launch. The walks lie flat across the grid, a lane

@@ -1,11 +1,13 @@
-"""Path sampling for serving (port of ``pathnet_tpu/sample/walk.py:36-55,85-164``).
+"""Path sampling (port of ``pathnet_tpu/sample/walk.py:36-55,85-164``).
 
 ``sample_paths`` draws the walks with K1 (``kernels/cdf_walk.py``);
-``PathSampler.sample`` draws them and resolves their hop distances in one
-launch, ``walk_dists`` (``kernels/walk_dists.py``: K1 and K2 fused). The
-uniforms of the ``wl - 1`` steps come
-from an explicit ``torch.Generator``, or from the caller: a test that hands in
-JAX's own draws gets JAX's walks.
+``PathSampler.sample`` draws them and resolves their hop distances with the
+backend ``build`` picked: at ``walk_len <= 4`` in one launch, ``walk_dists``
+(``kernels/walk_dists.py``: K1 and K2 fused); at ``walk_len >= 5`` in one
+launch, ``walk_khop_dists`` (``kernels/khop_dists.py``: K1 and K7 fused);
+with a dense table, K1 then a lookup in the table. The uniforms of the
+``wl - 1`` steps come from an explicit ``torch.Generator``, or from the
+caller: a test that hands in JAX's own draws gets JAX's walks.
 """
 from __future__ import annotations
 
@@ -17,8 +19,15 @@ import torch
 from ..data.graph import DeviceGraph, Graph
 from ..device import resolve_device
 from ..kernels.cdf_walk import cdf_walk
+from ..kernels.khop_dists import KhopTables, walk_khop_dists
 from ..kernels.walk_dists import walk_dists
 from .alias import CdfSampler
+from .distance import bfs_distance_table, bfs_distance_table_host, build_khop_tables
+
+# one k-hop level's table at most (int32 [n, Dk]); past it the dense [n, n]
+# int8 table is no larger, and the khop backend falls back to it
+KHOP_MAX_BYTES = 1 << 30
+BACKENDS = ("membership", "khop", "dense", "host", "none")
 
 
 def draw_uniforms(walk_len: int, walkers: int, generator: torch.Generator,
@@ -55,21 +64,33 @@ def _uniforms(u, generator, walk_len, walkers, device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class PathSampler:
-    """Per-graph sampling state: the CDF tables and the membership rows."""
+    """Per-graph sampling state: the CDF tables and the distance backend's
+    state (``khop``: the packed k-hop rows; ``dense``, ``host``: the
+    ``[n, n]`` int8 table; ``membership``: the sampler's sorted rows)."""
 
     num_walks: int
     walk_len: int
     sampler: CdfSampler
+    backend: str = "membership"
+    khop: Optional[KhopTables] = None
+    dist_table: Optional[torch.Tensor] = None
 
     @staticmethod
     def build(g: Graph, num_walks: int, walk_len: int, kind: str = "merw",
               sampler: str = "cdf", distance_backend: str = "auto",
+              distance_chunk: int = 1024,
               device: Optional[Union[str, torch.device]] = None) -> "PathSampler":
         """From a host graph whose records carry transition probabilities.
 
-        Only the serving path's choices are ported: ``kind="merw"``,
-        ``sampler="cdf"`` and the ``membership`` distance backend
-        (``walk_len <= 4``). The others raise ``NotImplementedError``.
+        ``kind="merw"`` and ``sampler="cdf"`` are ported; the others raise
+        ``NotImplementedError``. The distance backend is chosen as JAX
+        chooses it: ``auto`` is ``membership`` for ``walk_len <= 4`` (which
+        it alone supports) and ``khop`` past it; ``khop`` caps a level's
+        widest row at ``max(64, KHOP_MAX_BYTES // (4 n))`` (and ``n``) and
+        falls back to the dense table when a level passes it; ``dense`` and
+        ``host`` build the ``[n, n]`` table truncated at ``walk_len`` hops
+        (``distance_chunk`` starts at a time, or with scipy on the host);
+        ``none`` keeps no distances.
         """
         if kind != "merw":
             raise NotImplementedError(
@@ -80,15 +101,31 @@ class PathSampler:
                 "(ROADMAP §1 item 9)")
         if distance_backend == "auto":
             distance_backend = "membership" if walk_len <= 4 else "khop"
-        if distance_backend != "membership":
-            raise NotImplementedError(
-                f"distance_backend={distance_backend!r}: only 'membership' "
-                "(walk_len <= 4) is ported (ROADMAP §1 item 8)")
-        if not 1 <= walk_len <= 4:
-            raise ValueError("membership distances support 1 <= walk_len <= 4")
-        dg = DeviceGraph.from_graph(g, device=resolve_device(device))
-        return PathSampler(num_walks=num_walks, walk_len=walk_len,
-                           sampler=CdfSampler.from_device_graph(dg))
+        if distance_backend not in BACKENDS:
+            raise ValueError(f"distance_backend={distance_backend!r}: expected 'auto' or one "
+                             f"of {BACKENDS}")
+        if walk_len < 1:
+            raise ValueError(f"walk_len must be >= 1, got {walk_len}")
+        if distance_backend == "membership" and walk_len > 4:
+            raise ValueError("membership distances support walk_len <= 4; "
+                             "use distance_backend='khop'")
+        dev = resolve_device(device)
+        dg = DeviceGraph.from_graph(g, device=dev)
+        ps = PathSampler(num_walks=num_walks, walk_len=walk_len,
+                         sampler=CdfSampler.from_device_graph(dg), backend=distance_backend)
+        if distance_backend == "khop":
+            max_width = min(max(64, KHOP_MAX_BYTES // (4 * g.n)), g.n)
+            try:
+                levels = build_khop_tables(g, walk_len - 1, max_width, device=dev)
+            except ValueError:      # a level wider than max_width
+                ps.backend = "dense"
+            else:
+                ps.khop = KhopTables.pack(levels)
+        if ps.backend == "dense":
+            ps.dist_table = bfs_distance_table(g, walk_len, distance_chunk, device=dev)
+        elif ps.backend == "host":
+            ps.dist_table = torch.from_numpy(bfs_distance_table_host(g, walk_len)).to(dev)
+        return ps
 
     @property
     def device(self) -> torch.device:
@@ -97,17 +134,26 @@ class PathSampler:
     def sample(self, starts: Optional[torch.Tensor] = None,
                u: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None):
-        """``(paths, dists)``, both ``int32 [S, num_walks, walk_len]``, from
-        one ``walk_dists`` launch.
+        """``(paths, dists)``, both ``int32 [S, num_walks, walk_len]``
+        (``dists`` None for the ``none`` backend).
 
         ``dists`` holds each walk node's 0-based hop distance from its start
         (the reference's ``o[_] - 1``, gen_merw.cpp:199-204). ``starts``
         defaults to every node in order; ``u`` and ``generator`` as in
-        :func:`sample_paths`.
+        :func:`sample_paths`. The dense table is read with a 2-D index
+        ``[starts, paths]``: a flat one would pass int32 at n > ~46k.
         """
         smp = self.sampler
         if starts is None:
             starts = torch.arange(smp.n, dtype=torch.int32, device=self.device)
-        u = _uniforms(u, generator, self.walk_len, starts.shape[0] * self.num_walks,
-                      self.device)
-        return walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, starts, u, self.num_walks)
+        nw = self.num_walks
+        u = _uniforms(u, generator, self.walk_len, starts.shape[0] * nw, self.device)
+        if self.backend == "membership":
+            return walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, starts, u, nw)
+        if self.backend == "khop":
+            return walk_khop_dists(smp.nbr, smp.cdf, self.khop, starts, u, nw)
+        paths = cdf_walk(smp.nbr, smp.cdf, starts, u, nw)
+        if self.dist_table is None:
+            return paths, None
+        dists = self.dist_table[starts.long()[:, None, None], paths.long()]
+        return paths, dists.to(torch.int32)

@@ -3,7 +3,9 @@
 Walks are sampled only for the requested nodes and resampled per call;
 ``num_ensemble > 1`` averages the class probabilities of independent walk
 draws (a log-mean-exp of the log-probabilities). Per ensemble member the
-path runs K1 (walks), K2 (hop distances) and K3 (encode), once each.
+path runs the sampler's one launch (K1's walks with K2's hop distances,
+``walk_dists``, at ``walk_len <= 4``; with K7's, ``walk_khop_dists``, past
+it), then K3 (encode) and K5 (the ego rows), once each.
 """
 from __future__ import annotations
 

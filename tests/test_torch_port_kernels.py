@@ -19,7 +19,7 @@ from pathnet_tpu_torch import kernels as K
 from pathnet_tpu_torch.data import Graph
 from pathnet_tpu_torch.kernels import build
 from pathnet_tpu_torch.models import PaggSpec, PathNet
-from pathnet_tpu_torch.sample import PathSampler
+from pathnet_tpu_torch.sample import KhopTables, PathSampler, build_khop_tables
 from pathnet_tpu_torch.train import predict
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -69,7 +69,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert K.launch_counts() == {"cdf_walk": 0, "membership_dists": 0,
                                  "pagg_encode_fwd": 0, "pagg_encode_bwd": 0,
                                  "row_gather": 0, "row_gather_bwd": 0,
-                                 "lane_gather": 0, "segment_sum": 0, "walk_dists": 0}
+                                 "lane_gather": 0, "segment_sum": 0, "walk_dists": 0,
+                                 "khop_dists": 0, "walk_khop_dists": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -153,7 +154,7 @@ def test_port_holds_no_jax_no_library_kernels_and_no_cpu_fallback():
                        "nn.functional.lstm", "self.LSTM("):
             assert banned not in text, (f, banned)
     for name in ("cdf_walk", "membership_dists", "pagg_encode", "pagg_encode_bwd",
-                 "row_gather", "lane_gather", "segment_sum", "walk_dists"):
+                 "row_gather", "lane_gather", "segment_sum", "walk_dists", "khop_dists"):
         # a wrapper launches its kernel or raises: nothing catches a failure
         text = open(os.path.join(PORT, "kernels", name + ".py")).read()
         assert not re.search(r"\b(try|except)\b", text), name
@@ -208,6 +209,54 @@ def test_fused_walk_and_distance_kernel_equals_plain(cuda, D, nw, wl):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert torch.equal(K.cdf_walk(smp.nbr, cdf, starts, u, nw), want[0])
     assert torch.equal(K.membership_dists(smp.nbr, smp.deg, starts, want[0]), want[1])
+
+
+# K7, fused with the walk and alone, against the plain walk and the plain
+# k-hop distances on the same widths, at every walk length to 6 (the levels
+# 1..5 of the graph's k-hop tables), with the same degree-0, NaN and short
+# rows among the starts. (These graphs' records are not symmetric, so K2's
+# N2 test, which assumes they are, may differ from the k-hop levels here.)
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 25, 190, 442, 600])
+@pytest.mark.parametrize("nw", [1, 40])
+@pytest.mark.parametrize("wl", [1, 2, 4, 5, 6])
+def test_khop_kernels_equal_plain(cuda, D, nw, wl):
+    g = walk_graph(D)
+    ps = PathSampler.build(g, nw, 4, device=cuda)
+    smp = ps.sampler
+    tables = KhopTables.pack(build_khop_tables(g, 5, device=cuda))
+    cdf = smp.cdf.clone()
+    cdf[2] = float("nan")
+    cdf[3] = cdf[3] * 0.6
+    gen = torch.Generator().manual_seed(D * 10 + wl)
+    starts = torch.randperm(smp.n, generator=gen)[:257].to(torch.int32)
+    starts[:4] = torch.arange(4)
+    starts = starts.to(cuda)
+    u = torch.rand((wl - 1, starts.shape[0] * nw), generator=gen).to(cuda)
+    want = K.walk_khop_dists_plain(smp.nbr, cdf, tables, starts, u, nw)
+    got = K.walk_khop_dists(smp.nbr, cdf, tables, starts, u, nw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(K.khop_dists(tables, starts, want[0]), want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cornell", "Nba"])
+def test_khop_sampler_on_the_card_equals_the_host(cuda, name):
+    """``PathSampler.sample`` at wl = 5 (one fused K7 launch) and the dense
+    and host tables' lookups on the card: the host sampler's walks and
+    distances for the same draws."""
+    g = Graph.from_edge_input(os.path.join(EDGE, f"{name}.in"))
+    u = torch.rand((4, g.n * 40), generator=torch.Generator().manual_seed(1))
+    want = PathSampler.build(g, 40, 5, device="cpu").sample(u=u)
+    for backend in ("khop", "dense", "host"):
+        ps = PathSampler.build(g, 40, 5, distance_backend=backend, device=cuda)
+        K.reset_launch_counts()
+        got = ps.sample(u=u.to(cuda))
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        assert counts["walk_khop_dists" if backend == "khop" else "cdf_walk"] == 1
+        assert sum(counts.values()) == 1
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
 def wild_case(H, wl, nw, T, n=183, seed=0, device="cpu"):
@@ -284,7 +333,8 @@ def test_predict_on_card_counts_launches_and_matches_host(cuda):
     assert K.launch_counts() == {"cdf_walk": 0, "membership_dists": 0,
                                  "pagg_encode_fwd": 3, "pagg_encode_bwd": 0,
                                  "row_gather": 3, "row_gather_bwd": 0,
-                                 "lane_gather": 0, "segment_sum": 0, "walk_dists": 3}
+                                 "lane_gather": 0, "segment_sum": 0, "walk_dists": 3,
+                                 "khop_dists": 0, "walk_khop_dists": 0}
     want = predict(m_host, torch.from_numpy(X), PathSampler.build(g, 40, 4, device="cpu"),
                    num_ensemble=3, u=u)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

@@ -193,13 +193,25 @@ def test_sorted_rows_keep_each_rows_real_entries_in_order():
                                               [big] * 4]
 
 
-@pytest.mark.parametrize("kw", [{"kind": "uniform"}, {"sampler": "alias"},
-                                {"distance_backend": "khop"},
-                                {"distance_backend": "dense"}])
+@pytest.mark.parametrize("kw", [{"kind": "uniform"}, {"sampler": "alias"}])
 def test_unported_sampler_choices_raise(kw):
     _, g = graph_pair("cornell")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PathSampler.build(g, NW, 4, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("backend", ["khop", "dense"])
+def test_khop_and_dense_backends_build_and_give_jax_distances(backend):
+    """The backends that raised before walk length 5 was ported: at wl = 4
+    on JAX's draws, JAX's walks and distances."""
+    jg, g = graph_pair("cornell")
+    key = jax.random.PRNGKey(12)
+    jp, jd = JPathSampler.build(jg, NW, 4, distance_backend=backend).sample(key)
+    ps = PathSampler.build(g, NW, 4, distance_backend=backend, device="cpu")
+    assert ps.backend == backend
+    p, d = ps.sample(u=torch.from_numpy(jax_uniforms(key, g.n * NW, 4)))
+    np.testing.assert_array_equal(np.asarray(jp), p.numpy())
+    np.testing.assert_array_equal(np.asarray(jd), d.numpy())
 
 
 def test_sampler_checks_draws():
