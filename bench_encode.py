@@ -273,12 +273,14 @@ def compare_regs(other: str) -> None:
     """Registers and spills of ``other``'s kernels and this checkout's."""
     import re
     a, b = kernel_regs(ptxas_report(other)), kernel_regs(ptxas_report(HERE))
-    # an instance that gained a last bool template argument defaulting to
-    # true is the other's instance without it
-    for k in [k for k in b if k not in a]:
-        k0 = re.sub(r"Lb1E(E*>)$", r"\1", k)
-        if k0 in a and k0 not in b:
-            a[k] = a.pop(k0)
+    # an instance that gained a last bool template argument is the other's
+    # instance without it: the one with false (a new argument that defaults
+    # to false, as ALIAS), then the one with true
+    for flag in ("Lb0E", "Lb1E"):
+        for k in [k for k in b if k not in a]:
+            k0 = re.sub(flag + r"(E*>)$", r"\1", k)
+            if k0 != k and k0 in a and k0 not in b:
+                a[k] = a.pop(k0)
     same = [k for k in a if b.get(k) == a[k]]
     print(json.dumps({"device": smi(), "equal": len(same),
                       "differ": {k: [a[k], b[k]] for k in sorted(a) if k in b and a[k] != b[k]},

@@ -77,16 +77,18 @@ one card). Phases, each with a start and an end line:
 10. the cornell protocol through the CLI (``pathnet_tpu_torch.run``) at the
     reference defaults (``CORNELL_ROUNDS`` rounds x 1000 epochs, H = 64,
     nw = 40, wl = 4, dropout 0.7) with temporary data, results and checkpoint
-    directories; the mean test accuracy must lie inside the JAX band
-    80.00 +- 5.82 (``results/results.jsonl:106``);
+    directories; each round's test accuracy must lie within 3 std of the
+    JAX band 80.00 +- 5.82 (``results/results.jsonl:106``), the mean inside
+    it at 10 rounds (phases 10-12 run one round each; their 10 x 1000 runs
+    through ``run_protocol_cli`` on its own, PERF.md section 6);
 11. Nba at H = 256: ``walk_dists`` against K1 then K2's plain versions on
     all 403 nodes (D = 442), K3 (with and without the keep mask), K4 and
     ``segment_sum`` against their plain versions, and K4's three launches
     against their plain stages, on
     all 193 train targets of round 0, timed (K3's two launches, K4's three
     and its contractions also each alone), then the protocol through the CLI for
-    ``NBA_ROUNDS`` rounds x 1000 epochs at ``-hid 256``, whose mean test
-    accuracy must lie inside the JAX band 58.54 +- 5.23
+    ``NBA_ROUNDS`` rounds x 1000 epochs at ``-hid 256``, each round's test
+    accuracy within 3 std of the JAX band 58.54 +- 5.23
     (``results/results.jsonl:104``);
 12. the homo variant: cora at full width (its payload made in phase 9's
     data root, n = 2,708, F = 1,433, H = 64): K3 (with and without the
@@ -96,9 +98,10 @@ one card). Phases, each with a start and an end line:
     the host; one training step on the card against the host; two seeded
     30-epoch rounds bit-equal; then the cora and citeseer protocols through
     the CLI (``CORA_ROUNDS``, ``CITESEER_ROUNDS`` rounds x 1000 epochs at
-    the reference defaults), gated on the JAX bands 74.46 +- 2.66 and
-    71.94 +- 1.24 (``results/results.jsonl:55,59``) only when the payload's
-    fingerprint is the band's (ec4121ed, 907bb672; else the phase fails);
+    the reference defaults), each round within 3 std of the JAX bands
+    74.46 +- 2.66 and 71.94 +- 1.24 (``results/results.jsonl:55,59``) only
+    when the payload's fingerprint is the band's (ec4121ed, 907bb672; else
+    the phase fails);
 13. bf16 compute (``compute_dtype="bfloat16"``, K3's and K4's ``BF16``
     instances): K3 bf16 against its plain version on one 8192-target bgp
     request, K3 (with and without the keep mask) and K4 bf16 with each of
@@ -160,7 +163,29 @@ one card). Phases, each with a start and an end line:
     protocol through the CLI at ``-wl 5`` (``CORNELL_WL5_ROUNDS`` x 1000,
     payload 89c32d97, else the phase fails), its test accuracy within 3 std
     of the JAX length ablation's 79.73 +- 5.70
-    (``results/ablation_length_cornell.json``).
+    (``results/ablation_length_cornell.json``);
+16. the rest of the sampler: K8, the alias walk step, in its three launches
+    (``alias_walk_dists`` with K2 at the bgp request and on every bgp and
+    cornell node, ``alias_walk_khop_dists`` with K7 at cornell wl = 5,
+    ``alias_walk`` alone) exactly against the plain versions given the same
+    uniforms; every transition of one seeded bgp epoch of alias walks
+    against P, pair of nodes by pair, within Bernstein's bound at a failure
+    rate of 1e-6 over all pairs; uniform walks (``kind="uniform"``, the
+    symmetrized graph with a self-loop a node): ``walk_dists`` on every
+    node of bgp (D = 51), cornell, Nba and cora (32 lanes a walk) and the
+    bgp request exactly against its plain version, K3 and K4 on cornell's
+    uniform walks at phase 5's tolerances; ``alias_walk_dists`` and
+    ``alias_walk`` timed as phase 2 times its kernels at the bgp request
+    (the record) and on every cornell node, beside the CDF tables'
+    ``walk_dists`` and ``cdf_walk`` on the same starts,
+    ``alias_walk_khop_dists`` at cornell wl = 5 beside ``walk_khop_dists``,
+    and ``walk_dists`` on the uniform tables of bgp and Nba; one seeded
+    cornell round of 1000 epochs on alias walks within 3 std of the cornell
+    band and two seeded 30-epoch alias rounds bit-equal; 20-epoch alias
+    rounds through the dense backend and at wl = 5; one round of the
+    cornell protocol through the CLI at ``-mk uniform``
+    (``CORNELL_UNIFORM_ROUNDS`` x 1000, payload 89c32d97), within 3 std of
+    the JAX CLI's own host band (``CORNELL_UNIFORM_BAND``).
 
 The protocol phases gate on their band when they run 10 rounds of 1000
 epochs, and on accuracy above chance when a rehearsal cuts them shorter;
@@ -179,7 +204,8 @@ readouts' branches, ``pagg_readout mean|sum`` and ``pagg_attention_bwd
 mean|sum``, whose launches are K3's and K4's in phase 14's ``--agg mean``
 (cora) and ``--agg sum`` (cornell) protocols; K7's two entries from phase
 15's wl = 5 protocol, where ``walk_khop_dists`` runs and ``khop_dists`` does
-not, as its ``note`` says);
+not, as its ``note`` says; K8's three entries from phase 16's alias rounds,
+each from the round whose backend runs it);
 the last is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
 prints no result. Without a CUDA card, or outside a checkout, it exits
 non-zero.
@@ -212,7 +238,11 @@ K4_TOL = 1e-4      # of each gradient's largest plain entry
 K5_BWD_TOL = 1e-5  # of the largest plain entry (atomics order the sums)
 KERNELS = ("cdf_walk", "membership_dists", "pagg_encode_fwd", "pagg_encode_bwd",
            "row_gather", "row_gather_bwd", "lane_gather", "segment_sum", "walk_dists",
-           "khop_dists", "walk_khop_dists")
+           "khop_dists", "walk_khop_dists", "alias_walk", "alias_walk_dists",
+           "alias_walk_khop_dists")
+# the sampler's launches: K1 or K8 alone, fused with K2, fused with K7
+WALK_KERNELS = ("cdf_walk", "walk_dists", "walk_khop_dists", "alias_walk", "alias_walk_dists",
+                "alias_walk_khop_dists")
 SEGMENT_TOL = 1e-5  # of the largest plain entry
 # kernels that the main path no longer launches, and why
 NOTES = {name: f"0 launches on the main path: {fused} replaces it there; still the "
@@ -249,13 +279,15 @@ PAYLOAD_SHA256 = {
 # (mean, std) of the JAX package's 10 x 1000 test accuracy, results/results.jsonl
 CORNELL_BAND = (0.8000000178813934, 0.05821799973974322)    # :106, H = 64
 NBA_BAND = (0.5853658318519592, 0.05231123852817561)        # :104, H = 256
-CORNELL_ROUNDS, NBA_ROUNDS, NBA_HIDDEN, PROTOCOL_EPOCHS = 10, 10, 256, 1000
+# phases 10-12 run one round each, held within 3 std of its band; the 10 x
+# 1000 of each runs through run_protocol_cli on its own (PERF.md, section 6)
+CORNELL_ROUNDS, NBA_ROUNDS, NBA_HIDDEN, PROTOCOL_EPOCHS = 1, 1, 256, 1000
 # the homo variant's JAX bands (results/results.jsonl) and the payload each
 # was run on
 CORA_BAND = (0.7446494042873383, 0.02663735362741913)       # :55
 CITESEER_BAND = (0.7193985044956207, 0.01236745494699046)   # :59
 HOMO_PAYLOADS = {"cora": "ec4121ed", "citeseer": "907bb672"}
-CORA_ROUNDS, CITESEER_ROUNDS = 10, 10
+CORA_ROUNDS, CITESEER_ROUNDS = 1, 1
 HOMO_KERNELS = ("pagg_encode_fwd", "pagg_encode_bwd")  # the kernels with a HOMO instance
 # bf16 compute: K3's and K4's BF16 instances (hetero and homo), held to four
 # bf16 ulps of each output's largest plain entry (the gpu tests' tolerance)
@@ -292,6 +324,13 @@ NBA_PAYLOAD = "419bdc07"
 CORNELL_WL5_ROUNDS = 1
 KHOP_DATASETS = ("cornell", "Nba", "cora")
 KHOP_KERNELS = ("khop_dists", "walk_khop_dists")
+# uniform walks (-mk uniform, RW-PathNet): the JAX CLI's own 10 x 1000 on the
+# host (JAX_PLATFORMS=cpu python -m pathnet_tpu.run -data cornell -mk uniform,
+# payload 89c32d97; PERF.md, section 2); a run of fewer rounds holds each
+# round to 3 std
+CORNELL_UNIFORM_BAND = (0.7972973048686981, 0.05020047200611047)
+CORNELL_UNIFORM_ROUNDS = 1
+ALIAS_SHORT_EPOCHS = 20  # the alias rounds through the dense backend and at wl = 5
 
 def walk_kernel(wl: int) -> str:
     """The sampler's launch at walk length ``wl``: the membership backend's
@@ -394,6 +433,19 @@ def bound(nbytes_: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k2_ops(deg, starts, paths, dists):
+    """K2's compares on this data: the N1 tests of v2 and v3 against deg(s)
+    slots, and the N2 test deg(v3) x deg(s) where v3 is not in N1(s)."""
+    ds = deg[starts.long()].double()[:, None]
+    wl = paths.shape[2]
+    ops = float(((dists[:, :, 2] != 0).double() * ds).sum()) if wl > 2 else 0.0
+    if wl > 3:
+        dv3 = deg[paths[:, :, 3].long()].double()
+        ops += float(((dists[:, :, 3] != 0).double() * ds).sum()
+                     + ((dists[:, :, 3] >= 2).double() * ds * dv3).sum())
+    return ops
+
+
 def check_kernels(tag, ps, model, X, idx, u, rec, timed):
     """Hold K1, K2, K3 against their plain versions on one request; time them
     when ``timed``. Updates ``rec[name]`` with errors, times and bounds."""
@@ -436,14 +488,9 @@ def check_kernels(tag, ps, model, X, idx, u, rec, timed):
     # K1: two tables, starts, u in; walks out. One compare per slot and step.
     b1 = nbytes(smp.nbr, smp.cdf, idx, u, paths)
     o1 = S * nw * (wl - 1) * smp.max_deg
-    # K2: the compares this data needs: N1 tests of v2, v3 against deg(s)
-    # slots, and the N2 test deg(v3) x deg(s) where v3 is not in N1(s).
+    # K2: the compares this data needs (k2_ops)
     b2 = nbytes(smp.nbr, smp.deg, idx, paths, dists)
-    ds = smp.deg[idx.long()].double()[:, None]
-    dv3 = smp.deg[paths[:, :, 3].long()].double()
-    o2 = float(((dists[:, :, 2] != 0).double() * ds).sum()
-               + ((dists[:, :, 3] != 0).double() * ds).sum()
-               + ((dists[:, :, 3] >= 2).double() * ds * dv3).sum())
+    o2 = k2_ops(smp.deg, idx, paths, dists)
     # the fused launch: both tables, deg, starts, u in; walks and distances
     # out (the sorted rows are this design's copy of nbr, not the function's
     # input); K1's compares and K2's
@@ -1068,10 +1115,11 @@ def check_reproducible(dev, gc, Xc, X, z, psc, ps, dtype="float32", rnn="lstm"):
 
 
 def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype="float32",
-                     microbatch=None, round_band=False, rnn="lstm", agg="attention", wl=WL):
+                     microbatch=None, round_band=False, rnn="lstm", agg="attention", wl=WL,
+                     marker="merw"):
     """The protocol through the CLI on the card with temporary results and
     checkpoint directories (``--dtype dtype``, ``--rnn rnn``, ``--agg agg``,
-    ``-wl wl``, ``--microbatch`` where given); checks its launches (one
+    ``-wl wl``, ``-mk marker``, ``--microbatch`` where given); checks its launches (one
     sampler launch an epoch, ``walk_kernel(wl)``), checkpoints and
     accuracy, and returns the launch counts. At 10 rounds x 1000 epochs the
     mean test accuracy must lie inside the JAX ``band``, whose payload
@@ -1088,9 +1136,10 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype=
     if payload is not None and payload_fingerprint(DATASETS[name]) != payload:
         raise AssertionError(f"{name}: payload {payload_fingerprint(DATASETS[name])} is not "
                              f"the JAX band's {payload}")
-    out = os.path.join(tmp, f"{name}_h{hidden}_{dtype}_{rnn}_{agg}_wl{wl}")
+    out = os.path.join(tmp, f"{name}_h{hidden}_{dtype}_{rnn}_{agg}_wl{wl}_{marker}")
     argv = ["-data", name, "-pr", root, "-r", str(rounds), "-e", str(PROTOCOL_EPOCHS),
             "-hid", str(hidden), "--dtype", dtype, "--rnn", rnn, "--agg", agg, "-wl", str(wl),
+            "-mk", marker,
             "--results-dir", os.path.join(out, "results"),
             "--ckpt-dir", os.path.join(out, "ckpt"), "--resume"]
     chunks = (1, 1, 1)   # train, validation, test chunks an epoch
@@ -1109,8 +1158,8 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype=
     fwd = counts["pagg_encode_fwd"]
     ktr, kva, kte = chunks
     walk = walk_kernel(wl)
-    idle = ("lane_gather", "cdf_walk", "membership_dists", "khop_dists",
-            ({"walk_dists", "walk_khop_dists"} - {walk}).pop())
+    idle = ("lane_gather", "membership_dists", "khop_dists",
+            *(k for k in WALK_KERNELS if k != walk))
     if not (counts[walk] == epochs and counts["pagg_encode_bwd"] == counts["segment_sum"]
             == counts["row_gather_bwd"] == ktr * epochs and counts["row_gather"] == fwd
             and (ktr + kva) * epochs <= fwd <= (ktr + kva + kte) * epochs
@@ -1124,15 +1173,17 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype=
         raise AssertionError(f"{name}: {len(saved)} rounds checkpointed, or no result line")
     if dtype != "float32" and not all(f".{dtype}/" in p for p in saved):
         raise AssertionError(f"{name}: rounds not checkpointed under the .{dtype} key: {saved}")
-    if not all(f".{rnn}.{agg}" in p for p in saved):
-        raise AssertionError(f"{name}: rounds not checkpointed under the .{rnn}.{agg} key")
+    if not all(f".{marker}.{rnn}.{agg}" in p for p in saved):
+        raise AssertionError(f"{name}: rounds not checkpointed under the "
+                             f".{marker}.{rnn}.{agg} key")
     accs = []
     for path in saved:
         with open(path) as f:
             accs.append(json.load(f)["metrics"]["accuracy"])
     mean, std = result["accuracy"]
     say(f"  {name}, {rounds} rounds x {PROTOCOL_EPOCHS} epochs at H = {hidden}, {dtype}, "
-        f"{rnn}, {agg}, wl = {wl}" + (f", microbatch {microbatch}" if microbatch else "")
+        f"{rnn}, {agg}, wl = {wl}, -mk {marker}"
+        + (f", microbatch {microbatch}" if microbatch else "")
         + f": acc {mean:.4f} +- {std:.4f} ("
         + ("no JAX band" if band is None else f"JAX {band[0]:.4f} +- {band[1]:.4f}")
         + "; rounds " + ", ".join(f"{a:.4f}" for a in accs) + f"); {secs:.1f} s, "
@@ -1803,6 +1854,287 @@ def check_khop(root, dev, gen, rec, floor_ms):
                       (ps, ps_host), (X.to(dev), X), idx, y, wl=WL5)
 
 
+def alias_bounds(smp, starts, u, paths, dists=None, extra=()):
+    """(bytes, ops) of K8's launch: the alias tables, ``starts`` and ``u``
+    read once, the walks (and ``dists``) written once, and the tensors of
+    ``extra`` that the fused distances read; K8's three operations a step
+    (a product, a clamp, a compare)."""
+    S, nw, wl = paths.shape
+    b = nbytes(smp.lo, smp.hi, smp.split, smp.deg, starts, u, paths, *extra)
+    b += 0 if dists is None else nbytes(dists)
+    return b, 3.0 * S * nw * (wl - 1)
+
+
+def bernstein_tol(visits_p, t):
+    """Counts by which a binomial count of variance ``visits_p`` (N p (1 -
+    p)) may miss its mean with probability exp(-t) at most (Bernstein)."""
+    return t / 3 + (t * t / 9 + 2 * visits_p * t) ** 0.5
+
+
+def check_alias_frequencies(tag, g, paths):
+    """Every transition of ``paths`` against the graph's P, pair of nodes by
+    pair: no transition off a record, and each pair's count within
+    Bernstein's bound of ``visits x P`` at a failure rate of 1e-6 over all
+    pairs (about 7.5 binomial standard errors where a pair has many
+    visits)."""
+    import torch
+
+    dev = paths.device
+    n = g.n
+    a = paths[:, :, :-1].reshape(-1).long()
+    b = paths[:, :, 1:].reshape(-1).long()
+    nbr, prob, deg = g.padded_csr()
+    real = np.arange(nbr.shape[1])[None, :] < np.maximum(deg, 1)[:, None]
+    rows = np.nonzero(real)[0].astype(np.int64)
+    pkeys, inv = np.unique(rows * n + nbr[real], return_inverse=True)
+    P = torch.from_numpy(np.bincount(inv, weights=prob[real].astype(np.float64))).to(dev)
+    pkeys = torch.from_numpy(pkeys).to(dev)
+    keys, counts = torch.unique(a * n + b, return_counts=True)
+    pos = torch.searchsorted(pkeys, keys).clamp_(max=len(pkeys) - 1)
+    off = int((pkeys[pos] != keys).sum())
+    if off:
+        raise AssertionError(f"{tag}: {off} node pairs walked that no record joins")
+    obs = torch.zeros(len(pkeys), dtype=torch.float64, device=dev)
+    obs[pos] = counts.double()
+    visits = torch.bincount(a, minlength=n).double()[pkeys // n]
+    mean, var = visits * P, visits * P * (1 - P)
+    t = float(np.log(2 * len(pkeys) / 1e-6))
+    gap = (obs - mean).abs()
+    tol = bernstein_tol(var, t)
+    se = var.clamp(min=1e-300).sqrt()
+    worst = float((gap / tol).max())
+    many = visits >= 100
+    freq_gap = (float(((obs - mean) / visits).abs()[many].max()) if bool(many.any())
+                else float("nan"))
+    say(f"  {tag}: {a.numel()} transitions over {len(pkeys)} node pairs, none off a record; "
+        f"each pair's count within Bernstein's bound (t = {t:.1f}: {(2 * t) ** 0.5:.2f} "
+        f"standard errors and {t / 3:.1f} counts): worst gap {worst:.3f} of its bound, "
+        f"{float((gap / se).max()):.2f} standard errors; max |freq - P| over pairs of "
+        f"100+ visits {freq_gap:.2e}")
+    if worst > 1.0:
+        raise AssertionError(f"{tag}: transition counts beyond Bernstein's bound "
+                             f"({worst:.3f} of it)")
+
+
+def check_sampler(root, dev, gen, rec, z, ps, idx, floor_ms):
+    """The rest of the sampler: K8 (the alias walk step) in its three
+    launches exactly against the plain versions given the same uniforms
+    (``alias_walk_dists`` at the bgp request and every cornell node,
+    ``alias_walk_khop_dists`` at cornell wl = 5, ``alias_walk`` alone), its
+    transition frequencies against P over one bgp epoch; uniform walks
+    (``kind="uniform"``): ``walk_dists`` on the symmetrized tables of bgp,
+    cornell, Nba and cora against its plain version, K3 and K4 on cornell's
+    uniform walks; K8 and the uniform tables timed beside the CDF launches
+    on the same starts; a seeded cornell round on alias walks within 3 std
+    of the cornell band and two seeded alias rounds bit-equal; 20-epoch
+    alias rounds through the dense and khop backends, whose launches are
+    ``alias_walk``'s and ``alias_walk_khop_dists``'."""
+    import dataclasses
+
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.config import TrainConfig
+    from pathnet_tpu_torch.data import Graph
+    from pathnet_tpu_torch.data.registry import load_dataset
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+    from pathnet_tpu_torch.sample import PathSampler
+    from pathnet_tpu_torch.train import run_round
+
+    bg = Graph(n=int(z["n"]), src=z["src"], dst=z["dst"], prob=z["prob"], name="bgp_standin")
+    t0 = time.perf_counter()
+    psa = PathSampler.build(bg, NW, WL, sampler="alias", device=dev)
+    say(f"  bgp alias tables (n={bg.n}, D={psa.sampler.max_deg}) built on the host and moved "
+        f"in {time.perf_counter() - t0:.2f} s")
+    sa = psa.sampler
+    al = (sa.lo, sa.hi, sa.split, sa.deg)
+    every = torch.arange(bg.n, dtype=torch.int32, device=dev)
+
+    def exact(tag, got, want):
+        torch.cuda.synchronize()
+        for what, x, y in zip(("paths", "dists"), got, want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{tag}: {what} differ from the plain version's in "
+                                     f"{int((x != y).sum())} entries")
+
+    # K8 exact: the bgp request, and every bgp node (the training grid)
+    for tag, starts in (("bgp request", idx), (f"bgp, all {bg.n} nodes", every)):
+        ua = psa.draw_uniforms(starts.shape[0] * NW, gen)
+        want = K.alias_walk_dists_plain(*al, sa.nbr, sa.srt, starts, ua, NW)
+        exact(f"{tag}: alias_walk_dists",
+              K.alias_walk_dists(*al, sa.nbr, sa.srt, starts, ua, NW), want)
+        exact(f"{tag}: alias_walk", (K.alias_walk(*al, starts, ua, NW),), want)
+        say(f"  {tag}: alias_walk_dists and alias_walk exact against their plain versions")
+    record_err(rec, "alias_walk_dists", 0.0)
+    record_err(rec, "alias_walk", 0.0)
+
+    # K8's transitions over one bgp epoch against P
+    check_alias_frequencies("bgp epoch, alias walks (seeded)",
+                            bg, psa.sample(generator=gen)[0])
+
+    # cornell: K8 fused with K2 on every node, with K7 at wl = 5
+    gc, trc, vac, tec, spec_c = load_dataset("cornell", root, 0)
+    allc = torch.arange(gc.n, dtype=torch.int32, device=dev)
+    psca = PathSampler.build(gc, NW, WL, sampler="alias", device=dev)
+    sc = psca.sampler
+    alc = (sc.lo, sc.hi, sc.split, sc.deg)
+    uca = psca.draw_uniforms(gc.n * NW, gen)
+    exact("cornell alias_walk_dists", K.alias_walk_dists(*alc, sc.nbr, sc.srt, allc, uca, NW),
+          K.alias_walk_dists_plain(*alc, sc.nbr, sc.srt, allc, uca, NW))
+    psc5 = PathSampler.build(gc, NW, WL5, sampler="alias", device=dev)
+    if psc5.backend != "khop":
+        raise AssertionError(f"cornell alias wl = {WL5}: the {psc5.backend} backend")
+    uc5 = psc5.draw_uniforms(gc.n * NW, gen)
+    want5 = K.alias_walk_khop_dists_plain(*alc, psc5.khop, allc, uc5, NW)
+    got5 = K.alias_walk_khop_dists(*alc, psc5.khop, allc, uc5, NW)
+    exact(f"cornell alias_walk_khop_dists wl = {WL5}", got5, want5)
+    exact("cornell alias_walk wl = 5", (K.alias_walk(*alc, allc, uc5, NW),), want5)
+    record_err(rec, "alias_walk_khop_dists", 0.0)
+    say(f"  cornell, all {gc.n} nodes: alias_walk_dists (wl = {WL}), alias_walk_khop_dists "
+        f"and alias_walk (wl = {WL5}) exact against their plain versions")
+
+    # uniform walks: walk_dists on the symmetrized tables against its plain version
+    uni = {}
+    for name in ("bgp", "cornell", "Nba", "cora"):
+        g = bg if name == "bgp" else load_dataset(name, root, 0)[0]
+        t0 = time.perf_counter()
+        psu = PathSampler.build(g, NW, WL, kind="uniform", device=dev)
+        secs = time.perf_counter() - t0
+        su = psu.sampler
+        D = su.max_deg
+        starts = torch.arange(g.n, dtype=torch.int32, device=dev)
+        u = psu.draw_uniforms(g.n * NW, gen)
+        exact(f"{name} uniform walk_dists",
+              K.walk_dists(su.nbr, su.cdf, su.deg, su.srt, starts, u, NW),
+              K.walk_dists_plain(su.nbr, su.cdf, su.deg, su.srt, starts, u, NW))
+        say(f"  {name} uniform (symmetrized, a self-loop a node): D = {D} "
+            f"({1 if D <= 32 else 16 if D <= 512 else 32} lanes a walk), sampler built in "
+            f"{secs:.2f} s; walk_dists exact on all {g.n} nodes")
+        uni[name] = (g, psu)
+    record_err(rec, "walk_dists", 0.0)
+    _, psub = uni["bgp"]
+    u = psub.draw_uniforms(idx.shape[0] * NW, gen)
+    sub = psub.sampler
+    exact("bgp uniform request walk_dists",
+          K.walk_dists(sub.nbr, sub.cdf, sub.deg, sub.srt, idx, u, NW),
+          K.walk_dists_plain(sub.nbr, sub.cdf, sub.deg, sub.srt, idx, u, NW))
+
+    # K3 and K4 on cornell's uniform walks, phase 5's tolerances
+    psuc = uni["cornell"][1]
+    Xc = torch.from_numpy(np.array(gc.features, np.float32)).to(dev)
+    modelc = PathNet(PaggSpec(feat_dim=Xc.shape[1], hidden=HIDDEN, out_dim=spec_c.num_classes,
+                              walk_len=WL, dropout=0.7),
+                     device=dev, generator=torch.Generator().manual_seed(18))
+    check_encode_kernels(f"cornell uniform walks, all {gc.n} targets", psuc, modelc, Xc, allc,
+                         psuc.draw_uniforms(gc.n * NW, gen), gen, rec)
+    del modelc
+
+    # times: K8 beside the CDF launches on the same starts; the uniform tables
+    for tag, psx, psk, starts in (("bgp request", psa, ps, idx),
+                                  (f"cornell, all {gc.n} nodes", psca,
+                                   PathSampler.build(gc, NW, WL, device=dev), allc)):
+        sx, sk = psx.sampler, psk.sampler
+        alx = (sx.lo, sx.hi, sx.split, sx.deg)
+        ua = psx.draw_uniforms(starts.shape[0] * NW, gen)
+        uk = psk.draw_uniforms(starts.shape[0] * NW, gen)
+        own = tag == "bgp request"
+        pa, da = K.alias_walk_dists(*alx, sx.nbr, sx.srt, starts, ua, NW)
+        b, o = alias_bounds(sx, starts, ua, pa, da, (sx.nbr,))
+        name = "alias_walk_dists" if own else "alias_walk_dists cornell"
+        timed(rec if own else {name: {}}, name,
+              lambda: K.alias_walk_dists(*alx, sx.nbr, sx.srt, starts, ua, NW),
+              lambda: K.alias_walk_dists_plain(*alx, sx.nbr, sx.srt, starts, ua, NW),
+              b, o + k2_ops(sx.deg, starts, pa, da), 50)
+        b, o = alias_bounds(sx, starts, ua, pa)
+        name = "alias_walk" if own else "alias_walk cornell"
+        timed(rec if own else {name: {}}, name,
+              lambda: K.alias_walk(*alx, starts, ua, NW),
+              lambda: K.alias_walk_plain(*alx, starts, ua, NW), b, o, 50)
+        cdf_fused = graph_ms(lambda: K.walk_dists(sk.nbr, sk.cdf, sk.deg, sk.srt, starts, uk,
+                                                  NW), 50)
+        cdf_walk = graph_ms(lambda: K.cdf_walk(sk.nbr, sk.cdf, starts, uk, NW), 50)
+        say(f"  {tag}, the CDF tables on the same starts (D = {sk.max_deg}): walk_dists "
+            f"{cdf_fused:.4f} ms, cdf_walk {cdf_walk:.4f} ms per launch in a CUDA graph; the "
+            f"launch floor is {floor_ms:.5f} ms (phase 8)")
+    # K8 with K7 at cornell wl = 5, every node, beside K1 with K7
+    b, o = alias_bounds(sc, allc, uc5, got5[0], got5[1])
+    rows = sum(gc.n * t.shape[1] * 4 for t in psc5.khop.levels[:WL5 - 2])
+    timed(rec, "alias_walk_khop_dists",
+          lambda: K.alias_walk_khop_dists(*alc, psc5.khop, allc, uc5, NW),
+          lambda: K.alias_walk_khop_dists_plain(*alc, psc5.khop, allc, uc5, NW),
+          b + rows, o + khop_probes(got5[1], psc5.khop.levels), 50)
+    psc5c = PathSampler.build(gc, NW, WL5, device=dev)
+    s5 = psc5c.sampler
+    u5 = psc5c.draw_uniforms(gc.n * NW, gen)
+    say(f"  cornell wl = {WL5}, the CDF tables on the same starts: walk_khop_dists "
+        f"{graph_ms(lambda: K.walk_khop_dists(s5.nbr, s5.cdf, psc5c.khop, allc, u5, NW), 50):.4f}"
+        " ms per launch in a CUDA graph")
+    for name, starts in (("bgp", idx), ("Nba", None)):
+        g, psu = uni[name]
+        su = psu.sampler
+        starts = torch.arange(g.n, dtype=torch.int32, device=dev) if starts is None else starts
+        u = psu.draw_uniforms(starts.shape[0] * NW, gen)
+        p, d = K.walk_dists(su.nbr, su.cdf, su.deg, su.srt, starts, u, NW)
+        b = nbytes(su.nbr, su.cdf, su.deg, starts, u, p, d)
+        o = starts.shape[0] * NW * (WL - 1) * su.max_deg + k2_ops(su.deg, starts, p, d)
+        tag = f"walk_dists uniform {name}" + (" request" if name == "bgp" else ", all nodes")
+        timed({tag: {}}, tag, lambda: K.walk_dists(su.nbr, su.cdf, su.deg, su.srt, starts, u,
+                                                   NW),
+              lambda: K.walk_dists_plain(su.nbr, su.cdf, su.deg, su.srt, starts, u, NW), b, o,
+              50)
+
+    # a seeded cornell round on alias walks (the full 1000 epochs), within 3
+    # std of the cornell band; two seeded alias rounds bit-equal
+    yc = torch.from_numpy(np.array(gc.labels, np.int64)).to(dev)
+    spec = PaggSpec(feat_dim=Xc.shape[1], hidden=HIDDEN, out_dim=spec_c.num_classes,
+                    walk_len=WL, dropout=0.7)
+    masks = (trc, vac, tec)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    epochs = PROTOCOL_EPOCHS
+    res = run_round(Xc, yc, psca, spec, TrainConfig(epochs=epochs), *masks,
+                    spec_c.num_classes, seed=0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    if counts["alias_walk_dists"] != epochs or any(
+            counts[k] for k in ("walk_dists", "cdf_walk", "alias_walk", "walk_khop_dists",
+                                "alias_walk_khop_dists")):
+        raise AssertionError(f"cornell alias round launch counts {counts}")
+    rec["alias_walk_dists"]["launches"] = counts["alias_walk_dists"]
+    acc = res.metrics["accuracy"]
+    say(f"  cornell, one round of {epochs} epochs on alias walks (seed 0): test acc "
+        f"{acc:.4f} (JAX band {CORNELL_BAND[0]:.4f} +- {CORNELL_BAND[1]:.4f}), "
+        f"{secs:.1f} s, {secs / epochs * 1e3:.3f} ms per epoch; launches {counts}")
+    if not abs(acc - CORNELL_BAND[0]) <= 3 * CORNELL_BAND[1]:
+        raise AssertionError(f"cornell alias round accuracy {acc} outside 3 std of "
+                             f"{CORNELL_BAND}")
+    rounds_bit_equal("cornell alias walks", Xc, yc, psca, masks, spec_c.num_classes,
+                     TrainConfig(epochs=30), spec)
+    # the alias walks' other launches: short rounds through the dense
+    # backend (the walks alone, then a table lookup) and at wl = 5 (khop)
+    for kname, psx, wl in (("alias_walk", PathSampler.build(gc, NW, WL, sampler="alias",
+                                                            distance_backend="dense",
+                                                            device=dev), WL),
+                           ("alias_walk_khop_dists", psc5, WL5)):
+        K.reset_launch_counts()
+        res = run_round(Xc, yc, psx, dataclasses.replace(spec, walk_len=wl),
+                        TrainConfig(epochs=ALIAS_SHORT_EPOCHS), *masks, spec_c.num_classes,
+                        seed=1)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        walks = {k: counts[k] for k in ("cdf_walk", "walk_dists", "walk_khop_dists",
+                                        "alias_walk", "alias_walk_dists",
+                                        "alias_walk_khop_dists")}
+        if walks != {k: ALIAS_SHORT_EPOCHS * (k == kname) for k in walks}:
+            raise AssertionError(f"cornell alias {psx.backend} round launch counts {counts}")
+        if not np.isfinite(res.best_val_acc):
+            raise AssertionError(f"cornell alias {psx.backend} round: no finite accuracy")
+        rec[kname]["launches"] = counts[kname]
+        say(f"  cornell alias walks, {psx.backend} backend at wl = {wl}, "
+            f"{ALIAS_SHORT_EPOCHS} epochs: {kname} {counts[kname]} launches, test acc "
+            f"{res.metrics['accuracy']:.4f}")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1185, exit=True)
     import torch
@@ -1852,6 +2184,12 @@ def main() -> int:
                        "pathnet_tpu/sample/distance.py:194"),
         "walk_khop_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
                             "pathnet_tpu/sample/alias.py:142, pathnet_tpu/sample/distance.py:194"),
+        "alias_walk": ("pathnet_tpu_torch/csrc/walk_dists.cu", "pathnet_tpu/sample/alias.py:93"),
+        "alias_walk_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
+                             "pathnet_tpu/sample/alias.py:93, pathnet_tpu/sample/distance.py:77"),
+        "alias_walk_khop_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
+                                  "pathnet_tpu/sample/alias.py:93, "
+                                  "pathnet_tpu/sample/distance.py:194"),
     }
     meta.update({homo_name(n, True): meta[n] for n in HOMO_KERNELS})
     meta.update({homo_name(n, v, True): meta[n] for n in HOMO_KERNELS for v in (False, True)})
@@ -1877,6 +2215,13 @@ def main() -> int:
                   "are K3's in the run" for a in ("mean", "sum")})
     notes.update({f"pagg_attention_bwd {a}": f"K4's second launch, AGG = {a.upper()}; "
                   "launches are K4's in the run" for a in ("mean", "sum")})
+    notes.update({
+        "alias_walk": "K8 alone, the alias tables' walks under the dense, host and none "
+                      "backends; launches from phase 16's 20-epoch dense-backend round",
+        "alias_walk_dists": "K8 with K2, the alias sampler's path at wl <= 4; launches from "
+                            "phase 16's 1000-epoch cornell alias round",
+        "alias_walk_khop_dists": "K8 with K7, the alias sampler's path past wl = 4; launches "
+                                 "from phase 16's 20-epoch wl = 5 round"})
 
     with Phase("0 device"):
         kind = torch.cuda.get_device_name(0)
@@ -2017,7 +2362,8 @@ def main() -> int:
                   "pagg_encode_fwd": fwd, "row_gather": fwd,
                   "pagg_encode_bwd": EPOCHS * chunks[0], "segment_sum": EPOCHS * chunks[0],
                   "row_gather_bwd": EPOCHS * chunks[0], "lane_gather": 0, "khop_dists": 0,
-                  "walk_khop_dists": 0}
+                  "walk_khop_dists": 0, "alias_walk": 0, "alias_walk_dists": 0,
+                  "alias_walk_khop_dists": 0}
         say(f"  launches: {counts} ({improved} epochs improved on validation)")
         if counts != expect:
             raise AssertionError(f"training launch counts {counts}, the path makes {expect}")
@@ -2077,21 +2423,23 @@ def main() -> int:
             make_payloads(root, dev, z)
 
         with Phase(f"10 cornell protocol ({CORNELL_ROUNDS} x {PROTOCOL_EPOCHS})"):
-            run_protocol_cli("cornell", root, tmp, CORNELL_ROUNDS, HIDDEN, CORNELL_BAND)
+            run_protocol_cli("cornell", root, tmp, CORNELL_ROUNDS, HIDDEN, CORNELL_BAND,
+                             round_band=True)
 
         with Phase(f"11 Nba at H = {NBA_HIDDEN} ({NBA_ROUNDS} x {PROTOCOL_EPOCHS})"):
             check_wide_encode(root, dev, gen, rec)
-            run_protocol_cli("Nba", root, tmp, NBA_ROUNDS, NBA_HIDDEN, NBA_BAND)
+            run_protocol_cli("Nba", root, tmp, NBA_ROUNDS, NBA_HIDDEN, NBA_BAND,
+                             round_band=True)
 
         with Phase(f"12 homo: cora kernels, cora {CORA_ROUNDS} x {PROTOCOL_EPOCHS}, citeseer "
                    f"{CITESEER_ROUNDS} x {PROTOCOL_EPOCHS}"):
             check_homo_kernels(root, dev, gen, rec)
             counts = run_protocol_cli("cora", root, tmp, CORA_ROUNDS, HIDDEN, CORA_BAND,
-                                      HOMO_PAYLOADS["cora"])
+                                      HOMO_PAYLOADS["cora"], round_band=True)
             for name in HOMO_KERNELS:
                 rec[homo_name(name, True)]["launches"] = counts[name]
             run_protocol_cli("citeseer", root, tmp, CITESEER_ROUNDS, HIDDEN, CITESEER_BAND,
-                             HOMO_PAYLOADS["citeseer"])
+                             HOMO_PAYLOADS["citeseer"], round_band=True)
 
         with Phase(f"13 bf16: kernels (bgp, cora), card vs host, seeded rounds, bgp "
                    f"{BGP_ROUNDS} x {PROTOCOL_EPOCHS}, cora {CORA_BF16_ROUNDS} x "
@@ -2144,6 +2492,14 @@ def main() -> int:
                                       wl=WL5)
             for name in KHOP_KERNELS:
                 rec[name]["launches"] = counts[name]
+
+        with Phase(f"16 the sampler: K8 (bgp, cornell), its transitions, uniform walks (bgp, "
+                   f"cornell, Nba, cora), a cornell alias round, cornell -mk uniform "
+                   f"{CORNELL_UNIFORM_ROUNDS} x {PROTOCOL_EPOCHS}"):
+            check_sampler(root, dev, gen, rec, z, ps, idx, floor_ms)
+            run_protocol_cli("cornell", root, tmp, CORNELL_UNIFORM_ROUNDS, HIDDEN,
+                             CORNELL_UNIFORM_BAND, CORNELL_PAYLOAD, round_band=True,
+                             marker="uniform")
 
     say(smi)
     say(json.dumps({"kernels": [

@@ -29,8 +29,8 @@ class SampleConfig:
     # truncated-BFS table) past its byte limit; "host" = scipy oracle.
     distance_backend: str = "auto"
     distance_chunk: int = 1024
-    # sampler backend: "cdf" = inverse-CDF row gather (the ported one);
-    # "alias" = O(1) Vose rolls.
+    # sampler backend: "cdf" = inverse-CDF rows (K1); "alias" = O(1) Vose
+    # rolls (K8). Both are ported; PathSampler.build(..., sampler=) takes it.
     sampler: str = "cdf"
 
 

@@ -1,16 +1,21 @@
 // K1 + K2: inverse-CDF random walks and their hop distances, one launch;
-// K7: the k-hop distance probes, alone or fused with the walk.
+// K7: the k-hop distance probes, alone or fused with the walk;
+// K8: the alias walk step, in place of K1's in each walking launch.
 //
 // Replaces pathnet_tpu/sample/alias.py:142-147 (CdfSampler.step) as scanned
 // by pathnet_tpu/sample/walk.py:36-55 (sample_paths),
 // pathnet_tpu/sample/distance.py:77-139 (membership_dists, wl <= 4) and
 // pathnet_tpu/sample/distance.py:194-229 (_row_membership, khop_dists, any
-// wl). Five entries share this device code through two C functions:
-// pathnet_walk_dists runs walk_dists (walks and membership distances, the
-// sampler's path at wl <= 4), cdf_walk (walks only, any wl) and
-// membership_dists (distances of given walks); pathnet_khop_dists runs
+// wl); K8 replaces pathnet_tpu/sample/alias.py:93-104 (AliasSampler.step)
+// as scanned by sample_paths. Eight entries share this device code through
+// four C functions: pathnet_walk_dists runs walk_dists (walks and membership
+// distances, the sampler's path at wl <= 4), cdf_walk (walks only, any wl)
+// and membership_dists (distances of given walks); pathnet_khop_dists runs
 // walk_khop_dists (walks and k-hop distances, the sampler's path at wl >= 5)
-// and khop_dists (k-hop distances of given walks).
+// and khop_dists (k-hop distances of given walks); pathnet_alias_walk_dists
+// runs alias_walk_dists (K8's walks and membership distances) and alias_walk
+// (K8's walks only); pathnet_alias_khop_dists runs alias_walk_khop_dists
+// (K8's walks and k-hop distances).
 //
 // Work split: a lane group of G lanes (1, 16 or 32, picked from D) per
 // walk, the walks laid out flat across the grid, a start's nw walks side by
@@ -44,6 +49,20 @@
 // coalesced, G entries a chunk, tests each against the row and stops at
 // the group's first hit.
 //
+// Alias step (K8), the template parameter ALIAS of walk_dists_kernel and
+// khop_dists_kernel: d = max(deg[cur], 1), slot = min((int)(u1 * d), d - 1)
+// with the product in f32 (JAX promotes int32 x float32 to float32;
+// __fmul_rn keeps it a rounded product, never contracted), then lo[cur,
+// slot] if u2 < split[cur, slot], else hi[cur, slot]: four loads a step,
+// whatever D is. It reads two uniforms a step from u [wl - 1, 2, W] (u1 at
+// row 2 (t - 1), u2 at row 2 t - 1 of the flat [2 (wl - 1), W]) and draws
+// none. The walks alone take one lane a walk; fused with the distances it
+// takes the group the distance part needs: G from D with the membership
+// test (its N2 scan votes), one lane with K7's searches. Every lane of a
+// group makes the same step (broadcast loads) and lane 0 writes. The CDF
+// instances (ALIAS false) compile as before: the step is an if constexpr
+// branch beside theirs.
+//
 // K-hop distances (K7): d0 = 0; d1 = v1 != s; at position t >= 2 the
 // smallest level k in 1..t-1 whose sorted row tables[k-1][s] holds v_t,
 // else t, and 0 where v_t == s. The levels of build_khop_tables come packed
@@ -60,9 +79,10 @@
 // launch floor whatever its searches cost.
 //
 // Bound on the H100: latency of each walk's dependent loads (the start, the
-// CDF chunks and nbr[cur, idx] for each step, then deg[v3], nbr[v3] and the
-// searches); the tables of every graph the port runs fit in the 50 MB L2.
-// The byte bound (the tables, u, paths and dists once) is far lower.
+// CDF chunks and nbr[cur, idx] for each step, or K8's deg, split, lo and hi,
+// then deg[v3], nbr[v3] and the searches); the tables of every graph the
+// port runs fit in the 50 MB L2. The byte bound (the tables, u, paths and
+// dists once) is far lower.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -111,6 +131,27 @@ struct Group {
   }
 };
 
+// K8's tables (sample/alias.py AliasSampler): row cur's deg[cur] slots hold
+// lo, hi and split, D slots a row. All null in the CDF instances.
+struct AliasTables {
+  const int* lo;
+  const int* hi;
+  const float* split;
+  const int* deg;
+};
+
+// K8, one alias step from cur (see the header): the slot from x1, the side
+// from the coin x2.
+__device__ __forceinline__ int alias_step(const AliasTables& at, int cur, float x1, float x2,
+                                          int D) {
+  int d = at.deg[cur];
+  d = d > 1 ? d : 1;
+  int slot = (int)__fmul_rn(x1, (float)d);
+  slot = slot < d - 1 ? slot : d - 1;
+  const long long f = (long long)cur * D + slot;
+  return x2 < at.split[f] ? at.lo[f] : at.hi[f];
+}
+
 // K7's walk step from cur, walk_dists_kernel's step as a function: the
 // group counts the CDF entries below x, U * G at a time; returns nbr[cur,
 // idx] (0 past the last walk). walk_dists_kernel keeps the step written out:
@@ -136,16 +177,16 @@ __device__ __forceinline__ int cdf_step(const int* __restrict__ nbr, const float
   return live ? nbr[(long long)cur * D + idx] : 0;
 }
 
-// WALK: draw the walks from u (else read them from paths); DISTS: write the
-// distances. Walk w of start starts[w / nw] is row w of paths and dists
-// [W, wl], W = S * nw.
-template <int G, bool WALK, bool DISTS>
+// WALK: draw the walks from u (else read them from paths), with K8's step
+// from at if ALIAS, else K1's from cdf; DISTS: write the distances. Walk w
+// of start starts[w / nw] is row w of paths and dists [W, wl], W = S * nw.
+template <int G, bool WALK, bool DISTS, bool ALIAS = false>
 __global__ void __launch_bounds__(256)
 walk_dists_kernel(const int* __restrict__ nbr, const float* __restrict__ cdf,
                   const int* __restrict__ deg, const int* __restrict__ srt,
                   const int* __restrict__ starts, const float* __restrict__ u,
                   int* __restrict__ paths, int* __restrict__ dists, int D, long long W, int nw,
-                  int wl) {
+                  int wl, AliasTables at) {
   constexpr int U = G >= 8 ? 4 : 8;  // chunks whose loads are in flight together
   const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
   const int lane = threadIdx.x & 31;
@@ -155,7 +196,20 @@ walk_dists_kernel(const int* __restrict__ nbr, const float* __restrict__ cdf,
   const int s = live ? starts[w / nw] : 0;
   int* po = paths + w * wl;
   int v1 = s, v2 = s, v3 = s;
-  if (WALK) {
+  if constexpr (WALK && ALIAS) {
+    if (live && gl == 0) po[0] = s;
+    int cur = s;
+    for (int t = 1; t < wl; ++t) {
+      // the step's uniforms do not depend on cur: in flight with deg[cur]
+      const float x1 = live ? u[(2LL * t - 2) * W + w] : 0.0f;
+      const float x2 = live ? u[(2LL * t - 1) * W + w] : 0.0f;
+      cur = live ? alias_step(at, cur, x1, x2, D) : 0;
+      if (live && gl == 0) po[t] = cur;
+      if (t == 1) v1 = cur;
+      if (t == 2) v2 = cur;
+      if (t == 3) v3 = cur;
+    }
+  } else if (WALK) {
     // the first three steps' uniforms, loaded before the walk needs them
     float x1 = 0.0f, x2 = 0.0f, x3 = 0.0f;
     if (live) {
@@ -233,42 +287,46 @@ walk_dists_kernel(const int* __restrict__ nbr, const float* __restrict__ cdf,
     for (int t = gl; t < wl; t += G) dists[w * wl + t] = t == 0 ? 0 : t == 1 ? d1 : t == 2 ? d2 : d3;
 }
 
-template <int G, bool WALK, bool DISTS>
+template <int G, bool WALK, bool DISTS, bool ALIAS = false>
 int launch(const int* nbr, const float* cdf, const int* deg, const int* srt, const int* starts,
            const float* u, int* paths, int* dists, int D, int S, int nw, int wl,
-           cudaStream_t stream) {
+           cudaStream_t stream, const AliasTables& at = AliasTables{}) {
   const long long W = (long long)S * nw;
   const int threads = 256;
   const unsigned blocks = (unsigned)((W * G + threads - 1) / threads);
-  walk_dists_kernel<G, WALK, DISTS><<<blocks, threads, 0, stream>>>(
-      nbr, cdf, deg, srt, starts, u, paths, dists, D, W, nw, wl);
+  walk_dists_kernel<G, WALK, DISTS, ALIAS><<<blocks, threads, 0, stream>>>(
+      nbr, cdf, deg, srt, starts, u, paths, dists, D, W, nw, wl, at);
   return (int)cudaGetLastError();
 }
 
 // The lanes a walk gets at table width D, from a sweep of every power of two
 // to 32 (PERF.md, section 6): one at D <= 32 (bgp's 25), where the most
 // walks in flight win; 16 at cornell's 190 and Nba's 442; 32 past 512.
-template <bool WALK, bool DISTS>
+template <bool WALK, bool DISTS, bool ALIAS = false>
 int launch_for_width(const int* nbr, const float* cdf, const int* deg, const int* srt,
                      const int* starts, const float* u, int* paths, int* dists, int D, int S,
-                     int nw, int wl, cudaStream_t st) {
+                     int nw, int wl, cudaStream_t st, const AliasTables& at = AliasTables{}) {
   if (D <= 32)
-    return launch<1, WALK, DISTS>(nbr, cdf, deg, srt, starts, u, paths, dists, D, S, nw, wl, st);
+    return launch<1, WALK, DISTS, ALIAS>(nbr, cdf, deg, srt, starts, u, paths, dists, D, S, nw,
+                                         wl, st, at);
   if (D <= 512)
-    return launch<16, WALK, DISTS>(nbr, cdf, deg, srt, starts, u, paths, dists, D, S, nw, wl, st);
-  return launch<32, WALK, DISTS>(nbr, cdf, deg, srt, starts, u, paths, dists, D, S, nw, wl, st);
+    return launch<16, WALK, DISTS, ALIAS>(nbr, cdf, deg, srt, starts, u, paths, dists, D, S, nw,
+                                          wl, st, at);
+  return launch<32, WALK, DISTS, ALIAS>(nbr, cdf, deg, srt, starts, u, paths, dists, D, S, nw,
+                                        wl, st, at);
 }
 
-// K7. WALK: draw the walks from u into paths (else read them from paths);
-// the k-hop distances into dists. tab holds the levels' [n, wid[k]] rows at
-// element offsets off[k]; wl - 2 <= the number of levels.
-template <int G, bool WALK>
+// K7. WALK: draw the walks from u into paths (else read them from paths),
+// with K8's step from at if ALIAS, else K1's from cdf; the k-hop distances
+// into dists. tab holds the levels' [n, wid[k]] rows at element offsets
+// off[k]; wl - 2 <= the number of levels.
+template <int G, bool WALK, bool ALIAS = false>
 __global__ void __launch_bounds__(256)
 khop_dists_kernel(const int* __restrict__ nbr, const float* __restrict__ cdf,
                   const int* __restrict__ starts, const float* __restrict__ u,
                   const int* __restrict__ tab, const long long* __restrict__ off,
                   const int* __restrict__ wid, int* __restrict__ paths, int* __restrict__ dists,
-                  int D, long long W, int nw, int wl) {
+                  int D, long long W, int nw, int wl, AliasTables at) {
   const long long w = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
   const int lane = threadIdx.x & 31;
   const int gl = lane & (G - 1);
@@ -285,8 +343,14 @@ khop_dists_kernel(const int* __restrict__ nbr, const float* __restrict__ cdf,
   int cur = s;
   for (int t = 1; t < wl; ++t) {
     if (WALK) {
-      const float x = live ? u[(long long)(t - 1) * W + w] : 0.0f;
-      cur = cdf_step<G>(nbr, cdf, cur, x, D, live, gl, grp);
+      if constexpr (ALIAS) {
+        const float x1 = live ? u[(2LL * t - 2) * W + w] : 0.0f;
+        const float x2 = live ? u[(2LL * t - 1) * W + w] : 0.0f;
+        cur = live ? alias_step(at, cur, x1, x2, D) : 0;
+      } else {
+        const float x = live ? u[(long long)(t - 1) * W + w] : 0.0f;
+        cur = cdf_step<G>(nbr, cdf, cur, x, D, live, gl, grp);
+      }
       if (writes) po[t] = cur;
     } else {
       cur = live ? po[t] : s;
@@ -304,15 +368,16 @@ khop_dists_kernel(const int* __restrict__ nbr, const float* __restrict__ cdf,
   }
 }
 
-template <int G, bool WALK>
+template <int G, bool WALK, bool ALIAS = false>
 int launch_khop(const int* nbr, const float* cdf, const int* starts, const float* u,
                 const int* tab, const long long* off, const int* wid, int* paths, int* dists,
-                int D, int S, int nw, int wl, cudaStream_t stream) {
+                int D, int S, int nw, int wl, cudaStream_t stream,
+                const AliasTables& at = AliasTables{}) {
   const long long W = (long long)S * nw;
   const int threads = 256;
   const unsigned blocks = (unsigned)((W * G + threads - 1) / threads);
-  khop_dists_kernel<G, WALK><<<blocks, threads, 0, stream>>>(
-      nbr, cdf, starts, u, tab, off, wid, paths, dists, D, W, nw, wl);
+  khop_dists_kernel<G, WALK, ALIAS><<<blocks, threads, 0, stream>>>(
+      nbr, cdf, starts, u, tab, off, wid, paths, dists, D, W, nw, wl, at);
   return (int)cudaGetLastError();
 }
 
@@ -365,4 +430,44 @@ extern "C" int pathnet_khop_dists(const void* nbr, const void* cdf, const void* 
   if (D <= 512)
     return launch_khop<16, true>(nb, cd, st, uu, tb, of, wd, pa, di, D, S, nw, wl, cs);
   return launch_khop<32, true>(nb, cd, st, uu, tb, of, wd, pa, di, D, S, nw, wl, cs);
+}
+
+// K8. lo, hi int32 [n, D], split f32 [n, D], deg int32 [n]: the alias tables
+// (sample/alias.py build_alias_tables); starts int32 [S]; u f32 [wl - 1, 2,
+// S * nw]: step t's u1, then its u2; paths, dists int32 [S, nw, wl]. dists
+// NULL: the walks alone, one lane a walk (nbr and srt may be NULL); else
+// their membership distances too (wl <= 4; nbr and srt as
+// pathnet_walk_dists takes them), the lanes a walk from D as there.
+extern "C" int pathnet_alias_walk_dists(const void* lo, const void* hi, const void* split,
+                                        const void* deg, const void* nbr, const void* srt,
+                                        const void* starts, const void* u, void* paths,
+                                        void* dists, int D, int S, int nw, int wl,
+                                        void* stream) {
+  if (S == 0 || nw == 0) return 0;
+  const AliasTables at{(const int*)lo, (const int*)hi, (const float*)split, (const int*)deg};
+  const int *nb = (const int*)nbr, *sr = (const int*)srt, *st = (const int*)starts;
+  const float* uu = (const float*)u;
+  int *pa = (int*)paths, *di = (int*)dists;
+  cudaStream_t cs = (cudaStream_t)stream;
+  if (!dists)
+    return launch<1, true, false, true>(nb, nullptr, at.deg, sr, st, uu, pa, di, D, S, nw, wl,
+                                        cs, at);
+  return launch_for_width<true, true, true>(nb, nullptr, at.deg, sr, st, uu, pa, di, D, S, nw,
+                                            wl, cs, at);
+}
+
+// K8 and K7. lo, hi, split, deg, starts and u as pathnet_alias_walk_dists
+// takes them; tab, off, wid as pathnet_khop_dists takes them; paths, dists
+// int32 [S, nw, wl]: the walks and their k-hop distances, one lane a walk.
+extern "C" int pathnet_alias_khop_dists(const void* lo, const void* hi, const void* split,
+                                        const void* deg, const void* starts, const void* u,
+                                        const void* tab, const void* off, const void* wid,
+                                        void* paths, void* dists, int D, int S, int nw, int wl,
+                                        void* stream) {
+  if (S == 0 || nw == 0) return 0;
+  const AliasTables at{(const int*)lo, (const int*)hi, (const float*)split, (const int*)deg};
+  return launch_khop<1, true, true>(nullptr, nullptr, (const int*)starts, (const float*)u,
+                                    (const int*)tab, (const long long*)off, (const int*)wid,
+                                    (int*)paths, (int*)dists, D, S, nw, wl,
+                                    (cudaStream_t)stream, at);
 }

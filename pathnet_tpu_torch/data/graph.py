@@ -59,6 +59,24 @@ class Graph:
             a.data = np.ones_like(a.data)
         return a
 
+    def symmetrized(self, add_self_loops: bool = False) -> "Graph":
+        """Undirected structural copy for uniform walks (gen.cpp:83-94).
+
+        The records are ``src ++ dst (++ loops)`` and ``dst ++ src (++
+        loops)``, each with probability 1, one self-loop a node with
+        ``add_self_loops``: :meth:`padded_csr` then makes each row uniform
+        over its multiset of records (duplicates stay duplicates).
+        """
+        src = np.concatenate([self.src, self.dst])
+        dst = np.concatenate([self.dst, self.src])
+        if add_self_loops:
+            loops = np.arange(self.n, dtype=np.int32)
+            src = np.concatenate([src, loops])
+            dst = np.concatenate([dst, loops])
+        return Graph(n=self.n, src=src.astype(np.int32), dst=dst.astype(np.int32),
+                     prob=np.ones(len(src)), features=self.features,
+                     labels=self.labels, name=self.name)
+
     def degrees(self) -> np.ndarray:
         return np.bincount(self.src, minlength=self.n).astype(np.int32)
 

@@ -7,6 +7,9 @@
 | K1 + K2 ``walk_dists`` | ``kernels/walk_dists.py`` | both above in one launch (the sampler's path at ``walk_len <= 4``); ``cdf_walk`` and ``membership_dists`` run its device code |
 | K7 ``khop_dists`` | ``kernels/khop_dists.py`` | ``sample/distance.py:194-229`` (``_row_membership``, ``khop_dists``): the k-hop distances of given walks, any walk length |
 | K1 + K7 ``walk_khop_dists`` | ``kernels/khop_dists.py`` | K1's walk and K7 in one launch (the sampler's path at ``walk_len >= 5``, the ``khop`` backend) |
+| K8 ``alias_walk`` | ``kernels/alias_walk.py`` | ``sample/alias.py:93-104`` ``AliasSampler.step``, scanned by ``sample/walk.py:36-55`` (the alias tables' walks alone: the dense, host and ``none`` backends, ``sample_paths``) |
+| K8 + K2 ``alias_walk_dists`` | ``kernels/walk_dists.py`` | K8's walk and K2 in one launch (the sampler's path with the alias tables at ``walk_len <= 4``) |
+| K8 + K7 ``alias_walk_khop_dists`` | ``kernels/khop_dists.py`` | K8's walk and K7 in one launch (the alias tables past ``walk_len`` 4) |
 | K3 ``pagg_encode_fwd`` | ``kernels/pagg_encode.py`` | ``models/pagg.py:235-307`` encode + readout (serving, and training with a dropout mask; hetero and homo, ``homo=True``; the LSTM or the GRU, ``cell``; the attention, mean or sum readout, ``agg``); two launches (``encode_walks``, ``readout``) behind one wrapper |
 | K4 ``pagg_encode_bwd`` | ``kernels/pagg_encode_bwd.py`` | the VJP of ``models/pagg.py:235-307`` with the gather VJP ``:83-93``; three launches (``encode_walks_streams``, ``attention_bwd``, ``bptt``) behind one wrapper, then the weight ``contractions``; every variant, cell and readout of K3 |
 | ``segment_sum`` | ``kernels/segment_sum.py`` | the scatter-add of the gather VJP, ``models/pagg.py:83-93``: K4's row gradients into ``dh`` in a fixed order |
@@ -17,9 +20,10 @@ A wrapper takes the plain PyTorch version for a CPU tensor and launches its
 kernel for a CUDA tensor, or raises; it never falls back. Each wrapper counts
 its kernel launches in a plain integer attribute, ``launches``.
 """
+from .alias_walk import alias_walk, alias_walk_plain
 from .cdf_walk import cdf_walk, cdf_walk_plain
-from .khop_dists import (KhopTables, khop_dists, khop_dists_plain, walk_khop_dists,
-                         walk_khop_dists_plain)
+from .khop_dists import (KhopTables, alias_walk_khop_dists, alias_walk_khop_dists_plain,
+                         khop_dists, khop_dists_plain, walk_khop_dists, walk_khop_dists_plain)
 from .lane_gather import lane_gather, lane_gather_plain
 from .membership_dists import membership_dists, membership_dists_plain
 from .pagg_encode import (encode_tile, encode_walks, encode_walks_plain,
@@ -32,11 +36,12 @@ from .pagg_encode_bwd import (attention_bwd, attention_bwd_plain, bptt, bptt_pla
 from .row_gather import (row_gather, row_gather_bwd, row_gather_bwd_plain,
                          row_gather_plain)
 from .segment_sum import segment_sum, segment_sum_plain
-from .walk_dists import sorted_rows, walk_dists, walk_dists_plain
+from .walk_dists import (alias_walk_dists, alias_walk_dists_plain, sorted_rows, walk_dists,
+                         walk_dists_plain)
 
 WRAPPERS = (cdf_walk, membership_dists, pagg_encode_fwd, pagg_encode_bwd,
             row_gather, row_gather_bwd, lane_gather, segment_sum, walk_dists, khop_dists,
-            walk_khop_dists)
+            walk_khop_dists, alias_walk, alias_walk_dists, alias_walk_khop_dists)
 
 
 def reset_launch_counts() -> None:
@@ -58,5 +63,6 @@ __all__ = ["cdf_walk", "cdf_walk_plain", "membership_dists",
            "bptt", "bptt_plain", "contractions", "row_nodes", "segment_sum",
            "segment_sum_plain", "walk_dists", "walk_dists_plain", "sorted_rows",
            "KhopTables", "khop_dists", "khop_dists_plain", "walk_khop_dists",
-           "walk_khop_dists_plain",
+           "walk_khop_dists_plain", "alias_walk", "alias_walk_plain", "alias_walk_dists",
+           "alias_walk_dists_plain", "alias_walk_khop_dists", "alias_walk_khop_dists_plain",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]

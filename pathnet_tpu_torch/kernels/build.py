@@ -44,6 +44,12 @@ SIGNATURES = {
     # K7: nbr, cdf, starts, u, tab, off, wid, paths, dists, D, S, nw, wl,
     # walk, stream
     "pathnet_khop_dists": [_P] * 9 + [_I] * 5 + [_P],
+    # K8: lo, hi, split, deg, nbr, srt, starts, u, paths, dists, D, S, nw,
+    # wl, stream
+    "pathnet_alias_walk_dists": [_P] * 10 + [_I] * 4 + [_P],
+    # K8 and K7: lo, hi, split, deg, starts, u, tab, off, wid, paths, dists,
+    # D, S, nw, wl, stream
+    "pathnet_alias_khop_dists": [_P] * 11 + [_I] * 4 + [_P],
     # h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep, hn, ego,
     # T, nw, wl, H, bf16, gru, stream (ego null: hetero; bf16 nonzero: h and
     # the six weights bf16; gru nonzero: the GRU on packed weights; here and

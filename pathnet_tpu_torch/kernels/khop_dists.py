@@ -17,6 +17,10 @@ alone). Each distance is found as the walk reaches its position: a binary
 search of the start's row at each level from 1 up, stopped at the first
 hit, so the walk length has no cap. The levels lie packed in one buffer
 (:class:`KhopTables`) with each level's offset and width.
+:func:`alias_walk_khop_dists` is the fused launch with K8's alias step
+(``pathnet_tpu/sample/alias.py:93-104``, ``kernels/alias_walk.py``) in
+place of K1's, one lane a walk: the sampler's path past ``walk_len`` 4
+with the alias tables.
 
 Bound on the H100: the latency of each walk's dependent loads. The bytes
 (the start's rows once, the walks and distances) are well under a megabyte
@@ -30,6 +34,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import build
+from .walk_dists import check_alias_tables
 
 
 @dataclasses.dataclass
@@ -186,3 +191,50 @@ def walk_khop_dists(nbr: torch.Tensor, cdf: torch.Tensor, tables: KhopTables,
 
 khop_dists.launches = 0
 walk_khop_dists.launches = 0
+
+
+def alias_walk_khop_dists_plain(lo: torch.Tensor, hi: torch.Tensor, split: torch.Tensor,
+                                deg: torch.Tensor, tables: KhopTables, starts: torch.Tensor,
+                                u: torch.Tensor,
+                                num_walks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`alias_walk_khop_dists`:
+    ``alias_walk_plain`` then :func:`khop_dists_plain`."""
+    from .alias_walk import alias_walk_plain
+
+    paths = alias_walk_plain(lo, hi, split, deg, starts, u, num_walks)
+    return paths, khop_dists_plain(tables.levels, starts, paths)
+
+
+def alias_walk_khop_dists(lo: torch.Tensor, hi: torch.Tensor, split: torch.Tensor,
+                          deg: torch.Tensor, tables: KhopTables, starts: torch.Tensor,
+                          u: torch.Tensor,
+                          num_walks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(paths, dists)``, both int32 ``[S, num_walks, wl]`` with ``wl =
+    u.shape[0] + 1 <= len(tables) + 1``: K8's walks (the alias tables ``lo``,
+    ``hi``, ``split``, ``deg`` and draws ``u [wl - 1, 2, S * num_walks]``,
+    as ``kernels/alias_walk.py`` takes them) and their :func:`khop_dists`,
+    in one launch.
+    """
+    dev = tables.device
+    check_alias_tables(lo, hi, split, deg, starts, u, num_walks)
+    if lo.device != dev:
+        raise ValueError(f"lo: on {lo.device}, expected {dev}")
+    S, wl = starts.shape[0], u.shape[0] + 1
+    _check_levels(tables, wl)
+    if dev.type == "cpu":
+        return alias_walk_khop_dists_plain(lo, hi, split, deg, tables, starts, u, num_walks)
+    if dev.type != "cuda":
+        raise ValueError(f"alias_walk_khop_dists: unsupported device {dev}")
+    paths, dists = torch.empty((2, S, num_walks, wl), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = build.library().pathnet_alias_khop_dists(
+            lo.data_ptr(), hi.data_ptr(), split.data_ptr(), deg.data_ptr(), starts.data_ptr(),
+            u.data_ptr(), tables.packed.data_ptr(), tables.offsets.data_ptr(),
+            tables.widths.data_ptr(), paths.data_ptr(), dists.data_ptr(), lo.shape[1], S,
+            num_walks, wl, build.stream_ptr(lo))
+    build.check(rc, "alias_walk_khop_dists")
+    alias_walk_khop_dists.launches += 1
+    return paths, dists
+
+
+alias_walk_khop_dists.launches = 0

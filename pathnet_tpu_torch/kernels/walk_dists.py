@@ -11,6 +11,10 @@ membership backend); the walks and distances never go through device
 memory between the two. Past ``walk_len`` 4 the sampler takes the khop
 backend's fused launch instead, ``walk_khop_dists``
 (``kernels/khop_dists.py``, K1's walk and K7 in the same source).
+:func:`alias_walk_dists` is the same launch with K8's alias step
+(``pathnet_tpu/sample/alias.py:93-104``, ``kernels/alias_walk.py``) in
+place of K1's: the sampler's path at ``walk_len <= 4`` with the alias
+tables.
 
 Source: ``pathnet_tpu_torch/csrc/walk_dists.cu``, which ``cdf_walk`` and
 ``membership_dists`` also launch. The walks lie flat across the grid, a lane
@@ -61,6 +65,38 @@ def launch(nbr: torch.Tensor, cdf: Optional[torch.Tensor], deg: Optional[torch.T
     build.check(rc, "walk_dists")
 
 
+def check_alias_tables(lo: torch.Tensor, hi: torch.Tensor, split: torch.Tensor,
+                       deg: torch.Tensor, starts: torch.Tensor, u: torch.Tensor,
+                       num_walks: int) -> None:
+    """Raise unless the alias tables, ``starts`` and K8's draws ``u [wl - 1,
+    2, S * num_walks]`` have the types and shapes K8 takes, on ``lo``'s
+    device and contiguous."""
+    dev = lo.device
+    build.require(lo, "lo", torch.int32, (None, None), dev)
+    n, D = lo.shape
+    build.require(hi, "hi", torch.int32, (n, D), dev)
+    build.require(split, "split", torch.float32, (n, D), dev)
+    build.require(deg, "deg", torch.int32, (n,), dev)
+    build.require(starts, "starts", torch.int32, (None,), dev)
+    build.require(u, "u", torch.float32, (None, 2, starts.shape[0] * num_walks), dev)
+
+
+def launch_alias(lo: torch.Tensor, hi: torch.Tensor, split: torch.Tensor, deg: torch.Tensor,
+                 nbr: Optional[torch.Tensor], srt: Optional[torch.Tensor],
+                 starts: torch.Tensor, u: torch.Tensor, paths: torch.Tensor,
+                 dists: Optional[torch.Tensor]) -> None:
+    """One launch of K8 on checked CUDA tensors: walks into ``paths`` from
+    ``u``, their membership distances into ``dists`` unless it is None."""
+    S, nw, wl = paths.shape
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(lo.device):
+        rc = build.library().pathnet_alias_walk_dists(
+            lo.data_ptr(), hi.data_ptr(), split.data_ptr(), deg.data_ptr(), ptr(nbr), ptr(srt),
+            starts.data_ptr(), u.data_ptr(), paths.data_ptr(), ptr(dists), lo.shape[1], S, nw,
+            wl, build.stream_ptr(lo))
+    build.check(rc, "alias_walk_dists")
+
+
 def walk_dists_plain(nbr: torch.Tensor, cdf: torch.Tensor, deg: torch.Tensor,
                      srt: torch.Tensor, starts: torch.Tensor, u: torch.Tensor,
                      num_walks: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,3 +144,49 @@ def walk_dists(nbr: torch.Tensor, cdf: torch.Tensor, deg: torch.Tensor, srt: tor
 
 
 walk_dists.launches = 0
+
+
+def alias_walk_dists_plain(lo: torch.Tensor, hi: torch.Tensor, split: torch.Tensor,
+                           deg: torch.Tensor, nbr: torch.Tensor, srt: torch.Tensor,
+                           starts: torch.Tensor, u: torch.Tensor,
+                           num_walks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: ``alias_walk_plain`` then
+    ``membership_dists_plain`` (``srt`` is not needed)."""
+    from .alias_walk import alias_walk_plain
+    from .membership_dists import membership_dists_plain
+
+    paths = alias_walk_plain(lo, hi, split, deg, starts, u, num_walks)
+    return paths, membership_dists_plain(nbr, deg, starts, paths)
+
+
+def alias_walk_dists(lo: torch.Tensor, hi: torch.Tensor, split: torch.Tensor,
+                     deg: torch.Tensor, nbr: torch.Tensor, srt: torch.Tensor,
+                     starts: torch.Tensor, u: torch.Tensor,
+                     num_walks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(paths, dists)``, both int32 ``[S, num_walks, wl]`` with ``wl =
+    u.shape[0] + 1 <= 4``: K8's walks (``kernels/alias_walk.py``, whose
+    layout ``u [wl - 1, 2, S * num_walks]`` takes) and their membership
+    distances, in one launch.
+
+    ``lo``, ``hi``, ``split``, ``deg``: the alias tables; ``nbr`` int32
+    ``[n, D]`` and ``srt`` = :func:`sorted_rows` ``(nbr, deg)``, the rows
+    the distances read; ``starts`` int32 ``[S]``.
+    """
+    dev = lo.device
+    check_alias_tables(lo, hi, split, deg, starts, u, num_walks)
+    build.require(nbr, "nbr", torch.int32, tuple(lo.shape), dev)
+    build.require(srt, "srt", torch.int32, tuple(lo.shape), dev)
+    S, wl = starts.shape[0], u.shape[0] + 1
+    if wl > 4:
+        raise ValueError(f"membership distances need 1 <= walk_len <= 4, got {wl}")
+    if dev.type == "cpu":
+        return alias_walk_dists_plain(lo, hi, split, deg, nbr, srt, starts, u, num_walks)
+    if dev.type != "cuda":
+        raise ValueError(f"alias_walk_dists: unsupported device {dev}")
+    paths, dists = torch.empty((2, S, num_walks, wl), dtype=torch.int32, device=dev)
+    launch_alias(lo, hi, split, deg, nbr, srt, starts, u, paths, dists)
+    alias_walk_dists.launches += 1
+    return paths, dists
+
+
+alias_walk_dists.launches = 0

@@ -6,8 +6,9 @@ The same flags and defaults as ``python -m pathnet_tpu.run``, with
 ``--device`` in place of ``--platform`` (default: the CUDA card). Choices the
 port does not run yet raise ``NotImplementedError`` naming ROADMAP.md:
 ``--mesh``, ``--shard-features``, ``--rnn mlp``, ``--rnn gru`` with ``--dtype
-bfloat16``, ``--quirk-compat``, ``-mk uniform``, and the baseline models
-(``--model``). The homophily datasets (cora, citeseer, pubmed) train the
+bfloat16``, ``--quirk-compat``, and the baseline models (``--model``).
+``-mk uniform`` walks the symmetrized graph with self-loops, uniformly, and
+skips MERW (RW-PathNet), as in the JAX CLI. The homophily datasets (cora, citeseer, pubmed) train the
 homo variant, as in the JAX CLI. ``--rnn gru`` runs the GRU encoder and
 ``--agg mean|sum`` the mean or sum readout, through K3's and K4's GRU and
 ``AGG`` instances. ``--dtype bfloat16`` computes the encode in bf16 through
@@ -135,8 +136,6 @@ def check_ported(args) -> None:
         todo.append(("--rnn gru with --dtype bfloat16", "bf16 x GRU, ROADMAP §1 item 3"))
     if args.quirk_compat:
         todo.append(("--quirk-compat", "quirk_compat, ROADMAP §1 item 3"))
-    if args.marker != "merw":
-        todo.append((f"-mk {args.marker}", "uniform walks, ROADMAP §1 item 12"))
     if todo:
         what, where = todo[0]
         raise NotImplementedError(f"{what} is not ported yet ({where})")

@@ -5,7 +5,9 @@ Walks are sampled only for the requested nodes and resampled per call;
 draws (a log-mean-exp of the log-probabilities). Per ensemble member the
 path runs the sampler's one launch (K1's walks with K2's hop distances,
 ``walk_dists``, at ``walk_len <= 4``; with K7's, ``walk_khop_dists``, past
-it), then K3 (encode) and K5 (the ego rows), once each.
+it; with the alias tables K8's walks, ``alias_walk_dists`` and
+``alias_walk_khop_dists``), then K3 (encode) and K5 (the ego rows), once
+each.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from ..models.pagg import PathNet
 from ..nn.metrics import classification_metrics, confusion_matrix
-from ..sample.walk import PathSampler, draw_uniforms
+from ..sample.walk import PathSampler
 
 
 def _as_index(idx, n: int, device: torch.device) -> torch.Tensor:
@@ -34,7 +36,8 @@ def predict(model: PathNet, X: torch.Tensor, ps: PathSampler,
     """Class log-probabilities ``[len(idx), C]`` (default: every node).
 
     The walks' uniforms come from ``generator`` (a generator on the sampler's
-    device), or from ``u [num_ensemble, wl - 1, len(idx) * nw]``.
+    device), or from ``u [num_ensemble, *ps.uniform_shape(len(idx) * nw)]``
+    (``[num_ensemble, wl - 1, len(idx) * nw]`` with the CDF tables).
     """
     if num_ensemble < 1:
         raise ValueError("num_ensemble must be >= 1")
@@ -46,11 +49,10 @@ def predict(model: PathNet, X: torch.Tensor, ps: PathSampler,
     if u is None:
         if generator is None:
             raise ValueError("predict needs a generator or the uniforms u")
-        u = torch.stack([draw_uniforms(ps.walk_len, walkers, generator, dev)
-                         for _ in range(num_ensemble)])
-    if tuple(u.shape) != (num_ensemble, ps.walk_len - 1, walkers):
+        u = torch.stack([ps.draw_uniforms(walkers, generator) for _ in range(num_ensemble)])
+    if tuple(u.shape) != (num_ensemble, *ps.uniform_shape(walkers)):
         raise ValueError(f"u has shape {tuple(u.shape)}, expected "
-                         f"{(num_ensemble, ps.walk_len - 1, walkers)}")
+                         f"{(num_ensemble, *ps.uniform_shape(walkers))}")
     logps = []
     for e in range(num_ensemble):
         paths, dists = ps.sample(idx, u=u[e])

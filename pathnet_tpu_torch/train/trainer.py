@@ -2,19 +2,20 @@
 ``pathnet_tpu/train/trainer.py:48-434``).
 
 A round initialises the model from its seed and runs ``cfg.epochs`` epochs.
-Each epoch samples a fresh walk set for every node (``walk_dists``: K1 and
-K2 in one launch), accumulates the exact full-train-set gradient over
-microbatches (forward K3 with dropout, K5; backward K4 with its segment sum,
-K5), takes one Adam step, computes the validation confusion
-matrix and, only on a strict improvement of validation accuracy (from 0),
+Each epoch samples a fresh walk set for every node
+(``PathSampler.sample_epoch``: the sampler's one launch, ``walk_dists``, K1
+and K2, on the default path), accumulates the exact full-train-set
+gradient over microbatches (forward K3 with dropout, K5; backward K4 with
+its segment sum, K5), takes one Adam step, computes the validation
+confusion matrix and, only on a strict improvement of validation accuracy (from 0),
 the test confusion matrix: the round's result is the test metrics of the
 best-on-validation epoch (PathNet_run.py:281-403).
 
 The JAX package runs the epochs as one ``lax.scan``; the port runs them as a
 Python loop of eager steps (``TrainConfig.scan_epochs``/``scan_chunk`` have
 no effect here). Randomness: every (round seed, epoch, stream) pair gets its
-own ``torch.Generator``, for the streams init, walks and dropout (one
-generator per microbatch), as JAX folds the epoch into its key: an epoch's
+own ``torch.Generator`` (``rng.make_generator``), for the streams init,
+walks and dropout (one generator per microbatch), as JAX folds the epoch into its key: an epoch's
 draws depend only on the round seed and the global epoch, and two runs with
 one seed on one device give identical results, on the card too: no sum on
 the training path depends on the order its threads finish in (K4 reduces in
@@ -39,10 +40,12 @@ import torch.nn.functional as F
 from ..config import TrainConfig
 from ..models.pagg import PaggSpec, PathNet, draw_dropout_masks
 from ..nn.metrics import classification_metrics, confusion_matrix
+from ..rng import STREAM_DROPOUT, STREAM_INIT, STREAM_WALKS, make_generator, stream_seed
 from ..sample.walk import PathSampler
 
-STREAM_INIT, STREAM_WALKS, STREAM_DROPOUT = 0, 1, 2
-_MASK64 = (1 << 64) - 1
+__all__ = ["RoundResult", "STREAM_INIT", "STREAM_WALKS", "STREAM_DROPOUT", "stream_seed",
+           "make_generator", "make_optimizer", "chunk_index", "chunked_grads", "chunked_cm",
+           "run_round", "checkpoint_name", "run_protocol"]
 
 
 @dataclasses.dataclass
@@ -53,24 +56,6 @@ class RoundResult:
     history: Optional[np.ndarray] = None   # [epochs] val accuracy
     losses: Optional[np.ndarray] = None    # [epochs] train loss
     epoch_seconds: Optional[np.ndarray] = None  # [epochs] host clock
-
-
-def stream_seed(seed: int, epoch: int, stream: int, chunk: int = 0) -> int:
-    """A 63-bit seed for one (round seed, epoch, stream, chunk): SplitMix64
-    over the four numbers, so neighbouring tuples give unrelated streams."""
-    x = 0
-    for v in (seed, epoch, stream, chunk):
-        x = (x ^ (v & _MASK64)) + 0x9E3779B97F4A7C15 & _MASK64
-        x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9 & _MASK64
-        x = (x ^ (x >> 27)) * 0x94D049BB133111EB & _MASK64
-        x ^= x >> 31
-    return x >> 1
-
-
-def make_generator(seed: int, epoch: int, stream: int, chunk: int = 0,
-                   device: Union[str, torch.device] = "cpu") -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(
-        stream_seed(seed, epoch, stream, chunk))
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
@@ -181,8 +166,7 @@ def run_round(X: torch.Tensor, y: torch.Tensor, ps: PathSampler, spec: PaggSpec,
     hist, losses, secs = [], [], []
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()
-        paths, dists = ps.sample(generator=make_generator(seed, epoch, STREAM_WALKS,
-                                                          device=dev))
+        paths, dists = ps.sample_epoch(seed, epoch)
         dropout_gen = None
         if spec.dropout > 0.0:
             dropout_gen = lambda i: make_generator(seed, epoch, STREAM_DROPOUT, i,

@@ -70,7 +70,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                                  "pagg_encode_fwd": 0, "pagg_encode_bwd": 0,
                                  "row_gather": 0, "row_gather_bwd": 0,
                                  "lane_gather": 0, "segment_sum": 0, "walk_dists": 0,
-                                 "khop_dists": 0, "walk_khop_dists": 0}
+                                 "khop_dists": 0, "walk_khop_dists": 0, "alias_walk": 0,
+                                 "alias_walk_dists": 0, "alias_walk_khop_dists": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -154,7 +155,8 @@ def test_port_holds_no_jax_no_library_kernels_and_no_cpu_fallback():
                        "nn.functional.lstm", "self.LSTM("):
             assert banned not in text, (f, banned)
     for name in ("cdf_walk", "membership_dists", "pagg_encode", "pagg_encode_bwd",
-                 "row_gather", "lane_gather", "segment_sum", "walk_dists", "khop_dists"):
+                 "row_gather", "lane_gather", "segment_sum", "walk_dists", "khop_dists",
+                 "alias_walk"):
         # a wrapper launches its kernel or raises: nothing catches a failure
         text = open(os.path.join(PORT, "kernels", name + ".py")).read()
         assert not re.search(r"\b(try|except)\b", text), name
@@ -259,6 +261,117 @@ def test_khop_sampler_on_the_card_equals_the_host(cuda, name):
         assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
 
 
+def uniform_graph(D, n=300, seed=0):
+    """A graph whose symmetrized table (one self-loop a node) is ``D`` wide:
+    node 0 sends ``D - 1`` records (repeats among them) to other nodes, a few
+    hundred records join the rest, node 1 has none."""
+    rng = np.random.default_rng(seed + D)
+    hub = rng.integers(2, n, size=D - 1)
+    a = rng.integers(2, n, size=n if D > 1 else 0)
+    b = rng.integers(2, n, size=len(a))
+    src = np.concatenate([np.zeros(D - 1, np.int64), a]).astype(np.int32)
+    dst = np.concatenate([hub, b]).astype(np.int32)
+    return Graph(n=n, src=src, dst=dst, prob=np.ones(len(src)))
+
+
+def card_draws(n, nw, wl, seed, cuda, per_step=1):
+    """257 starts (nodes 0-3 among them: a ragged last block at every lane
+    count) and their draws, K1's or K8's layout."""
+    gen = torch.Generator().manual_seed(seed)
+    starts = torch.randperm(n, generator=gen)[:257].to(torch.int32)
+    starts[:4] = torch.arange(4)
+    shape = (wl - 1, 257 * nw) if per_step == 1 else (wl - 1, 2, 257 * nw)
+    return starts.to(cuda), torch.rand(shape, generator=gen).to(cuda)
+
+
+# K8 in its three launches (the walks alone, fused with K2, fused with K7)
+# against the plain versions, at table widths about each lane count's edge
+# (1 and 32: a lane a walk in the fused K2 launch; 33 and 512: 16 lanes;
+# 513: 32), with a node of degree 0 among the starts, every walk length to
+# 5 and the k-hop levels 1..5
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 32, 33, 512, 513])
+@pytest.mark.parametrize("nw", [1, 40])
+@pytest.mark.parametrize("wl", [1, 2, 4, 5])
+def test_alias_kernels_equal_plain(cuda, D, nw, wl):
+    g = walk_graph(D)
+    smp = PathSampler.build(g, nw, 4, sampler="alias", device=cuda).sampler
+    assert smp.max_deg == D and int(smp.deg[1]) == 0
+    tables = KhopTables.pack(build_khop_tables(g, 5, device=cuda))
+    starts, u = card_draws(g.n, nw, wl, D * 10 + wl, cuda, per_step=2)
+    al = (smp.lo, smp.hi, smp.split, smp.deg)
+    want = K.alias_walk_plain(*al, starts, u, nw)
+    assert torch.equal(K.alias_walk(*al, starts, u, nw), want)
+    got = K.alias_walk_khop_dists(*al, tables, starts, u, nw)
+    plain = K.alias_walk_khop_dists_plain(*al, tables, starts, u, nw)
+    assert torch.equal(got[0], want) and torch.equal(plain[0], want)
+    assert torch.equal(got[1], plain[1])
+    if wl <= 4:
+        got = K.alias_walk_dists(*al, smp.nbr, smp.srt, starts, u, nw)
+        plain = K.alias_walk_dists_plain(*al, smp.nbr, smp.srt, starts, u, nw)
+        assert torch.equal(got[0], want) and torch.equal(got[1], plain[1])
+
+
+# the CDF launches on uniform tables (the symmetrized multigraph, duplicate
+# records and a self-loop a node), and K8 on them, at the same widths
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 32, 33, 512, 513])
+@pytest.mark.parametrize("wl", [1, 2, 4, 5])
+def test_uniform_table_kernels_equal_plain(cuda, D, wl):
+    g = uniform_graph(D)
+    smp = PathSampler.build(g, 40, 4, kind="uniform", device=cuda).sampler
+    assert smp.max_deg == D
+    sym = g.symmetrized(add_self_loops=True)
+    tables = KhopTables.pack(build_khop_tables(sym, 5, device=cuda))
+    starts, u = card_draws(g.n, 40, wl, D * 10 + wl, cuda)
+    want = K.cdf_walk_plain(smp.nbr, smp.cdf, starts, u, 40)
+    assert torch.equal(K.cdf_walk(smp.nbr, smp.cdf, starts, u, 40), want)
+    got = K.walk_khop_dists(smp.nbr, smp.cdf, tables, starts, u, 40)
+    assert torch.equal(got[0], want)
+    assert torch.equal(got[1], K.khop_dists_plain(tables.levels, starts, want))
+    if wl <= 4:
+        got = K.walk_dists(smp.nbr, smp.cdf, smp.deg, smp.srt, starts, u, 40)
+        plain = K.walk_dists_plain(smp.nbr, smp.cdf, smp.deg, smp.srt, starts, u, 40)
+        assert torch.equal(got[0], want) and torch.equal(got[1], plain[1])
+    ali = PathSampler.build(g, 40, 4, kind="uniform", sampler="alias", device=cuda).sampler
+    ua = card_draws(g.n, 40, wl, D * 10 + wl, cuda, per_step=2)[1]
+    al = (ali.lo, ali.hi, ali.split, ali.deg)
+    assert torch.equal(K.alias_walk(*al, starts, ua, 40),
+                       K.alias_walk_plain(*al, starts, ua, 40))
+
+
+# the sampler with the alias tables and with uniform walks: one launch a
+# call, of the backend's entry, and the host sampler's walks and distances
+SAMPLER_CASES = [("merw", "alias", 4, "membership", "alias_walk_dists"),
+                 ("merw", "alias", 5, "khop", "alias_walk_khop_dists"),
+                 ("merw", "alias", 4, "dense", "alias_walk"),
+                 ("merw", "alias", 4, "none", "alias_walk"),
+                 ("uniform", "cdf", 4, "membership", "walk_dists"),
+                 ("uniform", "cdf", 5, "khop", "walk_khop_dists"),
+                 ("uniform", "alias", 4, "membership", "alias_walk_dists"),
+                 ("uniform", "cdf", 4, "host", "cdf_walk")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cornell", "Nba"])
+@pytest.mark.parametrize("kind,sampler,wl,backend,kernel", SAMPLER_CASES)
+def test_alias_and_uniform_samplers_on_the_card_equal_the_host(cuda, name, kind, sampler, wl,
+                                                               backend, kernel):
+    g = Graph.from_edge_input(os.path.join(EDGE, f"{name}.in"))
+    kw = dict(kind=kind, sampler=sampler, distance_backend=backend)
+    host = PathSampler.build(g, 40, wl, device="cpu", **kw)
+    u = host.draw_uniforms(g.n * 40, torch.Generator().manual_seed(2))
+    want = host.sample(u=u)
+    ps = PathSampler.build(g, 40, wl, device=cuda, **kw)
+    K.reset_launch_counts()
+    got = ps.sample(u=u.to(cuda))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts[kernel] == 1 and sum(counts.values()) == 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert (got[1] is None and want[1] is None) or torch.equal(got[1].cpu(), want[1])
+
+
 def wild_case(H, wl, nw, T, n=183, seed=0, device="cpu"):
     """Random walks of ``T`` targets, with distances also outside ``[0, wl -
     1]`` (the encode clips them), ``h`` and K3 weights."""
@@ -334,7 +447,8 @@ def test_predict_on_card_counts_launches_and_matches_host(cuda):
                                  "pagg_encode_fwd": 3, "pagg_encode_bwd": 0,
                                  "row_gather": 3, "row_gather_bwd": 0,
                                  "lane_gather": 0, "segment_sum": 0, "walk_dists": 3,
-                                 "khop_dists": 0, "walk_khop_dists": 0}
+                                 "khop_dists": 0, "walk_khop_dists": 0, "alias_walk": 0,
+                                 "alias_walk_dists": 0, "alias_walk_khop_dists": 0}
     want = predict(m_host, torch.from_numpy(X), PathSampler.build(g, 40, 4, device="cpu"),
                    num_ensemble=3, u=u)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

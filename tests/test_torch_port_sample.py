@@ -193,13 +193,6 @@ def test_sorted_rows_keep_each_rows_real_entries_in_order():
                                               [big] * 4]
 
 
-@pytest.mark.parametrize("kw", [{"kind": "uniform"}, {"sampler": "alias"}])
-def test_unported_sampler_choices_raise(kw):
-    _, g = graph_pair("cornell")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PathSampler.build(g, NW, 4, device="cpu", **kw)
-
-
 @pytest.mark.parametrize("backend", ["khop", "dense"])
 def test_khop_and_dense_backends_build_and_give_jax_distances(backend):
     """The backends that raised before walk length 5 was ported: at wl = 4

@@ -217,7 +217,7 @@ def test_cli_takes_the_jax_flags():
 
 @pytest.mark.parametrize("argv", [["--model", "gcn"], ["--mesh", "4"], ["--shard-features"],
                                   ["--rnn", "mlp"], ["--rnn", "gru", "--dtype", "bfloat16"],
-                                  ["--quirk-compat"], ["-mk", "uniform"]])
+                                  ["--quirk-compat"]])
 def test_cli_refuses_unported_choices(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run.main(["-data", "cornell", *argv])
