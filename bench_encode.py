@@ -281,6 +281,14 @@ def compare_regs(other: str) -> None:
             k0 = re.sub(flag + r"(E*>)$", r"\1", k)
             if k0 != k and k0 in a and k0 not in b:
                 a[k] = a.pop(k0)
+    # an instance whose bool argument became an int of the same value (the
+    # encoder flag GRU, now the cell CELL: LSTM 0, GRU 1) is the other's
+    for k in [k for k in b if k not in a]:
+        for m in re.finditer(r"Li([01])E", k):
+            k0 = k[:m.start()] + f"Lb{m.group(1)}E" + k[m.end():]
+            if k0 in a and k0 not in b:
+                a[k] = a.pop(k0)
+                break
     same = [k for k in a if b.get(k) == a[k]]
     print(json.dumps({"device": smi(), "equal": len(same),
                       "differ": {k: [a[k], b[k]] for k in sorted(a) if k in b and a[k] != b[k]},

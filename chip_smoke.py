@@ -185,7 +185,28 @@ one card). Phases, each with a start and an end line:
     rounds through the dense backend and at wl = 5; one round of the
     cornell protocol through the CLI at ``-mk uniform``
     (``CORNELL_UNIFORM_ROUNDS`` x 1000, payload 89c32d97), within 3 std of
-    the JAX CLI's own host band (``CORNELL_UNIFORM_BAND``).
+    the JAX CLI's own host band (``CORNELL_UNIFORM_BAND``);
+17. the remaining model choices: the MLP encoder's instances of K3 and K4
+    (``rnn="mlp"``: the mean of the selected rows, one product) on one bgp
+    request (K3), one bgp microbatch (K3 without and with the keep mask, K4,
+    its three launches and the segment sum; the attention and mean
+    readouts) and cora's 2,708 targets (homo), at phase 5's tolerances and
+    timed as phase 5 with the bound at the 2.5 H^2 (K3) and 7.5 H^2 (K4) a
+    walk step the MLP needs; the bf16 GRU's instances at the same request,
+    microbatch and on cora (homo), and the bf16 MLP's at the microbatch,
+    within four bf16 ulps of their plain versions; the quirk
+    (``quirk_compat``, K3 and K4 under their quirk readout on
+    ``quirk_layout``'s walks) on cornell's 183 nodes at full width with the
+    LSTM, the GRU and the MLP against JAX's quirk as written, phase 5's
+    tolerances; ``predict`` and one training step of each choice at cornell
+    full width on the card against the host (phase 7's tolerances, bf16
+    13's); two seeded MLP rounds bit-equal as in 7b; one round each of
+    cornell ``--rnn mlp``, ``--quirk-compat`` and ``--rnn gru --dtype
+    bfloat16`` through the CLI (``REMAINING_ROUNDS`` x 1000, payload
+    89c32d97), each within 3 std of the JAX CLI's own host band
+    (``CORNELL_MLP_BAND``, ``CORNELL_QUIRK_BAND``,
+    ``CORNELL_GRU_BF16_BAND``), and one cora ``--rnn mlp`` round above
+    chance.
 
 The protocol phases gate on their band when they run 10 rounds of 1000
 epochs, and on accuracy above chance when a rehearsal cuts them shorter;
@@ -205,7 +226,9 @@ mean|sum``, whose launches are K3's and K4's in phase 14's ``--agg mean``
 (cora) and ``--agg sum`` (cornell) protocols; K7's two entries from phase
 15's wl = 5 protocol, where ``walk_khop_dists`` runs and ``khop_dists`` does
 not, as its ``note`` says; K8's three entries from phase 16's alias rounds,
-each from the round whose backend runs it);
+each from the round whose backend runs it; phase 17's MLP instances (``...
+mlp``, ``... mlp homo``), bf16 GRU instances (``... gru bf16``) and quirk
+readout and backward (``... quirk``) from its cornell and cora protocols);
 the last is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
 prints no result. Without a CUDA card, or outside a checkout, it exits
 non-zero.
@@ -331,6 +354,19 @@ KHOP_KERNELS = ("khop_dists", "walk_khop_dists")
 CORNELL_UNIFORM_BAND = (0.7972973048686981, 0.05020047200611047)
 CORNELL_UNIFORM_ROUNDS = 1
 ALIAS_SHORT_EPOCHS = 20  # the alias rounds through the dense backend and at wl = 5
+# the remaining model choices (phase 17): the JAX CLI's own 10 x 1000 of
+# cornell --rnn mlp, --quirk-compat and --rnn gru --dtype bfloat16 on the host
+# (JAX_PLATFORMS=cpu python -m pathnet_tpu.run -data cornell ..., payload
+# 89c32d97; PERF.md, section 2); a run of fewer rounds holds each round to 3 std
+CORNELL_MLP_BAND = (0.7945945978164672, 0.03243241310119629)
+CORNELL_QUIRK_BAND = (0.7891891896724701, 0.0670793159279102)
+CORNELL_GRU_BF16_BAND = (0.8000000059604645, 0.04554675455565366)
+REMAINING_ROUNDS = 1
+# their records: the MLP's instances, the bf16 GRU's, the quirk's
+REMAINING_KERNELS = ("pagg_encode_fwd mlp", "pagg_encode_bwd mlp", "pagg_encode_fwd mlp homo",
+                     "pagg_encode_bwd mlp homo", "pagg_encode_fwd gru bf16",
+                     "pagg_encode_bwd gru bf16", "pagg_encode_fwd quirk",
+                     "pagg_encode_bwd quirk")
 
 def walk_kernel(wl: int) -> str:
     """The sampler's launch at walk length ``wl``: the membership backend's
@@ -538,19 +574,24 @@ def check_walk_dists(tag, smp, idx, u, nw, want, rec):
     record_err(rec, "walk_dists", 0.0)
 
 
-def check_segment_sum(tag, paths, rows, n, rec, time_as=None, homo=False, agg="attention"):
-    """The segment sum of K4's row gradients against its plain version
-    (within SEGMENT_TOL of the plain maximum, two calls bit-equal) and its
-    grouping (``segments``) against the plain grouping (exact); timed as
+def check_segment_sum(tag, paths, rows, n, rec, time_as=None, homo=False, agg="attention",
+                      ego=None):
+    """The segment sum of K4's row gradients against its plain version run
+    in float64 (within SEGMENT_TOL of the plain maximum, two calls bit-equal)
+    and its grouping (``segments``) against the plain grouping (exact); the
+    float32 plain version's own error is printed beside it (on the card its
+    ``index_add_`` adds a node's rows in the order its atomics land, which
+    moves the padded microbatch's 412,000-row sum at node 0 by about
+    SEGMENT_TOL of the maximum from one call to the next); timed as
     ``time_as`` when given, with ``index_add_`` as its library yardstick.
     ``homo``: the rows are the homo variant's (``wl`` a walk, in sampled
     order); ``agg`` mean or sum: hetero rows without the ego rows' (``wl``
-    a walk)."""
+    a walk); ``ego``: the quirk's ego nodes (``row_nodes``)."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.kernels.segment_sum import segments, segments_plain
 
-    nodes = K.row_nodes(paths, homo, agg)
+    nodes = K.row_nodes(paths, homo, agg, ego)
     if nodes.shape[0] != rows.shape[0]:
         raise AssertionError(f"{tag}: {rows.shape[0]} row gradients, {nodes.shape[0]} nodes")
     units, offsets = segments(nodes, n)
@@ -560,16 +601,19 @@ def check_segment_sum(tag, paths, rows, n, rec, time_as=None, homo=False, agg="a
         raise AssertionError(f"{tag}: segments differ from the plain grouping")
     got = K.segment_sum(rows, nodes, n)
     again = K.segment_sum(rows, nodes, n)
-    want = K.segment_sum_plain(rows, nodes, n)
+    want = K.segment_sum_plain(rows.double(), nodes, n)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
+    err = float((got.double() - want).abs().max())
+    err32 = float((K.segment_sum_plain(rows, nodes, n).double() - want).abs().max())
     if not err <= SEGMENT_TOL * float(want.abs().max()):
-        raise AssertionError(f"{tag}: segment_sum max abs err {err}")
+        raise AssertionError(f"{tag}: segment_sum max abs err {err} (the float32 plain "
+                             f"version's {err32})")
     if not torch.equal(got, again):
         raise AssertionError(f"{tag}: segment_sum differs between two calls")
     record_err(rec, "segment_sum", err)
     say(f"  {tag}: segments exact ({U} units), segment_sum max abs err {err:.3e} within "
-        f"{SEGMENT_TOL} x max, two calls bit-equal ({rows.shape[0]} rows of {rows.shape[1]} "
+        f"{SEGMENT_TOL} x max (float32 plain {err32:.3e}), two calls bit-equal "
+        f"({rows.shape[0]} rows of {rows.shape[1]} "
         f"into {n} nodes)")
     if time_as is not None:
         R, H = rows.shape
@@ -629,13 +673,15 @@ def time_k3_stages(tag, h, paths, dists, w, mask_args=(None, 1.0), homo=False,
 
 
 def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_TOL,
-                    agg="attention", cell="lstm"):
+                    agg="attention", cell="lstm", ego_paths=None):
     """Each of K4's three launches against its plain stage, on the plain
     stage's inputs: every output within ``tol`` of its plain version's
     largest entry (``dattw``, ``dattb``, sums that cancel, of the ego rows'
     ``dh`` if larger; under mean and sum no ``dego`` and zero ``dattw``,
     ``dattb``). Returns the row gradients that ``segment_sum`` adds
-    (hetero attention: the BPTT's and the ego rows'; else the BPTT's)."""
+    (hetero attention: the BPTT's and the ego rows'; else the BPTT's). The
+    quirk: ``paths``, ``dists`` and ``mask`` in ``quirk_layout``'s layout,
+    the attention backward on its ego nodes ``ego_paths``."""
     import torch
     from pathnet_tpu_torch import kernels as K
 
@@ -643,7 +689,7 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_T
 
     def hold(stage, names, got, want, cancel_scale=0.0):
         for name, a, b in zip(names, got, want):
-            if b is None:   # the GRU's recompute writes no cs; mean, sum no dego
+            if b is None:   # no cs (the GRU, the MLP), gt or dgates (the MLP), dego
                 if a is not None:
                     raise AssertionError(f"{tag}: K4's {stage} launch returned a {name}")
                 continue
@@ -661,18 +707,20 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_T
          K.encode_walks_streams(*enc, cell), want)
     hn, _, xin, hp, cs, gt = want[:6]
     ego = want[6] if homo else None
-    want = K.attention_bwd_plain(g, h, paths, hn, *w[6:], ego, agg)
-    got = K.attention_bwd(g, h, paths, hn, *w[6:], ego, agg)
-    if agg != "attention" and (got[2].any() or got[3].any()):
+    att = agg in ("attention", "quirk")
+    ap = paths if ego_paths is None else ego_paths
+    want = K.attention_bwd_plain(g, h, ap, hn, *w[6:], ego, agg)
+    got = K.attention_bwd(g, h, ap, hn, *w[6:], ego, agg)
+    if not att and (got[2].any() or got[3].any()):
         raise AssertionError(f"{tag}: K4's attention launch, dattw, dattb not zero under {agg}")
     hold("attention", ("dhn", "dego", "dattw", "dattb"), got, want,
-         float(want[1 if agg == "attention" else 0].abs().max()))
+         float(want[1 if att else 0].abs().max()))
     dego = want[1]
-    bargs = (want[0], paths, dists, w[0], w[2], w[3], hp if cell == "gru" else cs)
+    bargs = (want[0], paths, dists, w[0], w[2], w[3], {"gru": hp, "mlp": None}.get(cell, cs))
     hargs = (xin, ego, dego) if homo else None
     want = K.bptt_plain(*bargs, gt, mask, keep, hargs, cell=cell)
     hold("bptt", ("drow", "dgates", "dsel"),
-         K.bptt(*bargs, gt.clone(), mask, keep, hargs, cell), want)
+         K.bptt(*bargs, None if gt is None else gt.clone(), mask, keep, hargs, cell), want)
     say(f"  {tag}: K4's three launches each within {tol:.3g} of its plain stage (error "
         "over each plain max: " + ", ".join(parts) + ")")
     H = h.shape[1]
@@ -683,7 +731,8 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_T
 def time_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, agg="attention",
                    cell="lstm"):
     """Each of K4's three launches and the wrapper's weight contractions
-    alone, per launch in a CUDA graph; returns their ms by stage."""
+    alone, per launch in a CUDA graph; returns their ms by stage (the MLP's
+    contractions take ``d h_n`` for its gate gradients)."""
     from pathnet_tpu_torch import kernels as K
 
     enc = (h, paths, dists, *w[:6], mask, keep, homo, cell)
@@ -692,12 +741,13 @@ def time_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, agg="atte
     rec_ms = graph_ms(lambda: K.encode_walks_streams(*enc), 5)
     dhn, dego = K.attention_bwd(g, h, paths, hn, *w[6:], ego, agg)[:2]
     att_ms = graph_ms(lambda: K.attention_bwd(g, h, paths, hn, *w[6:], ego, agg), 20)
-    bargs = (dhn, paths, dists, w[0], w[2], w[3], hp if cell == "gru" else cs, gt, mask,
-             keep, (xin, ego, dego) if homo else None, cell)
+    bargs = (dhn, paths, dists, w[0], w[2], w[3], {"gru": hp, "mlp": None}.get(cell, cs), gt,
+             mask, keep, (xin, ego, dego) if homo else None, cell)
     _, dg, dsel = K.bptt(*bargs)
     # each replay writes over gt again; the time does not depend on the values
     bptt_ms = graph_ms(lambda: K.bptt(*bargs), 5)
-    con_ms = graph_ms(lambda: K.contractions(xr, xin, hp, dsel, dg, dists, homo), 5)
+    dg = dhn if cell == "mlp" else dg
+    con_ms = graph_ms(lambda: K.contractions(xr, xin, hp, dsel, dg, dists, homo, cell), 5)
     say(f"  {tag}: K4's forward recompute {rec_ms:.4f} ms, attention backward "
         f"{att_ms:.4f} ms, BPTT {bptt_ms:.4f} ms, weight contractions {con_ms:.4f} ms "
         "(torch.matmul, bmm), each per launch in a CUDA graph")
@@ -709,9 +759,9 @@ def record_err(rec, name, err):
 
 
 def homo_name(name, homo, bf16=False, cell="lstm"):
-    """A kernel's record: its GRU, homo and bf16 instances' records have
+    """A kernel's record: its GRU, MLP, homo and bf16 instances' records have
     their own names."""
-    return (name + (" gru" if cell == "gru" else "") + (" homo" if homo else "")
+    return (name + ("" if cell == "lstm" else f" {cell}") + (" homo" if homo else "")
             + (" bf16" if bf16 else ""))
 
 
@@ -724,6 +774,11 @@ def check_k4(tag, got, want, tol=K4_TOL):
     worst = 0.0
     parts = []
     for name, a, b in zip(K4_GRADS, got, want):
+        if a.shape != b.shape:
+            raise AssertionError(f"{tag}: pagg_encode_bwd {name} of shape {tuple(a.shape)}, "
+                                 f"its plain version's {tuple(b.shape)}")
+        if not b.numel():   # the MLP's empty recurrent weights
+            continue
         err = float((a - b).abs().max())
         scale = float(b.abs().max())
         if name in ("dattw", "dattb"):
@@ -758,30 +813,48 @@ def k3_close(agg, agg_p, bf16):
     return torch.allclose(agg, agg_p, atol=K3_TOL, rtol=K3_TOL)
 
 
+def cell_flops(cell, H, wl):
+    """The flops one walk needs in K3's encode and in K4 (without the
+    readout's): the select 2 H^2 a step; the LSTM's gates 16 H^2 a step, the
+    GRU's 12 H^2 (though the packed products run the LSTM's), the MLP's one
+    product of the mean, 2 H^2 a walk; K4 three times K3's (the recompute,
+    the backward products, the weight contractions)."""
+    k3 = wl * {"lstm": 18, "gru": 14, "mlp": 2}[cell] * H * H + (2 * H * H if cell == "mlp"
+                                                                 else 0)
+    return k3, 3 * k3
+
+
 def encode_bounds(h, paths, dists, m1, agg, g, w, cell="lstm"):
-    """(bytes, ops) of K3 with a mask and of K4 on these inputs. K3: per walk
-    step 2H^2 (select) + 16H^2 (gates), per walk 6H (readout). K4: the
-    forward recompute (18 H^2 per walk step), the backward products (18 H^2)
-    and the weight contractions (18 H^2), and ~14 H per walk for the
-    attention. The GRU needs 14 H^2 a walk step in K3 (2 + 12) and 42 in K4,
-    though the packed products run the LSTM's."""
+    """(bytes, ops) of K3 with a mask and of K4 on these inputs: each walk's
+    ``cell_flops``, 6 H a walk for K3's readout and ~14 H for K4's
+    attention."""
     T, nw, wl = paths.shape
     H = h.shape[1]
     walks = T * nw
-    step = 14 if cell == "gru" else 18
+    k3, k4 = cell_flops(cell, H, wl)
     b3 = nbytes(h, paths, dists, m1, agg, *w)
-    o3 = walks * (wl * step * H * H + 6 * H)
+    o3 = walks * (k3 + 6 * H)
     b4 = nbytes(g, h, paths, dists, m1, *w) + nbytes(h, *w)
-    o4 = walks * (wl * 3 * step * H * H + 14 * H)
+    o4 = walks * (k4 + 14 * H)
     return b3, o3, b4, o4
 
 
-def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False):
+def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False,
+                         kink=False):
     """K3 without and with a keep mask, K4 and the segment sum of K4's row
     gradients against their plain versions on the targets ``idx`` (the
     segment sum timed when ``time_segment``), in ``model``'s variant (a homo
     model's kernels record under ``homo_name``); returns the inputs and
-    outputs for timing."""
+    outputs for timing. ``kink`` (phase 17's bf16 hetero attention
+    instances): K4 is held against the plain stages composed on the
+    kernel's own forward recompute (itself held to the plain one by
+    ``check_k4_stages``), not against the plain backward of the plain
+    forward: the leaky ReLU's derivative jumps at a score of 0, and a score
+    closer to 0 than one bf16 ulp of ``h_n`` moves can take the other
+    branch, moving ``dattw``, ``dattb`` and that walk's rows of ``dh`` by
+    its whole ``d score`` (``dattb`` 0.078 of a 1.83 scale at the bgp
+    microbatch, PR 19's call 3); the walks whose score changes sign are
+    counted and printed."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.models import draw_dropout_masks
@@ -791,11 +864,15 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False
     h, w = model.encode_inputs(X)
     H = h.shape[1]
     homo, bf16 = model.homo, model.bf16
-    choice = dict(agg=model.spec.agg, cell=model.spec.rnn)
-    # the records of K3's and K4's instances; the mean and sum readouts'
-    # branches record their own launches' errors (check_choice_kernels)
-    names = {k: homo_name(k, homo, bf16, choice["cell"]) if choice["agg"] == "attention"
+    choice = dict(agg=model.agg, cell=model.spec.rnn)
+    # the records of K3's and K4's instances (the quirk's, whatever its cell,
+    # under "... quirk"); the mean and sum readouts' branches record their
+    # own launches' errors (check_choice_kernels); instances without a
+    # record are checked alone
+    names = {k: k + " quirk" if choice["agg"] == "quirk"
+             else homo_name(k, homo, bf16, choice["cell"]) if choice["agg"] == "attention"
              else None for k in ("pagg_encode_fwd", "pagg_encode_bwd")}
+    names = {k: v if v in rec else None for k, v in names.items()}
     keep = 1.0 - model.spec.dropout
     m1, _ = draw_dropout_masks(model.spec, T, nw, gen, X.device)
     for mask_args, what in (((None, 1.0), "without a mask"), ((m1, keep), "with the keep mask")):
@@ -815,18 +892,43 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False
     bwd_args = (g, h, paths, dists, *w, m1, keep, homo)
     got = K.pagg_encode_bwd(*bwd_args, **choice)
     want = K.pagg_encode_bwd_plain(*bwd_args, **choice)
+    if kink and not homo and choice["agg"] == "attention":
+        cell = choice["cell"]
+        enc = (h, paths, dists, *w[:6], m1, keep, homo)
+        hn_k, xr, xin, hp, cs, gt = K.encode_walks_streams(*enc, cell)
+        hn_p = K.encode_walks_streams_plain(*enc, cell=cell)[0]
+        e = h[paths[:, :, 0].reshape(-1).long()].float() @ w[6][H:] + w[7]
+        flips = int(((hn_k @ w[6][:H] + e > 0) != (hn_p @ w[6][:H] + e > 0)).sum())
+        say(f"  {tag}: {flips} of {T * nw} walks' scores change sign between the kernel's "
+            "h_n and the plain h_n; K4 held on the kernel's forward recompute")
+        dhn, dego, dattw, dattb = K.attention_bwd_plain(g, h, paths, hn_k, *w[6:])
+        drow, dg, dsel = K.bptt_plain(dhn, paths, dists, w[0], w[2], w[3],
+                                      {"gru": hp, "mlp": None}.get(cell, cs), gt, m1, keep,
+                                      cell=cell)
+        dh = K.segment_sum_plain(torch.cat([drow.reshape(-1, H), dego]), K.row_nodes(paths),
+                                 h.shape[0])
+        con = K.contractions(xr, xin, hp, dsel, dhn if cell == "mlp" else dg, dists, cell=cell)
+        db_hh = con[4].new_zeros(0) if cell == "mlp" else con[4]
+        want = (*(t.to(h.dtype) for t in (dh, *con, db_hh)), dattw, dattb)
     torch.cuda.synchronize()
     tol = BF16_TOL if bf16 else K4_TOL
     err4 = check_k4(tag, unpacked(got, choice["cell"]), unpacked(want, choice["cell"]), tol)
     if names["pagg_encode_bwd"]:
         record_err(rec, names["pagg_encode_bwd"], err4)
-    if choice["agg"] != "attention" and (got[7].any() or got[8].any()):
+    if choice["agg"] in ("mean", "sum") and (got[7].any() or got[8].any()):
         raise AssertionError(f"{tag}: dattw, dattb not zero under {choice['agg']}")
     del got, want
-    rows = check_k4_stages(tag, g, h, paths, dists, w, m1, keep, homo, tol, **choice)
-    check_segment_sum(tag, paths, rows, h.shape[0], rec,
+    # the quirk's launches run on its layout (pagg_encode.quirk_layout)
+    sp, sd, sm, ego_paths = paths, dists, m1, None
+    if choice["agg"] == "quirk":
+        from pathnet_tpu_torch.kernels.pagg_encode import quirk_layout
+        sp, sd, ego_paths, perm = quirk_layout(paths, dists)
+        sm = m1[:, perm].contiguous()
+    rows = check_k4_stages(tag, g, h, sp, sd, w, sm, keep, homo, tol, ego_paths=ego_paths,
+                           **choice)
+    check_segment_sum(tag, sp, rows, h.shape[0], rec,
                       homo_name("segment_sum", homo) if time_segment else None, homo,
-                      choice["agg"])
+                      choice["agg"], ego_paths)
     del rows
     return paths, dists, h, w, m1, keep, agg, g, bwd_args
 
@@ -1116,10 +1218,11 @@ def check_reproducible(dev, gc, Xc, X, z, psc, ps, dtype="float32", rnn="lstm"):
 
 def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype="float32",
                      microbatch=None, round_band=False, rnn="lstm", agg="attention", wl=WL,
-                     marker="merw"):
+                     marker="merw", quirk=False):
     """The protocol through the CLI on the card with temporary results and
     checkpoint directories (``--dtype dtype``, ``--rnn rnn``, ``--agg agg``,
-    ``-wl wl``, ``-mk marker``, ``--microbatch`` where given); checks its launches (one
+    ``-wl wl``, ``-mk marker``, ``--microbatch`` where given, ``--quirk-compat``
+    with ``quirk``); checks its launches (one
     sampler launch an epoch, ``walk_kernel(wl)``), checkpoints and
     accuracy, and returns the launch counts. At 10 rounds x 1000 epochs the
     mean test accuracy must lie inside the JAX ``band``, whose payload
@@ -1136,12 +1239,14 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype=
     if payload is not None and payload_fingerprint(DATASETS[name]) != payload:
         raise AssertionError(f"{name}: payload {payload_fingerprint(DATASETS[name])} is not "
                              f"the JAX band's {payload}")
-    out = os.path.join(tmp, f"{name}_h{hidden}_{dtype}_{rnn}_{agg}_wl{wl}_{marker}")
+    out = os.path.join(tmp, f"{name}_h{hidden}_{dtype}_{rnn}_{agg}_wl{wl}_{marker}"
+                       + ("_quirk" if quirk else ""))
     argv = ["-data", name, "-pr", root, "-r", str(rounds), "-e", str(PROTOCOL_EPOCHS),
             "-hid", str(hidden), "--dtype", dtype, "--rnn", rnn, "--agg", agg, "-wl", str(wl),
             "-mk", marker,
             "--results-dir", os.path.join(out, "results"),
-            "--ckpt-dir", os.path.join(out, "ckpt"), "--resume"]
+            "--ckpt-dir", os.path.join(out, "ckpt"), "--resume"] + (["--quirk-compat"]
+                                                                    if quirk else [])
     chunks = (1, 1, 1)   # train, validation, test chunks an epoch
     if microbatch is not None:
         argv += ["--microbatch", str(microbatch)]
@@ -1176,13 +1281,15 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype=
     if not all(f".{marker}.{rnn}.{agg}" in p for p in saved):
         raise AssertionError(f"{name}: rounds not checkpointed under the "
                              f".{marker}.{rnn}.{agg} key")
+    if quirk and not all(".quirk/" in p for p in saved):
+        raise AssertionError(f"{name}: rounds not checkpointed under the .quirk key: {saved}")
     accs = []
     for path in saved:
         with open(path) as f:
             accs.append(json.load(f)["metrics"]["accuracy"])
     mean, std = result["accuracy"]
     say(f"  {name}, {rounds} rounds x {PROTOCOL_EPOCHS} epochs at H = {hidden}, {dtype}, "
-        f"{rnn}, {agg}, wl = {wl}, -mk {marker}"
+        f"{rnn}, {agg}, wl = {wl}, -mk {marker}" + (", --quirk-compat" if quirk else "")
         + (f", microbatch {microbatch}" if microbatch else "")
         + f": acc {mean:.4f} +- {std:.4f} ("
         + ("no JAX band" if band is None else f"JAX {band[0]:.4f} +- {band[1]:.4f}")
@@ -1661,6 +1768,168 @@ def check_choice_host(dev, gc, Xc_np, psc, ps_host):
         step_card_vs_host(f"cornell {rnn} {agg}", PaggSpec(
             feat_dim=1703, hidden=HIDDEN, out_dim=5, walk_len=WL, dropout=0.7, rnn=rnn,
             agg=agg), dev, (psc, ps_host), (Xh.to(dev), Xh), idx7, yc)
+
+
+def check_remaining_kernels(root, dev, gen, rec, X, ps, idx, u, C, gc, Xc, uc, psc):
+    """The remaining model choices' instances of K3 and K4 against their plain
+    versions (phases 2 and 5's tolerances; the bf16 ones within BF16_TOL):
+    the MLP's on one 8192-target bgp request (K3), one bgp microbatch (K3
+    without and with the keep mask, K4, its three launches and the segment
+    sum; the attention and mean readouts) and cora's 2,708 targets (homo);
+    the bf16 GRU's on the same request, microbatch and cora (homo), and the
+    bf16 MLP's on that microbatch; the quirk's on cornell's 183 nodes at full
+    width (F = 1,703) with the LSTM, the GRU and the MLP. Each recorded
+    instance timed as phase 5, its bound at the flops its cell needs
+    (``cell_flops``; the bf16 ones at the tensor cores' rate)."""
+    import dataclasses
+
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.data.registry import load_dataset
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+    from pathnet_tpu_torch.sample import PathSampler
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=HIDDEN, out_dim=C, walk_len=WL)
+    paths, dists = ps.sample(idx, u=u)
+    S, nw, wl = paths.shape
+    for rnn, dtype in (("mlp", "float32"), ("gru", "bfloat16")):
+        bf16 = dtype == "bfloat16"
+        name = homo_name("pagg_encode_fwd", False, bf16, rnn)
+        model = PathNet(dataclasses.replace(spec, rnn=rnn, compute_dtype=dtype), device=dev,
+                        generator=torch.Generator().manual_seed(0))
+        h, w = model.encode_inputs(X)
+        agg = K.pagg_encode_fwd(h, paths, dists, *w, cell=rnn)
+        agg_p = K.pagg_encode_fwd_plain(h, paths, dists, *w, cell=rnn)
+        torch.cuda.synchronize()
+        err = float((agg - agg_p).abs().max())
+        if not k3_close(agg, agg_p, bf16):
+            raise AssertionError(f"bgp request: {name} max abs err {err}")
+        record_err(rec, name, err)
+        say(f"  bgp request: {name} max abs err {err:.3e} within "
+            + (f"{BF16_TOL:.4g} x max" if bf16 else f"atol = rtol = {K3_TOL}"))
+        o3 = S * nw * (cell_flops(rnn, HIDDEN, wl)[0] + 6 * HIDDEN)
+        timed(rec, name, lambda: K.pagg_encode_fwd(h, paths, dists, *w, cell=rnn),
+              lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, cell=rnn),
+              nbytes(h, paths, dists, agg, *w), o3, 50, bf16=bf16)
+        rec[name]["stages"] = time_k3_stages(name, h, paths, dists, w, cell=rnn)
+    del paths, dists, h, w, agg, agg_p
+
+    # one training microbatch: the MLP (attention, and the mean readout),
+    # the bf16 GRU, the bf16 MLP
+    for rnn, dtype, agg_ in (("mlp", "float32", "attention"), ("mlp", "float32", "mean"),
+                             ("gru", "bfloat16", "attention"),
+                             ("mlp", "bfloat16", "attention")):
+        bf16 = dtype == "bfloat16"
+        model = PathNet(dataclasses.replace(spec, dropout=0.7, rnn=rnn, compute_dtype=dtype,
+                                            agg=agg_),
+                        device=dev, generator=torch.Generator().manual_seed(0))
+        tag = f"bgp microbatch {rnn}{' ' + agg_ if agg_ != 'attention' else ''}" + (
+            " bf16" if bf16 else "")
+        paths, dists, h, w, m1, keep, agg, g, bwd_args = check_encode_kernels(
+            tag, ps, model, X, idx, u, gen, rec, kink=bf16)
+        name = homo_name("pagg_encode_bwd", False, bf16, rnn)
+        if agg_ == "attention" and name in rec:
+            b3, o3, b4, o4 = encode_bounds(h, paths, dists, m1, agg, g, w, rnn)
+            timed({tag: {}}, tag, lambda: K.pagg_encode_fwd(h, paths, dists, *w, m1, keep,
+                                                            cell=rnn),
+                  lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, m1, keep, cell=rnn),
+                  b3, o3, 20, bf16=bf16)
+            timed(rec, name, lambda: K.pagg_encode_bwd(*bwd_args, cell=rnn),
+                  lambda: K.pagg_encode_bwd_plain(*bwd_args, cell=rnn), b4, o4, 5, bf16=bf16)
+            rec[name]["stages"] = time_k4_stages(name, g, h, paths, dists, w, m1, keep,
+                                                 cell=rnn)
+        del paths, dists, h, w, m1, agg, g, bwd_args
+
+    # cora's 2,708 targets, homo: the MLP and the bf16 GRU
+    gcora, _, _, _, spec_d = load_dataset("cora", root, 0)
+    psk = PathSampler.build(gcora, NW, WL, device=dev)
+    Xk = torch.from_numpy(np.array(gcora.features, np.float32)).to(dev)
+    every = torch.arange(gcora.n, dtype=torch.int32, device=dev)
+    uk = draw_uniforms(WL, gcora.n * NW, gen, dev)
+    speck = PaggSpec(feat_dim=Xk.shape[1], hidden=HIDDEN, out_dim=spec_d.num_classes,
+                     walk_len=WL, dropout=0.7, variant="homo")
+    for rnn, dtype in (("mlp", "float32"), ("gru", "bfloat16")):
+        bf16 = dtype == "bfloat16"
+        model = PathNet(dataclasses.replace(speck, rnn=rnn, compute_dtype=dtype), device=dev,
+                        generator=torch.Generator().manual_seed(5))
+        paths, dists, h, w, m1, keep, agg, g, bwd_args = check_encode_kernels(
+            f"cora homo {rnn}{' bf16' if bf16 else ''}, all {gcora.n} targets", psk, model,
+            Xk, every, uk, gen, rec)
+        if not bf16:
+            b3, o3, b4, o4 = encode_bounds(h, paths, dists, m1, agg, g, w, rnn)
+            timed(rec, "pagg_encode_fwd mlp homo",
+                  lambda: K.pagg_encode_fwd(h, paths, dists, *w, homo=True, cell=rnn),
+                  lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, homo=True, cell=rnn),
+                  nbytes(h, paths, dists, agg, *w), o3, 20)
+            timed(rec, "pagg_encode_bwd mlp homo",
+                  lambda: K.pagg_encode_bwd(*bwd_args, cell=rnn),
+                  lambda: K.pagg_encode_bwd_plain(*bwd_args, cell=rnn), b4, o4, 5)
+        del paths, dists, h, w, m1, agg, g, bwd_args
+
+    # the quirk on cornell's nodes at full width, each cell (one record)
+    every = torch.arange(gc.n, dtype=torch.int32, device=dev)
+    specq = PaggSpec(feat_dim=Xc.shape[1], hidden=HIDDEN, out_dim=5, walk_len=WL, dropout=0.7,
+                     quirk_compat=True)
+    for rnn in ("lstm", "gru", "mlp"):
+        model = PathNet(dataclasses.replace(specq, rnn=rnn), device=dev,
+                        generator=torch.Generator().manual_seed(3))
+        paths, dists, h, w, m1, keep, agg, g, bwd_args = check_encode_kernels(
+            f"cornell quirk {rnn}, all {gc.n} targets", psc, model, Xc, every, uc, gen, rec)
+        if rnn == "lstm":
+            b3, o3, b4, o4 = encode_bounds(h, paths, dists, m1, agg, g, w)
+            timed(rec, "pagg_encode_fwd quirk",
+                  lambda: K.pagg_encode_fwd(h, paths, dists, *w, agg="quirk"),
+                  lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, agg="quirk"),
+                  nbytes(h, paths, dists, agg, *w), o3, 50)
+            timed(rec, "pagg_encode_bwd quirk",
+                  lambda: K.pagg_encode_bwd(*bwd_args, agg="quirk"),
+                  lambda: K.pagg_encode_bwd_plain(*bwd_args, agg="quirk"), b4, o4, 20)
+        del paths, dists, h, w, m1, agg, g, bwd_args
+
+
+def check_remaining_host(dev, gc, Xc_np, psc, ps_host):
+    """The MLP, the quirk and the bf16 GRU on the card against the host,
+    cornell at full width (F = 1,703): ``predict`` over all nodes with the
+    same draws (within K3_TOL; bf16 within BF16_TOL of the largest
+    log-probability), and one training step, its logits and every gradient
+    within 1e-4 (bf16: BF16_TOL) of the host's largest entry."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.data.splits import ratio_masks
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+    from pathnet_tpu_torch.train import predict
+
+    allc = torch.arange(gc.n, dtype=torch.int32)
+    trc = ratio_masks(gc.n, 1000, val_size=59)[0]
+    idx7 = torch.from_numpy(np.flatnonzero(trc).astype(np.int32))
+    yc = torch.from_numpy(np.random.default_rng(1).integers(0, 5, size=gc.n))
+    Xh = torch.from_numpy(Xc_np)
+    for tag, kw in (("mlp", dict(rnn="mlp")), ("quirk", dict(quirk_compat=True)),
+                    ("gru bf16", dict(rnn="gru", compute_dtype="bfloat16"))):
+        spec = PaggSpec(feat_dim=1703, hidden=HIDDEN, out_dim=5, walk_len=WL, **kw)
+        bf16 = spec.compute_dtype == "bfloat16"
+        m = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(6))
+        m_host = PathNet(spec, device="cpu")
+        m_host.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+        u = draw_uniforms(WL, gc.n * NW, torch.Generator().manual_seed(9), "cpu")
+        K.reset_launch_counts()
+        logp = predict(m, Xh.to(dev), psc, idx=allc.to(dev), u=u[None].to(dev))
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        if counts != {name: int(name in FORWARD_PATH) for name in KERNELS}:
+            raise AssertionError(f"cornell {tag} request launch counts {counts}")
+        want = predict(m_host, Xh, ps_host, idx=allc, u=u[None])
+        err = float((logp.cpu() - want).abs().max())
+        tol = BF16_TOL * float(want.abs().max()) if bf16 else K3_TOL
+        say(f"  cornell {tag} predict on the card vs the host (same draws, all {gc.n} "
+            f"nodes): max abs err {err:.3e} within {tol:.3g}")
+        if not torch.isfinite(logp).all() or err > tol:
+            raise AssertionError(f"cornell {tag} log-probs differ from the host's by {err}")
+        step_card_vs_host(f"cornell {tag}", PaggSpec(
+            feat_dim=1703, hidden=HIDDEN, out_dim=5, walk_len=WL, dropout=0.7, **kw), dev,
+            (psc, ps_host), (Xh.to(dev), Xh), idx7, yc, BF16_TOL if bf16 else 1e-4)
 
 
 def khop_probes(dists, levels):
@@ -2161,7 +2430,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rec = {name: {} for name in KERNELS + tuple(homo_name(n, True) for n in HOMO_KERNELS)
-           + BF16_KERNELS + CHOICE_KERNELS}
+           + BF16_KERNELS + CHOICE_KERNELS + REMAINING_KERNELS}
     meta = {
         "cdf_walk": ("pathnet_tpu_torch/csrc/walk_dists.cu", "pathnet_tpu/sample/alias.py:142"),
         "membership_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
@@ -2197,6 +2466,14 @@ def main() -> int:
     meta.update({homo_name(n, v, cell="gru"): (meta[n][0].replace(".cu", "_gru.cu"),
                                                meta[n][1])
                  for n in HOMO_KERNELS for v in (False, True)})
+    # so are the MLP's; the bf16 GRU's sit beside the f32 GRU's
+    meta.update({homo_name(n, v, cell="mlp"): (meta[n][0].replace(".cu", "_mlp.cu"),
+                                               "pathnet_tpu/models/pagg.py:180")
+                 for n in HOMO_KERNELS for v in (False, True)})
+    meta.update({homo_name(n, False, True, "gru"): meta[homo_name(n, False, cell="gru")]
+                 for n in HOMO_KERNELS})
+    meta.update({f"{n} quirk": (meta[n][0], "pathnet_tpu/models/pagg.py:316")
+                 for n in HOMO_KERNELS})
     meta.update({f"pagg_readout {a}": ("pathnet_tpu_torch/csrc/pagg_encode.cu",
                                        "pathnet_tpu/models/pagg.py:304")
                  for a in ("mean", "sum")})
@@ -2211,6 +2488,17 @@ def main() -> int:
                   "nn/cells.py:49-68), the bound at the 14 H^2 (K3) or 42 H^2 (K4) a walk "
                   "step the GRU needs" + (", homo" if v else "")
                   for n, k in zip(HOMO_KERNELS, ("K3", "K4")) for v in (False, True)})
+    notes.update({homo_name(n, v, cell="mlp"): f"{k}'s MLP instances (CELL = MLP_CELL, "
+                  "pagg.py:180-188), the bound at the 2.5 H^2 (K3) or 7.5 H^2 (K4) a walk "
+                  "step the MLP needs at wl = 4" + (", homo" if v else "")
+                  for n, k in zip(HOMO_KERNELS, ("K3", "K4")) for v in (False, True)})
+    notes.update({homo_name(n, False, True, "gru"): f"{k}'s bf16 GRU instances (BF16 and "
+                  "CELL = GRU_CELL), the bound at the GRU's flops at bf16's rate"
+                  for n, k in zip(HOMO_KERNELS, ("K3", "K4"))})
+    notes.update({f"{n} quirk": f"{k} under the quirk readout (AGG = QUIRK, "
+                  "pagg.py:316-338: the hetero launches on quirk_layout's walks, explicit "
+                  "ego nodes, the softmax's mean), timed at cornell's 183 targets"
+                  for n, k in zip(HOMO_KERNELS, ("K3", "K4"))})
     notes.update({f"pagg_readout {a}": f"K3's second launch, AGG = {a.upper()}; launches "
                   "are K3's in the run" for a in ("mean", "sum")})
     notes.update({f"pagg_attention_bwd {a}": f"K4's second launch, AGG = {a.upper()}; "
@@ -2500,6 +2788,27 @@ def main() -> int:
             run_protocol_cli("cornell", root, tmp, CORNELL_UNIFORM_ROUNDS, HIDDEN,
                              CORNELL_UNIFORM_BAND, CORNELL_PAYLOAD, round_band=True,
                              marker="uniform")
+
+        with Phase(f"17 the remaining model choices: MLP, bf16 GRU and quirk kernels (bgp, "
+                   f"cora, cornell), card vs host, seeded MLP rounds, cornell --rnn mlp, "
+                   f"--quirk-compat and --rnn gru --dtype bfloat16 {REMAINING_ROUNDS} x "
+                   f"{PROTOCOL_EPOCHS} each, cora --rnn mlp"):
+            check_remaining_kernels(root, dev, gen, rec, X, ps, idx, u, C, gc, Xc, uc, psc)
+            check_remaining_host(dev, gc, Xc_np, psc, ps_host)
+            check_reproducible(dev, gc, Xc, X, z, psc, ps, rnn="mlp")
+            for band, kw, names in (
+                    (CORNELL_MLP_BAND, dict(rnn="mlp"),
+                     [homo_name(n, False, cell="mlp") for n in HOMO_KERNELS]),
+                    (CORNELL_QUIRK_BAND, dict(quirk=True), [f"{n} quirk" for n in HOMO_KERNELS]),
+                    (CORNELL_GRU_BF16_BAND, dict(rnn="gru", dtype="bfloat16"),
+                     [homo_name(n, False, True, "gru") for n in HOMO_KERNELS])):
+                counts = run_protocol_cli("cornell", root, tmp, REMAINING_ROUNDS, HIDDEN, band,
+                                          CORNELL_PAYLOAD, round_band=True, **kw)
+                for name, kernel in zip(names, HOMO_KERNELS):
+                    rec[name]["launches"] = counts[kernel]
+            counts = run_protocol_cli("cora", root, tmp, 1, HIDDEN, None, rnn="mlp")
+            for name in HOMO_KERNELS:
+                rec[homo_name(name, True, cell="mlp")]["launches"] = counts[name]
 
     say(smi)
     say(json.dumps({"kernels": [

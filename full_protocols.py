@@ -2,12 +2,16 @@
 """The 10 x 1000 protocols that ``chip_smoke.py`` cuts to one round.
 
 Run from the root of a checkout on a machine with one CUDA card:
-``python3 full_protocols.py [name:marker ...]`` (default: all five). It
-copies ``data/edge_input/*.in`` into a temporary data root and runs, through
-``chip_smoke.run_protocol_cli`` (the CLI, 10 rounds x 1000 epochs, temporary
-results and checkpoint directories), cornell, cornell ``-mk uniform``, Nba
-at H = 256, cora and citeseer, each held inside its JAX band. Exits 1 if
-any lies outside its band or fails.
+``python3 full_protocols.py [label ...]`` (default: all eight; a label is
+``cornell:merw``, ``cornell:uniform``, ``Nba:merw``, ``cora:merw``,
+``citeseer:merw``, ``cornell:mlp``, ``cornell:quirk`` or
+``cornell:gru_bf16``). It copies ``data/edge_input/*.in`` into a temporary
+data root and runs, through ``chip_smoke.run_protocol_cli`` (the CLI, 10
+rounds x 1000 epochs, temporary results and checkpoint directories),
+cornell, cornell ``-mk uniform``, Nba at H = 256, cora, citeseer, and
+cornell ``--rnn mlp``, ``--quirk-compat`` and ``--rnn gru --dtype
+bfloat16``, each held inside its JAX band. Exits 1 if any lies outside its
+band or fails.
 """
 import glob
 import os
@@ -19,11 +23,20 @@ import traceback
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import chip_smoke as cs  # noqa: E402
 
-RUNS = [("cornell", cs.HIDDEN, cs.CORNELL_BAND, cs.CORNELL_PAYLOAD, "merw"),
-        ("cornell", cs.HIDDEN, cs.CORNELL_UNIFORM_BAND, cs.CORNELL_PAYLOAD, "uniform"),
-        ("Nba", cs.NBA_HIDDEN, cs.NBA_BAND, cs.NBA_PAYLOAD, "merw"),
-        ("cora", cs.HIDDEN, cs.CORA_BAND, cs.HOMO_PAYLOADS["cora"], "merw"),
-        ("citeseer", cs.HIDDEN, cs.CITESEER_BAND, cs.HOMO_PAYLOADS["citeseer"], "merw")]
+# (label, dataset, hidden, band, payload, run_protocol_cli's choices)
+RUNS = [("cornell:merw", "cornell", cs.HIDDEN, cs.CORNELL_BAND, cs.CORNELL_PAYLOAD, {}),
+        ("cornell:uniform", "cornell", cs.HIDDEN, cs.CORNELL_UNIFORM_BAND, cs.CORNELL_PAYLOAD,
+         dict(marker="uniform")),
+        ("Nba:merw", "Nba", cs.NBA_HIDDEN, cs.NBA_BAND, cs.NBA_PAYLOAD, {}),
+        ("cora:merw", "cora", cs.HIDDEN, cs.CORA_BAND, cs.HOMO_PAYLOADS["cora"], {}),
+        ("citeseer:merw", "citeseer", cs.HIDDEN, cs.CITESEER_BAND,
+         cs.HOMO_PAYLOADS["citeseer"], {}),
+        ("cornell:mlp", "cornell", cs.HIDDEN, cs.CORNELL_MLP_BAND, cs.CORNELL_PAYLOAD,
+         dict(rnn="mlp")),
+        ("cornell:quirk", "cornell", cs.HIDDEN, cs.CORNELL_QUIRK_BAND, cs.CORNELL_PAYLOAD,
+         dict(quirk=True)),
+        ("cornell:gru_bf16", "cornell", cs.HIDDEN, cs.CORNELL_GRU_BF16_BAND,
+         cs.CORNELL_PAYLOAD, dict(rnn="gru", dtype="bfloat16"))]
 
 
 def main(only) -> int:
@@ -34,14 +47,14 @@ def main(only) -> int:
         os.makedirs(os.path.join(root, "edge_input"))
         for f in glob.glob(os.path.join(cs.ROOT, "data", "edge_input", "*.in")):
             shutil.copy(f, os.path.join(root, "edge_input"))
-        for name, hidden, band, payload, marker in RUNS:
-            if only and f"{name}:{marker}" not in only:
+        for label, name, hidden, band, payload, kw in RUNS:
+            if only and label not in only:
                 continue
             try:
-                cs.run_protocol_cli(name, root, tmp, 10, hidden, band, payload, marker=marker)
+                cs.run_protocol_cli(name, root, tmp, 10, hidden, band, payload, **kw)
             except Exception:
                 traceback.print_exc()
-                failed.append(f"{name}:{marker}")
+                failed.append(label)
     print("FAILED " + " ".join(failed) if failed else "ALL INSIDE THEIR BANDS", flush=True)
     return 1 if failed else 0
 

@@ -1,16 +1,21 @@
 // K4's launch C, pagg_bptt_kernel, and its launch: BPTT on K3's walk tile.
-// Shared by pagg_encode_bwd.cu (the LSTM instances, f32 and bf16) and
-// pagg_encode_bwd_gru.cu (the GRU's, f32), which nvcc builds side by side;
-// the design is described in pagg_encode_bwd.cu.
+// Shared by pagg_encode_bwd.cu (the LSTM instances, f32 and bf16),
+// pagg_encode_bwd_gru.cu (the GRU's) and pagg_encode_bwd_mlp.cu (the
+// MLP's), which nvcc builds side by side; the design is described in
+// pagg_encode_bwd.cu.
 #pragma once
 #include "pagg_tile.cuh"
 
-// Launch C's GRU instances, compiled in pagg_encode_bwd_gru.cu; the
-// arguments are launch_bptt's.
-int pagg_bptt_gru(const void* dhn, const void* dists, const void* wd_t, const void* w_t,
-                  const void* hp, void* gt, const void* mask, float keep, const void* xin,
-                  const void* ego, const void* dego, void* dsel, void* drow, long long B,
-                  int wl, int H, void* stream);
+// Launch C's GRU and MLP instances, f32 and (bf16 nonzero) bf16, compiled in
+// pagg_encode_bwd_gru.cu and pagg_encode_bwd_mlp.cu; the other arguments
+// are launch_bptt's.
+#define PAGG_BPTT_SET_ARGS                                                                  \
+  int bf16, const void *dhn, const void *dists, const void *wd_t, const void *w_t,         \
+      const void *cs, void *gt, const void *mask, float keep, const void *xin,             \
+      const void *ego, const void *dego, void *dsel, void *drow, long long B, int wl,      \
+      int H, void *stream
+int pagg_bptt_gru(PAGG_BPTT_SET_ARGS);
+int pagg_bptt_mlp(PAGG_BPTT_SET_ARGS);
 
 namespace {
 // Launch C's shared bytes at width H: A [4H][LDA] in f32, then two chunks of
@@ -35,9 +40,10 @@ __device__ __forceinline__ float2 load_units(const float* __restrict__ s, long l
 // HOMO also reads xin and ego (launch A's) and, with DEGO (the attention
 // readout), dego (launch B's); BF16 takes the weights as bf16 and multiplies
 // on the tensor cores, A's f32 cotangents split into bf16 hi and lo halves
-// (pagg_tile.cuh); GRU runs the GRU's BPTT, cs then being the hp stream.
-// `align` is the alignment of wd_t and w_t in bytes.
-template <bool MASKED, int HC, bool HOMO, bool BF16, bool GRU = false, bool DEGO = true>
+// (pagg_tile.cuh); CELL = GRU_CELL runs the GRU's BPTT, cs then being the hp
+// stream; CELL = MLP_CELL the MLP's pass (w_t = W^T [H, H]; cs and gt not
+// read). `align` is the alignment of wd_t and w_t in bytes.
+template <bool MASKED, int HC, bool HOMO, bool BF16, int CELL = LSTM_CELL, bool DEGO = true>
 __global__ void __launch_bounds__(launch_threads(HC), launch_blocks(HC))
 pagg_bptt_kernel(const float* __restrict__ dhn,
                  const int* __restrict__ dists, const Elem<BF16>* __restrict__ wd_t,
@@ -47,6 +53,7 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
                  const float* __restrict__ dego, float* __restrict__ dsel,
                  float* __restrict__ drow, long long B, int wl, int Hrt, int align) {
   using W = Elem<BF16>;
+  constexpr bool GRU = CELL == GRU_CELL, MLP = CELL == MLP_CELL;
   constexpr Tile tc = tile_for(HC ? HC : 64, BF16);
   const Tile tr = tile_for(Hrt, BF16);
   const int H = HC ? HC : Hrt;
@@ -78,14 +85,17 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
   if (idle) jv[0] = jv[1] = false;
   const long long b0 = idle ? B : (long long)blockIdx.x * M + m0;
   if constexpr (BF16) {
-    // A's rows past 4H (to a multiple of 16) meet zero weight rows: finite
-    const int pad = (round_up(4 * H, 16) - 4 * H) * LDA;
+    // A's rows past 4H (the MLP: past H, its products' K) to a multiple of
+    // 16 meet zero weight rows: finite
+    const int k0 = MLP ? H : 4 * H;
+    const int pad = (round_up(k0, 16) - k0) * LDA;
     for (int e = threadIdx.x; e < pad; e += NT)
-      Ahi[4 * H * LDA + e] = Alo[4 * H * LDA + e] = __float2bfloat16_rn(0.0f);
+      Ahi[k0 * LDA + e] = Alo[k0 * LDA + e] = __float2bfloat16_rn(0.0f);
   }
   const long long left = B - b0;  // walks of the launch from b0 on
   // dh, dc and c_t of the thread's walks and units, carried down the steps
-  // (the GRU: dh, and in dcv the direct term z dh of the step)
+  // (the GRU: dh, and in dcv the direct term z dh of the step; the MLP: in
+  // dcv the step's d s, the same for every step)
   float dhv[TM][TN], dcv[TM][TN], cv[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -93,98 +103,140 @@ pagg_bptt_kernel(const float* __restrict__ dhn,
     for (int u = 0; u < TN; ++u) {
       const bool ok = i < left && jv[u];
       dhv[i][u] = ok ? dhn[(b0 + i) * H + jc[u]] : 0.0f;
-      cv[i][u] = ok && !GRU ? cs[((long long)(wl - 1) * B + b0 + i) * H + jc[u]] : 0.0f;
+      cv[i][u] = ok && !GRU && !MLP ? cs[((long long)(wl - 1) * B + b0 + i) * H + jc[u]] : 0.0f;
       dcv[i][u] = 0.0f;
     }
+  if constexpr (MLP) {
+    // d s = (d h_n W^T) / wl: d h_n to A transposed (BF16: its hi and lo
+    // halves), one product
+#pragma unroll
+    for (int u = 0; u < TN; ++u) {
+      if (!jv[u]) continue;
+      float v[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) v[i] = dhv[i][u];
+      if constexpr (BF16) {
+        const int e = jc[u] * LDA + m0;
+        store_split4(Ahi + e, Alo + e, v[0], v[1], v[2], v[3]);
+        store_split4(Ahi + e + 4, Alo + e + 4, v[4], v[5], v[6], v[7]);
+      } else {
+        store_rows(As + jc[u] * LDA + m0, v);
+      }
+    }
+    __syncthreads();
+    float a1[TM][TN][1];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int u = 0; u < TN; ++u) a1[i][u][0] = 0.0f;
+    if constexpr (BF16)
+      mma_gemm<1, mma_tiles(HC)>(a1, Ahi, Alo, LDA, Mp, m0, H, w_t, H, w_t, nullptr, nullptr,
+                                 region, jc, jv, H, NT, mode1);
+    else
+      tile_gemm<1>(a1, As, LDA, m0, H, w_t, H, w_t, Bs, KC, jc, H, NT, mode1);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int u = 0; u < TN; ++u) dcv[i][u] = a1[i][u][0] / wl;
+  }
 
   for (int t = wl - 1; t >= 0; --t) {
     const int pos = HOMO ? t : wl - 1 - t;
     const long long r0 = (long long)t * B + b0;  // stream row of walk b0
-    // gate gradients, rows in halves of 4 so that both units of a row move
-    // through global memory in one access: over gt, and into A transposed
-#pragma unroll
-    for (int ih = 0; ih < TM; ih += 4) {
-      float q[TN][4][4];  // [unit][gate][row]
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int i = ih + ii;
-        float2 gv[4] = {}, cp = {};
-        if (i < left) {
-#pragma unroll
-          for (int g = 0; g < 4; ++g) gv[g] = load_units(gt, r0 + i, 4 * H, g * H, H, jc, jv);
-          if (GRU)  // h_{t-1}
-            cp = load_units(cs, r0 + i, H, 0, H, jc, jv);
-          else if (t > 0)
-            cp = load_units(cs, r0 - B + i, H, 0, H, jc, jv);
-        }
-#pragma unroll
-        for (int u = 0; u < TN; ++u) {
-          if constexpr (GRU) {
-            const float r = u ? gv[0].y : gv[0].x, z = u ? gv[1].y : gv[1].x;
-            const float n = u ? gv[2].y : gv[2].x, a3 = u ? gv[3].y : gv[3].x;
-            const float dh = dhv[i][u];
-            const float da = dh * (1.0f - z) * (1.0f - n * n);
-            q[u][0][ii] = da * a3 * r * (1.0f - r);
-            q[u][1][ii] = dh * ((u ? cp.y : cp.x) - n) * z * (1.0f - z);
-            q[u][2][ii] = da;
-            q[u][3][ii] = da * r;
-            dcv[i][u] = dh * z;
-            continue;
-          }
-          const float si = u ? gv[0].y : gv[0].x, sf = u ? gv[1].y : gv[1].x;
-          const float tg = u ? gv[2].y : gv[2].x, so = u ? gv[3].y : gv[3].x;
-          const float tcv = tanhf(cv[i][u]);
-          const float dc = dcv[i][u] + dhv[i][u] * so * (1.0f - tcv * tcv);
-          q[u][0][ii] = dc * tg * si * (1.0f - si);
-          q[u][1][ii] = dc * (u ? cp.y : cp.x) * sf * (1.0f - sf);
-          q[u][2][ii] = dc * si * (1.0f - tg * tg);
-          q[u][3][ii] = dhv[i][u] * tcv * so * (1.0f - so);
-          dcv[i][u] = dc * sf;
-          cv[i][u] = u ? cp.y : cp.x;
-        }
-        if (i < left) {
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            store_units(gt, r0 + i, 4 * H, g * H, H, jc, jv, q[0][g][ii], q[1][g][ii]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < TN; ++u) {
-        if (!jv[u]) continue;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          if constexpr (BF16) {
-            const int e = (g * H + jc[u]) * LDA + m0 + ih;
-            store_split4(Ahi + e, Alo + e, q[u][g][0], q[u][g][1], q[u][g][2], q[u][g][3]);
-          } else {
-            *reinterpret_cast<float4*>(As + (g * H + jc[u]) * LDA + m0 + ih) =
-                make_float4(q[u][g][0], q[u][g][1], q[u][g][2], q[u][g][3]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // [d xin | dh_{t-1}] = dgates @ [w_ih; w_hh]^T
     float acc[TM][TN][2];
-    if constexpr (BF16) {
-      mma_gemm<2, mma_tiles(HC)>(acc, Ahi, Alo, LDA, Mp, m0, 4 * H, w_t, 4 * H, w_t, nullptr,
-                                 nullptr, region, jc, jv, H, NT, mode1);
-    } else {
+    if constexpr (MLP) {
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int u = 0; u < TN; ++u) acc[i][u][0] = acc[i][u][1] = 0.0f;
-      tile_gemm<2>(acc, As, LDA, m0, 4 * H, w_t, 4 * H, w_t, Bs, KC, jc, H, NT, mode2);
+        for (int u = 0; u < TN; ++u) acc[i][u][0] = dcv[i][u];
+    } else {
+      // gate gradients, rows in halves of 4 so that both units of a row move
+      // through global memory in one access: over gt, and into A transposed
+#pragma unroll
+      for (int ih = 0; ih < TM; ih += 4) {
+        float q[TN][4][4];  // [unit][gate][row]
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const int i = ih + ii;
+          float2 gv[4] = {}, cp = {};
+          if (i < left) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g) gv[g] = load_units(gt, r0 + i, 4 * H, g * H, H, jc, jv);
+            if (GRU)  // h_{t-1}
+              cp = load_units(cs, r0 + i, H, 0, H, jc, jv);
+            else if (t > 0)
+              cp = load_units(cs, r0 - B + i, H, 0, H, jc, jv);
+          }
+#pragma unroll
+          for (int u = 0; u < TN; ++u) {
+            if constexpr (GRU) {
+              const float r = u ? gv[0].y : gv[0].x, z = u ? gv[1].y : gv[1].x;
+              const float n = u ? gv[2].y : gv[2].x, a3 = u ? gv[3].y : gv[3].x;
+              const float dh = dhv[i][u];
+              const float da = dh * (1.0f - z) * (1.0f - n * n);
+              q[u][0][ii] = da * a3 * r * (1.0f - r);
+              q[u][1][ii] = dh * ((u ? cp.y : cp.x) - n) * z * (1.0f - z);
+              q[u][2][ii] = da;
+              q[u][3][ii] = da * r;
+              dcv[i][u] = dh * z;
+              continue;
+            }
+            const float si = u ? gv[0].y : gv[0].x, sf = u ? gv[1].y : gv[1].x;
+            const float tg = u ? gv[2].y : gv[2].x, so = u ? gv[3].y : gv[3].x;
+            const float tcv = tanhf(cv[i][u]);
+            const float dc = dcv[i][u] + dhv[i][u] * so * (1.0f - tcv * tcv);
+            q[u][0][ii] = dc * tg * si * (1.0f - si);
+            q[u][1][ii] = dc * (u ? cp.y : cp.x) * sf * (1.0f - sf);
+            q[u][2][ii] = dc * si * (1.0f - tg * tg);
+            q[u][3][ii] = dhv[i][u] * tcv * so * (1.0f - so);
+            dcv[i][u] = dc * sf;
+            cv[i][u] = u ? cp.y : cp.x;
+          }
+          if (i < left) {
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              store_units(gt, r0 + i, 4 * H, g * H, H, jc, jv, q[0][g][ii], q[1][g][ii]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < TN; ++u) {
+          if (!jv[u]) continue;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            if constexpr (BF16) {
+              const int e = (g * H + jc[u]) * LDA + m0 + ih;
+              store_split4(Ahi + e, Alo + e, q[u][g][0], q[u][g][1], q[u][g][2], q[u][g][3]);
+            } else {
+              *reinterpret_cast<float4*>(As + (g * H + jc[u]) * LDA + m0 + ih) =
+                  make_float4(q[u][g][0], q[u][g][1], q[u][g][2], q[u][g][3]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+
+      // [d xin | dh_{t-1}] = dgates @ [w_ih; w_hh]^T
+      if constexpr (BF16) {
+        mma_gemm<2, mma_tiles(HC)>(acc, Ahi, Alo, LDA, Mp, m0, 4 * H, w_t, 4 * H, w_t, nullptr,
+                                   nullptr, region, jc, jv, H, NT, mode1);
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int u = 0; u < TN; ++u) acc[i][u][0] = acc[i][u][1] = 0.0f;
+        tile_gemm<2>(acc, As, LDA, m0, 4 * H, w_t, 4 * H, w_t, Bs, KC, jc, H, NT, mode2);
+      }
     }
 
-    // dh_{t-1} stays in registers (the GRU adds its direct term); d xin,
-    // dropped out, is dsel: to its stream and over A (the product ended with
-    // a barrier)
+    // dh_{t-1} stays in registers (the GRU adds its direct term); d xin (the
+    // MLP: d s), dropped out, is dsel: to its stream and over A (the product,
+    // or the last step's select products, ended with a barrier)
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
+      if constexpr (!MLP) {
 #pragma unroll
-      for (int u = 0; u < TN; ++u) dhv[i][u] = GRU ? acc[i][u][1] + dcv[i][u] : acc[i][u][1];
+        for (int u = 0; u < TN; ++u) dhv[i][u] = GRU ? acc[i][u][1] + dcv[i][u] : acc[i][u][1];
+      }
       if (i >= left) continue;
       if (MASKED) {
         const uint8_t* mr = mask + (r0 + i) * H;
@@ -282,21 +334,21 @@ using BpttKernel = void (*)(const float*, const int*, const Elem<BF16>*, const E
 
 // The homo instances without d ego (the mean and sum readouts) are apart
 // (DEGO false), so the attention instances are the code they were.
-template <int HC, bool BF16, bool GRU = false>
+template <int HC, bool BF16, int CELL = LSTM_CELL>
 BpttKernel<BF16> bptt_instance(bool masked, bool homo, bool dego) {
   if (homo && !dego)
-    return masked ? pagg_bptt_kernel<true, HC, true, BF16, GRU, false>
-                  : pagg_bptt_kernel<false, HC, true, BF16, GRU, false>;
-  return masked ? (homo ? pagg_bptt_kernel<true, HC, true, BF16, GRU>
-                        : pagg_bptt_kernel<true, HC, false, BF16, GRU>)
-                : (homo ? pagg_bptt_kernel<false, HC, true, BF16, GRU>
-                        : pagg_bptt_kernel<false, HC, false, BF16, GRU>);
+    return masked ? pagg_bptt_kernel<true, HC, true, BF16, CELL, false>
+                  : pagg_bptt_kernel<false, HC, true, BF16, CELL, false>;
+  return masked ? (homo ? pagg_bptt_kernel<true, HC, true, BF16, CELL>
+                        : pagg_bptt_kernel<true, HC, false, BF16, CELL>)
+                : (homo ? pagg_bptt_kernel<false, HC, true, BF16, CELL>
+                        : pagg_bptt_kernel<false, HC, false, BF16, CELL>);
 }
 
 // Launch C at width H: f32, the instance with the tile compiled in where
-// there is one (H = 64, 256); bf16 and the GRU (f32 only), the H = 64
-// instance or the run-time one.
-template <bool BF16, bool GRU>
+// there is one (H = 64, 256; the GRU and the MLP, 64); bf16, H = 64, 32 or
+// the run-time one.
+template <bool BF16, int CELL>
 int launch_bptt(const void* dhn, const void* dists, const void* wd_t, const void* w_t,
                 const void* cs, void* gt, const void* mask, float keep, const void* xin,
                 const void* ego, const void* dego, void* dsel, void* drow, long long B,
@@ -309,12 +361,12 @@ int launch_bptt(const void* dhn, const void* dists, const void* wd_t, const void
   // compile the f32 LSTM instances into the GRU's translation unit too
   BpttKernel<BF16> kernel;
   if constexpr (BF16)
-    kernel = H == 64   ? bptt_instance<64, true>(masked, homo, de)
-             : H == 32 ? bptt_instance<32, true>(masked, homo, de)
-                       : bptt_instance<0, true>(masked, homo, de);
-  else if constexpr (GRU)
-    kernel = H == 64 ? bptt_instance<64, false, true>(masked, homo, de)
-                     : bptt_instance<0, false, true>(masked, homo, de);
+    kernel = H == 64   ? bptt_instance<64, true, CELL>(masked, homo, de)
+             : H == 32 ? bptt_instance<32, true, CELL>(masked, homo, de)
+                       : bptt_instance<0, true, CELL>(masked, homo, de);
+  else if constexpr (CELL != LSTM_CELL)
+    kernel = H == 64 ? bptt_instance<64, false, CELL>(masked, homo, de)
+                     : bptt_instance<0, false, CELL>(masked, homo, de);
   else
     kernel = H == 64    ? bptt_instance<64, false>(masked, homo, de)
              : H == 256 ? bptt_instance<256, false>(masked, homo, de)
@@ -326,6 +378,14 @@ int launch_bptt(const void* dhn, const void* dists, const void* wd_t, const void
       (const float*)dego, (float*)dsel, (float*)drow, B, wl, H,
       alignment((uintptr_t)wd_t | (uintptr_t)w_t));
   return (int)cudaGetLastError();
+}
+
+// One cell's launch C set (see PAGG_BPTT_SET_ARGS): the f32 or the bf16
+// instances by bf16.
+template <int CELL>
+int launch_bptt_set(PAGG_BPTT_SET_ARGS) {
+  return (bf16 ? launch_bptt<true, CELL> : launch_bptt<false, CELL>)(
+      dhn, dists, wd_t, w_t, cs, gt, mask, keep, xin, ego, dego, dsel, drow, B, wl, H, stream);
 }
 
 }  // namespace

@@ -16,7 +16,7 @@
 //   homo:   out = mean over nw of (1 + score) * h_n          -> [T, H]
 // or, under the mean and sum readouts (AGG, pagg.py:304-307, either
 // variant), out = the mean or the sum over nw of h_n: no score, no ego row.
-// The GRU (GRU, nn/cells.py:49-68, f32 only) takes its weights packed by the
+// The GRU (CELL = GRU_CELL, nn/cells.py:49-68) takes its weights packed by the
 // wrapper into the LSTM's [H, 4H] layout: w_ih = [W_ir, W_iz, W_in, 0],
 // w_hh = [W_hr, W_hz, 0, W_hn], b_ih = [b_ir, b_iz, b_in, 0], b_hh =
 // [b_hr, b_hz, 0, b_hn]. The gate product below is then unchanged, and its
@@ -26,10 +26,25 @@
 // with b_hn inside the product with r, as torch.nn.GRU and JAX have it.
 // The packed product does 16 H^2 flops a step where the GRU needs 12 H^2
 // (a first kernel: a [2H, 3H] product with a split n group is for later).
-// h_{t-1} is read back from A's h half, where the last step left it. The
-// GRU and AGG are template parameters, so the LSTM / attention instances
-// are the code they were; the GRU instances are compiled at H = 64 and at
-// the run-time width, in pagg_encode_gru.cu.
+// h_{t-1} is read back from A's h half, where the last step left it.
+// The MLP (CELL = MLP_CELL, pagg.py:180-188): h_n = mean_t(s_t) @ W + b, W
+// and b given as w_ih and b_ih (w_hh, b_hh empty). Each step's select and
+// dropout are the LSTM's; s_t is added into registers (c_t's), and after
+// the last step the mean goes to A's s half and one [M, H] x [H, H] product
+// (the select's tile_gemm<1>, or mma_gemm<1> under BF16) plus b gives h_n:
+// no gate product. Its bound is 2 H^2 flops a walk step for the select
+// plus 2 H^2 a walk (2.5 H^2 a step at wl = 4: 0.20 ms at the bgp request
+// at 67 TFLOP/s, against ~29 MB of unique bytes, 9 us); the select's
+// product per class present in the tile is then most of the work.
+// The cell (CELL) and AGG are template parameters, so the LSTM / attention
+// instances are the code they were; the GRU's and the MLP's instances, f32
+// at H = 64 and the run-time width and bf16 at H = 64, 32 and the run-time
+// width, are compiled in pagg_encode_gru.cu and pagg_encode_mlp.cu.
+// The quirk readout (AGG = QUIRK, JAX's quirk_compat, pagg.py:316-338):
+// the wrapper lays the walks out so that the hetero encode reads them in
+// the quirk's order, and passes the ego nodes as one-step walks (paths with
+// wl = 1); the readout is the hetero attention's, its weighted sum divided
+// by nw.
 // HOMO is a template parameter of both launches, so the hetero instances
 // are the code they were; the homo encode also stores the walk's ego row
 // to a scratch [T * nw, H] that the readout reads in place of h[paths[0]].
@@ -49,7 +64,9 @@
 // bf16's tensor-core rate (~989 TFLOP/s dense: ~0.10 ms at the bgp request);
 // the tile's shared-memory traffic and its epilogue keep it well above that
 // (pagg_tile.cuh). The bf16 instances are compiled at H = 64 (bgp) and 32
-// (Electronics) and at the run-time width.
+// (Electronics) and at the run-time width. The bf16 GRU rounds its n-group
+// columns x W_in + b_in and h W_hn + b_hn (JAX's bf16 gx and gh there) and
+// h_t.
 //
 // Bound on the H100: f32 FMA work on the CUDA cores, 18 H^2 flops per walk
 // step (2 H^2 for the selected distance transform, 16 H^2 for the gates):
@@ -113,7 +130,7 @@ __global__ void pagg_readout_kernel(const W* __restrict__ h,
                                     const float* __restrict__ attb,
                                     float* __restrict__ out, int nw, int wl, int H) {
   extern __shared__ float sc[];  // [nw] scores, then the walks' weights
-  if constexpr (AGG != ATTENTION) {
+  if constexpr (AGG == MEAN || AGG == SUM) {
     // part holds [G][H] partial sums: group q adds walks q, q + G, ..., a
     // float4 of units at a time where the rows allow it
     extern __shared__ __align__(16) float part[];
@@ -172,7 +189,7 @@ __global__ void pagg_readout_kernel(const W* __restrict__ h,
   for (int j = threadIdx.x; j < H; j += blockDim.x) {
     float o = 0.0f;
     for (int p = 0; p < nw; ++p) o += sc[p] * hn[(b0 + p) * H + j];
-    out[(long long)blockIdx.x * H + j] = HOMO ? o / nw : o;
+    out[(long long)blockIdx.x * H + j] = HOMO || AGG == QUIRK ? o / nw : o;
   }
 }
 
@@ -182,14 +199,15 @@ int launch_readout(const void* h, const void* paths, const void* hn, const void*
                    int H, int agg, void* stream) {
   const int threads = H > 128 ? 256 : 128;
   // attention: nw scores; mean, sum: the groups' partial sums (see the kernel)
+  const bool att = agg == ATTENTION || agg == QUIRK;
   const int smem =
-      (agg == ATTENTION ? nw : agg_groups(H, threads, agg_vec4(H, (uintptr_t)hn)) * H) *
-      (int)sizeof(float);
+      (att ? nw : agg_groups(H, threads, agg_vec4(H, (uintptr_t)hn)) * H) * (int)sizeof(float);
   // mean and sum read neither the table nor the ego rows
-  const auto kernel = agg == MEAN ? pagg_readout_kernel<MEAN, false, W>
-                      : agg == SUM ? pagg_readout_kernel<SUM, false, W>
-                      : ego        ? pagg_readout_kernel<ATTENTION, true, W>
-                                   : pagg_readout_kernel<ATTENTION, false, W>;
+  const auto kernel = agg == MEAN    ? pagg_readout_kernel<MEAN, false, W>
+                      : agg == SUM   ? pagg_readout_kernel<SUM, false, W>
+                      : agg == QUIRK ? pagg_readout_kernel<QUIRK, false, W>
+                      : ego          ? pagg_readout_kernel<ATTENTION, true, W>
+                                     : pagg_readout_kernel<ATTENTION, false, W>;
   if (int e = allow_smem(kernel, smem)) return e;
   kernel<<<T, threads, smem, (cudaStream_t)stream>>>(
       (const W*)h, (const int*)paths, (const float*)hn, (const float*)ego,
@@ -213,26 +231,28 @@ extern "C" int pathnet_pagg_encode_tile(int H, int bf16, void* out) {
 
 // Launch 1: h_n [T * nw, H] of every walk; homo where ego [T * nw, H] is
 // given, which then receives each walk's ego row; bf16 where bf16 is
-// nonzero (h and the six weights bf16); the GRU on packed weights where gru
-// is nonzero (f32 only).
+// nonzero (h and the six weights bf16); cell 0 the LSTM, 1 the GRU on packed
+// weights, 2 the MLP (W as w_ih, b as b_ih).
 extern "C" int pathnet_pagg_encode_walks(
     const void* h, const void* paths, const void* dists, const void* wd,
     const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
     const void* b_hh, const void* mask, float keep, void* hn, void* ego, int T, int nw,
-    int wl, int H, int bf16, int gru, void* stream) {
+    int wl, int H, int bf16, int cell, void* stream) {
   return launch_encode<false>(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep,
-                              hn, ego, Streams{}, T, nw, wl, H, bf16, gru, stream);
+                              hn, ego, Streams{}, T, nw, wl, H, bf16, cell, stream);
 }
 
 // Launch 2: the readout [T, H] from h_n: agg 0 attention (homo where ego,
 // launch 1's, is given; the hetero ego rows from a bf16 table where bf16 is
-// nonzero), 1 mean, 2 sum (h, paths, ego, attw and attb not read).
+// nonzero), 1 mean, 2 sum (h, paths, ego, attw and attb not read), 3 quirk
+// (hetero attention, its sum divided by nw; paths holds each walk's ego node
+// with wl = 1).
 extern "C" int pathnet_pagg_readout(const void* h, const void* paths,
                                     const void* hn, const void* ego, const void* attw,
                                     const void* attb, void* out, int T, int nw,
                                     int wl, int H, int bf16, int agg, void* stream) {
   if (T == 0) return 0;
-  if (agg < ATTENTION || agg > SUM) return (int)cudaErrorInvalidValue;
+  if (agg < ATTENTION || agg > QUIRK) return (int)cudaErrorInvalidValue;
   return (bf16 ? launch_readout<__nv_bfloat16> : launch_readout<float>)(
       h, paths, hn, ego, attw, attb, out, T, nw, wl, H, agg, stream);
 }

@@ -49,7 +49,7 @@
 // gradients and zero partial sums (88 MB more) to keep the attention
 // layout, and lost to one repeat_interleave.
 //
-// The GRU (GRU, f32; K3's packed weights, see pagg_encode.cu): launch A
+// The GRU (CELL = GRU_CELL; K3's packed weights, see pagg_encode.cu): launch A
 // writes gt as (r, z, n, h W_hn + b_hn), hp, and no cs. Launch C reads
 // h_{t-1} from hp in place of cs and carries only dh: with dn = dh (1 - z),
 // dz = dh (h_{t-1} - n) and da = dn (1 - n^2), the packed pre-activation
@@ -58,9 +58,29 @@
 // dh_{t-1}, and the direct term z dh, kept in the LSTM's dc registers, is
 // added after it. The contractions then give the packed weights' gradients.
 // Bound: 42 H^2 flops a walk step (3.37 ms at the bgp microbatch), though
-// the packed products run the LSTM's 54. The GRU instances of launches A
-// and C are compiled in pagg_encode_bwd_gru.cu, launch C's kernel being in
-// pagg_bptt.cuh.
+// the packed products run the LSTM's 54. Under BF16 launch A is K3's bf16
+// GRU (its n-group columns and h_t rounded, gt holding the rounded
+// h W_hn + b_hn), and launch C is unchanged but for its products.
+// The MLP (CELL = MLP_CELL, W as w_ih, b as b_ih): launch A writes xr, xin
+// and, in hp's place, the walks' mean input m [T * nw, H], no cs and no gt;
+// launch C has no recurrence: one product a tile, d s = (d h_n W^T) / wl
+// (w_t = W^T [H, H]), the same for every step, then each step's dropout,
+// homo ReLU and select products as the LSTM's. The wrapper contracts dW =
+// m^T d h_n and db = sum d h_n. Bound: 2 H^2 flops a walk step for each of
+// the recompute's select, launch C's select products and dwd's contraction,
+// plus 6 H^2 a walk (the mean's product, d s, dW): 7.5 H^2 a step at wl =
+// 4, 0.59 ms at the bgp microbatch at 67 TFLOP/s; the streams, 3 H floats
+// a walk step (1.0 GB there), make the bytes' bound about 0.5 ms.
+// The GRU's and the MLP's instances of launches A and C, f32 at H = 64 and
+// the run-time width and bf16 at H = 64, 32 and the run-time width, are
+// compiled in pagg_encode_bwd_gru.cu and pagg_encode_bwd_mlp.cu, launch C's
+// kernel being in pagg_bptt.cuh.
+//
+// The quirk readout (AGG = QUIRK, pagg.py:316-338): the wrapper runs the
+// hetero launches on the quirk's layout (pagg_encode.cu), launch B reads
+// the ego rows at the nodes the wrapper passes as one-step walks and scales
+// its cotangent by 1 / nw (the readout's mean), and the segment sum takes
+// the ego rows' gradients to those nodes.
 //
 // bf16 compute (BF16, the table and the six cast weights bf16): launch A is
 // K3's bf16 encode with STREAMS, so the streams hold exactly the forward's
@@ -138,7 +158,8 @@ __global__ void pagg_agg_bwd_kernel(const float* __restrict__ g, float* __restri
   }
 }
 
-template <bool HOMO, typename W>
+// QUIRK: the hetero attention backward of g / nw (the quirk readout's mean).
+template <bool HOMO, typename W, bool QUIRK = false>
 __global__ void pagg_attention_bwd_kernel(
     const float* __restrict__ g, const W* __restrict__ h,
     const int* __restrict__ paths, const float* __restrict__ hn,
@@ -189,8 +210,13 @@ __global__ void pagg_attention_bwd_kernel(
       dot += at[p] * ds[p];
     }
     dot = warp_sum(dot);
-    for (int p = lane; p < nw; p += 32)
+    for (int p = lane; p < nw; p += 32) {
       ds[p] = at[p] * (ds[p] - dot) * (sc[p] > 0.0f ? 1.0f : 0.01f);
+      if (QUIRK) {
+        ds[p] /= nw;
+        at[p] /= nw;
+      }
+    }
   }
   __syncthreads();
   for (int e = threadIdx.x; e < nw * H; e += blockDim.x) {
@@ -221,7 +247,7 @@ int launch_attention(const void* g, const void* h, const void* paths, const void
                      const void* ego, const void* attw, const void* attb, void* dhn,
                      void* dego, void* part, int T, int nw, int wl, int H, int agg,
                      void* stream) {
-  if (agg != ATTENTION) {
+  if (agg == MEAN || agg == SUM) {
     const long long B = (long long)T * nw;
     const bool v4 = agg_vec4(H, (uintptr_t)g | (uintptr_t)dhn);
     const long long n = B * (v4 ? H / 4 : H);
@@ -231,8 +257,9 @@ int launch_attention(const void* g, const void* h, const void* paths, const void
     return (int)cudaGetLastError();
   }
   const int smem = 3 * nw * (int)sizeof(float);
-  const auto kernel = ego ? pagg_attention_bwd_kernel<true, W>
-                          : pagg_attention_bwd_kernel<false, W>;
+  const auto kernel = agg == QUIRK ? pagg_attention_bwd_kernel<false, W, true>
+                      : ego        ? pagg_attention_bwd_kernel<true, W>
+                                   : pagg_attention_bwd_kernel<false, W>;
   if (int e = allow_smem(kernel, smem)) return e;
   kernel<<<T, H > 128 ? 256 : 128, smem, (cudaStream_t)stream>>>(
       (const float*)g, (const W*)h, (const int*)paths, (const float*)hn,
@@ -246,17 +273,18 @@ int launch_attention(const void* g, const void* h, const void* paths, const void
 // Launch A: h_n [T * nw, H] and the streams xr, xin, hp, cs [wl, T * nw, H]
 // and gt [wl, T * nw, 4H]; homo where ego [T * nw, H] is given, which then
 // receives each walk's ego row; bf16 where bf16 is nonzero (h and the six
-// weights bf16); the GRU on packed weights where gru is nonzero (f32; cs is
-// not written and may be null).
+// weights bf16); cell 0 the LSTM, 1 the GRU on packed weights (cs is not
+// written and may be null), 2 the MLP (hp receives the mean input [T * nw,
+// H]; cs and gt are not written and may be null).
 extern "C" int pathnet_pagg_encode_walks_streams(
     const void* h, const void* paths, const void* dists, const void* wd,
     const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
     const void* b_hh, const void* mask, float keep, void* hn, void* xr, void* xin,
     void* hp, void* cs, void* gt, void* ego, int T, int nw, int wl, int H, int bf16,
-    int gru, void* stream) {
+    int cell, void* stream) {
   const Streams st = {(float*)xr, (float*)xin, (float*)hp, (float*)cs, (float*)gt};
   return launch_encode<true>(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep,
-                             hn, ego, st, T, nw, wl, H, bf16, gru, stream);
+                             hn, ego, st, T, nw, wl, H, bf16, cell, stream);
 }
 
 // Launch B: d h_n [T * nw, H] from g [T, H] and h_n; under agg 0
@@ -265,13 +293,14 @@ extern "C" int pathnet_pagg_encode_walks_streams(
 // [T * nw, H] and each target's terms of the attention weights' gradient,
 // part [T, 2H + 1] (d attw, then d attb). Under agg 1 (mean) and 2 (sum) it
 // reads g alone and writes d h_n alone: h, paths, hn, ego, attw, attb, dego
-// and part may be null.
+// and part may be null. agg 3 (quirk): the hetero attention's of g / nw,
+// paths holding each walk's ego node with wl = 1.
 extern "C" int pathnet_pagg_attention_bwd(
     const void* g, const void* h, const void* paths, const void* hn, const void* ego,
     const void* attw, const void* attb, void* dhn, void* dego, void* part,
     int T, int nw, int wl, int H, int bf16, int agg, void* stream) {
   if (T == 0) return 0;
-  if (agg < ATTENTION || agg > SUM) return (int)cudaErrorInvalidValue;
+  if (agg < ATTENTION || agg > QUIRK) return (int)cudaErrorInvalidValue;
   return (bf16 ? launch_attention<__nv_bfloat16> : launch_attention<float>)(
       g, h, paths, hn, ego, attw, attb, dhn, dego, part, T, nw, wl, H, agg, stream);
 }
@@ -281,20 +310,23 @@ extern "C" int pathnet_pagg_attention_bwd(
 // [wl, T * nw, H]. wd_t = wd transposed per class [wl, H, H]; w_t =
 // [w_ih; w_hh]^T [4H, 2H]; both bf16 where bf16 is nonzero. Homo where ego
 // is given, with xin (launch A's) and dego (launch B's; null under the mean
-// and sum readouts, which give the ego row no gradient). cs is launch A's
-// cs, or (gru nonzero, f32 only) its hp.
+// and sum readouts, which give the ego row no gradient). cell 0: cs is
+// launch A's cs; 1 (the GRU): its hp; 2 (the MLP): w_t = W^T [H, H], and
+// cs and gt are not read (they may be null).
 extern "C" int pathnet_pagg_bptt(const void* dhn, const void* dists,
                                  const void* wd_t, const void* w_t, const void* cs,
                                  void* gt, const void* mask, float keep, const void* xin,
                                  const void* ego, const void* dego, void* dsel,
                                  void* drow, int T, int nw, int wl, int H, int bf16,
-                                 int gru, void* stream) {
+                                 int cell, void* stream) {
   const long long B = (long long)T * nw;
   if (B == 0) return 0;
-  if (gru && bf16) return (int)cudaErrorInvalidValue;
-  return (gru    ? pagg_bptt_gru
-          : bf16 ? launch_bptt<true, false>
-                 : launch_bptt<false, false>)(
+  if (cell == GRU_CELL || cell == MLP_CELL)
+    return (cell == GRU_CELL ? pagg_bptt_gru : pagg_bptt_mlp)(
+        bf16, dhn, dists, wd_t, w_t, cs, gt, mask, keep, xin, ego, dego, dsel, drow, B, wl, H,
+        stream);
+  if (cell != LSTM_CELL) return (int)cudaErrorInvalidValue;
+  return (bf16 ? launch_bptt<true, LSTM_CELL> : launch_bptt<false, LSTM_CELL>)(
       dhn, dists, wd_t, w_t, cs, gt, mask, keep, xin, ego, dego, dsel, drow, B, wl, H,
       stream);
 }

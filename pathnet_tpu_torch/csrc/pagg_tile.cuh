@@ -12,18 +12,22 @@
 // to bf16 where the JAX package's bf16 encode holds them in bf16
 // (pathnet_tpu/models/pagg.py:233-279): the selected row
 // round(round(x W[d]) + b[d]), the dropped-out input round(s / keep) (keep
-// given rounded to bf16), and c_t and h_t at the end of each step. GRU =
-// true runs the GRU (gates r, z, n) on weights packed into the LSTM's layout
-// (see pagg_encode.cu): the same product, and an epilogue that reads h_{t-1}
-// from the h half of A. The design and its bound are described in
-// pagg_encode.cu.
+// given rounded to bf16), and c_t and h_t at the end of each step. CELL is
+// the encoder: LSTM_CELL; GRU_CELL, the GRU (gates r, z, n) on weights
+// packed into the LSTM's layout (see pagg_encode.cu): the same product, and
+// an epilogue that reads h_{t-1} from the h half of A (BF16 rounds its two
+// n-group columns and h_t); MLP_CELL, h_n = mean_t(s_t) @ W + b with W as
+// w_ih and b as b_ih: the selected rows summed in registers over the steps,
+// then one [M, H] x [H, H] product of their mean, no gate product (BF16
+// rounds the mean, then h_n = round(round(m W) + b)). The design and its
+// bound are described in pagg_encode.cu.
 //
 // The BF16 instances' products run on the bf16 tensor cores (mma_gemm,
 // mma.sync m16n8k16 with f32 accumulators). A [s_t | h_{t-1}] holds bf16
 // values only (the gathered row, the rounded selected row, the rounded
 // h_{t-1}), so it is kept in bf16 and its operands are exact; the products
-// then differ from the f32 CUDA-core product (tile_gemm, which the f32 and
-// GRU instances keep) only in the order of the f32 sums. What bounds them
+// then differ from the f32 CUDA-core product (tile_gemm, which the f32
+// instances keep) only in the order of the f32 sums. What bounds them
 // on the H100 is not the tensor cores (18 H^2 flops a walk step are 0.098
 // ms at the bgp request at 989 TFLOP/s) but shared memory and the tile's
 // epilogue: mma_gemm stages each product's f32 result through a C tile in
@@ -39,20 +43,23 @@
 #include <stdint.h>
 #include <type_traits>
 
-// The GRU's encode instances, each built in a translation unit of its own
-// so that nvcc compiles them beside the others: K3's (pagg_encode_gru.cu)
-// and K4's forward recompute (STREAMS, pagg_encode_bwd_gru.cu). The
-// arguments are launch_encode's, the streams as their five pointers.
-int pagg_encode_gru(const void* h, const void* paths, const void* dists, const void* wd,
-                    const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
-                    const void* b_hh, const void* mask, float keep, void* hn, void* ego,
-                    long long B, int wl, int H, void* stream);
-int pagg_encode_gru_streams(const void* h, const void* paths, const void* dists,
-                            const void* wd, const void* bd, const void* w_ih,
-                            const void* w_hh, const void* b_ih, const void* b_hh,
-                            const void* mask, float keep, void* hn, void* ego, float* xr,
-                            float* xin, float* hp, float* cs, float* gt, long long B,
-                            int wl, int H, void* stream);
+// The encoders (template parameter CELL; the C entries' cell codes).
+enum { LSTM_CELL = 0, GRU_CELL = 1, MLP_CELL = 2 };
+
+// The encode instances of the GRU and the MLP, f32 and (bf16 nonzero) bf16,
+// each set built in a translation unit of its own so that nvcc compiles them
+// beside the others: K3's (pagg_encode_gru.cu, pagg_encode_mlp.cu) and K4's
+// forward recompute (STREAMS: pagg_encode_bwd_gru.cu, pagg_encode_bwd_mlp.cu).
+// The arguments are launch_encode's, the streams as their five pointers.
+#define PAGG_ENCODE_SET_ARGS                                                                 \
+  int bf16, const void *h, const void *paths, const void *dists, const void *wd,            \
+      const void *bd, const void *w_ih, const void *w_hh, const void *b_ih,                 \
+      const void *b_hh, const void *mask, float keep, void *hn, void *ego, float *xr,       \
+      float *xin, float *hp, float *cs, float *gt, long long B, int wl, int H, void *stream
+int pagg_encode_gru(PAGG_ENCODE_SET_ARGS);
+int pagg_encode_gru_streams(PAGG_ENCODE_SET_ARGS);
+int pagg_encode_mlp(PAGG_ENCODE_SET_ARGS);
+int pagg_encode_mlp_streams(PAGG_ENCODE_SET_ARGS);
 
 namespace {
 
@@ -66,8 +73,10 @@ struct Tile {
 };
 
 // The readouts (K3's second launch, K4's attention backward, template
-// parameter AGG); the values are the wrappers' codes.
-enum { ATTENTION = 0, MEAN = 1, SUM = 2 };
+// parameter AGG); the values are the wrappers' codes. QUIRK is the hetero
+// attention readout followed by a mean over the walks in place of its sum
+// (JAX's quirk_compat), on ego rows the wrapper names.
+enum { ATTENTION = 0, MEAN = 1, SUM = 2, QUIRK = 3 };
 
 // Whether the mean and sum branches move rows of width H four floats at a
 // time: H a multiple of 4 and every pointer (any, or-ed) 16-byte aligned.
@@ -698,7 +707,8 @@ __device__ __forceinline__ void store_pairs(float* __restrict__ s, long long r0,
 // activations (sigmoid i, sigmoid f, tanh g, sigmoid o) as gt [.., 4H]. All
 // f32; under BF16 they hold the forward's rounded values, which f32 holds
 // exactly (the gate activations are not rounded). The GRU writes no cs, and
-// gt as (r, z, n, h_{t-1} W_hn + b_hn).
+// gt as (r, z, n, h_{t-1} W_hn + b_hn); the MLP writes xr, xin and, in hp,
+// its mean input m [B, H] (one row a walk), no cs and no gt.
 struct Streams {
   float* xr;
   float* xin;
@@ -747,9 +757,9 @@ __device__ __forceinline__ void gather_units(const __nv_bfloat16* __restrict__ h
 // values of Streams (K4's forward recompute); with HOMO, also each walk's
 // ego row, the ReLU'd selected row of step 0 before dropout, to ego [B, H];
 // with BF16, from a bf16 table and bf16 weights, rounded as described at the
-// top; with GRU, the GRU on packed weights. `align` is the alignment of wd,
-// w_ih and w_hh in bytes.
-template <bool MASKED, int HC, bool STREAMS, bool HOMO, bool BF16, bool GRU = false>
+// top; CELL the encoder. `align` is the alignment of wd, w_ih and w_hh in
+// bytes.
+template <bool MASKED, int HC, bool STREAMS, bool HOMO, bool BF16, int CELL = LSTM_CELL>
 __global__ void __launch_bounds__(launch_threads(HC), launch_blocks(HC))
 pagg_encode_walks_kernel(
     const Elem<BF16>* __restrict__ h, const int* __restrict__ paths,
@@ -760,6 +770,7 @@ pagg_encode_walks_kernel(
     float* __restrict__ hn, float* __restrict__ ego, Streams st, long long B, int wl,
     int Hrt, int align) {
   using W = Elem<BF16>;
+  constexpr bool GRU = CELL == GRU_CELL, MLP = CELL == MLP_CELL;
   constexpr Tile tc = tile_for(HC ? HC : 64, BF16);
   const Tile tr = tile_for(Hrt, BF16);
   const int H = HC ? HC : Hrt;
@@ -793,7 +804,7 @@ pagg_encode_walks_kernel(
   } else {
     for (int e = threadIdx.x; e < H * LDA; e += NT) As[H * LDA + e] = 0.0f;
   }
-  float cs[TM][TN];
+  float cs[TM][TN];  // c_t; the MLP's running sum of s_t
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -824,7 +835,7 @@ pagg_encode_walks_kernel(
     if constexpr (STREAMS) {
       const float zero[TN][TM] = {};
       store_pairs(st.xr, r0, B - b0, H, jc, jv, xv);
-      if (t == 0) store_pairs(st.hp, r0, B - b0, H, jc, jv, zero);
+      if (t == 0 && !MLP) store_pairs(st.hp, r0, B - b0, H, jc, jv, zero);
     }
 
     // s_t = x_t @ W[d] + b[d]: one GEMM per class present in the tile
@@ -878,9 +889,50 @@ pagg_encode_walks_kernel(
           }
         }
       }
-      store_rows(As + jc[u] * LDA + m0, sv[u]);
+      if constexpr (!MLP) store_rows(As + jc[u] * LDA + m0, sv[u]);
     }
     if constexpr (STREAMS) store_pairs(st.xin, r0, B - b0, H, jc, jv, sv);
+    if constexpr (MLP) {
+      // s_t into the running sum; after the last step its mean m to A's s
+      // half (and to hp), then h_n = m W + b, one product
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int u = 0; u < TN; ++u) cs[i][u] += sv[u][i];
+      if (t + 1 < wl) continue;
+      float mv[TN][TM];
+#pragma unroll
+      for (int u = 0; u < TN; ++u) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) mv[u][i] = BF16 ? rnd(cs[i][u] / wl) : cs[i][u] / wl;
+        if (jv[u]) store_rows(As + jc[u] * LDA + m0, mv[u]);
+      }
+      if constexpr (STREAMS) store_pairs(st.hp, b0, B - b0, H, jc, jv, mv);
+      __syncthreads();
+      float acc[TM][TN][1];
+      if constexpr (BF16) {
+        mma_gemm<1, mma_tiles(HC)>(acc, As, nullptr, LDA, Mp, m0, H, w_ih, H, w_ih, nullptr,
+                                   nullptr, region, jc, jv, H, NT, mode1);
+      } else {
+#pragma unroll
+        for (int u = 0; u < TN; ++u) {
+          const float bias = ldf(b_ih + jc[u]);
+#pragma unroll
+          for (int i = 0; i < TM; ++i) acc[i][u][0] = bias;
+        }
+        tile_gemm<1>(acc, As, LDA, m0, H, w_ih, H, w_ih, Bs, KC, jc, H, NT, mode1);
+      }
+#pragma unroll
+      for (int u = 0; u < TN; ++u) {
+        if (!jv[u]) continue;
+        const float bias = ldf(b_ih + jc[u]);
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+          if (b0 + i < B)
+            hn[(b0 + i) * H + jc[u]] = BF16 ? rnd(rnd(acc[i][u][0]) + bias) : acc[i][u][0];
+      }
+      continue;
+    }
     __syncthreads();
 
     // gates = [s_t | h_{t-1}] @ [w_ih; w_hh] + b_ih + b_hh, the bias the
@@ -905,20 +957,22 @@ pagg_encode_walks_kernel(
     // step; BF16 rounds c_t, then h_t from the rounded c_t
     if constexpr (GRU) {
       // acc holds r and z before their sigmoids, x W_in + b_in and
-      // h W_hn + b_hn; h_{t-1} is this thread's own entries of A's h half,
-      // which no other thread writes, read before any is written over
+      // h W_hn + b_hn (BF16: both rounded); h_{t-1} is this thread's own
+      // entries of A's h half, which no other thread writes, read before any
+      // is written over
       float hv[TN][TM];
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         float gv[4][TN];
 #pragma unroll
         for (int u = 0; u < TN; ++u) {
-          const float hq = As[(H + jc[u]) * LDA + m0 + i];
+          const float hq = ldf(As + (H + jc[u]) * LDA + m0 + i);
           gv[0][u] = sigm(acc[i][u][0]);
           gv[1][u] = sigm(acc[i][u][1]);
-          gv[3][u] = acc[i][u][3];
-          gv[2][u] = tanh_f(acc[i][u][2] + gv[0][u] * gv[3][u]);
+          gv[3][u] = BF16 ? rnd(acc[i][u][3]) : acc[i][u][3];
+          gv[2][u] = tanh_f((BF16 ? rnd(acc[i][u][2]) : acc[i][u][2]) + gv[0][u] * gv[3][u]);
           hv[u][i] = (1.0f - gv[1][u]) * gv[2][u] + gv[1][u] * hq;
+          if constexpr (BF16) hv[u][i] = rnd(hv[u][i]);
         }
         if constexpr (STREAMS) {
           if (i < B - b0) {
@@ -1008,12 +1062,12 @@ using EncodeKernel = void (*)(const Elem<BF16>*, const int*, const int*, const E
                               const Elem<BF16>*, const Elem<BF16>*, const uint8_t*, float,
                               float*, float*, Streams, long long, int, int, int);
 
-template <bool STREAMS, int HC, bool BF16, bool GRU = false>
+template <bool STREAMS, int HC, bool BF16, int CELL = LSTM_CELL>
 EncodeKernel<BF16> encode_instance(bool masked, bool homo) {
-  return masked ? (homo ? pagg_encode_walks_kernel<true, HC, STREAMS, true, BF16, GRU>
-                        : pagg_encode_walks_kernel<true, HC, STREAMS, false, BF16, GRU>)
-                : (homo ? pagg_encode_walks_kernel<false, HC, STREAMS, true, BF16, GRU>
-                        : pagg_encode_walks_kernel<false, HC, STREAMS, false, BF16, GRU>);
+  return masked ? (homo ? pagg_encode_walks_kernel<true, HC, STREAMS, true, BF16, CELL>
+                        : pagg_encode_walks_kernel<true, HC, STREAMS, false, BF16, CELL>)
+                : (homo ? pagg_encode_walks_kernel<false, HC, STREAMS, true, BF16, CELL>
+                        : pagg_encode_walks_kernel<false, HC, STREAMS, false, BF16, CELL>);
 }
 
 template <typename Kernel>
@@ -1024,10 +1078,10 @@ int allow_smem(Kernel kernel, int bytes) {
 }
 
 // The encode on K3's grid of tiles at width H: f32, the instance with the
-// tile compiled in where there is one (H = 64, 256); bf16 and the GRU (f32
-// only), the H = 64 instance or the run-time one. Masked where mask is
-// given, homo where ego is given.
-template <bool STREAMS, bool BF16, bool GRU>
+// tile compiled in where there is one (H = 64, 256; the GRU and the MLP, 64);
+// bf16, H = 64, 32 or the run-time one. Masked where mask is given, homo
+// where ego is given.
+template <bool STREAMS, bool BF16, int CELL>
 int launch_encode_as(const void* h, const void* paths, const void* dists, const void* wd,
                      const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
                      const void* b_hh, const void* mask, float keep, void* hn, void* ego,
@@ -1037,12 +1091,12 @@ int launch_encode_as(const void* h, const void* paths, const void* dists, const 
   const bool masked = mask != nullptr, homo = ego != nullptr;
   EncodeKernel<BF16> kernel;
   if constexpr (BF16)
-    kernel = H == 64   ? encode_instance<STREAMS, 64, true>(masked, homo)
-             : H == 32 ? encode_instance<STREAMS, 32, true>(masked, homo)
-                       : encode_instance<STREAMS, 0, true>(masked, homo);
-  else if constexpr (GRU)
-    kernel = H == 64 ? encode_instance<STREAMS, 64, false, true>(masked, homo)
-                     : encode_instance<STREAMS, 0, false, true>(masked, homo);
+    kernel = H == 64   ? encode_instance<STREAMS, 64, true, CELL>(masked, homo)
+             : H == 32 ? encode_instance<STREAMS, 32, true, CELL>(masked, homo)
+                       : encode_instance<STREAMS, 0, true, CELL>(masked, homo);
+  else if constexpr (CELL != LSTM_CELL)
+    kernel = H == 64 ? encode_instance<STREAMS, 64, false, CELL>(masked, homo)
+                     : encode_instance<STREAMS, 0, false, CELL>(masked, homo);
   else
     kernel = H == 64    ? encode_instance<STREAMS, 64, false>(masked, homo)
              : H == 256 ? encode_instance<STREAMS, 256, false>(masked, homo)
@@ -1056,29 +1110,39 @@ int launch_encode_as(const void* h, const void* paths, const void* dists, const 
   return (int)cudaGetLastError();
 }
 
-// The encode, f32 or (bf16) with a bf16 table and bf16 weights; the LSTM,
-// or (gru) the GRU on packed weights, f32 only, whose instances are built
-// apart (see pagg_encode_gru above).
+// One cell's encode set (see PAGG_ENCODE_SET_ARGS): the f32 or the bf16
+// instances by bf16.
+template <bool STREAMS, int CELL>
+int launch_encode_set(int bf16, const void* h, const void* paths, const void* dists,
+                      const void* wd, const void* bd, const void* w_ih, const void* w_hh,
+                      const void* b_ih, const void* b_hh, const void* mask, float keep,
+                      void* hn, void* ego, float* xr, float* xin, float* hp, float* cs,
+                      float* gt, long long B, int wl, int H, void* stream) {
+  return (bf16 ? launch_encode_as<STREAMS, true, CELL> : launch_encode_as<STREAMS, false, CELL>)(
+      h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep, hn, ego,
+      Streams{xr, xin, hp, cs, gt}, B, wl, H, stream);
+}
+
+// The encode, f32 or (bf16) with a bf16 table and bf16 weights, of the
+// encoder `cell`; the GRU's and the MLP's instances are built apart (see
+// PAGG_ENCODE_SET_ARGS above).
 template <bool STREAMS>
 int launch_encode(const void* h, const void* paths, const void* dists, const void* wd,
                   const void* bd, const void* w_ih, const void* w_hh, const void* b_ih,
                   const void* b_hh, const void* mask, float keep, void* hn, void* ego,
-                  Streams st, int T, int nw, int wl, int H, int bf16, int gru,
+                  Streams st, int T, int nw, int wl, int H, int bf16, int cell,
                   void* stream) {
   const long long B = (long long)T * nw;
   if (B == 0) return 0;
-  if (gru && bf16) return (int)cudaErrorInvalidValue;
-  if (gru) {
-    if constexpr (STREAMS)
-      return pagg_encode_gru_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask,
-                                     keep, hn, ego, st.xr, st.xin, st.hp, st.cs, st.gt, B,
-                                     wl, H, stream);
-    else
-      return pagg_encode_gru(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep,
-                             hn, ego, B, wl, H, stream);
+  if (cell == GRU_CELL || cell == MLP_CELL) {
+    const auto set = cell == GRU_CELL ? (STREAMS ? pagg_encode_gru_streams : pagg_encode_gru)
+                                      : (STREAMS ? pagg_encode_mlp_streams : pagg_encode_mlp);
+    return set(bf16, h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep, hn, ego,
+               st.xr, st.xin, st.hp, st.cs, st.gt, B, wl, H, stream);
   }
-  return (bf16 ? launch_encode_as<STREAMS, true, false>
-               : launch_encode_as<STREAMS, false, false>)(
+  if (cell != LSTM_CELL) return (int)cudaErrorInvalidValue;
+  return (bf16 ? launch_encode_as<STREAMS, true, LSTM_CELL>
+               : launch_encode_as<STREAMS, false, LSTM_CELL>)(
       h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep, hn, ego, st, B, wl, H,
       stream);
 }

@@ -51,23 +51,24 @@ SIGNATURES = {
     # D, S, nw, wl, stream
     "pathnet_alias_khop_dists": [_P] * 11 + [_I] * 4 + [_P],
     # h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, mask, keep, hn, ego,
-    # T, nw, wl, H, bf16, gru, stream (ego null: hetero; bf16 nonzero: h and
-    # the six weights bf16; gru nonzero: the GRU on packed weights; here and
-    # in K4's launches)
+    # T, nw, wl, H, bf16, cell, stream (ego null: hetero; bf16 nonzero: h and
+    # the six weights bf16; cell 0 the LSTM, 1 the GRU on packed weights, 2
+    # the MLP; here and in K4's launches)
     "pathnet_pagg_encode_walks": [_P] * 10 + [_F, _P, _P] + [_I] * 6 + [_P],
     # h, paths, hn, ego, attw, attb, out, T, nw, wl, H, bf16, agg, stream
-    # (agg: 0 attention, 1 mean, 2 sum, here and in K4's attention backward)
+    # (agg: 0 attention, 1 mean, 2 sum, 3 quirk, here and in K4's attention
+    # backward)
     "pathnet_pagg_readout": [_P] * 7 + [_I] * 6 + [_P],
     # H, bf16, out[4]: K3's tile (M, threads, shared bytes, KC)
     "pathnet_pagg_encode_tile": [_I, _I, _P],
     # K4's three launches. h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
-    # mask, keep, hn, xr, xin, hp, cs, gt, ego, T, nw, wl, H, bf16, gru, stream
+    # mask, keep, hn, xr, xin, hp, cs, gt, ego, T, nw, wl, H, bf16, cell, stream
     "pathnet_pagg_encode_walks_streams": [_P] * 10 + [_F] + [_P] * 7 + [_I] * 6 + [_P],
     # g, h, paths, hn, ego, attw, attb, dhn, dego, part, T, nw, wl, H, bf16,
     # agg, stream
     "pathnet_pagg_attention_bwd": [_P] * 10 + [_I] * 6 + [_P],
-    # dhn, dists, wd_t, w_t, cs (gru: hp), gt, mask, keep, xin, ego, dego,
-    # dsel, drow, T, nw, wl, H, bf16, gru, stream
+    # dhn, dists, wd_t, w_t, cs (the GRU: hp), gt, mask, keep, xin, ego, dego,
+    # dsel, drow, T, nw, wl, H, bf16, cell, stream
     "pathnet_pagg_bptt": [_P] * 7 + [_F] + [_P] * 5 + [_I] * 6 + [_P],
     # rows, index, ints, units, offsets, part, out, R, n, H, stream
     "pathnet_segment_sum": [_P] * 7 + [_I] * 3 + [_P],

@@ -32,8 +32,27 @@ b_hn))`` needs them (``b_hn`` inside the product with ``r``, as
 ``torch.nn.GRU`` and JAX have it). The zero blocks must stay zero: the
 kernel multiplies by them, the plain version (:func:`unpack_gru`, then
 ``gru_scan``) drops them. The product then does 16 H^2 flops a step where
-the GRU needs 12 H^2. GRU instances are f32 only (bf16 with the GRU raises
-``NotImplementedError``).
+the GRU needs 12 H^2.
+
+**The MLP** (``cell="mlp"``, ``pagg.py:180-188``): ``h_n = mean_t(s_t) @ W +
+b``, no recurrence. K3 takes ``W [H, H]`` as ``w_ih`` and ``b [H]`` as
+``b_ih``; ``w_hh`` and ``b_hh`` are empty (``[H, 0]`` and ``[0]``,
+:func:`cell_shapes`). The encode sums each walk's selected rows (after
+dropout) over the steps in registers and ends with one ``[M, H] x [H, H]``
+product of their mean: no gate product.
+
+**quirk_compat** (``agg="quirk"``, hetero only; JAX's
+``_hetero_quirk_forward``, ``pagg.py:316-338``): the reference's two index
+quirks. :func:`quirk_layout` builds, in plain torch from ``paths`` and
+``dists`` once a call, walks that the hetero encode reads in the quirk's
+order: step ``l`` of quirk walk ``b' = g * T + j`` takes node ``pf[i % B, wl -
+1 - i // B]`` (``i = b' * wl + l``, ``pf = paths.reshape(B, wl)``, ``B = T *
+nw``), class ``clip(dists.reshape(B, wl)[b', l])`` unflipped, and the keep
+mask's column ``b'``; the quirk walks are grouped by ``j`` so that each run
+of ``nw`` walks is one readout group, and each walk's ego row is
+``h[pf[b', 0]]``, its start node before the misalignment. The readout is the
+hetero softmax over the group followed by a **mean** over it. The quirk
+runs in f32, whatever ``compute_dtype`` or ``agg`` says, as JAX's does.
 
 **bf16 compute** (the JAX package's ``compute_dtype="bfloat16"``,
 ``pagg.py:233-279``): the table ``h`` and the six cast weights ``wd, bd, w_ih,
@@ -51,13 +70,22 @@ bf16 (:func:`round_bf16`) where JAX's encode holds them in bf16:
 - the LSTM: one f32 product ``[s_t | h_{t-1}] @ [w_ih; w_hh] + b_ih + b_hh``
   and the cell in f32, then ``c_t = round(f c + i g)`` and ``h_t =
   round(o tanh(c_t))`` at the end of each step (the scan's bf16 carry);
+- the GRU: the same packed f32 product, its two n-group columns ``x W_in +
+  b_in`` and ``h W_hn + b_hn``, which the packed product keeps apart and JAX
+  holds in bf16 (its ``gx`` and ``gh``), rounded, the cell in f32, then
+  ``h_t = round((1 - z) n + z h_{t-1})`` (the scan's bf16 carry). JAX also
+  rounds the r and z columns' ``x`` and ``h`` parts apart, which one packed
+  product cannot, and each gate;
+- the MLP: the mean ``m = round(sum_t s_t / wl)`` (JAX's bf16 ``mean``
+  sums in f32 and rounds once) and ``h_n = round(round(m @ W) + b)``;
 - the readout in f32, on the hetero walk-start rows of the bf16 table (JAX's
   ``nei[:, :, 0]``) or the homo rounded step-0 rows.
 
 JAX rounds its input product ``gx`` on its own and runs its cell in bf16;
 those differences stay inside a few bf16 ulps of ``h_n``
-(``tests/test_torch_bf16.py``). The bf16 instances of the kernel are the
-template parameter ``BF16``, compiled at H = 64 and 32 and at the run-time
+(``tests/test_torch_bf16.py``, ``tests/test_torch_bf16_cells.py``). The bf16
+instances of the kernel are the template parameter ``BF16``, compiled at H =
+64 and 32 and at the run-time
 width; their products are ``mma.sync`` on the tensor cores (bf16 operands,
 f32 accumulators), which sum in another order than the plain version's f32
 product, so a rounding to bf16 can fall an ulp apart (the card tests hold
@@ -70,9 +98,9 @@ walk ``b`` becomes ``keep_mask[t, b] ? s / keep : 0``, JAX's
 the kernel and its plain version see the same draws. Without a mask the
 kernel is the serving kernel unchanged (a separate template instance); the
 variant is a template parameter too (``HOMO``), so the hetero instances are
-what they were before the homo variant came; so are the cell (``GRU``, the
-encode) and the readout (``AGG``, the second launch), so the LSTM and
-attention instances are what they were before them.
+what they were before the homo variant came; so are the cell (``CELL``,
+the encode: LSTM, GRU or MLP) and the readout (``AGG``, the second launch),
+so the LSTM and attention instances are what they were before them.
 
 Source: ``pathnet_tpu_torch/csrc/pagg_encode.cu``, two launches behind the
 one wrapper (one count a call). The first runs the encode over the flat walk
@@ -103,8 +131,11 @@ memory traffic and its f32 epilogue (``csrc/pagg_tile.cuh``). The homo variant
 adds per-element work only (two ReLUs, the ego store): the same bound. The
 GRU needs 14 H^2 flops a walk step (2 for the select, 12 for its gates): 75
 GFLOP, 1.12 ms at the bgp request, though the packed product runs the
-LSTM's 18 H^2. The mean and sum readouts read ``h_n`` once (84 MB at the bgp
-request, 0.025 ms at 3.35 TB/s).
+LSTM's 18 H^2. The MLP needs 2.5 H^2 a walk step at wl = 4 (the select's 2
+and its one product's 2 a walk): 13.4 GFLOP, 0.20 ms at the bgp request. The
+mean and sum readouts read ``h_n`` once (84 MB at the bgp request, 0.025 ms
+at 3.35 TB/s). The quirk's layout is ~10 plain torch ops a call on
+``[T, nw, wl]`` integers.
 """
 from __future__ import annotations
 
@@ -117,9 +148,9 @@ import torch.nn.functional as F
 from ..nn.cells import gru_scan, lstm_scan
 from . import build
 
-# the readouts and cells K3 and K4 run; AGGS' index is the C entries' AGG code
-AGGS = ("attention", "mean", "sum")
-CELLS = ("lstm", "gru")
+# the readouts and cells K3 and K4 run; their index is the C entries' code
+AGGS = ("attention", "mean", "sum", "quirk")
+CELLS = ("lstm", "gru", "mlp")
 
 
 class _RoundBf16(torch.autograd.Function):
@@ -210,6 +241,94 @@ def pack_gru(w_ih, w_hh, b_ih, b_hh):
             torch.cat([b_ih, zb]), torch.cat([b_hh[:2 * H], zb, b_hh[2 * H:]]))
 
 
+def gru_bf16_steps(xs, w_ih, w_hh, b_ih, b_hh):
+    """The bf16 GRU over ``xs [wl, B, H]`` on packed weights from a zero
+    state, step by step: yields ``(h_{t-1}, (r, z, n, h W_hn + b_hn) [B, 4H],
+    None, h_t)``, with one f32 product ``[x_t | h_{t-1}] @ [w_ih; w_hh] + b_ih
+    + b_hh``, its n-group columns and ``h_t`` rounded to bf16."""
+    w = torch.cat([w_ih, w_hh], 0)
+    b = b_ih + b_hh
+    h = xs.new_zeros(xs.shape[1:])
+    for x in xs:
+        ar, az, an, a3 = (torch.cat([x, h], 1) @ w + b).chunk(4, dim=1)
+        an, a3 = round_bf16(an), round_bf16(a3)
+        r, z = torch.sigmoid(ar), torch.sigmoid(az)
+        n = torch.tanh(an + r * a3)
+        hp, h = h, round_bf16((1.0 - z) * n + z * h)
+        yield hp, torch.cat([r, z, n, a3], dim=1), None, h
+
+
+def mlp_plain(seq, w, b, bf16=False):
+    """The MLP encoder on ``seq [wl, B, H]``: ``(m, h_n)``, ``m`` the mean
+    over the steps and ``h_n = m @ w + b`` (bf16: ``m`` rounded, ``h_n =
+    round(round(m @ w) + b)``)."""
+    m = seq.mean(dim=0)
+    if not bf16:
+        return m, m @ w + b
+    m = round_bf16(m)
+    return m, round_bf16(round_bf16(m @ w) + b)
+
+
+def cell_plain(seq, w_ih, w_hh, b_ih, b_hh, cell="lstm", bf16=False):
+    """``h_n [B, H]`` of the encoder ``cell`` over ``seq [wl, B, H]`` (the
+    GRU's weights packed; bf16 as in the module docstring)."""
+    if cell == "mlp":
+        return mlp_plain(seq, w_ih, b_ih, bf16)[1]
+    if bf16:
+        steps = gru_bf16_steps if cell == "gru" else lstm_bf16_steps
+        return list(steps(seq, w_ih, w_hh, b_ih, b_hh))[-1][-1]
+    if cell == "gru":
+        return gru_scan(unpack_gru(w_ih, w_hh, b_ih, b_hh), seq)[1]
+    return lstm_scan({"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh}, seq)[1]
+
+
+def cell_shapes(cell: str, H: int) -> tuple:
+    """The shapes of ``w_ih, w_hh, b_ih, b_hh`` for ``cell``: ``[H, 4H]``
+    and ``[4H]`` (the LSTM, the packed GRU), or the MLP's ``W [H, H]`` and
+    ``b [H]`` with an empty ``w_hh [H, 0]`` and ``b_hh [0]``."""
+    if cell == "mlp":
+        return (H, H), (H, 0), (H,), (0,)
+    return (H, 4 * H), (H, 4 * H), (4 * H,), (4 * H,)
+
+
+def quirk_layout(paths: torch.Tensor, dists: torch.Tensor):
+    """JAX's quirk layout (module docstring) as hetero walks: ``(qpaths,
+    qdists, ego, perm)``, int32 ``[T, nw, wl]`` walks whose hetero steps
+    (position ``wl - 1 - t`` at step ``t``) read the quirk's steps in order,
+    the ego nodes as one-step walks ``[T, nw, 1]`` (the readout's ``paths``),
+    and the int64 quirk walk ``b'`` of each of these walks (the keep mask's
+    columns: ``keep_mask[:, perm]``)."""
+    T, nw, wl = paths.shape
+    B = T * nw
+    dev = paths.device
+    pf, df = paths.reshape(B, wl).long(), dists.reshape(B, wl)
+    # walk j * nw + g here is quirk walk g * T + j: each run of nw one group
+    perm = (torch.arange(nw, device=dev)[None, :] * T
+            + torch.arange(T, device=dev)[:, None]).reshape(-1)
+    i = perm[:, None] * wl + torch.arange(wl, device=dev)[None, :]     # [B, wl]
+    node = pf[i % B, wl - 1 - torch.div(i, B, rounding_mode="floor")]
+    qpaths = node.flip(1).to(torch.int32).reshape(T, nw, wl).contiguous()
+    qdists = df[perm].flip(1).contiguous().reshape(T, nw, wl)
+    ego = pf[perm, 0].to(torch.int32).reshape(T, nw, 1)
+    return qpaths, qdists, ego, perm
+
+
+def quirk_encode_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask=None,
+                       keep=1.0, cell="lstm"):
+    """JAX's ``_hetero_quirk_forward`` (``pagg.py:319-328``) written out as it
+    is, independent of :func:`quirk_layout`: ``(h_n, first)``, ``[nw, T, H]``
+    each, the quirk walks' ``h_n`` and ego rows in its walk-major groups."""
+    T, nw, wl = paths.shape
+    B, H = T * nw, h.shape[1]
+    seq = gather_rows(h, paths).reshape(B, wl, H).transpose(0, 1)       # [wl, B, H]
+    flat = seq.flip(0).reshape(wl * B, H)                                # l-major
+    d = dists.reshape(B * wl, 1).clamp(0, wl - 1)                        # b-major
+    sel = select_plain(flat, d, wd, bd).reshape(B, wl, H).transpose(0, 1)
+    sel = dropout_plain(sel, keep_mask, keep)
+    hn = cell_plain(sel, w_ih, w_hh, b_ih, b_hh, cell)
+    return hn.reshape(nw, T, H), seq[0].reshape(nw, T, H)
+
+
 def unpack_gru(w_ih, w_hh, b_ih, b_hh) -> dict:
     """Inverse of :func:`pack_gru`: ``gru_scan``'s parameters, the zero
     blocks dropped."""
@@ -224,9 +343,10 @@ def encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
     with ``homo``, ``(h_n, ego)``, ``ego [T * nw, H]`` the walks' ego rows.
     ``bf16`` (or a bf16 ``h``): the bf16 rules of the module docstring, on
     inputs that hold bf16 values, bf16 or f32. ``cell="gru"``: ``gru_scan``
-    on the unpacked weights (:func:`unpack_gru`), f32 only."""
+    on the unpacked weights (:func:`unpack_gru`; bf16, :func:`gru_bf16_steps`
+    on the packed ones); ``cell="mlp"``: :func:`mlp_plain`."""
     bf16 = is_bf16(h, bf16)
-    check_choices(cell=cell, dtype=torch.bfloat16 if bf16 else torch.float32)
+    check_choices(cell=cell)
     if bf16:
         h, wd, bd, w_ih, w_hh, b_ih, b_hh = (t.float() for t in
                                              (h, wd, bd, w_ih, w_hh, b_ih, b_hh))
@@ -241,12 +361,7 @@ def encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
     seq = sel.reshape(T * nw, wl, H).transpose(0, 1)       # [wl, B, H]
     ego = seq[0].contiguous() if homo else None
     seq = dropout_plain(seq, keep_mask, keep, bf16)
-    if cell == "gru":
-        hn = gru_scan(unpack_gru(w_ih, w_hh, b_ih, b_hh), seq)[1]
-    elif bf16:
-        *_, hn = list(lstm_bf16_steps(seq, w_ih, w_hh, b_ih, b_hh))[-1]
-    else:
-        hn = lstm_scan({"w_ih": w_ih, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh}, seq)[1]
+    hn = cell_plain(seq, w_ih, w_hh, b_ih, b_hh, cell, bf16)
     return (hn, ego) if homo else hn
 
 
@@ -254,7 +369,9 @@ def readout_plain(h, paths, hn, attw, attb, ego=None, agg="attention") -> torch.
     """Plain PyTorch version of K3's second launch: the readout ``[T, H]``;
     ``agg`` "mean" or "sum" of ``h_n`` over the walks, or the attention
     readout, homo where ``ego`` (the first launch's) is given; ``h`` f32 or
-    the bf16 table."""
+    the bf16 table. "quirk": the hetero attention readout's mean over the
+    walks in place of its sum, the ego rows at ``paths[:, :, 0]`` (the ego
+    nodes of :func:`quirk_layout`)."""
     T, nw, _ = paths.shape
     H = hn.shape[1]
     h_n = hn.reshape(T, nw, H)
@@ -267,7 +384,8 @@ def readout_plain(h, paths, hn, attw, attb, ego=None, agg="attention") -> torch.
     if ego is not None:
         return ((1.0 + score)[:, :, None] * h_n).mean(dim=1)
     att = torch.softmax(F.leaky_relu(score, 0.01), dim=1)
-    return (att[:, :, None] * h_n).sum(dim=1)
+    out = att[:, :, None] * h_n
+    return out.mean(dim=1) if agg == "quirk" else out.sum(dim=1)
 
 
 def pagg_encode_fwd_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
@@ -275,7 +393,16 @@ def pagg_encode_fwd_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
                           homo=False, bf16=False, agg="attention",
                           cell="lstm") -> torch.Tensor:
     """Plain PyTorch version; same arguments and result as
-    :func:`pagg_encode_fwd` (``bf16`` as in :func:`encode_walks_plain`)."""
+    :func:`pagg_encode_fwd` (``bf16`` as in :func:`encode_walks_plain`). The
+    quirk (``agg="quirk"``) is JAX's formulation as written
+    (:func:`quirk_encode_plain`), not :func:`quirk_layout`'s."""
+    if agg == "quirk":
+        check_quirk(homo, h)
+        hn, first = quirk_encode_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
+                                       keep_mask, keep, cell)
+        score = torch.cat([hn, first], dim=-1) @ attw + attb          # [nw, T]
+        att = torch.softmax(F.leaky_relu(score, 0.01), dim=0)
+        return (att[:, :, None] * hn).mean(dim=0)
     out = encode_walks_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
                              keep_mask, keep, homo, bf16, cell)
     hn, ego = out if homo else (out, None)
@@ -294,17 +421,20 @@ def compute_dtype(*tensors: torch.Tensor) -> torch.dtype:
     return kinds.pop()
 
 
-def check_choices(agg: str = "attention", cell: str = "lstm",
-                  dtype: torch.dtype = torch.float32) -> None:
-    """Raise ``ValueError`` for a readout or cell K3 and K4 do not know, and
-    ``NotImplementedError`` for the GRU with bf16 compute (no instance)."""
+def check_choices(agg: str = "attention", cell: str = "lstm") -> None:
+    """Raise ``ValueError`` for a readout or cell K3 and K4 do not know."""
     if agg not in AGGS:
         raise ValueError(f"agg={agg!r}: expected one of {AGGS}")
     if cell not in CELLS:
         raise ValueError(f"cell={cell!r}: expected one of {CELLS}")
-    if cell == "gru" and dtype == torch.bfloat16:
-        raise NotImplementedError("the GRU with bf16 compute is not ported yet "
-                                  "(ROADMAP §1 item 3)")
+
+
+def check_quirk(homo: bool, h: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the quirk runs on the hetero variant in
+    f32 (JAX's homo variant ignores ``quirk_compat``, and its quirk path
+    returns before ``compute_dtype`` is read)."""
+    if homo or h.dtype != torch.float32:
+        raise ValueError("agg='quirk' runs the hetero variant in float32 only")
 
 
 def _check(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep,
@@ -313,7 +443,7 @@ def _check(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep,
     CPU or a CUDA card that takes their width."""
     dev = h.device
     dt = compute_dtype(h, wd, bd, w_ih, w_hh, b_ih, b_hh)
-    check_choices(cell=cell, dtype=dt)
+    check_choices(cell=cell)
     build.require(h, "h", dt, (None, None), dev)
     H = h.shape[1]
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
@@ -321,10 +451,9 @@ def _check(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep,
     build.require(dists, "dists", torch.int32, (T, nw, wl), dev)
     build.require(wd, "wd", dt, (wl, H, H), dev)
     build.require(bd, "bd", dt, (wl, H), dev)
-    build.require(w_ih, "w_ih", dt, (H, 4 * H), dev)
-    build.require(w_hh, "w_hh", dt, (H, 4 * H), dev)
-    build.require(b_ih, "b_ih", dt, (4 * H,), dev)
-    build.require(b_hh, "b_hh", dt, (4 * H,), dev)
+    for t, name, shape in zip((w_ih, w_hh, b_ih, b_hh), ("w_ih", "w_hh", "b_ih", "b_hh"),
+                              cell_shapes(cell, H)):
+        build.require(t, name, dt, shape, dev)
     check_keep_mask(keep_mask, keep, wl, T * nw, H, dev)
     if nw < 1 or wl < 1:
         raise ValueError(f"pagg_encode_fwd needs nw, wl >= 1, got {nw}, {wl}")
@@ -352,7 +481,7 @@ def _launch_walks(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, ke
             h.data_ptr(), paths.data_ptr(), dists.data_ptr(), wd.data_ptr(),
             bd.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
             b_hh.data_ptr(), ptr(keep_mask), dropout_divisor(keep, bf16), hn.data_ptr(),
-            ptr(ego), T, nw, wl, H, int(bf16), int(cell == "gru"), build.stream_ptr(h))
+            ptr(ego), T, nw, wl, H, int(bf16), CELLS.index(cell), build.stream_ptr(h))
     build.check(rc, "pagg_encode_fwd (encode)")
     return (hn, ego) if homo else hn
 
@@ -388,20 +517,28 @@ def pagg_encode_fwd(h: torch.Tensor, paths: torch.Tensor, dists: torch.Tensor,
     :func:`pack_gru`), ``attw`` ``[2H]`` and ``attb`` ``[1]`` (read by the
     attention readout only); ``keep_mask`` uint8 ``[wl, T * nw, H]`` and
     ``keep`` in ``(0, 1]`` for the training forward's dropout; ``homo``
-    picks the homo variant and ``agg`` the readout (see the module
-    docstring).
+    picks the homo variant and ``agg`` the readout ("quirk": JAX's
+    ``quirk_compat``, hetero and f32; see the module docstring).
     """
     enc = (h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep)
     _check(*enc, cell)
     check_choices(agg)
     build.require(attw, "attw", torch.float32, (2 * h.shape[1],), h.device)
     build.require(attb, "attb", torch.float32, (1,), h.device)
+    if agg == "quirk":
+        check_quirk(homo, h)
     if h.device.type == "cpu":
         return pagg_encode_fwd_plain(*enc[:9], attw, attb, keep_mask, keep, homo,
                                      agg=agg, cell=cell)
-    walks = _launch_walks(*enc, homo, cell)
-    hn, ego = walks if homo else (walks, None)
-    out = _launch_readout(h, paths, hn, attw, attb, ego, agg)
+    if agg == "quirk":
+        paths, dists, ego_paths, perm = quirk_layout(paths, dists)
+        keep_mask = None if keep_mask is None else keep_mask[:, perm].contiguous()
+        hn = _launch_walks(h, paths, dists, *enc[3:9], keep_mask, keep, False, cell)
+        out = _launch_readout(h, ego_paths, hn, attw, attb, None, agg)
+    else:
+        walks = _launch_walks(*enc, homo, cell)
+        hn, ego = walks if homo else (walks, None)
+        out = _launch_readout(h, paths, hn, attw, attb, ego, agg)
     pagg_encode_fwd.launches += 1
     return out
 

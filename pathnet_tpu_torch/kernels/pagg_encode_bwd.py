@@ -6,12 +6,13 @@ gather VJP of the "h" gather mode (``pagg.py:83-93``). Given ``g``, the
 gradient of K3's output ``[T, H]``, it returns the gradients of K3's inputs:
 ``dh [n, H]`` and those of ``wd, bd, w_ih, w_hh, b_ih, b_hh, attw, attb``.
 
-Both variants of K3 (``homo=False``, hetero, and ``homo=True``), its three
-readouts (``agg``) and its two cells (``cell``, the GRU in K3's packed
-layout, f32) have their backward here; the variant is a template parameter
-(``HOMO``) of each launch, the readout (``AGG``) of the attention backward
-and the cell (``GRU``) of the recompute and the BPTT, so the LSTM and
-attention instances are the code they were before the others came.
+Both variants of K3 (``homo=False``, hetero, and ``homo=True``), its
+readouts (``agg``: attention, mean, sum and the quirk's) and its three
+cells (``cell``: the LSTM, the GRU in K3's packed layout, the MLP) have
+their backward here; the variant is a template parameter (``HOMO``) of each
+launch, the readout (``AGG``, ``QUIRK``) of the attention backward and the
+cell (``CELL``) of the recompute and the BPTT, so the LSTM and attention
+instances are the code they were before the others came.
 
 Source: ``pathnet_tpu_torch/csrc/pagg_encode_bwd.cu`` on K3's walk tile
 (``csrc/pagg_tile.cuh``), three launches behind the one wrapper (one count a
@@ -67,6 +68,20 @@ in the zero blocks (``dW_ih``'s and ``db_ih``'s group 3, ``dW_hh``'s and
 plain version returns zeros in them, so the two agree after
 :func:`~pathnet_tpu_torch.kernels.pagg_encode.unpack_gru`.
 
+**The MLP** (``cell="mlp"``; ``W`` as ``w_ih``, ``b`` as ``b_ih``): 1. writes
+``xr``, ``xin`` and, in ``hp``'s place, the walks' mean input ``m [T * nw,
+H]``, and no ``cs`` or ``gt``; 3. has no recurrence: one product ``d s = (d
+h_n W^T) / wl`` a tile, the same for every step, then each step's dropout,
+homo ReLU and distance select as above. The contractions give ``dW = m^T d
+h_n`` and ``db = sum d h_n`` (``torch.matmul``, as JAX leaves that product to
+XLA); ``w_hh`` and ``b_hh`` are empty and so are their gradients.
+
+**quirk_compat** (``agg="quirk"``, hetero, f32): the wrapper runs the hetero
+launches on :func:`~pathnet_tpu_torch.kernels.pagg_encode.quirk_layout`'s
+walks and keep mask columns; 2. reads the ego rows at the layout's ego nodes
+and scales its cotangent by ``1 / nw`` (the readout's mean), and the ego
+rows' gradients go to those nodes (:func:`row_nodes` with ``ego``).
+
 Homo (``pagg.py:257-303``): the steps run in sampled order (step ``t`` holds
 position ``t``); 1. also writes the ego rows ``ego [T * nw, H]``, the ReLU'd
 step-0 selected rows before dropout, and ``xin`` holds the ReLU'd input
@@ -120,7 +135,9 @@ Bound on the H100: f32 operations, about 54 ``H^2`` flops per walk step
 18), about 290 GFLOP or 4.3 ms at 67 TFLOP/s per bgp microbatch, for either
 variant (homo's extra work is per element); the bf16 instances' at bf16's
 tensor-core rate, 0.29 ms. The GRU needs 42 H^2 (14 each), 3.4 ms there,
-though the packed products run the LSTM's 54.
+though the packed products run the LSTM's 54; the MLP 7.5 H^2 at wl = 4
+(0.59 ms), its 3 stream floats a walk step (1.0 GB) about as long at
+3.35 TB/s.
 """
 from __future__ import annotations
 
@@ -130,9 +147,11 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .pagg_encode import (AGGS, _check as check_encode, check_choices, check_keep_mask,
-                          compute_dtype, dropout_divisor, dropout_plain, gather_rows, is_bf16,
-                          lstm_bf16_steps, pagg_encode_fwd_plain, ptr, select_plain)
+from .pagg_encode import (AGGS, CELLS, _check as check_encode, cell_shapes, check_choices,
+                          check_keep_mask, check_quirk, compute_dtype, dropout_divisor,
+                          dropout_plain, gather_rows, gru_bf16_steps, is_bf16,
+                          lstm_bf16_steps, mlp_plain, pagg_encode_fwd_plain, ptr,
+                          quirk_layout, select_plain)
 from .segment_sum import segment_sum
 
 Grads = Tuple[torch.Tensor, ...]
@@ -174,9 +193,10 @@ def encode_walks_streams_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
     and with ``homo`` the ego rows ``ego [T * nw, H]`` after them; all f32,
     with ``bf16`` (or a bf16 ``h``) the bf16 forward's rounded values. The
     GRU (packed weights) has ``cs`` None and ``gt`` ``(r, z, n, h W_hn +
-    b_hn)``."""
+    b_hn)``; the MLP has ``hp`` its mean input ``m [T * nw, H]`` and ``cs``,
+    ``gt`` None."""
     bf16 = is_bf16(h, bf16)
-    check_choices(cell=cell, dtype=torch.bfloat16 if bf16 else torch.float32)
+    check_choices(cell=cell)
     if bf16:
         h, wd, bd, w_ih, w_hh, b_ih, b_hh = (t.float() for t in
                                              (h, wd, bd, w_ih, w_hh, b_ih, b_hh))
@@ -190,9 +210,15 @@ def encode_walks_streams_plain(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
     xin = select_plain(xr, _step_classes(dists, homo)[:, :, None], wd, bd, homo, bf16)
     ego = xin[0].clone() if homo else None
     xin = dropout_plain(xin, keep_mask, keep, bf16)
+    if cell == "mlp":
+        m, hn = mlp_plain(xin, w_ih, b_ih, bf16)
+        out = (hn, xr, xin, m, None, None)
+        return out + (ego,) if homo else out
     if bf16:
-        hp, gt, cs, hn = zip(*lstm_bf16_steps(xin, w_ih, w_hh, b_ih, b_hh))
-        out = (hn[-1], xr, xin, torch.stack(hp), torch.stack(cs), torch.stack(gt))
+        steps = gru_bf16_steps if cell == "gru" else lstm_bf16_steps
+        hp, gt, cs, hn = zip(*steps(xin, w_ih, w_hh, b_ih, b_hh))
+        out = (hn[-1], xr, xin, torch.stack(hp), None if cell == "gru" else torch.stack(cs),
+               torch.stack(gt))
         return out + (ego,) if homo else out
     gx = xin @ w_ih + b_ih
     hprev = h.new_zeros((B, H))
@@ -226,12 +252,15 @@ def attention_bwd_plain(g, h, paths, hn, attw, attb, ego=None, agg="attention"):
     ego rows ``ego [T * nw, H]`` (the recompute's) are given; ``h`` f32 or
     the bf16 table. Under ``agg`` mean or sum: ``g / nw`` or ``g`` for every
     walk, ``dego`` None (the ego rows get no gradient) and zero ``dattw``,
-    ``dattb``."""
+    ``dattb``. Under "quirk" the hetero attention backward of ``g / nw`` (the
+    readout's mean), the ego rows at ``paths[:, :, 0]``."""
     T, nw, _ = paths.shape
     H = h.shape[1]
-    if agg != "attention":
+    if agg in ("mean", "sum"):
         dhn = (g / nw if agg == "mean" else g).repeat_interleave(nw, dim=0)
         return dhn, None, attw.new_zeros(2 * H), attb.new_zeros(1)
+    if agg == "quirk":
+        g = g / nw
     h_n = hn.reshape(T, nw, H)
     e = gather_rows(h, paths[:, :, 0]).float() if ego is None else ego.reshape(T, nw, H)
     score = h_n @ attw[:H] + e @ attw[H:] + attb                     # [T, nw]
@@ -258,41 +287,46 @@ def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, state, gt, keep_mask=None, kee
     T * nw, 4H]`` the pre-activation gate gradients and ``dsel [wl, T * nw,
     H]`` the gradient of the selected row (homo: before its ReLU). ``state``
     is the recompute's ``cs`` (LSTM) or ``hp`` (``cell="gru"``, packed
-    weights). ``homo`` is None (hetero) or ``(xin, ego, dego)``: the
-    recompute's ``xin`` and ``ego`` and the attention backward's ``dego``
-    (None under the mean and sum readouts: no ego row gradient at step 0).
-    ``bf16`` (or bf16 weights): the same f32 math on the weights' values
-    (each rounding's derivative is 1), the dropout's divisor rounded as the
-    forward's."""
+    weights); the MLP (``w_ih`` its ``W``) reads no ``state`` and no ``gt``,
+    and its ``dgates`` is None. ``homo`` is None (hetero) or ``(xin, ego,
+    dego)``: the recompute's ``xin`` and ``ego`` and the attention backward's
+    ``dego`` (None under the mean and sum readouts: no ego row gradient at
+    step 0). ``bf16`` (or bf16 weights): the same f32 math on the weights'
+    values (each rounding's derivative is 1), the dropout's divisor rounded
+    as the forward's."""
     keep = dropout_divisor(keep, is_bf16(wd, bf16))
     wd, w_ih, w_hh = wd.float(), w_ih.float(), w_hh.float()
     d = _step_classes(dists, homo is not None)
-    wl, _, H = state.shape
-    drow = torch.empty_like(state)
-    dgates = torch.empty_like(gt)
-    dsel = torch.empty_like(state)
+    wl, H = d.shape[0], dhn.shape[1]
+    drow = dhn.new_empty((wl,) + dhn.shape)
+    dsel = torch.empty_like(drow)
+    dgates = None if cell == "mlp" else torch.empty_like(gt)
     dht, dc = dhn, torch.zeros_like(dhn)
+    ds = dhn @ w_ih.t() / wl if cell == "mlp" else None   # every step's d s
     for t in range(wl - 1, -1, -1):
-        if cell == "gru":
-            r, z, n, a3 = (gt[t, :, k * H:(k + 1) * H] for k in range(4))
-            dn = dht * (1 - z)
-            da = dn * (1 - n * n)
-            dg = torch.cat([da * a3 * r * (1 - r), dht * (state[t] - n) * z * (1 - z),
-                            da, da * r], dim=1)
-            direct = dht * z
+        if cell == "mlp":
+            dxin = ds
         else:
-            si, sf, tg, so = (gt[t, :, k * H:(k + 1) * H] for k in range(4))
-            cp = state[t - 1] if t > 0 else torch.zeros_like(dc)
-            tc = torch.tanh(state[t])
-            dct = dc + dht * so * (1 - tc * tc)
-            dg = torch.cat([dct * tg * si * (1 - si), dct * cp * sf * (1 - sf),
-                            dct * si * (1 - tg * tg), dht * tc * so * (1 - so)], dim=1)
-            dc = dct * sf
-        dgates[t] = dg
-        dxin = dg @ w_ih.t()
-        dht = dg @ w_hh.t()
-        if cell == "gru":
-            dht = dht + direct
+            if cell == "gru":
+                r, z, n, a3 = (gt[t, :, k * H:(k + 1) * H] for k in range(4))
+                dn = dht * (1 - z)
+                da = dn * (1 - n * n)
+                dg = torch.cat([da * a3 * r * (1 - r), dht * (state[t] - n) * z * (1 - z),
+                                da, da * r], dim=1)
+                direct = dht * z
+            else:
+                si, sf, tg, so = (gt[t, :, k * H:(k + 1) * H] for k in range(4))
+                cp = state[t - 1] if t > 0 else torch.zeros_like(dc)
+                tc = torch.tanh(state[t])
+                dct = dc + dht * so * (1 - tc * tc)
+                dg = torch.cat([dct * tg * si * (1 - si), dct * cp * sf * (1 - sf),
+                                dct * si * (1 - tg * tg), dht * tc * so * (1 - so)], dim=1)
+                dc = dct * sf
+            dgates[t] = dg
+            dxin = dg @ w_ih.t()
+            dht = dg @ w_hh.t()
+            if cell == "gru":
+                dht = dht + direct
         if keep_mask is not None:
             dxin = torch.where(keep_mask[t].bool(), dxin / keep, 0.0)
         if homo is not None:
@@ -308,18 +342,21 @@ def bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, state, gt, keep_mask=None, kee
     return drow, dgates, dsel
 
 
-def row_nodes(paths: torch.Tensor, homo: bool = False,
-              agg: str = "attention") -> torch.Tensor:
+def row_nodes(paths: torch.Tensor, homo: bool = False, agg: str = "attention",
+              ego: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int32: the node of each row gradient, in the order of the BPTT's
     ``drow`` (step ``t`` holds position ``wl - 1 - t``) followed by the
     attention backward's ego rows, ``(wl + 1) * T * nw`` in all; homo (step
     ``t`` holds position ``t``, no ego rows) and the mean and sum readouts
-    (no ego row gradient) ``wl * T * nw``."""
+    (no ego row gradient) ``wl * T * nw``. The ego rows lie at ``paths[:, :,
+    0]``, or (the quirk) at ``ego[:, :, 0]``."""
     T, nw, wl = paths.shape
     if homo:
         return paths.reshape(T * nw, wl).t().reshape(-1)
     steps = paths.flip(2).reshape(T * nw, wl).t().reshape(-1)
-    return torch.cat([steps, paths[:, :, 0].reshape(-1)]) if agg == "attention" else steps
+    if agg in ("mean", "sum"):
+        return steps
+    return torch.cat([steps, (paths if ego is None else ego)[:, :, 0].reshape(-1)])
 
 
 def class_contractions(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor,
@@ -353,15 +390,19 @@ def class_contractions(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor,
     return dw, onehot @ sp.sum(dim=1)
 
 
-def contractions(xr, xin, hp, dsel, dgates, dists, homo=False) -> Grads:
+def contractions(xr, xin, hp, dsel, dgates, dists, homo=False, cell="lstm") -> Grads:
     """The weight gradients from the streams: ``(dwd, dbd, dw_ih, dw_hh, db)``,
-    ``db`` being both LSTM biases' gradient."""
+    ``db`` being both LSTM biases' gradient. The MLP: ``hp`` its mean input
+    ``m`` and ``dgates`` its ``d h_n`` ``[T * nw, H]``, giving ``dw_ih = m^T d
+    h_n``, an empty ``dw_hh [H, 0]`` and ``db = sum d h_n``."""
     wl, B, H = xr.shape
+    dwd, dbd = class_contractions(xr.view(-1, H), dsel.view(-1, H),
+                                  _step_classes(dists, homo).reshape(-1), wl)
+    if cell == "mlp":
+        return dwd, dbd, hp.t() @ dgates, hp.new_zeros((H, 0)), dgates.sum(dim=0)
     dg = dgates.view(wl * B, 4 * H)
     dw_ih = xin.view(-1, H).t() @ dg
     dw_hh = hp.view(-1, H).t() @ dg
-    dwd, dbd = class_contractions(xr.view(-1, H), dsel.view(-1, H),
-                                  _step_classes(dists, homo).reshape(-1), wl)
     return dwd, dbd, dw_ih, dw_hh, dg.sum(dim=0)
 
 
@@ -373,8 +414,8 @@ def _require_device(dev: torch.device, what: str) -> None:
 def _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep,
                     streams, ego=None, cell="lstm"):
     """Launch A into ``streams = (xr, xin, hp, cs, gt)`` (``cs`` None for the
-    GRU), homo where ``ego`` (which receives the ego rows) is given; returns
-    ``h_n``."""
+    GRU; the MLP: ``hp`` its mean input, ``cs`` and ``gt`` None), homo where
+    ``ego`` (which receives the ego rows) is given; returns ``h_n``."""
     T, nw, wl = paths.shape
     H = h.shape[1]
     bf16 = h.dtype == torch.bfloat16
@@ -385,7 +426,7 @@ def _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, 
             bd.data_ptr(), w_ih.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(),
             b_hh.data_ptr(), ptr(keep_mask), dropout_divisor(keep, bf16), hn.data_ptr(),
             *(ptr(s) for s in streams), ptr(ego), T, nw, wl, H, int(bf16),
-            int(cell == "gru"), build.stream_ptr(h))
+            CELLS.index(cell), build.stream_ptr(h))
     build.check(rc, "pagg_encode_bwd (forward recompute)")
     return hn
 
@@ -398,7 +439,7 @@ def _launch_attention(g, h, paths, hn, attw, attb, dego, ego=None, agg="attentio
     T, nw, wl = paths.shape
     H = h.shape[1]
     dhn = torch.empty((T * nw, H), dtype=torch.float32, device=h.device)
-    att = agg == "attention"
+    att = agg in ("attention", "quirk")
     part = torch.empty((T, 2 * H + 1), dtype=torch.float32, device=h.device) if att else None
     with torch.cuda.device(h.device):
         rc = build.library().pathnet_pagg_attention_bwd(
@@ -415,9 +456,9 @@ def _launch_attention(g, h, paths, hn, attw, attb, dego, ego=None, agg="attentio
 
 def bptt_weights(wd, w_ih, w_hh):
     """The BPTT launch's operands, in the weights' type: ``wd`` transposed
-    per class and ``[w_ih; w_hh]^T`` ``[4H, 2H]``."""
-    return (wd.transpose(1, 2).contiguous(),
-            torch.cat([w_ih, w_hh], 0).t().contiguous())
+    per class and ``[w_ih; w_hh]^T`` ``[4H, 2H]`` (the MLP: ``W^T [H, H]``)."""
+    w = w_ih if w_hh.shape[1] == 0 else torch.cat([w_ih, w_hh], 0)
+    return wd.transpose(1, 2).contiguous(), w.t().contiguous()
 
 
 def _launch_bptt(dhn, dists, wd_t, w_t, state, gt, keep_mask, keep, dsel, drow, homo=None,
@@ -431,9 +472,9 @@ def _launch_bptt(dhn, dists, wd_t, w_t, state, gt, keep_mask, keep, dsel, drow, 
     with torch.cuda.device(dhn.device):
         rc = build.library().pathnet_pagg_bptt(
             dhn.data_ptr(), dists.data_ptr(), wd_t.data_ptr(), w_t.data_ptr(),
-            state.data_ptr(), gt.data_ptr(), ptr(keep_mask), dropout_divisor(keep, bf16),
+            ptr(state), ptr(gt), ptr(keep_mask), dropout_divisor(keep, bf16),
             ptr(xin), ptr(ego), ptr(dego), dsel.data_ptr(), drow.data_ptr(), T, nw, wl, H,
-            int(bf16), int(cell == "gru"), build.stream_ptr(dhn))
+            int(bf16), CELLS.index(cell), build.stream_ptr(dhn))
     build.check(rc, "pagg_encode_bwd (bptt)")
 
 
@@ -457,7 +498,7 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
     dev = h.device
     f32 = torch.float32
     dt = compute_dtype(h, wd, bd, w_ih, w_hh, b_ih, b_hh)
-    check_choices(agg, cell, dt)
+    check_choices(agg, cell)
     build.require(h, "h", dt, (None, None), dev)
     n, H = h.shape
     build.require(paths, "paths", torch.int32, (None, None, None), dev)
@@ -466,15 +507,16 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
     build.require(dists, "dists", torch.int32, (T, nw, wl), dev)
     build.require(wd, "wd", dt, (wl, H, H), dev)
     build.require(bd, "bd", dt, (wl, H), dev)
-    build.require(w_ih, "w_ih", dt, (H, 4 * H), dev)
-    build.require(w_hh, "w_hh", dt, (H, 4 * H), dev)
-    build.require(b_ih, "b_ih", dt, (4 * H,), dev)
-    build.require(b_hh, "b_hh", dt, (4 * H,), dev)
+    for t, name, shape in zip((w_ih, w_hh, b_ih, b_hh), ("w_ih", "w_hh", "b_ih", "b_hh"),
+                              cell_shapes(cell, H)):
+        build.require(t, name, dt, shape, dev)
     build.require(attw, "attw", f32, (2 * H,), dev)
     build.require(attb, "attb", f32, (1,), dev)
     check_keep_mask(keep_mask, keep, wl, T * nw, H, dev)
     if nw < 1 or wl < 1:
         raise ValueError(f"pagg_encode_bwd needs nw, wl >= 1, got {nw}, {wl}")
+    if agg == "quirk":
+        check_quirk(homo, h)
     if dev.type == "cpu":
         return pagg_encode_bwd_plain(g, h, paths, dists, wd, bd, w_ih, w_hh,
                                      b_ih, b_hh, attw, attb, keep_mask, keep, homo,
@@ -483,13 +525,21 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
     if H > 1024:
         raise ValueError(f"pagg_encode_bwd: hidden {H} > 1024 is not supported")
     B = T * nw
-    gru = cell == "gru"
-    xr, xin, hp, dsel, *cs = torch.empty((5 - gru, wl, B, H), dtype=f32, device=dev)
-    cs = cs[0] if cs else None   # the GRU keeps no cell state
-    gt = torch.empty((wl, B, 4 * H), dtype=f32, device=dev)
+    ego_paths = None
+    if agg == "quirk":
+        paths, dists, ego_paths, perm = quirk_layout(paths, dists)
+        keep_mask = None if keep_mask is None else keep_mask[:, perm].contiguous()
+    gru, mlp = cell == "gru", cell == "mlp"
+    if mlp:   # no recurrence: its mean input in hp's place, no cs, no gt
+        xr, xin, dsel = torch.empty((3, wl, B, H), dtype=f32, device=dev)
+        hp, cs, gt = torch.empty((B, H), dtype=f32, device=dev), None, None
+    else:
+        xr, xin, hp, dsel, *cs = torch.empty((5 - gru, wl, B, H), dtype=f32, device=dev)
+        cs = cs[0] if cs else None   # the GRU keeps no cell state
+        gt = torch.empty((wl, B, 4 * H), dtype=f32, device=dev)
     # the row gradients: drow, then (hetero, attention) the ego rows'; homo
     # keeps the ego rows and (attention) their gradient apart
-    att = agg == "attention"
+    att = agg in ("attention", "quirk")
     rows = torch.empty((wl + (att and not homo), B, H), dtype=f32, device=dev)
     if homo:
         ego, *dego = torch.empty((1 + att, B, H), dtype=f32, device=dev)
@@ -498,19 +548,22 @@ def pagg_encode_bwd(g: torch.Tensor, h: torch.Tensor, paths: torch.Tensor,
         ego, dego = None, (rows[wl] if att else None)
     hn = _launch_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask,
                          keep, (xr, xin, hp, cs, gt), ego, cell)
-    dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, dego, ego, agg)
+    dhn, dattw, dattb = _launch_attention(g, h, paths if ego_paths is None else ego_paths,
+                                          hn, attw, attb, dego, ego, agg)
     del hn
     _launch_bptt(dhn, dists, *bptt_weights(wd, w_ih, w_hh), hp if gru else cs, gt,
                  keep_mask, keep, dsel, rows[:wl], (xin, ego, dego) if homo else None, cell)
     pagg_encode_bwd.launches += 1
     del ego, dego
-    dh = segment_sum(rows.view(-1, H), row_nodes(paths, homo, agg), n)
+    dh = segment_sum(rows.view(-1, H), row_nodes(paths, homo, agg, ego_paths), n)
     del rows
-    dwd, dbd, dw_ih, dw_hh, db = contractions(xr, xin, hp, dsel, gt, dists, homo)
+    dwd, dbd, dw_ih, dw_hh, db = contractions(xr, xin, hp, dsel, dhn if mlp else gt, dists,
+                                              homo, cell)
+    db_hh = db.new_zeros(0) if mlp else db
     if dt == f32:
-        return dh, dwd, dbd, dw_ih, dw_hh, db, db.clone(), dattw, dattb
+        return dh, dwd, dbd, dw_ih, dw_hh, db, db_hh.clone(), dattw, dattb
     # the cast inputs' gradients in their type
-    return (*(t.to(dt) for t in (dh, dwd, dbd, dw_ih, dw_hh, db, db)), dattw, dattb)
+    return (*(t.to(dt) for t in (dh, dwd, dbd, dw_ih, dw_hh, db, db_hh)), dattw, dattb)
 
 
 pagg_encode_bwd.launches = 0
@@ -519,7 +572,8 @@ pagg_encode_bwd.launches = 0
 def encode_walks_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
                          keep_mask=None, keep=1.0, homo=False, cell="lstm"):
     """K4's forward recompute alone: ``(h_n, xr, xin, hp, cs, gt)`` (the GRU:
-    ``cs`` None), and with ``homo`` the ego rows after them (see the module
+    ``cs`` None; the MLP: ``hp`` its mean input ``[T * nw, H]``, ``cs`` and
+    ``gt`` None), and with ``homo`` the ego rows after them (see the module
     docstring). For timing and tests; it counts no launch."""
     enc = (h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh, keep_mask, keep)
     check_encode(*enc, cell)
@@ -527,12 +581,16 @@ def encode_walks_streams(h, paths, dists, wd, bd, w_ih, w_hh, b_ih, b_hh,
         return encode_walks_streams_plain(*enc, homo, cell=cell)
     T, nw, wl = paths.shape
     H = h.shape[1]
-    gru = cell == "gru"
-    xr, xin, hp, *cs = torch.empty((4 - gru, wl, T * nw, H), dtype=torch.float32,
-                                   device=h.device)
-    cs = cs[0] if cs else None
-    gt = torch.empty((wl, T * nw, 4 * H), dtype=torch.float32, device=h.device)
-    ego = torch.empty((T * nw, H), dtype=torch.float32, device=h.device) if homo else None
+    f32 = torch.float32
+    if cell == "mlp":
+        xr, xin = torch.empty((2, wl, T * nw, H), dtype=f32, device=h.device)
+        hp, cs, gt = torch.empty((T * nw, H), dtype=f32, device=h.device), None, None
+    else:
+        gru = cell == "gru"
+        xr, xin, hp, *cs = torch.empty((4 - gru, wl, T * nw, H), dtype=f32, device=h.device)
+        cs = cs[0] if cs else None
+        gt = torch.empty((wl, T * nw, 4 * H), dtype=f32, device=h.device)
+    ego = torch.empty((T * nw, H), dtype=f32, device=h.device) if homo else None
     hn = _launch_streams(*enc, (xr, xin, hp, cs, gt), ego, cell)
     out = (hn, xr, xin, hp, cs, gt)
     return out + (ego,) if homo else out
@@ -542,7 +600,9 @@ def attention_bwd(g, h, paths, hn, attw, attb, ego=None, agg="attention"):
     """K4's attention backward alone: ``(dhn, dego, dattw, dattb)``, ``dego
     [T * nw, H]`` holding each walk's ego row gradient (None under the mean
     and sum readouts); homo where the ego rows ``ego [T * nw, H]`` are
-    given; ``agg`` the readout. For timing and tests; it counts no launch."""
+    given; ``agg`` the readout ("quirk": ``paths`` holds the ego nodes at
+    ``[:, :, 0]``, :func:`~pathnet_tpu_torch.kernels.pagg_encode.quirk_layout`'s
+    ``ego``). For timing and tests; it counts no launch."""
     check_choices(agg)
     dev = h.device
     f32 = torch.float32
@@ -559,7 +619,8 @@ def attention_bwd(g, h, paths, hn, attw, attb, ego=None, agg="attention"):
     _require_device(dev, "attention_bwd")
     if dev.type == "cpu":
         return attention_bwd_plain(g, h, paths, hn, attw, attb, ego, agg)
-    dego = None if agg != "attention" else torch.empty((T * nw, H), dtype=f32, device=dev)
+    att = agg in ("attention", "quirk")
+    dego = torch.empty((T * nw, H), dtype=f32, device=dev) if att else None
     dhn, dattw, dattb = _launch_attention(g, h, paths, hn, attw, attb, dego, ego, agg)
     return dhn, dego, dattw, dattb
 
@@ -568,7 +629,8 @@ def bptt(dhn, paths, dists, wd, w_ih, w_hh, state, gt, keep_mask=None, keep=1.0,
          cell="lstm"):
     """K4's BPTT alone: ``(drow, dgates, dsel)`` from ``d h_n`` ``[T * nw, H]``
     and the recompute's ``gt`` and ``state``, its ``cs`` (LSTM) or ``hp``
-    (``cell="gru"``); ``drow [wl, T * nw, H]`` holds every gathered row's
+    (``cell="gru"``; the MLP reads neither, and its ``dgates`` is None);
+    ``drow [wl, T * nw, H]`` holds every gathered row's
     gradient, and ``homo`` is None or ``(xin, ego, dego)``, ``dego`` None
     under the mean and sum readouts (see :func:`bptt_plain`). As in the
     whole backward, the gate gradients are written over ``gt``, which is
@@ -582,12 +644,15 @@ def bptt(dhn, paths, dists, wd, w_ih, w_hh, state, gt, keep_mask=None, keep=1.0,
     H = dhn.shape[1]
     build.require(dists, "dists", torch.int32, (T, nw, wl), dev)
     dt = compute_dtype(wd, w_ih, w_hh)
-    check_choices(cell=cell, dtype=dt)
+    check_choices(cell=cell)
     build.require(wd, "wd", dt, (wl, H, H), dev)
-    build.require(w_ih, "w_ih", dt, (H, 4 * H), dev)
-    build.require(w_hh, "w_hh", dt, (H, 4 * H), dev)
-    build.require(state, "state", f32, (wl, B, H), dev)
-    build.require(gt, "gt", f32, (wl, B, 4 * H), dev)
+    shapes = cell_shapes(cell, H)
+    build.require(w_ih, "w_ih", dt, shapes[0], dev)
+    build.require(w_hh, "w_hh", dt, shapes[1], dev)
+    mlp = cell == "mlp"
+    if not mlp:
+        build.require(state, "state", f32, (wl, B, H), dev)
+        build.require(gt, "gt", f32, (wl, B, 4 * H), dev)
     if homo is not None:
         for name, t, shape in zip(("xin", "ego", "dego"), homo,
                                   ((wl, B, H), (B, H), (B, H))):
@@ -598,10 +663,10 @@ def bptt(dhn, paths, dists, wd, w_ih, w_hh, state, gt, keep_mask=None, keep=1.0,
     if dev.type == "cpu":
         drow, dgates, dsel = bptt_plain(dhn, paths, dists, wd, w_ih, w_hh, state, gt,
                                         keep_mask, keep, homo, cell=cell)
-        return drow, gt.copy_(dgates), dsel
+        return drow, None if mlp else gt.copy_(dgates), dsel
     if H > 1024:
         raise ValueError(f"bptt: hidden {H} > 1024 is not supported")
     drow, dsel = torch.empty((2, wl, B, H), dtype=f32, device=dev)
     _launch_bptt(dhn, dists, *bptt_weights(wd, w_ih, w_hh), state, gt, keep_mask, keep,
                  dsel, drow, homo, cell)
-    return drow, gt, dsel
+    return drow, None if mlp else gt, dsel

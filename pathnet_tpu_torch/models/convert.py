@@ -9,8 +9,13 @@ the port keeps torch's ``[out, in]`` under the reference's names:
 | ``fc0.w`` / ``fc0.b`` | ``fc0.weight`` (T) / ``fc0.bias`` |
 | ``dist.w[k]`` / ``dist.b[k]`` | ``nets.k.weight`` (T) / ``nets.k.bias`` |
 | ``rnn.w_ih`` / ``w_hh`` / ``b_ih`` / ``b_hh`` | ``LSTM.weight_ih_l0`` (T) / ``weight_hh_l0`` (T) / ``bias_ih_l0`` / ``bias_hh_l0``; ``GRU.*`` under ``rnn="gru"`` |
+| ``rnn.w`` / ``rnn.b`` (``rnn="mlp"``) | ``MLP.weight`` (T) / ``MLP.bias`` |
 | ``attw.w`` / ``attw.b`` | ``attw.weight`` (T) / ``attw.bias`` |
 | ``fc2.w`` / ``fc2.b`` | ``fc2.weight`` (T) / ``fc2.bias`` |
+
+The MLP's names are the port's own: the reference has no MLP encoder, and
+``pathnet_tpu/models/torch_compat.py:64`` refuses ``rnn="mlp"``, so its
+parameters cross to JAX through the pytree alone.
 """
 from __future__ import annotations
 
@@ -40,13 +45,16 @@ def params_from_jax(np_params: Mapping, spec: PaggSpec) -> Dict[str, torch.Tenso
     rnn = _rnn_name(spec)
     sd = {
         "fc0.weight": t(p["fc0"]["w"], True), "fc0.bias": t(p["fc0"]["b"]),
-        f"{rnn}.weight_ih_l0": t(p["rnn"]["w_ih"], True),
-        f"{rnn}.weight_hh_l0": t(p["rnn"]["w_hh"], True),
-        f"{rnn}.bias_ih_l0": t(p["rnn"]["b_ih"]),
-        f"{rnn}.bias_hh_l0": t(p["rnn"]["b_hh"]),
         "attw.weight": t(p["attw"]["w"], True), "attw.bias": t(p["attw"]["b"]),
         "fc2.weight": t(p["fc2"]["w"], True), "fc2.bias": t(p["fc2"]["b"]),
     }
+    if spec.rnn == "mlp":
+        sd.update({"MLP.weight": t(p["rnn"]["w"], True), "MLP.bias": t(p["rnn"]["b"])})
+    else:
+        sd.update({f"{rnn}.weight_ih_l0": t(p["rnn"]["w_ih"], True),
+                   f"{rnn}.weight_hh_l0": t(p["rnn"]["w_hh"], True),
+                   f"{rnn}.bias_ih_l0": t(p["rnn"]["b_ih"]),
+                   f"{rnn}.bias_hh_l0": t(p["rnn"]["b_hh"])})
     for k in range(spec.walk_len):
         sd[f"nets.{k}.weight"] = t(np.asarray(p["dist"]["w"])[k], True)
         sd[f"nets.{k}.bias"] = t(np.asarray(p["dist"]["b"])[k])
@@ -65,13 +73,16 @@ def params_to_jax(tensors: Mapping[str, torch.Tensor], spec: PaggSpec) -> Dict:
 
     wl = spec.walk_len
     rnn = _rnn_name(spec)
+    if spec.rnn == "mlp":
+        cell = {"w": a("MLP.weight", True), "b": a("MLP.bias")}
+    else:
+        cell = {"w_ih": a(f"{rnn}.weight_ih_l0", True), "w_hh": a(f"{rnn}.weight_hh_l0", True),
+                "b_ih": a(f"{rnn}.bias_ih_l0"), "b_hh": a(f"{rnn}.bias_hh_l0")}
     return {
         "fc0": {"w": a("fc0.weight", True), "b": a("fc0.bias")},
         "dist": {"w": np.stack([a(f"nets.{k}.weight", True) for k in range(wl)]),
                  "b": np.stack([a(f"nets.{k}.bias") for k in range(wl)])},
-        "rnn": {"w_ih": a(f"{rnn}.weight_ih_l0", True),
-                "w_hh": a(f"{rnn}.weight_hh_l0", True),
-                "b_ih": a(f"{rnn}.bias_ih_l0"), "b_hh": a(f"{rnn}.bias_hh_l0")},
+        "rnn": cell,
         "attw": {"w": a("attw.weight", True), "b": a("attw.bias")},
         "fc2": {"w": a("fc2.weight", True), "b": a("fc2.bias")},
     }

@@ -15,8 +15,14 @@ uniform. The mean and sum readouts (either variant) read out ``mean(h_n)`` or
 ``sum(h_n)``: ``attw`` stays in the model and gets a zero gradient (which
 Adam's additive L2 still decays, as in JAX). The GRU's weights reach K3 and
 K4 packed into the LSTM's layout (:func:`~pathnet_tpu_torch.kernels.pagg_encode.pack_gru`,
-autograd ops, so the packed gradients flow back unpacked); the GRU runs in
-f32 only.
+autograd ops, so the packed gradients flow back unpacked). The MLP encoder
+(``rnn="mlp"``, ``pagg.py:180-188``) is ``h_n = mean_t(s_t) @ W + b``, an
+``nn.Linear`` named ``MLP`` that K3 and K4 take as ``(W, b)`` with empty
+recurrent weights (:func:`~pathnet_tpu_torch.kernels.pagg_encode.cell_shapes`).
+``quirk_compat=True`` (hetero; JAX's ``_hetero_quirk_forward``,
+``pagg.py:316-338``) runs K3 and K4 under their "quirk" readout, in f32
+whatever ``compute_dtype`` and ``agg`` say, as JAX's quirk path ignores them;
+the homo variant ignores the flag, as JAX's does (``pagg.py:229``).
 
 Training (``train=True``) runs the same forward with both of JAX's dropouts,
 taken as explicit keep masks: the first on the LSTM input (``pagg.py:274``,
@@ -42,7 +48,8 @@ Each cast is an autograd op, so each cast parameter gets the gradient of
 the bf16 path, as JAX's does through ``astype``.
 
 Parameters keep the reference's ``state_dict`` names (``fc0``, ``nets.k``,
-``LSTM.*_l0`` or ``GRU.*_l0``, ``attw``, ``fc2``), so
+``LSTM.*_l0`` or ``GRU.*_l0``, ``attw``, ``fc2``; the MLP, which the
+reference lacks, ``MLP.weight`` and ``MLP.bias``), so
 ``data/reference_checkpoints/cornell.pth`` loads with ``strict=True``. The
 ``nn.LSTM`` or ``nn.GRU`` only holds the weights: its cuDNN forward is never
 called.
@@ -98,7 +105,7 @@ class PaggSpec:
         return "x" if self.feat_dim <= 128 else "h"
 
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a choice the port does not run yet."""
+        """Raise ``ValueError`` for a choice the JAX package does not know."""
         if self.variant not in ("hetero", "homo"):
             raise ValueError(f"variant={self.variant!r}")
         if self.compute_dtype not in ("float32", "bfloat16"):
@@ -107,22 +114,17 @@ class PaggSpec:
             raise ValueError(f"rnn={self.rnn!r}")
         if self.agg not in ("attention", "mean", "sum"):
             raise ValueError(f"agg={self.agg!r}")
-        if self.rnn == "mlp":
-            raise NotImplementedError("PaggSpec.rnn='mlp' is not ported yet; the port "
-                                      "runs 'lstm' and 'gru' (ROADMAP §1 item 3)")
-        if self.quirk_compat:
-            raise NotImplementedError("PaggSpec.quirk_compat=True is not ported yet "
-                                      "(ROADMAP §1 item 3)")
-        if self.rnn == "gru" and self.compute_dtype == "bfloat16":
-            raise NotImplementedError("PaggSpec.rnn='gru' with compute_dtype='bfloat16' is "
-                                      "not ported yet; the GRU runs in float32 (ROADMAP §1 "
-                                      "item 3)")
         if self.gather_mode not in ("auto", "h", "x"):
             raise ValueError(f"gather_mode={self.gather_mode!r}")
         if self.dist_mode not in ("onehot", "mask"):
             raise ValueError(f"dist_mode={self.dist_mode!r}")
         if not 0.0 <= self.dropout < 1.0:
             raise ValueError(f"dropout={self.dropout} must lie in [0, 1)")
+
+    def quirk(self) -> bool:
+        """Whether the quirk path runs: ``quirk_compat`` on the hetero variant
+        (``pagg.py:229``)."""
+        return self.quirk_compat and self.variant == "hetero"
 
 
 class PaggEncode(torch.autograd.Function):
@@ -181,7 +183,8 @@ def draw_dropout_masks(spec: PaggSpec, T: int, nw: int,
 
 class PathNet(nn.Module):
     """PathNet, hetero or homo (``spec.variant``), with an ``nn.LSTM`` named
-    ``LSTM`` or (``spec.rnn == "gru"``) an ``nn.GRU`` named ``GRU``. Weights
+    ``LSTM``, (``spec.rnn == "gru"``) an ``nn.GRU`` named ``GRU`` or (``"mlp"``)
+    an ``nn.Linear(H, H)`` named ``MLP``, drawn in the recurrent module's place. Weights
     are torch-default draws from ``generator`` (a CPU generator; seed 0 when
     omitted); the homo variant then redraws the ``fc0`` and ``fc2`` weights
     from xavier's uniform, as the reference does
@@ -200,6 +203,8 @@ class PathNet(nn.Module):
             self.nets = nn.ModuleList(nn.Linear(H, H) for _ in range(wl))
             if spec.rnn == "gru":
                 self.GRU = nn.GRU(H, H)
+            elif spec.rnn == "mlp":
+                self.MLP = nn.Linear(H, H)
             else:
                 self.LSTM = nn.LSTM(H, H)
             self.attw = nn.Linear(2 * H, 1)
@@ -210,10 +215,14 @@ class PathNet(nn.Module):
             torch_linear_init_(layer, g)
         if spec.rnn == "gru":
             torch_gru_init_(self.GRU, g)
+        elif spec.rnn == "mlp":
+            torch_linear_init_(self.MLP, g)
         else:
             torch_lstm_init_(self.LSTM, g)
         self.homo = spec.variant == "homo"
-        self.bf16 = spec.compute_dtype == "bfloat16"
+        # the quirk path runs f32 under its own readout (pagg.py:229-231)
+        self.agg = "quirk" if spec.quirk() else spec.agg
+        self.bf16 = spec.compute_dtype == "bfloat16" and not spec.quirk()
         if self.homo:
             xavier_uniform_(self.fc0.weight, g)
             xavier_uniform_(self.fc2.weight, g)
@@ -221,7 +230,8 @@ class PathNet(nn.Module):
     def _encode_inputs(self, X: torch.Tensor):
         """``(h, weights)``: ``h = X @ W0 + b0`` (homo: its ReLU) in f32,
         from which K5 gathers the ego rows, and the f32 weights in K3's
-        layout (the GRU's packed)."""
+        layout (the GRU's packed; the MLP's ``(W, b)`` with empty recurrent
+        weights)."""
         h = F.linear(X, self.fc0.weight, self.fc0.bias)
         if self.homo:
             h = torch.relu(h)
@@ -229,6 +239,9 @@ class PathNet(nn.Module):
             rnn = self.GRU
             cell = pack_gru(rnn.weight_ih_l0.t(), rnn.weight_hh_l0.t(), rnn.bias_ih_l0,
                             rnn.bias_hh_l0)
+        elif self.spec.rnn == "mlp":
+            w = self.MLP.weight
+            cell = (w.t(), w.new_zeros((w.shape[0], 0)), self.MLP.bias, w.new_zeros(0))
         else:
             rnn = self.LSTM
             cell = (rnn.weight_ih_l0.t(), rnn.weight_hh_l0.t(), rnn.bias_ih_l0,
@@ -282,14 +295,14 @@ class PathNet(nn.Module):
                 h, weights = self._encode_inputs(X)
                 table, weights = self._k3_inputs(X, h, weights)
                 h_agg = pagg_encode_fwd(table, paths, dists, *weights, homo=self.homo,
-                                        agg=self.spec.agg, cell=self.spec.rnn)
+                                        agg=self.agg, cell=self.spec.rnn)
                 out = torch.cat([row_gather(h, ego_idx), h_agg], dim=-1)
                 return F.linear(out, self.fc2.weight, self.fc2.bias)
         keep = 1.0 - self.spec.dropout
         m1, m2 = masks if masks is not None else (None, None)
         h, weights = self._encode_inputs(X)
         table, weights = self._k3_inputs(X, h, weights)
-        h_agg = PaggEncode.apply(table, paths, dists, m1, keep, self.homo, self.spec.agg,
+        h_agg = PaggEncode.apply(table, paths, dists, m1, keep, self.homo, self.agg,
                                  self.spec.rnn, *weights)
         out = torch.cat([RowGather.apply(h, ego_idx), h_agg], dim=-1)
         if m2 is not None:

@@ -1,7 +1,9 @@
 """Torch-default initial distributions drawn from an explicit generator.
 
 Port of ``pathnet_tpu/nn/init.py:26-68``: ``nn.Linear`` draws weight and bias
-from U(-1/sqrt(fan_in), 1/sqrt(fan_in)); ``nn.LSTM`` and ``nn.GRU`` draw every
+from U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (the MLP encoder's ``[H, H]`` linear
+too, drawn where the recurrent module is, as ``pathnet_tpu/models/pagg.py:
+136-137`` draws it from the LSTM's key); ``nn.LSTM`` and ``nn.GRU`` draw every
 tensor from U(-1/sqrt(hidden), 1/sqrt(hidden)); the homo PathNet redraws its ``fc0`` and
 ``fc2`` weights from xavier's U(-sqrt(6 / (fan_in + fan_out)), ...). Draws come from a CPU generator and are
 copied to the parameter's device, so one seed gives the same weights on the

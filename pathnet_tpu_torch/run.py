@@ -5,13 +5,13 @@
 The same flags and defaults as ``python -m pathnet_tpu.run``, with
 ``--device`` in place of ``--platform`` (default: the CUDA card). Choices the
 port does not run yet raise ``NotImplementedError`` naming ROADMAP.md:
-``--mesh``, ``--shard-features``, ``--rnn mlp``, ``--rnn gru`` with ``--dtype
-bfloat16``, ``--quirk-compat``, and the baseline models (``--model``).
+``--mesh``, ``--shard-features`` and the baseline models (``--model``).
 ``-mk uniform`` walks the symmetrized graph with self-loops, uniformly, and
 skips MERW (RW-PathNet), as in the JAX CLI. The homophily datasets (cora, citeseer, pubmed) train the
-homo variant, as in the JAX CLI. ``--rnn gru`` runs the GRU encoder and
-``--agg mean|sum`` the mean or sum readout, through K3's and K4's GRU and
-``AGG`` instances. ``--dtype bfloat16`` computes the encode in bf16 through
+homo variant, as in the JAX CLI. ``--rnn gru`` and ``--rnn mlp`` run the GRU
+and MLP encoders and ``--agg mean|sum`` the mean or sum readout, through K3's
+and K4's cell and ``AGG`` instances; ``--quirk-compat`` runs JAX's quirk path
+(hetero, f32) through their quirk readout. ``--dtype bfloat16`` computes the encode in bf16 through
 K3's and K4's bf16 instances (the bgp band's configuration: ``-data bgp
 --dtype bfloat16 --microbatch 8192``).
 ``--no-scan``, ``--scan-chunk`` and ``--remat`` are accepted and change
@@ -130,12 +130,6 @@ def check_ported(args) -> None:
         todo.append(("--mesh", "the multi-device layer, ROADMAP §1 item 11"))
     if args.shard_features:
         todo.append(("--shard-features", "the multi-device layer, ROADMAP §1 item 11"))
-    if args.rnn == "mlp":
-        todo.append(("--rnn mlp", "the MLP encoder, ROADMAP §1 item 3"))
-    if args.rnn == "gru" and args.dtype == "bfloat16":
-        todo.append(("--rnn gru with --dtype bfloat16", "bf16 x GRU, ROADMAP §1 item 3"))
-    if args.quirk_compat:
-        todo.append(("--quirk-compat", "quirk_compat, ROADMAP §1 item 3"))
     if todo:
         what, where = todo[0]
         raise NotImplementedError(f"{what} is not ported yet ({where})")

@@ -134,7 +134,7 @@ def jax_encode_block(jspec, params, X, paths, dists, mask=None):
     seq = sel.reshape(Tn * nw, wl, H).transpose(1, 0, 2)
     if mask is not None:
         seq = jnp.where(jnp.asarray(mask.astype(bool)), seq / (1.0 - jspec.dropout), 0.0)
-    return table, seq, _encode(pb, seq, "lstm")
+    return table, seq, _encode(pb, seq, jspec.rnn)
 
 
 def as_f32(a):

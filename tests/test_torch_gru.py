@@ -7,8 +7,8 @@ selected rows. Model: logits against ``pagg_forward`` and every gradient
 against ``jax.grad`` of the JAX trainer's loss, hetero and homo, with the
 attention, mean and sum readouts, without and with dropout. K4's plain GRU
 stages composed against autograd of K3's plain version. The ``GRU.*``
-state_dict round trip, the refusals that stay (bf16 x GRU, the MLP
-encoder), and ``--rnn gru`` through the CLI on the host.
+state_dict round trip, the unknown choices' refusals, and ``--rnn gru`` through the CLI
+on the host.
 """
 import jax
 import jax.numpy as jnp
@@ -196,18 +196,21 @@ def test_gru_state_dict_round_trip(variant):
 
 
 def test_the_remaining_encoder_choices_still_raise():
+    # bf16 x GRU runs since PR 19 (tests/test_torch_bf16_cells.py); unknown
+    # encoders and readouts still raise ValueError
     kw = dict(feat_dim=24, hidden=16, out_dim=5, walk_len=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PathNet(PaggSpec(rnn="gru", compute_dtype="bfloat16", **kw), device="cpu")
+    assert PathNet(PaggSpec(rnn="gru", compute_dtype="bfloat16", **kw), device="cpu").bf16
     with pytest.raises(ValueError, match="agg"):
         PaggSpec(agg="max", **kw).check_ported()
+    with pytest.raises(ValueError, match="rnn"):
+        PaggSpec(rnn="rnn", **kw).check_ported()
     _, _, _, model = model_pair(24, 16, 4, "hetero", "attention", "gru")
     X = torch.zeros((10, 24))
     table, w = model.encode_inputs(X)
     paths = torch.zeros((2, NW, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.pagg_encode_fwd(table.bfloat16(), paths, paths,
-                          *(t.bfloat16() for t in w[:6]), *w[6:], cell="gru")
+    out = K.pagg_encode_fwd(table.bfloat16(), paths, paths,
+                            *(t.bfloat16() for t in w[:6]), *w[6:], cell="gru")
+    assert out.shape == (2, 16) and out.dtype == torch.float32
     with pytest.raises(ValueError, match="cell"):
         K.pagg_encode_fwd(table, paths, paths, *w, cell="rnn")
     with pytest.raises(ValueError, match="agg"):

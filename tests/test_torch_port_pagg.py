@@ -115,10 +115,11 @@ def test_weights_are_seeded_torch_default_draws():
         assert float(x.abs().max()) <= bound, name
 
 
-@pytest.mark.parametrize("kw", [{"rnn": "gru", "compute_dtype": "bfloat16"},
-                                {"rnn": "mlp"}, {"quirk_compat": True}])
+@pytest.mark.parametrize("kw", [{"rnn": "rnn"}, {"agg": "max"}, {"variant": "both"}])
 def test_unported_model_choices_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # every choice of the JAX package's PathNet runs (the MLP, the quirk and
+    # bf16 x GRU since PR 19); one it does not know raises ValueError
+    with pytest.raises(ValueError, match=next(iter(kw))):
         PathNet(PaggSpec(feat_dim=F, hidden=H, out_dim=C, walk_len=4, **kw), device="cpu")
 
 

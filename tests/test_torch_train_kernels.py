@@ -359,16 +359,61 @@ def unpacked(grads, cell="gru"):
 
 
 def assert_attention_bwd_within(got, want, agg):
-    """The attention backward's ``(dhn, dego, dattw, dattb)``: attention
-    within 1e-4 (``dattw``, ``dattb`` of ``dego``'s scale); mean and sum
-    ``dhn`` within 1e-4, no ``dego`` and exact zero ``dattw``, ``dattb``."""
-    if agg == "attention":
+    """The attention backward's ``(dhn, dego, dattw, dattb)``: attention (and
+    the quirk's) within 1e-4 (``dattw``, ``dattb`` of ``dego``'s scale); mean
+    and sum ``dhn`` within 1e-4, no ``dego`` and exact zero ``dattw``,
+    ``dattb``."""
+    if agg in ("attention", "quirk"):
         assert_within(got, want, ("dhn", "dego", "dattw", "dattb"),
                       cancel=("dattw", "dattb"), cancel_scale=float(want[1].abs().max()))
         return
     assert got[1] is None and want[1] is None
     assert_within(got[:1], want[:1], ("dhn",))
     assert not got[2].any() and not got[3].any()
+
+
+def mlp_weights(w):
+    """K3's weights ``w`` with the MLP in the cell's slots: ``W`` the first H
+    columns of ``w_ih``, ``b`` of ``b_ih``, the recurrent weights empty."""
+    H = w[0].shape[1]
+    W, b = w[2][:, :H].contiguous(), w[4][:H].contiguous()
+    return (*w[:2], W, W.new_zeros((H, 0)), b, b.new_zeros(0), *w[6:])
+
+
+def cell_weights(w, cell):
+    return gru_weights(w) if cell == "gru" else mlp_weights(w) if cell == "mlp" else w
+
+
+def check_stages_on_the_card(h, paths, dists, w, m, keep, homo, agg, cell, gout, tol=1e-4):
+    """K4's launches alone (the recompute, the readout, the attention
+    backward, the BPTT) against their plain versions on the plain
+    recompute's streams, each within ``tol`` of the plain result's largest
+    entry."""
+    names = ("hn", "xr", "xin", "hp", "cs", "gt", "ego")
+    want = K.encode_walks_streams_plain(h, paths, dists, *w[:6], m, keep, homo, cell=cell)
+    got = K.encode_walks_streams(h, paths, dists, *w[:6], m, keep, homo, cell)
+    for name, a, b in zip(names, got, want):
+        assert (a is None) == (b is None), name
+        if b is not None:
+            assert_within((a,), (b,), (name,), tol)
+    hn, xr, xin, hp, cs, gt, *ego = want
+    ego = ego[0] if homo else None
+    assert_within([K.readout(h, paths, hn, *w[6:], ego, agg)],
+                  [K.readout_plain(h, paths, hn, *w[6:], ego, agg)], ["readout"], 1e-5)
+    want = K.attention_bwd_plain(gout, h, paths, hn, *w[6:], ego, agg)
+    assert_attention_bwd_within(K.attention_bwd(gout, h, paths, hn, *w[6:], ego, agg), want,
+                                agg)
+    dhn, dego = want[:2]
+    state = hp if cell == "gru" else None if cell == "mlp" else cs
+    gt2 = None if gt is None else gt.clone()
+    hargs = (xin, ego, dego) if homo else None
+    want = K.bptt_plain(dhn, paths, dists, w[0], w[2], w[3], state, gt, m, keep, hargs,
+                        cell=cell)
+    got = K.bptt(dhn, paths, dists, w[0], w[2], w[3], state, gt2, m, keep, hargs, cell)
+    assert (got[1] is None) == (want[1] is None) == (cell == "mlp")
+    keep_ = [i for i in range(3) if want[i] is not None]
+    assert_within([got[i] for i in keep_], [want[i] for i in keep_],
+                  [("drow", "dgates", "dsel")[i] for i in keep_], tol)
 
 
 def assert_stages_within(got, want, names):
@@ -432,6 +477,103 @@ def test_gru_and_readout_instances_match_plain_on_the_card(cuda, homo, H, wl, nw
             got = K.bptt(dhn, paths, dists, wc[0], wc[2], wc[3], state, gt.clone(), m, keep,
                          hargs, cell)
             assert_within(got, want, ("drow", "dgates", "dsel"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("homo", [False, True])
+@pytest.mark.parametrize("H,wl,nw,T,wild", [
+    (64, 4, 40, None, False), (256, 4, 40, 30, True), (37, 5, 6, 183, True),
+    (16, 2, 6, None, False), (1, 3, 6, None, False), (64, 4, 40, 1, False),
+    (1024, 2, 3, 20, True)])
+def test_mlp_instances_match_plain_on_the_card(cuda, homo, H, wl, nw, T, wild):
+    # the MLP encoder's f32 instances of K3 and K4 (no recurrence: the mean
+    # of the selected rows, one product) against their plain versions, under
+    # the attention and mean readouts, with and without the keep mask
+    if wild:
+        starts, paths, dists, h, w, mask, gout = wild_case(H, wl, nw, T, device=cuda)
+    else:
+        starts, paths, dists, h, w, mask, gout = case(nw=nw, wl=wl, H=H, T=T, device=cuda)
+    wc = mlp_weights(w)
+    for agg in ("attention", "mean"):
+        for m, keep in ((None, 1.0), (mask, KEEP)):
+            kw = dict(homo=homo, agg=agg, cell="mlp")
+            got = K.pagg_encode_fwd(h, paths, dists, *wc, m, keep, **kw)
+            want = K.pagg_encode_fwd_plain(h, paths, dists, *wc, m, keep, **kw)
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+            got = K.pagg_encode_bwd(gout, h, paths, dists, *wc, m, keep, **kw)
+            want = K.pagg_encode_bwd_plain(gout, h, paths, dists, *wc, m, keep, **kw)
+            assert got[4].shape == (H, 0) and got[6].shape == (0,)
+            assert_within(got, want, GRADS, cancel=("dattw", "dattb"),
+                          cancel_scale=float(want[0].abs().max()))
+            check_stages_on_the_card(h, paths, dists, wc, m, keep, homo, agg, "mlp", gout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["gru", "mlp"])
+@pytest.mark.parametrize("H,wl,nw,T,wild,homo", [
+    (64, 4, 40, None, False, False), (64, 4, 40, None, False, True),
+    (32, 4, 40, None, False, False), (256, 4, 40, 30, True, False),
+    (37, 5, 6, 183, True, True), (64, 4, 40, 1, False, False)])
+def test_bf16_gru_and_mlp_instances_match_plain_on_the_card(cuda, cell, H, wl, nw, T, wild,
+                                                            homo):
+    # the GRU's and the MLP's bf16 instances (tensor-core products, the
+    # cells' bf16 roundings) within four bf16 ulps of the plain versions'
+    # largest entries, as the bf16 LSTM instances are held
+    if wild:
+        starts, paths, dists, h, w, mask, gout = wild_case(H, wl, nw, T, device=cuda)
+    else:
+        starts, paths, dists, h, w, mask, gout = case(nw=nw, wl=wl, H=H, T=T, device=cuda)
+    hb, wb = bf16_inputs(h, cell_weights(w, cell))
+    for agg in ("attention", "mean"):
+        for m, keep in ((None, 1.0), (mask, KEEP)):
+            kw = dict(homo=homo, agg=agg, cell=cell)
+            got = K.pagg_encode_fwd(hb, paths, dists, *wb, m, keep, **kw)
+            want = K.pagg_encode_fwd_plain(hb, paths, dists, *wb, m, keep, **kw)
+            assert_within([got], [want], ["out"], BF16_TOL)
+            got = unpacked(K.pagg_encode_bwd(gout, hb, paths, dists, *wb, m, keep, **kw), cell)
+            want = unpacked(K.pagg_encode_bwd_plain(gout, hb, paths, dists, *wb, m, keep, **kw),
+                            cell)
+            assert [t.dtype for t in got] == [torch.bfloat16] * 7 + [torch.float32] * 2
+            assert_within(as_f32(got), as_f32(want), GRADS, BF16_TOL,
+                          cancel=("dattw", "dattb"),
+                          cancel_scale=float(want[0].float().abs().max()))
+            check_stages_on_the_card(hb, paths, dists, wb, m, keep, homo, agg, cell, gout,
+                                     BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["lstm", "gru", "mlp"])
+@pytest.mark.parametrize("H,wl,nw,T,wild", [
+    (64, 4, 40, None, False), (256, 4, 40, 30, True), (37, 5, 6, 183, True),
+    (16, 1, 6, None, False), (64, 4, 1, 50, False)])
+def test_quirk_instances_match_plain_on_the_card(cuda, cell, H, wl, nw, T, wild):
+    # the quirk (the hetero launches on quirk_layout's walks, the readout's
+    # softmax then mean over explicit ego nodes, their backward) against the
+    # quirk as written (the plain forward and its autograd)
+    from pathnet_tpu_torch.kernels.pagg_encode import quirk_layout
+    if wild:
+        starts, paths, dists, h, w, mask, gout = wild_case(H, wl, nw, T, device=cuda)
+    else:
+        starts, paths, dists, h, w, mask, gout = case(nw=nw, wl=wl, H=H, T=T, device=cuda)
+    wc = cell_weights(w, cell)
+    for m, keep in ((None, 1.0), (mask, KEEP)):
+        kw = dict(agg="quirk", cell=cell)
+        got = K.pagg_encode_fwd(h, paths, dists, *wc, m, keep, **kw)
+        want = K.pagg_encode_fwd_plain(h, paths, dists, *wc, m, keep, **kw)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        got = unpacked(K.pagg_encode_bwd(gout, h, paths, dists, *wc, m, keep, **kw), cell)
+        want = unpacked(K.pagg_encode_bwd_plain(gout, h, paths, dists, *wc, m, keep, **kw),
+                        cell)
+        assert_within(got, want, GRADS, cancel=("dattw", "dattb"),
+                      cancel_scale=float(want[0].abs().max()))
+        qp, qd, ego, perm = quirk_layout(paths, dists)
+        hn = K.encode_walks_plain(h, qp, qd, *wc[:6], None if m is None else m[:, perm], keep,
+                                  cell=cell)
+        assert_within([K.readout(h, ego, hn, *wc[6:], agg="quirk")],
+                      [K.readout_plain(h, ego, hn, *wc[6:], agg="quirk")], ["readout"], 1e-5)
+        assert_attention_bwd_within(K.attention_bwd(gout, h, ego, hn, *wc[6:], agg="quirk"),
+                                    K.attention_bwd_plain(gout, h, ego, hn, *wc[6:],
+                                                          agg="quirk"), "quirk")
 
 
 @pytest.mark.gpu
@@ -702,12 +844,13 @@ def test_bf16_mean_and_sum_instances_match_plain_on_the_card(cuda, agg, H, wl, n
 def test_bf16_instances_multiply_on_tensor_cores_and_f32_ones_do_not(cuda):
     # every BF16 instance of the encode (K3, and K4's recompute with STREAMS)
     # and of K4's BPTT runs its products as mma.sync (HMMA in its SASS); the
-    # f32 instances, the GRU's among them, keep the CUDA-core product
+    # f32 instances, the GRU's and the MLP's among them, keep the CUDA-core
+    # product
     from pathnet_tpu_torch.kernels import build
     # by the BF16 argument: masked x homo x H = 64, 32 or run time bf16
     # instances (x STREAMS for the encode; the BPTT's homo ones with and
-    # without d ego)
-    for kernel, flag, n in (("pagg_encode_walks_kernel", 4, 24), ("pagg_bptt_kernel", 3, 18)):
+    # without d ego), each for the LSTM, the GRU and the MLP
+    for kernel, flag, n in (("pagg_encode_walks_kernel", 4, 72), ("pagg_bptt_kernel", 3, 54)):
         counts = build.hmma_counts(kernel, flag)
         assert len(counts[1]) == n and min(counts[1]) > 0, (kernel, counts)
         assert len(counts[0]) > 0 and not any(counts[0]), (kernel, counts)
