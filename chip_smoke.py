@@ -206,7 +206,23 @@ one card). Phases, each with a start and an end line:
     89c32d97), each within 3 std of the JAX CLI's own host band
     (``CORNELL_MLP_BAND``, ``CORNELL_QUIRK_BAND``,
     ``CORNELL_GRU_BF16_BAND``), and one cora ``--rnn mlp`` round above
-    chance.
+    chance;
+18. the baseline zoo (``--model``): S1 ``spmm`` (both CSR orders at F = 8,
+    64 and 8 heads x 64), S2 ``edge_dot`` (8 x 64), S3 ``segment_softmax``
+    and S4 ``segment_softmax_bwd`` (8 heads) on the bgp stand-in's baseline
+    graphs (703,633 edges with self-loops) against their plain versions
+    (1e-5 of the largest plain entry, S3 1e-6), two calls bit-equal, timed
+    as phase 2 times its kernels beside ``torch.sparse``'s calls where one
+    computes the same function; every model of the zoo at cornell's full
+    width on the card against the host (the eval forward, one training
+    step's loss, logits, gradients and running statistics, phase 7's
+    tolerance) and ``label_propagation`` and ``correct_and_smooth``; GCN
+    and GAT full batch on the bgp stand-in, ms and launches an epoch; two
+    seeded GCN and two seeded GAT rounds at cornell bit-equal; one round
+    each of cornell ``--model mlp``, ``gcn`` and ``gat`` through the CLI
+    (``BASELINE_ROUNDS`` x 1000), each within 3 std of its band
+    (``BASELINE_BANDS``: the mlp row of ``results/results.jsonl``, the JAX
+    CLI's own host runs for GCN and GAT), and one ``--model lp`` round.
 
 The protocol phases gate on their band when they run 10 rounds of 1000
 epochs, and on accuracy above chance when a rehearsal cuts them shorter;
@@ -228,7 +244,8 @@ mean|sum``, whose launches are K3's and K4's in phase 14's ``--agg mean``
 not, as its ``note`` says; K8's three entries from phase 16's alias rounds,
 each from the round whose backend runs it; phase 17's MLP instances (``...
 mlp``, ``... mlp homo``), bf16 GRU instances (``... gru bf16``) and quirk
-readout and backward (``... quirk``) from its cornell and cora protocols);
+readout and backward (``... quirk``) from its cornell and cora protocols;
+S1-S4 from phase 18's cornell ``--model gat`` round);
 the last is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
 prints no result. Without a CUDA card, or outside a checkout, it exits
 non-zero.
@@ -240,6 +257,7 @@ import glob
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -262,7 +280,8 @@ K5_BWD_TOL = 1e-5  # of the largest plain entry (atomics order the sums)
 KERNELS = ("cdf_walk", "membership_dists", "pagg_encode_fwd", "pagg_encode_bwd",
            "row_gather", "row_gather_bwd", "lane_gather", "segment_sum", "walk_dists",
            "khop_dists", "walk_khop_dists", "alias_walk", "alias_walk_dists",
-           "alias_walk_khop_dists")
+           "alias_walk_khop_dists", "spmm", "edge_dot", "segment_softmax",
+           "segment_softmax_bwd")
 # the sampler's launches: K1 or K8 alone, fused with K2, fused with K7
 WALK_KERNELS = ("cdf_walk", "walk_dists", "walk_khop_dists", "alias_walk", "alias_walk_dists",
                 "alias_walk_khop_dists")
@@ -367,6 +386,33 @@ REMAINING_KERNELS = ("pagg_encode_fwd mlp", "pagg_encode_bwd mlp", "pagg_encode_
                      "pagg_encode_bwd mlp homo", "pagg_encode_fwd gru bf16",
                      "pagg_encode_bwd gru bf16", "pagg_encode_fwd quirk",
                      "pagg_encode_bwd quirk")
+# the baseline zoo (phase 18): S1-S4 and their launches an epoch (LP: a round)
+# of each banded model through the CLI: a training forward, its backward
+# (GAT: S1 for dz and for the two score gathers' VJPs a layer) and an eval
+# forward
+BASELINE_KERNELS = ("spmm", "edge_dot", "segment_softmax", "segment_softmax_bwd")
+BASELINE_LAUNCHES = {"mlp": {}, "gcn": {"spmm": 6},
+                     "gat": {"spmm": 10, "edge_dot": 2, "segment_softmax": 4,
+                             "segment_softmax_bwd": 2},
+                     "lp": {"spmm": 100}}
+BASELINE_TOL = 1e-5   # S1, S2, S4: of the plain version's largest entry
+SOFTMAX_TOL = 1e-6    # S3's outputs, absolute
+# (mean, std) of the JAX package's 10 x 1000 test accuracy of each banded
+# baseline, with its payload and width: --model mlp from results/results.jsonl
+# (:107, :56, :105, :97); GCN and GAT the JAX CLI's own runs on the host
+# (JAX_PLATFORMS=cpu python -m pathnet_tpu.run -data <name> --model <m>;
+# PERF.md, section 2). A run of fewer rounds holds each round to 3 std.
+BASELINE_BANDS = {
+    ("cornell", "mlp"): ((0.8135135352611542, 0.04902259545490344), CORNELL_PAYLOAD, 64),
+    ("cora", "mlp"): ((0.72361621260643, 0.02576163970637985), "ec4121ed", 64),
+    ("Nba", "mlp"): ((0.5756097435951233, 0.05662529736005569), NBA_PAYLOAD, 256),
+    ("bgp", "mlp"): ((0.6538797914981842, 0.004285084614521797), BGP_PAYLOAD, 64),
+    ("cornell", "gcn"): ((0.6162162125110626, 0.07431203345711547), CORNELL_PAYLOAD, 64),
+    ("cornell", "gat"): ((0.5594594538211822, 0.07744080175268676), CORNELL_PAYLOAD, 64),
+    ("cora", "gcn"): ((0.8730627298355103, 0.018130060520037027), "ec4121ed", 64),
+    ("cora", "gat"): ((0.8738007366657257, 0.011645563249943766), "ec4121ed", 64),
+}
+BASELINE_ROUNDS, BASELINE_SEEDED_EPOCHS, BGP_BASELINE_EPOCHS = 1, 30, 50
 
 def walk_kernel(wl: int) -> str:
     """The sampler's launch at walk length ``wl``: the membership backend's
@@ -635,13 +681,29 @@ def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None,
     """Time a kernel per launch in a CUDA graph and per eager call, its plain
     version per eager call and (if given) the library call as the kernel,
     per call in a CUDA graph (its ``library_ms``) and eagerly; record them.
-    ``bf16``: the bound at bf16's tensor-core rate, and beside it the f32
-    CUDA-core bound of the same operations (``f32_bound_ms``)."""
+    A library call that a CUDA graph cannot capture keeps its eager time as
+    its ``library_ms``, marked ``library_eager``, to be set beside the
+    wrapper's eager call (``call_ms``). ``bf16``: the bound at bf16's
+    tensor-core rate, and beside it the f32 CUDA-core bound of the same
+    operations (``f32_bound_ms``)."""
+    import torch
+
     ms = graph_ms(kern_graph or kern, iters)
     call_ms = time_ms(kern, max(2, iters // 3))
     plain_ms = time_ms(plain, 3)
-    lib_ms = graph_ms(library, iters) if library is not None else None
-    lib_call = "" if library is None else f", eager {time_ms(library, 20):.4f} ms"
+    lib_ms, lib_text = None, "n/a"
+    if library is not None:
+        lib_call = time_ms(library, 20)
+        try:
+            lib_ms = graph_ms(library, iters)
+            lib_text = f"{lib_ms:.4f} ms in a CUDA graph, eager {lib_call:.4f} ms"
+        except RuntimeError as e:
+            torch.cuda.synchronize()
+            lib_ms = lib_call
+            rec[name]["library_eager"] = True
+            lib_text = (f"{lib_call:.4f} ms eager, beside the wrapper's eager "
+                        f"{call_ms:.4f} ms (no CUDA graph capture: {str(e).splitlines()[0]})")
+    rec[name]["call_ms"] = call_ms
     bound_ms, bound_by = bound(b, o, BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
     rec[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=lib_ms)
@@ -650,8 +712,7 @@ def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None,
         rec[name]["f32_bound_ms"] = bound(b, o)[0]
         f32_note = f", f32 CUDA-core bound {rec[name]['f32_bound_ms']:.4f} ms"
     say(f"  {name}: {ms:.4f} ms per launch in a CUDA graph, {call_ms:.4f} ms per "
-        f"eager wrapper call (plain {plain_ms:.4f} ms eager, library "
-        + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms in a CUDA graph{lib_call}") +
+        f"eager wrapper call (plain {plain_ms:.4f} ms eager, library {lib_text}"
         f", bound {bound_ms:.4f} ms by {bound_by}{' at bf16' if bf16 else ''}{f32_note}: "
         f"{b / 1e6:.1f} MB, {o / 1e9:.3f} G ops)")
 
@@ -2404,6 +2465,350 @@ def check_sampler(root, dev, gen, rec, z, ps, idx, floor_ms):
             f"{res.metrics['accuracy']:.4f}")
 
 
+def run_baseline_cli(name, model, root, tmp, rounds, hidden, band, payload=None,
+                     round_band=False):
+    """A baseline protocol through the CLI (``--model model``) on the card
+    with temporary results and checkpoint directories: its launches
+    (``BASELINE_LAUNCHES`` an epoch, LP's a round, nothing of PathNet's),
+    its rounds checkpointed under the JAX CLI's key and its result line;
+    the accuracy gated on ``band`` as :func:`run_protocol_cli` gates it
+    (``band`` None: no gate but a finite accuracy). Returns the launch
+    counts."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch import run
+    from pathnet_tpu_torch.data.registry import DATASETS, payload_fingerprint
+
+    fp = payload_fingerprint(DATASETS[name])
+    if payload is not None and fp != payload:
+        raise AssertionError(f"{name}: payload {fp} is not the JAX band's {payload}")
+    out = os.path.join(tmp, f"{name}_{model}_h{hidden}")
+    argv = ["-data", name, "-pr", root, "-r", str(rounds), "-e", str(PROTOCOL_EPOCHS),
+            "-hid", str(hidden), "--model", model, "--results-dir", os.path.join(out, "results"),
+            "--ckpt-dir", os.path.join(out, "ckpt"), "--resume"]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    epochs = PROTOCOL_EPOCHS * rounds
+    expect = {k: 0 for k in KERNELS}
+    expect.update({k: v * (rounds if model == "lp" else epochs)
+                   for k, v in BASELINE_LAUNCHES[model].items()})
+    say(f"  launches: { {k: counts[k] for k in BASELINE_KERNELS} }")
+    if counts != expect:
+        raise AssertionError(f"{name} --model {model} launch counts {counts}, the path makes "
+                             f"{expect}")
+    key = f"{name}.{model}.{fp}.e{PROTOCOL_EPOCHS}.h{hidden}.s0.dr0.7"
+    saved = sorted(glob.glob(os.path.join(out, "ckpt", key, "round_*", "meta.json")))
+    text_path = os.path.join(out, "results", f"result_for_{name}.txt")
+    if len(saved) != rounds or f"{model} Avg for {name}" not in open(text_path).read():
+        raise AssertionError(f"{name} --model {model}: {len(saved)} rounds checkpointed under "
+                             f"{key}, or no result line")
+    accs = []
+    for path in saved:
+        with open(path) as f:
+            accs.append(json.load(f)["metrics"]["accuracy"])
+    mean, std = result["accuracy"]
+    say(f"  {name} --model {model}, {rounds} rounds x {PROTOCOL_EPOCHS} epochs at H = {hidden}: "
+        f"acc {mean:.4f} +- {std:.4f} ("
+        + ("no band" if band is None else f"JAX {band[0]:.4f} +- {band[1]:.4f}")
+        + "; rounds " + ", ".join(f"{a:.4f}" for a in accs) + f"); {secs:.1f} s, "
+        f"{secs / epochs * 1e3:.3f} ms per epoch (loading and graph build included)")
+    if not np.isfinite(mean):
+        raise AssertionError(f"{name} --model {model}: accuracy {mean}")
+    if band is None:
+        pass
+    elif rounds == 10 and PROTOCOL_EPOCHS == 1000:
+        if not abs(mean - band[0]) <= band[1]:
+            raise AssertionError(f"{name} --model {model}: mean accuracy {mean} outside the "
+                                 f"JAX band {band}")
+    elif round_band:
+        bad = [a for a in accs if not abs(a - band[0]) <= 3 * band[1]]
+        if bad:
+            raise AssertionError(f"{name} --model {model}: rounds {bad} outside 3 std of the "
+                                 f"JAX band {band}")
+    elif not mean > 1.0 / DATASETS[name].num_classes:
+        raise AssertionError(f"{name} --model {model}: mean accuracy {mean} not above chance")
+    return counts
+
+
+def heads_coo(ptr, col, w, n):
+    """An ``[heads, n, n]`` sparse COO tensor whose head ``k`` holds the CSR
+    pattern ``ptr``/``col`` with the values ``w[:, k]`` (``w [E, heads]``
+    in CSR order)."""
+    import torch
+
+    E, heads = w.shape
+    rows = torch.repeat_interleave(torch.arange(n, device=w.device),
+                                   (ptr[1:] - ptr[:-1]).long())
+    idx = torch.stack([torch.arange(heads, device=w.device).repeat_interleave(E),
+                       rows.repeat(heads), col.long().repeat(heads)])
+    return torch.sparse_coo_tensor(idx, w.t().reshape(-1), (heads, n, n)).coalesce()
+
+
+def same_function(tag, got, want):
+    """A library yardstick's result against the kernel's, within
+    ``BASELINE_TOL`` of the kernel's largest entry: the yardstick computes
+    the same function."""
+    err = float((got - want).abs().max())
+    if not err <= BASELINE_TOL * float(want.abs().max()):
+        raise AssertionError(f"{tag}: the library yardstick differs from the kernel by {err}")
+
+
+def check_baseline_kernels(z, dev, gen, rec):
+    """S1-S4 against their plain versions on the bgp stand-in's baseline
+    graphs (``sym`` and ``raw``, with self-loops): S1 on both CSR orders at
+    F = 8 (X), F = 64 and 8 heads x 64, S2 at 8 heads x 64, S3 and S4 at 8
+    heads; within ``BASELINE_TOL`` of the plain version's largest entry (S3
+    ``SOFTMAX_TOL``), two calls bit-equal; timed as phase 2 times its
+    kernels, with a library yardstick where one torch call computes the
+    same function: ``torch.sparse.mm`` on the CSR for one head,
+    ``torch.bmm`` of an ``[8, n, n]`` COO at 8 heads,
+    ``torch.sparse.sampled_addmm`` on an ``[8, n, n]`` CSR for S2 and
+    ``torch.sparse.softmax`` for S3 (S4 has none)."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.data import Graph
+    from pathnet_tpu_torch.models.baselines import EdgeGraph
+
+    g = Graph(n=int(z["n"]), src=z["src"], dst=z["dst"], prob=z["prob"])
+    t0 = time.perf_counter()
+    sym = EdgeGraph.from_graph(g, "sym", True, device=dev)
+    raw = EdgeGraph.from_graph(g, "none", True, device=dev)
+    n, E = g.n, sym.num_edges
+    say(f"  bgp stand-in baseline graphs: n = {n}, {E} edges with self-loops (sym), "
+        f"{raw.num_edges} (raw); both built in {time.perf_counter() - t0:.2f} s")
+    csr_bytes = (n + 1 + 2 * E) * 4
+    h64 = torch.randn((n, 64), generator=gen, device=dev)
+    h512 = torch.randn((n, 512), generator=gen, device=dev)
+    g512 = torch.randn((n, 512), generator=gen, device=dev)
+    w8 = torch.rand((E, 8), generator=gen, device=dev)
+    X = torch.from_numpy(z["x"]).to(dev)
+
+    def held(tag, kern, plain, args, tol, rel=True):
+        got, again = kern(*args), kern(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        limit = tol * float(want.abs().max()) if rel else tol
+        if not err <= limit:
+            raise AssertionError(f"{tag}: max abs err {err} against the plain version")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{tag}: two calls differ")
+        record_err(rec, kern.__name__, err)
+        say(f"  {tag}: max abs err {err:.3e} (limit {limit:.3e}), two calls bit-equal")
+        return got
+
+    for tag, eg, h, w in (("F = 8 (X)", sym, X, sym.w[:, None]), ("F = 64", sym, h64, sym.w[:, None]),
+                          ("8 heads x 64", raw, h512, w8)):
+        F_ = h.shape[1]
+        w = w.contiguous()
+        for side in ("forward", "transpose"):
+            csr = ((eg.dst_ptr, eg.dst_perm, eg.dst_col) if side == "forward"
+                   else (eg.src_ptr, eg.src_perm, eg.src_col))
+            args = (h, w) + csr
+            held(f"spmm {side}, {tag}", K.spmm, K.spmm_plain, args, BASELINE_TOL)
+            if side == "transpose" and F_ != 64:
+                continue
+            name = "spmm" if (side, F_) == ("forward", 64) else f"spmm {side}, {tag}"
+            ptr, perm, col = csr
+            if w.shape[1] == 1:
+                mat = torch.sparse_csr_tensor(ptr, col, w[perm.long(), 0], size=(n, n))
+                library = (lambda m, x: lambda: torch.sparse.mm(m, x))(mat, h)
+            else:
+                # one batched sparse product, the heads as its batch: an
+                # [8, n, n] COO of each head's edge weights times h head-major
+                heads = w.shape[1]
+                hm = h.view(n, heads, F_ // heads).transpose(0, 1).contiguous()
+                mat = heads_coo(ptr, col, w[perm.long()], n)
+                want = K.spmm(*args).view(n, heads, F_ // heads).transpose(0, 1)
+                library = (lambda m, x: lambda: torch.bmm(m, x))(mat, hm)
+                same_function(f"spmm {side}, {tag}", library(), want)
+            timed(rec if name == "spmm" else {name: {}}, name,
+                  (lambda a: lambda: K.spmm(*a))(args), (lambda a: lambda: K.spmm_plain(*a))(args),
+                  nbytes(h, w) + csr_bytes + n * F_ * 4, 2.0 * E * F_, library=library)
+    args = (g512, h512, raw.src, raw.dst, 8)
+    dw = held("edge_dot, 8 heads x 64", K.edge_dot, K.edge_dot_plain, args, BASELINE_TOL)
+    # cuSPARSE's sampled product on the destination CSR, the heads as its
+    # batch: <g[dst], h[src]> per edge and head, in CSR order
+    gm = g512.view(n, 8, 64).transpose(0, 1).contiguous()
+    hT = h512.view(n, 8, 64).permute(1, 2, 0).contiguous()
+    pattern = torch.sparse_csr_tensor(raw.dst_ptr.repeat(8, 1), raw.dst_col.repeat(8, 1),
+                                      torch.zeros((8, E), device=dev), size=(8, n, n))
+    sddmm = lambda: torch.sparse.sampled_addmm(pattern, gm, hT, beta=0.0)
+    same_function("edge_dot", sddmm().values(), dw[raw.dst_perm.long()].t())
+    timed(rec, "edge_dot", lambda: K.edge_dot(*args), lambda: K.edge_dot_plain(*args),
+          nbytes(g512, h512, raw.src, raw.dst) + E * 8 * 4, 2.0 * E * 512, library=sddmm)
+    s = 3 * torch.randn((E, 8), generator=gen, device=dev)
+    sargs = (s, raw.dst_ptr, raw.dst_perm)
+    a = held("segment_softmax, 8 heads", K.segment_softmax, K.segment_softmax_plain, sargs,
+             SOFTMAX_TOL, rel=False)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.arange(8, device=dev).repeat_interleave(E), raw.dst.long().repeat(8),
+                     raw.src.long().repeat(8)]), s.t().reshape(-1), (8, n, n)).coalesce()
+    timed(rec, "segment_softmax", lambda: K.segment_softmax(*sargs),
+          lambda: K.segment_softmax_plain(*sargs), 2 * E * 8 * 4 + (n + 1 + E) * 4, 5.0 * E * 8,
+          library=lambda: torch.sparse.softmax(coo, 2))
+    da = torch.randn((E, 8), generator=gen, device=dev)
+    bargs = (a, da, raw.dst_ptr, raw.dst_perm)
+    held("segment_softmax_bwd, 8 heads", K.segment_softmax_bwd, K.segment_softmax_bwd_plain,
+         bargs, BASELINE_TOL)
+    timed(rec, "segment_softmax_bwd", lambda: K.segment_softmax_bwd(*bargs),
+          lambda: K.segment_softmax_bwd_plain(*bargs), 3 * E * 8 * 4 + (n + 1 + E) * 4,
+          4.0 * E * 8)
+    del h64, h512, g512, w8, coo, gm, hT, pattern
+
+
+BN_FED_BIAS = re.compile(r"(?:lins|lin_l|lin_r|mlps|hop_lins)\.(\d+)\.(?:l2\.|\d+\.)?bias")
+
+
+def feeds_batch_norm(key, params):
+    """Whether ``key`` is the bias of a linear whose output the batch norm
+    ``bns.<i>`` of its layer normalizes (``params``: the model's parameter
+    names): the hidden linears of mlp, gcn, gat, gatjk, sage, gcnjk and
+    mixhop, and gin's ``l2``. Output layers, gin's ``l1`` and the models
+    without a batch norm do not."""
+    m = BN_FED_BIAS.fullmatch(key)
+    return m is not None and f"bns.{m.group(1)}.scale" in params
+
+
+def check_baselines_host(dev, gc, Xc_np, tol=1e-4):
+    """Every model of the zoo at cornell's full width (F = 1,703, H = 64, 8
+    GAT heads) on the card against the host from the same weights and
+    dropout masks: the eval forward, then one training forward's loss, its
+    logits, every gradient and the running statistics within ``tol`` of
+    the host's largest entry (phase 7's; the bias of a linear that feeds a
+    batch norm within ``tol`` of its weight gradient's largest entry too,
+    :func:`feeds_batch_norm`); ``label_propagation`` and
+    ``correct_and_smooth`` within 1e-5."""
+    import torch
+    from pathnet_tpu_torch.data.splits import ratio_masks
+    from pathnet_tpu_torch.models.baselines import (BASELINES, EXTRA_MODELS, Baseline,
+                                                    BaselineSpec, EdgeGraph,
+                                                    build_baseline_graphs)
+    from pathnet_tpu_torch.models.baselines.cs import correct_and_smooth, label_propagation
+    from pathnet_tpu_torch.train.baseline_trainer import dropout_masks
+
+    cpu = torch.device("cpu")
+    yc = torch.from_numpy(np.random.default_rng(1).integers(0, 5, size=gc.n))
+    trm = ratio_masks(gc.n, 1000, val_size=59)[0]
+    tr = torch.from_numpy(np.flatnonzero(trm))
+    masks = dropout_masks(0, 0, 0.5)
+    worst = []
+    for name in BASELINES + EXTRA_MODELS:
+        spec = BaselineSpec(name=name, feat_dim=Xc_np.shape[1], hidden=HIDDEN, out_dim=5,
+                            dropout=0.5, n_nodes=gc.n)
+        Xn = (np.eye(5, dtype=np.float32)[yc.numpy()] * trm[:, None] if name == "lp" else Xc_np)
+        outs = []
+        for d in (dev, cpu):
+            m = Baseline(spec, device=d, generator=torch.Generator().manual_seed(2))
+            graphs = build_baseline_graphs(gc, name, d)
+            Xd = torch.from_numpy(np.ascontiguousarray(Xn, np.float32)).to(d)
+            with torch.no_grad():
+                ev = m(Xd, graphs)
+            logits = m(Xd, graphs, train=True,
+                       masks=lambda i, shape, dd: masks(i, shape, cpu).to(dd))
+            loss = torch.nn.functional.cross_entropy(logits[tr.to(d)], yc.to(d)[tr.to(d)])
+            loss.backward()
+            outs.append({"eval": ev, "logits": logits.detach(), "loss": loss.detach(),
+                         **{k: (p.grad if p.grad is not None else torch.zeros_like(p))
+                            for k, p in m.named_parameters()},
+                         **{k: b for k, b in m.named_buffers()}})
+        errs = []
+        for k, want in outs[1].items():
+            got = outs[0][k].cpu()
+            err = float((got - want).abs().max())
+            scale = max(float(want.abs().max()), 1e-30)
+            if feeds_batch_norm(k, outs[1]):
+                # a batch norm takes the mean over the nodes out of a bias
+                # it normalizes, so the bias's gradient cancels to rounding
+                # noise; its summands are those of the weight's gradient
+                scale = max(scale, float(outs[1][k[:-4] + "weight"].abs().max()))
+            errs.append(err / scale)
+            if not err <= tol * scale:
+                raise AssertionError(f"{name}: {k} on the card differs from the host's by {err} "
+                                     f"(largest entry {scale})")
+        worst.append(f"{name} {max(errs):.1e}")
+    say(f"  every model at cornell F = {Xc_np.shape[1]}, card against host (eval logits, "
+        f"loss, train logits, every gradient, running stats; worst error over the host's "
+        f"largest entry, within {tol}): " + ", ".join(worst))
+    y1 = np.eye(5, dtype=np.float32)[yc.numpy()]
+    soft = np.random.default_rng(2).dirichlet(np.ones(5), size=gc.n).astype(np.float32)
+    res = []
+    for d in (dev, cpu):
+        eg = EdgeGraph.from_graph(gc, "sym", True, device=d)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(d)
+        res.append((label_propagation(eg, t(y1), t(trm)).cpu(),
+                    correct_and_smooth(eg, t(soft), t(y1), t(trm)).cpu()))
+    for tag, a, b in zip(("label_propagation", "correct_and_smooth"), res[0], res[1]):
+        err = float((a - b).abs().max())
+        if not err <= 1e-5:
+            raise AssertionError(f"{tag} on the card differs from the host's by {err}")
+        say(f"  {tag} at cornell, card against host: max abs err {err:.3e}")
+
+
+def check_baseline_training(dev, z, gc, Xc_np):
+    """GCN and GAT full batch on the bgp stand-in: ms and S1-S4 launches an
+    epoch (the difference of a 2-epoch and a ``2 + BGP_BASELINE_EPOCHS``
+    round, so the graph build and init cancel); two seeded rounds of each
+    at cornell's full width, ``BASELINE_SEEDED_EPOCHS`` epochs with dropout
+    0.7, bit-equal in validation accuracy, loss and metrics."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.config import TrainConfig
+    from pathnet_tpu_torch.data import Graph
+    from pathnet_tpu_torch.data.splits import get_whole_mask, ratio_masks
+    from pathnet_tpu_torch.models.baselines import BaselineSpec
+    from pathnet_tpu_torch.train.baseline_trainer import run_baseline_round
+
+    gb = Graph(n=int(z["n"]), src=z["src"], dst=z["dst"], prob=z["prob"], features=z["x"],
+               labels=z["y"])
+    masks = get_whole_mask(z["y"], seed=1)
+    C = int(z["y"].max()) + 1
+    for model in ("gcn", "gat"):
+        spec = BaselineSpec(name=model, feat_dim=gb.features.shape[1], hidden=HIDDEN,
+                            out_dim=C, dropout=0.7, n_nodes=gb.n)
+        secs, counts = [], []
+        for epochs in (2, 2 + BGP_BASELINE_EPOCHS):
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_baseline_round(gb, spec, TrainConfig(epochs=epochs), *masks, C, seed=0,
+                                     device=dev)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts.append(K.launch_counts())
+        per = {k: (counts[1][k] - counts[0][k]) / BGP_BASELINE_EPOCHS for k in BASELINE_KERNELS}
+        want = {k: BASELINE_LAUNCHES[model].get(k, 0) for k in BASELINE_KERNELS}
+        if per != want or not np.isfinite(res.metrics["accuracy"]):
+            raise AssertionError(f"bgp {model}: launches an epoch {per}, expected {want}; "
+                                 f"acc {res.metrics['accuracy']}")
+        say(f"  bgp stand-in --model {model} full batch (n = {gb.n}, F = "
+            f"{gb.features.shape[1]}, H = {HIDDEN}): "
+            f"{(secs[1] - secs[0]) / BGP_BASELINE_EPOCHS * 1e3:.3f} ms per epoch; launches an "
+            f"epoch {per}; rounds of 2 and {2 + BGP_BASELINE_EPOCHS} epochs took "
+            f"{secs[0]:.2f} and {secs[1]:.2f} s")
+    yc = np.random.default_rng(1).integers(0, 5, size=gc.n)
+    gcx = Graph(n=gc.n, src=gc.src, dst=gc.dst, prob=gc.prob, features=Xc_np, labels=yc)
+    cmasks = ratio_masks(gc.n, 1000, val_size=59)[:3]
+    for model in ("gcn", "gat"):
+        spec = BaselineSpec(name=model, feat_dim=Xc_np.shape[1], hidden=HIDDEN, out_dim=5,
+                            dropout=0.7, n_nodes=gc.n)
+        a, b = (run_baseline_round(gcx, spec, TrainConfig(epochs=BASELINE_SEEDED_EPOCHS),
+                                   *cmasks, 5, seed=4, device=dev, track_history=True)
+                for _ in range(2))
+        same = {"history": np.array_equal(a.history, b.history),
+                "losses": np.array_equal(a.losses, b.losses),
+                "metrics": a.metrics == b.metrics and a.best_val_acc == b.best_val_acc}
+        if not all(same.values()):
+            raise AssertionError(f"cornell --model {model}: two seeded rounds differ: {same}")
+        say(f"  cornell --model {model}, {BASELINE_SEEDED_EPOCHS} epochs, dropout 0.7: two "
+            f"rounds with seed 4 bit-equal in validation accuracy, loss and metrics (last "
+            f"loss {float(a.losses[-1]):.6f}, best val {a.best_val_acc:.4f})")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1185, exit=True)
     import torch
@@ -2459,6 +2864,13 @@ def main() -> int:
         "alias_walk_khop_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
                                   "pathnet_tpu/sample/alias.py:93, "
                                   "pathnet_tpu/sample/distance.py:194"),
+        "spmm": ("pathnet_tpu_torch/csrc/spmm.cu", "pathnet_tpu/models/baselines/ops.py:68"),
+        "edge_dot": ("pathnet_tpu_torch/csrc/spmm.cu",
+                     "pathnet_tpu/models/baselines/ops.py:68 (its VJP)"),
+        "segment_softmax": ("pathnet_tpu_torch/csrc/segment_softmax.cu",
+                            "pathnet_tpu/models/baselines/ops.py:76"),
+        "segment_softmax_bwd": ("pathnet_tpu_torch/csrc/segment_softmax.cu",
+                                "pathnet_tpu/models/baselines/ops.py:76 (its VJP)"),
     }
     meta.update({homo_name(n, True): meta[n] for n in HOMO_KERNELS})
     meta.update({homo_name(n, v, True): meta[n] for n in HOMO_KERNELS for v in (False, True)})
@@ -2510,6 +2922,15 @@ def main() -> int:
                             "phase 16's 1000-epoch cornell alias round",
         "alias_walk_khop_dists": "K8 with K7, the alias sampler's path past wl = 4; launches "
                                  "from phase 16's 20-epoch wl = 5 round"})
+    notes.update({name: f"{what}; launches from phase 18's cornell --model gat round "
+                        f"({BASELINE_ROUNDS} x {PROTOCOL_EPOCHS}), timed {where} on the bgp "
+                        "stand-in's baseline graph (703,633 edges)"
+                  for name, what, where in (
+                      ("spmm", "S1, the zoo's message passing and its input gradient",
+                       "forward at F = 64"),
+                      ("edge_dot", "S2, the edge weights' gradient", "at 8 heads x 64"),
+                      ("segment_softmax", "S3, GAT's per-destination softmax", "at 8 heads"),
+                      ("segment_softmax_bwd", "S4, its VJP", "at 8 heads"))})
 
     with Phase("0 device"):
         kind = torch.cuda.get_device_name(0)
@@ -2651,7 +3072,8 @@ def main() -> int:
                   "pagg_encode_bwd": EPOCHS * chunks[0], "segment_sum": EPOCHS * chunks[0],
                   "row_gather_bwd": EPOCHS * chunks[0], "lane_gather": 0, "khop_dists": 0,
                   "walk_khop_dists": 0, "alias_walk": 0, "alias_walk_dists": 0,
-                  "alias_walk_khop_dists": 0}
+                  "alias_walk_khop_dists": 0, "spmm": 0, "edge_dot": 0, "segment_softmax": 0,
+                  "segment_softmax_bwd": 0}
         say(f"  launches: {counts} ({improved} epochs improved on validation)")
         if counts != expect:
             raise AssertionError(f"training launch counts {counts}, the path makes {expect}")
@@ -2810,6 +3232,20 @@ def main() -> int:
             for name in HOMO_KERNELS:
                 rec[homo_name(name, True, cell="mlp")]["launches"] = counts[name]
 
+        with Phase(f"18 the baseline zoo: S1-S4 (bgp stand-in), every model card vs host "
+                   f"(cornell), bgp GCN and GAT epochs, seeded GCN and GAT rounds, cornell "
+                   f"--model mlp, gcn, gat {BASELINE_ROUNDS} x {PROTOCOL_EPOCHS} each, --model lp"):
+            check_baseline_kernels(z, dev, gen, rec)
+            check_baselines_host(dev, gc, Xc_np)
+            check_baseline_training(dev, z, gc, Xc_np)
+            for model in ("mlp", "gcn", "gat"):
+                band, payload, hidden = BASELINE_BANDS[("cornell", model)]
+                counts = run_baseline_cli("cornell", model, root, tmp, BASELINE_ROUNDS, hidden,
+                                          band, payload, round_band=True)
+            for name in BASELINE_KERNELS:
+                rec[name]["launches"] = counts[name]   # the GAT round's
+            run_baseline_cli("cornell", "lp", root, tmp, 1, HIDDEN, None, CORNELL_PAYLOAD)
+
     say(smi)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0],
@@ -2817,6 +3253,7 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
+         **({"library_eager": True} if r.get("library_eager") else {}),
          **({"f32_bound_ms": r["f32_bound_ms"]} if "f32_bound_ms" in r else {}),
          **({"note": notes[name]} if name in notes else {})}
         for name, r in rec.items()]}))

@@ -2,16 +2,19 @@
 """The 10 x 1000 protocols that ``chip_smoke.py`` cuts to one round.
 
 Run from the root of a checkout on a machine with one CUDA card:
-``python3 full_protocols.py [label ...]`` (default: all eight; a label is
+``python3 full_protocols.py [label ...]`` (default: all sixteen; a label is
 ``cornell:merw``, ``cornell:uniform``, ``Nba:merw``, ``cora:merw``,
-``citeseer:merw``, ``cornell:mlp``, ``cornell:quirk`` or
-``cornell:gru_bf16``). It copies ``data/edge_input/*.in`` into a temporary
-data root and runs, through ``chip_smoke.run_protocol_cli`` (the CLI, 10
-rounds x 1000 epochs, temporary results and checkpoint directories),
-cornell, cornell ``-mk uniform``, Nba at H = 256, cora, citeseer, and
-cornell ``--rnn mlp``, ``--quirk-compat`` and ``--rnn gru --dtype
-bfloat16``, each held inside its JAX band. Exits 1 if any lies outside its
-band or fails.
+``citeseer:merw``, ``cornell:mlp``, ``cornell:quirk``,
+``cornell:gru_bf16``, or ``<dataset>:zoo-<model>`` for a baseline band of
+``chip_smoke.BASELINE_BANDS``: ``cornell:zoo-mlp``, ``cora:zoo-mlp``,
+``Nba:zoo-mlp``, ``bgp:zoo-mlp``, ``cornell:zoo-gcn``, ``cornell:zoo-gat``,
+``cora:zoo-gcn``, ``cora:zoo-gat``). It copies ``data/edge_input/*.in`` into a temporary data
+root and runs, through ``chip_smoke.run_protocol_cli`` (the CLI, 10 rounds x
+1000 epochs, temporary results and checkpoint directories), cornell,
+cornell ``-mk uniform``, Nba at H = 256, cora, citeseer, and cornell ``--rnn
+mlp``, ``--quirk-compat`` and ``--rnn gru --dtype bfloat16``, and through
+``chip_smoke.run_baseline_cli`` each baseline band (``--model``), each held
+inside its JAX band. Exits 1 if any lies outside its band or fails.
 """
 import glob
 import os
@@ -37,6 +40,8 @@ RUNS = [("cornell:merw", "cornell", cs.HIDDEN, cs.CORNELL_BAND, cs.CORNELL_PAYLO
          dict(quirk=True)),
         ("cornell:gru_bf16", "cornell", cs.HIDDEN, cs.CORNELL_GRU_BF16_BAND,
          cs.CORNELL_PAYLOAD, dict(rnn="gru", dtype="bfloat16"))]
+RUNS += [(f"{name}:zoo-{model}", name, hidden, band, payload, dict(model=model))
+         for (name, model), (band, payload, hidden) in cs.BASELINE_BANDS.items()]
 
 
 def main(only) -> int:
@@ -51,7 +56,10 @@ def main(only) -> int:
             if only and label not in only:
                 continue
             try:
-                cs.run_protocol_cli(name, root, tmp, 10, hidden, band, payload, **kw)
+                if "model" in kw:
+                    cs.run_baseline_cli(name, kw["model"], root, tmp, 10, hidden, band, payload)
+                else:
+                    cs.run_protocol_cli(name, root, tmp, 10, hidden, band, payload, **kw)
             except Exception:
                 traceback.print_exc()
                 failed.append(label)

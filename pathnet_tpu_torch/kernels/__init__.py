@@ -15,6 +15,8 @@
 | ``segment_sum`` | ``kernels/segment_sum.py`` | the scatter-add of the gather VJP, ``models/pagg.py:83-93``: K4's row gradients into ``dh`` in a fixed order |
 | K5 ``row_gather``, ``row_gather_bwd`` | ``kernels/row_gather.py`` | ``scripts/pallas_gather_probe.py:68``, the ``gather_fn`` of ``models/pagg.py:209,309`` |
 | K6 ``lane_gather`` | ``kernels/lane_gather.py`` | ``scripts/pallas_gather_probe.py:68``, body ``lane_gather_axis1`` ``:45-50`` (the gather probe only) |
+| S1 ``spmm``, S2 ``edge_dot`` | ``kernels/spmm.py`` | ``models/baselines/ops.py:68-73`` and the per-head message sums of ``zoo.py:330-331,390-391,450-452`` (the baseline zoo), with their VJPs |
+| S3 ``segment_softmax``, S4 ``segment_softmax_bwd`` | ``kernels/segment_softmax.py`` | ``models/baselines/ops.py:76-82`` per head (``zoo.py:327-328,447-448``) and its VJP |
 
 A wrapper takes the plain PyTorch version for a CPU tensor and launches its
 kernel for a CUDA tensor, or raises; it never falls back. Each wrapper counts
@@ -35,13 +37,17 @@ from .pagg_encode_bwd import (attention_bwd, attention_bwd_plain, bptt, bptt_pla
                               pagg_encode_bwd_plain, row_nodes)
 from .row_gather import (row_gather, row_gather_bwd, row_gather_bwd_plain,
                          row_gather_plain)
+from .segment_softmax import (segment_softmax, segment_softmax_bwd, segment_softmax_bwd_plain,
+                              segment_softmax_plain)
 from .segment_sum import segment_sum, segment_sum_plain
+from .spmm import edge_dot, edge_dot_plain, spmm, spmm_plain
 from .walk_dists import (alias_walk_dists, alias_walk_dists_plain, sorted_rows, walk_dists,
                          walk_dists_plain)
 
 WRAPPERS = (cdf_walk, membership_dists, pagg_encode_fwd, pagg_encode_bwd,
             row_gather, row_gather_bwd, lane_gather, segment_sum, walk_dists, khop_dists,
-            walk_khop_dists, alias_walk, alias_walk_dists, alias_walk_khop_dists)
+            walk_khop_dists, alias_walk, alias_walk_dists, alias_walk_khop_dists, spmm, edge_dot,
+            segment_softmax, segment_softmax_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -65,4 +71,6 @@ __all__ = ["cdf_walk", "cdf_walk_plain", "membership_dists",
            "KhopTables", "khop_dists", "khop_dists_plain", "walk_khop_dists",
            "walk_khop_dists_plain", "alias_walk", "alias_walk_plain", "alias_walk_dists",
            "alias_walk_dists_plain", "alias_walk_khop_dists", "alias_walk_khop_dists_plain",
+           "spmm", "spmm_plain", "edge_dot", "edge_dot_plain", "segment_softmax",
+           "segment_softmax_plain", "segment_softmax_bwd", "segment_softmax_bwd_plain",
            "WRAPPERS", "reset_launch_counts", "launch_counts"]

@@ -5,7 +5,11 @@
 The same flags and defaults as ``python -m pathnet_tpu.run``, with
 ``--device`` in place of ``--platform`` (default: the CUDA card). Choices the
 port does not run yet raise ``NotImplementedError`` naming ROADMAP.md:
-``--mesh``, ``--shard-features`` and the baseline models (``--model``).
+``--mesh``, ``--shard-features`` and a baseline at ``--dtype bfloat16``.
+``--model <name>`` trains a model of the baseline zoo (``models/baselines``)
+full batch, as the JAX CLI's baseline branch does: one payload load a round,
+the seed ``--seed + round``, JAX's checkpoint key and the model's name in
+the result line.
 ``-mk uniform`` walks the symmetrized graph with self-loops, uniformly, and
 skips MERW (RW-PathNet), as in the JAX CLI. The homophily datasets (cora, citeseer, pubmed) train the
 homo variant, as in the JAX CLI. ``--rnn gru`` and ``--rnn mlp`` run the GRU
@@ -122,10 +126,16 @@ def _apply_config_defaults(parser: argparse.ArgumentParser, path: str):
 
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP) for a choice the port
-    does not run yet."""
+    does not run yet, ``ValueError`` for a ``--model`` the JAX CLI does not
+    know."""
+    from .models.baselines import BASELINES, EXTRA_MODELS
+
+    if args.model != "pathnet" and args.model not in BASELINES + EXTRA_MODELS:
+        raise ValueError(f"unknown baseline {args.model}")
     todo = []
-    if args.model != "pathnet":
-        todo.append((f"--model {args.model}", "the baseline zoo, ROADMAP §1 item 10"))
+    if args.model != "pathnet" and args.dtype != "float32":
+        todo.append((f"--model {args.model} --dtype {args.dtype}",
+                     "bf16 baselines, ROADMAP §1 item 15"))
     if args.mesh:
         todo.append(("--mesh", "the multi-device layer, ROADMAP §1 item 11"))
     if args.shard_features:
@@ -133,6 +143,54 @@ def check_ported(args) -> None:
     if todo:
         what, where = todo[0]
         raise NotImplementedError(f"{what} is not ported yet ({where})")
+
+
+def baseline_checkpoint_name(args, fingerprint: str) -> str:
+    """The JAX CLI's baseline key (``pathnet_tpu/run.py:178-181``)."""
+    return (f"{args.data_name}.{args.model}.{fingerprint}"
+            f".e{args.epoch}.h{args.hidden_size}"
+            f".s{args.seed}.dr{args.dropout}"
+            + ("" if args.dtype == "float32" else f".{args.dtype}"))
+
+
+def run_baselines(args, cfg):
+    """The JAX CLI's baseline branch (``pathnet_tpu/run.py:163-208``): one
+    ``load_dataset`` and one :func:`run_baseline_round` a round, the seed
+    ``cfg.seed + round``, each round saved under JAX's key with
+    ``--resume`` (and a saved round taken). Returns the aggregate."""
+    from .data.registry import DATASETS, load_dataset, payload_fingerprint
+    from .device import resolve_device
+    from .models.baselines import BaselineSpec
+    from .train.baseline_trainer import run_baseline_round
+    from .train.checkpoint import load_round, save_round
+    from .train.results import aggregate_rounds
+    from .train.trainer import RoundResult
+
+    name = args.data_name
+    spec_d = DATASETS[name]
+    ckpt_name = baseline_checkpoint_name(args, payload_fingerprint(spec_d))
+    dev = resolve_device(args.device)
+    results = []
+    for round_i in range(cfg.rounds):
+        if args.resume:
+            prev = load_round(args.ckpt_dir, ckpt_name, round_i)
+            if prev is not None:
+                results.append(RoundResult(best_val_acc=prev["meta"]["best_val_acc"],
+                                           metrics=prev["meta"]["metrics"]))
+                print(f"round {round_i}: resumed "
+                      f"(acc={prev['meta']['metrics']['accuracy']:.4f})")
+                continue
+        g, tr, va, te, _ = load_dataset(name, args.data_root, round_i)
+        spec = BaselineSpec(name=args.model, feat_dim=g.features.shape[1],
+                            hidden=args.hidden_size, out_dim=spec_d.num_classes,
+                            dropout=args.dropout, n_nodes=g.n, compute_dtype=args.dtype)
+        res = run_baseline_round(g, spec, cfg, tr, va, te, spec_d.num_classes,
+                                 seed=cfg.seed + round_i, device=dev)
+        if args.resume:
+            save_round(args.ckpt_dir, ckpt_name, round_i, res)
+        results.append(res)
+        print(f"round {round_i}: acc={results[-1].metrics['accuracy']:.4f}", flush=True)
+    return aggregate_rounds(results)
 
 
 def main(argv=None):
@@ -164,17 +222,22 @@ def main(argv=None):
         args.data_root = args.new_data_root
     t0 = time.time()
     print(f"{name}: {vars(args)}")
-    agg, _ = run_protocol(
-        name, data_root=args.data_root, cfg=cfg,
-        num_walks=args.num_of_walks, walk_len=args.walk_length,
-        hidden=args.hidden_size, kind=args.marker, rnn=args.rnn,
-        agg=args.agg, quirk_compat=args.quirk_compat,
-        dropout=args.dropout, compute_dtype=args.dtype, remat=args.remat,
-        ckpt_dir=args.ckpt_dir if args.resume else None, device=args.device)
+    if args.model == "pathnet":
+        agg, _ = run_protocol(
+            name, data_root=args.data_root, cfg=cfg,
+            num_walks=args.num_of_walks, walk_len=args.walk_length,
+            hidden=args.hidden_size, kind=args.marker, rnn=args.rnn,
+            agg=args.agg, quirk_compat=args.quirk_compat,
+            dropout=args.dropout, compute_dtype=args.dtype, remat=args.remat,
+            ckpt_dir=args.ckpt_dir if args.resume else None, device=args.device)
+        mode = args.model_mode
+    else:
+        agg = run_baselines(args, cfg)
+        mode = args.model
     config = dict(vars(args))
     if name in DATASETS:
         config["payload"] = payload_fingerprint(DATASETS[name])
-    line = append_results(args.results_dir, name, agg, config, args.model_mode)
+    line = append_results(args.results_dir, name, agg, config, mode)
     print(line)
     print(f"total {time.time() - t0:.1f}s")
     return agg
