@@ -222,7 +222,19 @@ one card). Phases, each with a start and an end line:
     each of cornell ``--model mlp``, ``gcn`` and ``gat`` through the CLI
     (``BASELINE_ROUNDS`` x 1000), each within 3 std of its band
     (``BASELINE_BANDS``: the mlp row of ``results/results.jsonl``, the JAX
-    CLI's own host runs for GCN and GAT), and one ``--model lp`` round.
+    CLI's own host runs for GCN and GAT), and one ``--model lp`` round;
+19. the bf16 zoo: the eight bf16 instances of S1-S4 against their plain
+    versions on the host, on the bgp stand-in's baseline graphs
+    (bit-equal where the sum is bf16 and rounded after each add), each
+    timed in a CUDA graph beside its f32 instance and, where the call
+    exists for bf16, ``torch.sparse.mm`` on a bf16 CSR; every model at
+    bf16, card against host (``BF16_HOST_TOL``); GCN and GAT bf16 epochs
+    on the bgp stand-in; two seeded bf16 GCN and GAT rounds bit-equal; one
+    round each of cornell ``--model gcn`` and ``gat --dtype bfloat16``
+    within 3 std of their bands (``BASELINE_BF16_BANDS``, the JAX CLI's own
+    host runs) and ``--model fagcn --dtype bfloat16``, counting each bf16
+    instance's launches by its C entry's type argument
+    (:class:`InstanceCounts`).
 
 The protocol phases gate on their band when they run 10 rounds of 1000
 epochs, and on accuracy above chance when a rehearsal cuts them shorter;
@@ -245,7 +257,9 @@ not, as its ``note`` says; K8's three entries from phase 16's alias rounds,
 each from the round whose backend runs it; phase 17's MLP instances (``...
 mlp``, ``... mlp homo``), bf16 GRU instances (``... gru bf16``) and quirk
 readout and backward (``... quirk``) from its cornell and cora protocols;
-S1-S4 from phase 18's cornell ``--model gat`` round);
+S1-S4 from phase 18's cornell ``--model gat`` round; their bf16 instances,
+named ``... bf16 ...``, from phase 19's cornell bf16 rounds, each with an
+``f32_ms`` beside it);
 the last is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
 prints no result. Without a CUDA card, or outside a checkout, it exits
 non-zero.
@@ -394,6 +408,7 @@ BASELINE_KERNELS = ("spmm", "edge_dot", "segment_softmax", "segment_softmax_bwd"
 BASELINE_LAUNCHES = {"mlp": {}, "gcn": {"spmm": 6},
                      "gat": {"spmm": 10, "edge_dot": 2, "segment_softmax": 4,
                              "segment_softmax_bwd": 2},
+                     "fagcn": {"spmm": 10, "edge_dot": 2},
                      "lp": {"spmm": 100}}
 BASELINE_TOL = 1e-5   # S1, S2, S4: of the plain version's largest entry
 SOFTMAX_TOL = 1e-6    # S3's outputs, absolute
@@ -413,6 +428,31 @@ BASELINE_BANDS = {
     ("cora", "gat"): ((0.8738007366657257, 0.011645563249943766), "ec4121ed", 64),
 }
 BASELINE_ROUNDS, BASELINE_SEEDED_EPOCHS, BGP_BASELINE_EPOCHS = 1, 30, 50
+# the bf16 zoo (phase 19): the JAX CLI's own 10 x 1000 of cornell --model
+# gcn|gat --dtype bfloat16 on the host (PERF.md, section 2), and the bf16
+# instances of S1-S4, each keyed by its C entry and the entry's type
+# argument (S1: bit 0 h bf16, bit 1 w bf16, bit 2 out bf16; S2: bit 0 h
+# bf16, bit 1 g and out bf16; S3, S4: 1 for bf16)
+BASELINE_BF16_BANDS = {
+    "gcn": ((0.6216216146945953, 0.07047786068942424), CORNELL_PAYLOAD, 64),
+    "gat": ((0.5162162095308304, 0.05465877624919281), CORNELL_PAYLOAD, 64),
+}
+BASELINE_BF16_INSTANCES = {
+    ("pathnet_spmm", 1): "spmm bf16 rows", ("pathnet_spmm", 4): "spmm bf16 sum",
+    ("pathnet_spmm", 7): "spmm bf16", ("pathnet_spmm", 5): "spmm bf16 gather",
+    ("pathnet_edge_dot", 1): "edge_dot bf16 rows", ("pathnet_edge_dot", 3): "edge_dot bf16",
+    ("pathnet_segment_softmax", 1): "segment_softmax bf16",
+    ("pathnet_segment_softmax_bwd", 1): "segment_softmax_bwd bf16"}
+BASELINE_BF16_KERNELS = tuple(BASELINE_BF16_INSTANCES.values())
+# the type argument's place in each entry's arguments
+INSTANCE_ARG = {"pathnet_spmm": 9, "pathnet_edge_dot": 8, "pathnet_segment_softmax": 6,
+                "pathnet_segment_softmax_bwd": 7}
+BF16_SUM_ULPS = 8   # a library's bf16 sum (f32 accumulation) beside a per-add one
+# every bf16 model, card against host, of the host's largest entry: the bf16
+# matmuls add in another order on the card, and a product that rounds the
+# other way moves what follows by a bf16 ulp (measured: GAT-JK 6.0e-2 at
+# cornell's full width, every other model 7.6e-3 or less)
+BF16_HOST_TOL = 2.0 ** -3
 
 def walk_kernel(wl: int) -> str:
     """The sampler's launch at walk length ``wl``: the membership backend's
@@ -2466,14 +2506,14 @@ def check_sampler(root, dev, gen, rec, z, ps, idx, floor_ms):
 
 
 def run_baseline_cli(name, model, root, tmp, rounds, hidden, band, payload=None,
-                     round_band=False):
-    """A baseline protocol through the CLI (``--model model``) on the card
-    with temporary results and checkpoint directories: its launches
-    (``BASELINE_LAUNCHES`` an epoch, LP's a round, nothing of PathNet's),
-    its rounds checkpointed under the JAX CLI's key and its result line;
-    the accuracy gated on ``band`` as :func:`run_protocol_cli` gates it
-    (``band`` None: no gate but a finite accuracy). Returns the launch
-    counts."""
+                     round_band=False, dtype="float32"):
+    """A baseline protocol through the CLI (``--model model``, ``--dtype
+    dtype``) on the card with temporary results and checkpoint directories:
+    its launches (``BASELINE_LAUNCHES`` an epoch, LP's a round, nothing of
+    PathNet's), its rounds checkpointed under the JAX CLI's key and its
+    result line; the accuracy gated on ``band`` as :func:`run_protocol_cli`
+    gates it (``band`` None: no gate but a finite accuracy). Returns the
+    launch counts."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch import run
@@ -2482,10 +2522,10 @@ def run_baseline_cli(name, model, root, tmp, rounds, hidden, band, payload=None,
     fp = payload_fingerprint(DATASETS[name])
     if payload is not None and fp != payload:
         raise AssertionError(f"{name}: payload {fp} is not the JAX band's {payload}")
-    out = os.path.join(tmp, f"{name}_{model}_h{hidden}")
+    out = os.path.join(tmp, f"{name}_{model}_h{hidden}_{dtype}")
     argv = ["-data", name, "-pr", root, "-r", str(rounds), "-e", str(PROTOCOL_EPOCHS),
             "-hid", str(hidden), "--model", model, "--results-dir", os.path.join(out, "results"),
-            "--ckpt-dir", os.path.join(out, "ckpt"), "--resume"]
+            "--ckpt-dir", os.path.join(out, "ckpt"), "--resume", "--dtype", dtype]
     K.reset_launch_counts()
     t0 = time.perf_counter()
     result = run.main(argv)
@@ -2500,7 +2540,8 @@ def run_baseline_cli(name, model, root, tmp, rounds, hidden, band, payload=None,
     if counts != expect:
         raise AssertionError(f"{name} --model {model} launch counts {counts}, the path makes "
                              f"{expect}")
-    key = f"{name}.{model}.{fp}.e{PROTOCOL_EPOCHS}.h{hidden}.s0.dr0.7"
+    key = (f"{name}.{model}.{fp}.e{PROTOCOL_EPOCHS}.h{hidden}.s0.dr0.7"
+           + ("" if dtype == "float32" else f".{dtype}"))
     saved = sorted(glob.glob(os.path.join(out, "ckpt", key, "round_*", "meta.json")))
     text_path = os.path.join(out, "results", f"result_for_{name}.txt")
     if len(saved) != rounds or f"{model} Avg for {name}" not in open(text_path).read():
@@ -2511,7 +2552,8 @@ def run_baseline_cli(name, model, root, tmp, rounds, hidden, band, payload=None,
         with open(path) as f:
             accs.append(json.load(f)["metrics"]["accuracy"])
     mean, std = result["accuracy"]
-    say(f"  {name} --model {model}, {rounds} rounds x {PROTOCOL_EPOCHS} epochs at H = {hidden}: "
+    say(f"  {name} --model {model} --dtype {dtype}, {rounds} rounds x {PROTOCOL_EPOCHS} epochs "
+        f"at H = {hidden}: "
         f"acc {mean:.4f} +- {std:.4f} ("
         + ("no band" if band is None else f"JAX {band[0]:.4f} +- {band[1]:.4f}")
         + "; rounds " + ", ".join(f"{a:.4f}" for a in accs) + f"); {secs:.1f} s, "
@@ -2548,13 +2590,203 @@ def heads_coo(ptr, col, w, n):
     return torch.sparse_coo_tensor(idx, w.t().reshape(-1), (heads, n, n)).coalesce()
 
 
-def same_function(tag, got, want):
-    """A library yardstick's result against the kernel's, within
-    ``BASELINE_TOL`` of the kernel's largest entry: the yardstick computes
-    the same function."""
-    err = float((got - want).abs().max())
-    if not err <= BASELINE_TOL * float(want.abs().max()):
+def same_function(tag, got, want, tol=BASELINE_TOL):
+    """A library yardstick's result against the kernel's, within ``tol`` of
+    the kernel's largest entry: the yardstick computes the same function."""
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= tol * float(want.float().abs().max()):
         raise AssertionError(f"{tag}: the library yardstick differs from the kernel by {err}")
+
+
+class InstanceCounts:
+    """Launches of S1-S4 by instance: the library's four C entries wrapped
+    to count each call by its type argument (``BASELINE_BF16_INSTANCES``;
+    the f32 instances under their wrappers' names). Each call is one
+    launch of the wrapper, which counts it too."""
+
+    def __init__(self):
+        from pathnet_tpu_torch.kernels import build
+
+        self.lib, self.orig, self.counts = build.library(), {}, {}
+        for entry, i in INSTANCE_ARG.items():
+            f = getattr(self.lib, entry)
+            self.orig[entry] = f
+
+            def counted(*args, _f=f, _entry=entry, _i=i):
+                key = (_entry, int(args[_i]))
+                self.counts[key] = self.counts.get(key, 0) + 1
+                return _f(*args)
+            setattr(self.lib, entry, counted)
+
+    def reset(self):
+        self.counts.clear()
+
+    def by_name(self) -> dict:
+        return {BASELINE_BF16_INSTANCES.get(k, f"{k[0]} {k[1]}"): v
+                for k, v in self.counts.items()}
+
+    def close(self):
+        for entry, f in self.orig.items():
+            setattr(self.lib, entry, f)
+
+
+def try_library(tag, fn, notes):
+    """``fn`` if one call of it runs, else None, its refusal in ``notes``."""
+    import torch
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return fn
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        why = f"library n/a: {str(e).splitlines()[0][:160]}"
+        notes[tag] = "; ".join(filter(None, (notes.get(tag), why)))
+        say(f"  {tag}: no library yardstick ({why})")
+        return None
+
+
+def check_bf16_baseline_kernels(z, dev, gen, rec, notes):
+    """The bf16 instances of S1-S4 against their plain versions on the
+    host, on the bgp stand-in's baseline graphs at the shapes the bf16 GCN,
+    GAT and FAGCN give them (F = 64, 8 heads x 64, 8 heads): bit-equal where
+    the sum is bf16 and rounded after each add (S1 into bf16, S2 of bf16),
+    an f32 output within ``BASELINE_TOL`` of the plain version's largest
+    entry, S3 within a bf16 ulp of each entry, S4 within one of its largest;
+    two calls bit-equal; each timed per launch in a CUDA graph beside its
+    f32 instance on the same shapes (``f32_ms``), with its byte bound and,
+    where one call exists and captures, ``torch.sparse.mm`` on a bf16 CSR
+    (the weights rounded to bf16) or its kin as a yardstick, held within
+    ``BF16_SUM_ULPS`` bf16 ulps of the kernel's largest entry."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.data import Graph
+    from pathnet_tpu_torch.models.baselines import EdgeGraph
+
+    B = torch.bfloat16
+    cpu = torch.device("cpu")
+    g = Graph(n=int(z["n"]), src=z["src"], dst=z["dst"], prob=z["prob"])
+    sym = EdgeGraph.from_graph(g, "sym", True, device=dev)
+    raw = EdgeGraph.from_graph(g, "none", True, device=dev)
+    n, E = g.n, raw.num_edges
+    csr_bytes = (n + 1 + 2 * E) * 4
+    h64 = torch.randn((n, 64), generator=gen, device=dev)
+    g64 = torch.randn((n, 64), generator=gen, device=dev)
+    h512 = torch.randn((n, 512), generator=gen, device=dev)
+    g512 = torch.randn((n, 512), generator=gen, device=dev)
+    w8 = torch.rand((E, 8), generator=gen, device=dev)
+    rows8 = torch.randn((E, 8), generator=gen, device=dev)
+    s8 = 3 * torch.randn((E, 8), generator=gen, device=dev)
+    da8 = torch.randn((E, 8), generator=gen, device=dev)
+    sw = sym.w[:, None].contiguous()
+    D = lambda eg: (eg.dst_ptr, eg.dst_perm, eg.dst_col)   # noqa: E731
+    S = lambda eg: (eg.src_ptr, eg.src_perm, eg.src_col)   # noqa: E731
+    ulp16 = 2.0 ** -8
+
+    def held(tag, kern, plain, args, kw, how):
+        got, again = kern(*args, **kw), kern(*args, **kw)
+        torch.cuda.synchronize()
+        want = plain(*[a.to(cpu) if isinstance(a, torch.Tensor) else a for a in args], **kw)
+        got, again = got.to(cpu), again.to(cpu)
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype != want.dtype or not torch.equal(got, again):
+            raise AssertionError(f"{tag}: dtype {got.dtype} (plain {want.dtype}), or two calls "
+                                 "differ")
+        if how == "bits":
+            ok = torch.equal(got, want)
+        elif how == "ulp":   # each entry within a bf16 ulp of its own
+            w = want.float()
+            ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=2.0 ** -126))) - 7)
+            ok = bool(((got.float() - w).abs() <= ulp).all())
+        else:                # within ``how`` of the largest entry
+            ok = err <= how * float(want.float().abs().max())
+        if not ok:
+            raise AssertionError(f"{tag}: max abs err {err} against the plain version ({how})")
+        record_err(rec, tag, err)
+        say(f"  {tag}: max abs err {err:.3e} against the plain version on the host "
+            f"({'bit-equal' if how == 'bits' else how}), two calls bit-equal")
+
+    def bf16_csr(ptr, col, vals, shape):
+        return torch.sparse_csr_tensor(ptr, col, vals.to(B), size=shape)
+
+    cases = []
+    # GCN's first layer: bf16 rows, the graph's f32 weights, f32 out; its
+    # input gradient: f32 terms into a bf16 per-add sum (source CSR)
+    mat = bf16_csr(sym.dst_ptr, sym.dst_col, sym.w[sym.dst_perm.long()], (n, n))
+    matT = bf16_csr(sym.src_ptr, sym.src_col, sym.w[sym.src_perm.long()], (n, n))
+    h64b = h64.to(B)
+    cases.append(("spmm bf16 rows", K.spmm, K.spmm_plain, (h64b, sw) + D(sym), {},
+                  BASELINE_TOL, (h64, sw) + D(sym),
+                  nbytes(h64b, sw) + csr_bytes + n * 64 * 4, 2.0 * sym.num_edges * 64,
+                  (lambda m, x: lambda: torch.sparse.mm(m, x))(mat, h64b)))
+    g64b = g64.to(B)
+    cases.append(("spmm bf16 sum", K.spmm, K.spmm_plain, (g64, sw) + S(sym), {"out_dtype": B},
+                  "bits", (g64, sw) + S(sym),
+                  nbytes(g64, sw) + csr_bytes + n * 64 * 2, 2.0 * sym.num_edges * 64,
+                  (lambda m, x: lambda: torch.sparse.mm(m, x))(matT, g64b)))
+    # GAT at 8 heads x 64: all bf16, and its score gathers' VJP
+    h512b, w8b = h512.to(B), w8.to(B)
+    hm = h512b.view(n, 8, 64).transpose(0, 1).contiguous()
+    coo8 = heads_coo(raw.dst_ptr, raw.dst_col, w8b[raw.dst_perm.long()], n)
+    cases.append(("spmm bf16", K.spmm, K.spmm_plain, (h512b, w8b) + D(raw), {}, "bits",
+                  (h512, w8) + D(raw), nbytes(h512b, w8b) + csr_bytes + n * 512 * 2,
+                  2.0 * E * 512, (lambda m, x: lambda: torch.bmm(m, x))(coo8, hm)))
+    rows8b = rows8.to(B)
+    ones = bf16_csr(raw.src_ptr, raw.src_perm, torch.ones(E, device=dev), (n, E))
+    cases.append(("spmm bf16 gather", K.spmm, K.spmm_plain,
+                  (rows8b, None, raw.src_ptr, raw.src_perm, raw.src_perm), {}, "bits",
+                  (rows8, None, raw.src_ptr, raw.src_perm, raw.src_perm),
+                  nbytes(rows8b) + (n + 1 + E) * 4 + n * 8 * 2, 1.0 * E * 8,
+                  (lambda m, x: lambda: torch.sparse.mm(m, x))(ones, rows8b)))
+    g512b = g512.to(B)
+    gm = g512b.view(n, 8, 64).transpose(0, 1).contiguous()
+    hT = h512b.view(n, 8, 64).permute(1, 2, 0).contiguous()
+    pattern = torch.sparse_csr_tensor(raw.dst_ptr.repeat(8, 1), raw.dst_col.repeat(8, 1),
+                                      torch.zeros((8, E), device=dev, dtype=B), size=(8, n, n))
+    cases.append(("edge_dot bf16", K.edge_dot, K.edge_dot_plain,
+                  (g512b, h512b, raw.src, raw.dst, 8), {}, "bits",
+                  (g512, h512, raw.src, raw.dst, 8),
+                  nbytes(g512b, h512b, raw.src, raw.dst) + E * 8 * 2, 2.0 * E * 512,
+                  lambda: torch.sparse.sampled_addmm(pattern, gm, hT, beta=0.0)))
+    # FAGCN's weight gradient: f32 g, bf16 h, f32 dot
+    cases.append(("edge_dot bf16 rows", K.edge_dot, K.edge_dot_plain,
+                  (g64, h64b, sym.src, sym.dst, 1), {}, BASELINE_TOL,
+                  (g64, h64, sym.src, sym.dst, 1),
+                  nbytes(g64, h64b, sym.src, sym.dst) + sym.num_edges * 4,
+                  2.0 * sym.num_edges * 64, None))
+    s8b, da8b = s8.to(B), da8.to(B)
+    coos = torch.sparse_coo_tensor(
+        torch.stack([torch.arange(8, device=dev).repeat_interleave(E), raw.dst.long().repeat(8),
+                     raw.src.long().repeat(8)]), s8b.t().reshape(-1), (8, n, n)).coalesce()
+    cases.append(("segment_softmax bf16", K.segment_softmax, K.segment_softmax_plain,
+                  (s8b, raw.dst_ptr, raw.dst_perm), {}, "ulp", (s8, raw.dst_ptr, raw.dst_perm),
+                  2 * E * 8 * 2 + (n + 1 + E) * 4, 5.0 * E * 8,
+                  lambda: torch.sparse.softmax(coos, 2)))
+    a8b = K.segment_softmax(s8b, raw.dst_ptr, raw.dst_perm)
+    a8 = K.segment_softmax(s8, raw.dst_ptr, raw.dst_perm)
+    cases.append(("segment_softmax_bwd bf16", K.segment_softmax_bwd,
+                  K.segment_softmax_bwd_plain, (a8b, da8b, raw.dst_ptr, raw.dst_perm), {},
+                  ulp16, (a8, da8, raw.dst_ptr, raw.dst_perm),
+                  3 * E * 8 * 2 + (n + 1 + E) * 4, 4.0 * E * 8, None))
+    for tag, kern, plain, args, kw, how, f32_args, b, o, library in cases:
+        held(tag, kern, plain, args, kw, how)
+        if library is not None:
+            library = try_library(tag, library, notes)
+        if library is not None:
+            want = kern(*args, **kw)
+            if tag == "spmm bf16":
+                want = want.view(n, 8, 64).transpose(0, 1)
+            got = library()
+            got = got.values() if got.is_sparse_csr else got
+            if tag == "edge_dot bf16":
+                want = want[raw.dst_perm.long()].t()
+            if tag != "segment_softmax bf16":   # a sparse result in its own layout
+                same_function(tag, got, want, BF16_SUM_ULPS * ulp16)
+        f32_ms = graph_ms((lambda a: lambda: kern(*a))(f32_args), 50)
+        timed(rec, tag, (lambda a, k: lambda: kern(*a, **k))(args, kw),
+              (lambda a, k: lambda: plain(*a, **k))(args, kw), b, o, library=library)
+        rec[tag]["f32_ms"] = f32_ms
+        say(f"  {tag}: the f32 instance on the same shapes {f32_ms:.4f} ms per launch in a "
+            "CUDA graph")
+    del h64, g64, h512, g512, w8, rows8, s8, da8, coo8, coos, hm, gm, hT, pattern, mat, matT
 
 
 def check_baseline_kernels(z, dev, gen, rec):
@@ -2674,15 +2906,15 @@ def feeds_batch_norm(key, params):
     return m is not None and f"bns.{m.group(1)}.scale" in params
 
 
-def check_baselines_host(dev, gc, Xc_np, tol=1e-4):
+def check_baselines_host(dev, gc, Xc_np, tol=1e-4, dtype="float32"):
     """Every model of the zoo at cornell's full width (F = 1,703, H = 64, 8
-    GAT heads) on the card against the host from the same weights and
-    dropout masks: the eval forward, then one training forward's loss, its
-    logits, every gradient and the running statistics within ``tol`` of
-    the host's largest entry (phase 7's; the bias of a linear that feeds a
-    batch norm within ``tol`` of its weight gradient's largest entry too,
-    :func:`feeds_batch_norm`); ``label_propagation`` and
-    ``correct_and_smooth`` within 1e-5."""
+    GAT heads; ``compute_dtype=dtype``) on the card against the host from
+    the same weights and dropout masks: the eval forward, then one training
+    forward's loss, its logits, every gradient and the running statistics
+    within ``tol`` of the host's largest entry (f32: phase 7's; the bias of
+    a linear that feeds a batch norm within ``tol`` of its weight
+    gradient's largest entry too, :func:`feeds_batch_norm`); at f32 also
+    ``label_propagation`` and ``correct_and_smooth`` within 1e-5."""
     import torch
     from pathnet_tpu_torch.data.splits import ratio_masks
     from pathnet_tpu_torch.models.baselines import (BASELINES, EXTRA_MODELS, Baseline,
@@ -2699,7 +2931,7 @@ def check_baselines_host(dev, gc, Xc_np, tol=1e-4):
     worst = []
     for name in BASELINES + EXTRA_MODELS:
         spec = BaselineSpec(name=name, feat_dim=Xc_np.shape[1], hidden=HIDDEN, out_dim=5,
-                            dropout=0.5, n_nodes=gc.n)
+                            dropout=0.5, n_nodes=gc.n, compute_dtype=dtype)
         Xn = (np.eye(5, dtype=np.float32)[yc.numpy()] * trm[:, None] if name == "lp" else Xc_np)
         outs = []
         for d in (dev, cpu):
@@ -2731,9 +2963,11 @@ def check_baselines_host(dev, gc, Xc_np, tol=1e-4):
                 raise AssertionError(f"{name}: {k} on the card differs from the host's by {err} "
                                      f"(largest entry {scale})")
         worst.append(f"{name} {max(errs):.1e}")
-    say(f"  every model at cornell F = {Xc_np.shape[1]}, card against host (eval logits, "
-        f"loss, train logits, every gradient, running stats; worst error over the host's "
-        f"largest entry, within {tol}): " + ", ".join(worst))
+    say(f"  every model at {dtype}, cornell F = {Xc_np.shape[1]}, card against host (eval "
+        f"logits, loss, train logits, every gradient, running stats; worst error over the "
+        f"host's largest entry, within {tol}): " + ", ".join(worst))
+    if dtype != "float32":
+        return
     y1 = np.eye(5, dtype=np.float32)[yc.numpy()]
     soft = np.random.default_rng(2).dirichlet(np.ones(5), size=gc.n).astype(np.float32)
     res = []
@@ -2749,12 +2983,14 @@ def check_baselines_host(dev, gc, Xc_np, tol=1e-4):
         say(f"  {tag} at cornell, card against host: max abs err {err:.3e}")
 
 
-def check_baseline_training(dev, z, gc, Xc_np):
-    """GCN and GAT full batch on the bgp stand-in: ms and S1-S4 launches an
-    epoch (the difference of a 2-epoch and a ``2 + BGP_BASELINE_EPOCHS``
-    round, so the graph build and init cancel); two seeded rounds of each
-    at cornell's full width, ``BASELINE_SEEDED_EPOCHS`` epochs with dropout
-    0.7, bit-equal in validation accuracy, loss and metrics."""
+def check_baseline_training(dev, z, gc, Xc_np, dtype="float32"):
+    """GCN and GAT full batch (``compute_dtype=dtype``) on the bgp stand-in:
+    ms and S1-S4 launches an epoch (the difference of a 2-epoch and a ``2 +
+    BGP_BASELINE_EPOCHS`` round, so the graph build and init cancel); two
+    seeded rounds of each at cornell's full width,
+    ``BASELINE_SEEDED_EPOCHS`` epochs with dropout 0.7, bit-equal in
+    validation accuracy, loss and metrics. Returns the ms an epoch by
+    model."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.config import TrainConfig
@@ -2767,9 +3003,10 @@ def check_baseline_training(dev, z, gc, Xc_np):
                labels=z["y"])
     masks = get_whole_mask(z["y"], seed=1)
     C = int(z["y"].max()) + 1
+    epoch_ms = {}
     for model in ("gcn", "gat"):
         spec = BaselineSpec(name=model, feat_dim=gb.features.shape[1], hidden=HIDDEN,
-                            out_dim=C, dropout=0.7, n_nodes=gb.n)
+                            out_dim=C, dropout=0.7, n_nodes=gb.n, compute_dtype=dtype)
         secs, counts = [], []
         for epochs in (2, 2 + BGP_BASELINE_EPOCHS):
             K.reset_launch_counts()
@@ -2785,9 +3022,10 @@ def check_baseline_training(dev, z, gc, Xc_np):
         if per != want or not np.isfinite(res.metrics["accuracy"]):
             raise AssertionError(f"bgp {model}: launches an epoch {per}, expected {want}; "
                                  f"acc {res.metrics['accuracy']}")
-        say(f"  bgp stand-in --model {model} full batch (n = {gb.n}, F = "
+        epoch_ms[model] = (secs[1] - secs[0]) / BGP_BASELINE_EPOCHS * 1e3
+        say(f"  bgp stand-in --model {model} --dtype {dtype} full batch (n = {gb.n}, F = "
             f"{gb.features.shape[1]}, H = {HIDDEN}): "
-            f"{(secs[1] - secs[0]) / BGP_BASELINE_EPOCHS * 1e3:.3f} ms per epoch; launches an "
+            f"{epoch_ms[model]:.3f} ms per epoch; launches an "
             f"epoch {per}; rounds of 2 and {2 + BGP_BASELINE_EPOCHS} epochs took "
             f"{secs[0]:.2f} and {secs[1]:.2f} s")
     yc = np.random.default_rng(1).integers(0, 5, size=gc.n)
@@ -2795,7 +3033,7 @@ def check_baseline_training(dev, z, gc, Xc_np):
     cmasks = ratio_masks(gc.n, 1000, val_size=59)[:3]
     for model in ("gcn", "gat"):
         spec = BaselineSpec(name=model, feat_dim=Xc_np.shape[1], hidden=HIDDEN, out_dim=5,
-                            dropout=0.7, n_nodes=gc.n)
+                            dropout=0.7, n_nodes=gc.n, compute_dtype=dtype)
         a, b = (run_baseline_round(gcx, spec, TrainConfig(epochs=BASELINE_SEEDED_EPOCHS),
                                    *cmasks, 5, seed=4, device=dev, track_history=True)
                 for _ in range(2))
@@ -2803,10 +3041,38 @@ def check_baseline_training(dev, z, gc, Xc_np):
                 "losses": np.array_equal(a.losses, b.losses),
                 "metrics": a.metrics == b.metrics and a.best_val_acc == b.best_val_acc}
         if not all(same.values()):
-            raise AssertionError(f"cornell --model {model}: two seeded rounds differ: {same}")
-        say(f"  cornell --model {model}, {BASELINE_SEEDED_EPOCHS} epochs, dropout 0.7: two "
-            f"rounds with seed 4 bit-equal in validation accuracy, loss and metrics (last "
-            f"loss {float(a.losses[-1]):.6f}, best val {a.best_val_acc:.4f})")
+            raise AssertionError(f"cornell --model {model} --dtype {dtype}: two seeded rounds "
+                                 f"differ: {same}")
+        say(f"  cornell --model {model} --dtype {dtype}, {BASELINE_SEEDED_EPOCHS} epochs, "
+            f"dropout 0.7: two rounds with seed 4 bit-equal in validation accuracy, loss and "
+            f"metrics (last loss {float(a.losses[-1]):.6f}, best val {a.best_val_acc:.4f})")
+    return epoch_ms
+
+
+def run_bf16_baselines(root, tmp):
+    """One round each of cornell ``--model gcn``, ``gat`` (each within 3 std
+    of its band) and ``fagcn`` (no band) at ``--dtype bfloat16`` through
+    the CLI, counting the launches of each bf16 instance of S1-S4
+    (:class:`InstanceCounts`, zeroed just before each round). Returns them
+    summed by instance; raises if one was launched no time."""
+    inst = InstanceCounts()
+    launches = {name: 0 for name in BASELINE_BF16_KERNELS}
+    try:
+        for model in ("gcn", "gat", "fagcn"):
+            band, payload, hidden = BASELINE_BF16_BANDS.get(model, (None, CORNELL_PAYLOAD, HIDDEN))
+            inst.reset()
+            run_baseline_cli("cornell", model, root, tmp, BASELINE_ROUNDS, hidden, band, payload,
+                             round_band=band is not None, dtype="bfloat16")
+            counts = inst.by_name()
+            say(f"  launches by instance: {counts}")
+            for name in launches:
+                launches[name] += counts.get(name, 0)
+    finally:
+        inst.close()
+    idle = [name for name, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"bf16 instances launched no time on the bf16 zoo's path: {idle}")
+    return launches
 
 
 def main() -> int:
@@ -2835,7 +3101,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     rec = {name: {} for name in KERNELS + tuple(homo_name(n, True) for n in HOMO_KERNELS)
-           + BF16_KERNELS + CHOICE_KERNELS + REMAINING_KERNELS}
+           + BF16_KERNELS + CHOICE_KERNELS + REMAINING_KERNELS + BASELINE_BF16_KERNELS}
     meta = {
         "cdf_walk": ("pathnet_tpu_torch/csrc/walk_dists.cu", "pathnet_tpu/sample/alias.py:142"),
         "membership_dists": ("pathnet_tpu_torch/csrc/walk_dists.cu",
@@ -2872,6 +3138,7 @@ def main() -> int:
         "segment_softmax_bwd": ("pathnet_tpu_torch/csrc/segment_softmax.cu",
                                 "pathnet_tpu/models/baselines/ops.py:76 (its VJP)"),
     }
+    meta.update({name: meta[name.split()[0]] for name in BASELINE_BF16_KERNELS})
     meta.update({homo_name(n, True): meta[n] for n in HOMO_KERNELS})
     meta.update({homo_name(n, v, True): meta[n] for n in HOMO_KERNELS for v in (False, True)})
     # the GRU instances are built in translation units of their own
@@ -2931,6 +3198,29 @@ def main() -> int:
                       ("edge_dot", "S2, the edge weights' gradient", "at 8 heads x 64"),
                       ("segment_softmax", "S3, GAT's per-destination softmax", "at 8 heads"),
                       ("segment_softmax_bwd", "S4, its VJP", "at 8 heads"))})
+    notes.update({name: f"{what} (bf16); launches from phase 19's cornell --dtype bfloat16 "
+                        f"rounds ({BASELINE_ROUNDS} x {PROTOCOL_EPOCHS} each of gcn, gat, fagcn), "
+                        f"timed {where} on the bgp stand-in's baseline graphs beside its f32 "
+                        "instance (f32_ms)"
+                  for name, what, where in (
+                      ("spmm bf16 rows", "S1 on bf16 rows with f32 weights, f32 out: JAX's "
+                       "promotion of spmm on a bf16 h (GCN's first layer)", "at F = 64"),
+                      ("spmm bf16 sum", "S1 of f32 terms into a bf16 sum rounded after each "
+                       "add: spmm's input gradient on a bf16 h", "at F = 64"),
+                      ("spmm bf16", "S1 all bf16, each product and each add rounded: GAT's "
+                       "messages and their input gradient", "at 8 heads x 64"),
+                      ("spmm bf16 gather", "S1 summing bf16 edge rows by node: the VJP of "
+                       "a gather of bf16 rows (GAT's scores, FAGCN's cat)", "at 8 heads"),
+                      ("edge_dot bf16", "S2 all bf16, per add: GAT's attention gradient",
+                       "at 8 heads x 64"),
+                      ("edge_dot bf16 rows", "S2 of f32 g and bf16 h, f32 dot: FAGCN's "
+                       "first-layer weight gradient", "at F = 64"),
+                      ("segment_softmax bf16", "S3 on bf16 scores, rounded where JAX "
+                       "rounds", "at 8 heads"),
+                      ("segment_softmax_bwd bf16", "S4 on bf16 a and da, f32 inside, "
+                       "rounded once", "at 8 heads"))})
+    notes["edge_dot bf16 rows"] += "; library n/a: no torch call takes f32 g with bf16 h"
+    notes["segment_softmax_bwd bf16"] += "; library n/a: torch has no sparse softmax VJP call"
 
     with Phase("0 device"):
         kind = torch.cuda.get_device_name(0)
@@ -3237,7 +3527,7 @@ def main() -> int:
                    f"--model mlp, gcn, gat {BASELINE_ROUNDS} x {PROTOCOL_EPOCHS} each, --model lp"):
             check_baseline_kernels(z, dev, gen, rec)
             check_baselines_host(dev, gc, Xc_np)
-            check_baseline_training(dev, z, gc, Xc_np)
+            f32_epoch_ms = check_baseline_training(dev, z, gc, Xc_np)
             for model in ("mlp", "gcn", "gat"):
                 band, payload, hidden = BASELINE_BANDS[("cornell", model)]
                 counts = run_baseline_cli("cornell", model, root, tmp, BASELINE_ROUNDS, hidden,
@@ -3245,6 +3535,19 @@ def main() -> int:
             for name in BASELINE_KERNELS:
                 rec[name]["launches"] = counts[name]   # the GAT round's
             run_baseline_cli("cornell", "lp", root, tmp, 1, HIDDEN, None, CORNELL_PAYLOAD)
+
+        with Phase(f"19 the bf16 zoo: S1-S4's bf16 instances (bgp stand-in), every model at "
+                   f"bf16 card vs host (cornell), bgp GCN and GAT bf16 epochs, seeded bf16 GCN "
+                   f"and GAT rounds, cornell --model gcn, gat, fagcn --dtype bfloat16 "
+                   f"{BASELINE_ROUNDS} x {PROTOCOL_EPOCHS} each"):
+            check_bf16_baseline_kernels(z, dev, gen, rec, notes)
+            check_baselines_host(dev, gc, Xc_np, BF16_HOST_TOL, "bfloat16")
+            bf16_epoch_ms = check_baseline_training(dev, z, gc, Xc_np, "bfloat16")
+            say("  bgp stand-in ms per epoch, bf16 against f32: " + ", ".join(
+                f"{m} {bf16_epoch_ms[m]:.3f} against {f32_epoch_ms[m]:.3f}" for m in bf16_epoch_ms))
+            launches = run_bf16_baselines(root, tmp)
+            for name in BASELINE_BF16_KERNELS:
+                rec[name]["launches"] = launches[name]
 
     say(smi)
     say(json.dumps({"kernels": [
@@ -3255,6 +3558,7 @@ def main() -> int:
          "library_ms": r["library_ms"],
          **({"library_eager": True} if r.get("library_eager") else {}),
          **({"f32_bound_ms": r["f32_bound_ms"]} if "f32_bound_ms" in r else {}),
+         **({"f32_ms": r["f32_ms"]} if "f32_ms" in r else {}),
          **({"note": notes[name]} if name in notes else {})}
         for name, r in rec.items()]}))
     faulthandler.cancel_dump_traceback_later()

@@ -2,17 +2,19 @@
 """The 10 x 1000 protocols that ``chip_smoke.py`` cuts to one round.
 
 Run from the root of a checkout on a machine with one CUDA card:
-``python3 full_protocols.py [label ...]`` (default: all sixteen; a label is
+``python3 full_protocols.py [label ...]`` (default: all eighteen; a label is
 ``cornell:merw``, ``cornell:uniform``, ``Nba:merw``, ``cora:merw``,
 ``citeseer:merw``, ``cornell:mlp``, ``cornell:quirk``,
 ``cornell:gru_bf16``, or ``<dataset>:zoo-<model>`` for a baseline band of
 ``chip_smoke.BASELINE_BANDS``: ``cornell:zoo-mlp``, ``cora:zoo-mlp``,
 ``Nba:zoo-mlp``, ``bgp:zoo-mlp``, ``cornell:zoo-gcn``, ``cornell:zoo-gat``,
-``cora:zoo-gcn``, ``cora:zoo-gat``). It copies ``data/edge_input/*.in`` into a temporary data
-root and runs, through ``chip_smoke.run_protocol_cli`` (the CLI, 10 rounds x
-1000 epochs, temporary results and checkpoint directories), cornell,
-cornell ``-mk uniform``, Nba at H = 256, cora, citeseer, and cornell ``--rnn
-mlp``, ``--quirk-compat`` and ``--rnn gru --dtype bfloat16``, and through
+``cora:zoo-gcn``, ``cora:zoo-gat``, or ``cornell:zoo-gcn-bf16``,
+``cornell:zoo-gat-bf16`` for ``chip_smoke.BASELINE_BF16_BANDS`` at ``--dtype
+bfloat16``). It copies ``data/edge_input/*.in`` into a temporary data root
+and runs, through ``chip_smoke.run_protocol_cli`` (the CLI, 10 rounds x 1000
+epochs, temporary results and checkpoint directories), cornell, cornell
+``-mk uniform``, Nba at H = 256, cora, citeseer, and cornell ``--rnn mlp``,
+``--quirk-compat`` and ``--rnn gru --dtype bfloat16``, and through
 ``chip_smoke.run_baseline_cli`` each baseline band (``--model``), each held
 inside its JAX band. Exits 1 if any lies outside its band or fails.
 """
@@ -42,6 +44,9 @@ RUNS = [("cornell:merw", "cornell", cs.HIDDEN, cs.CORNELL_BAND, cs.CORNELL_PAYLO
          cs.CORNELL_PAYLOAD, dict(rnn="gru", dtype="bfloat16"))]
 RUNS += [(f"{name}:zoo-{model}", name, hidden, band, payload, dict(model=model))
          for (name, model), (band, payload, hidden) in cs.BASELINE_BANDS.items()]
+RUNS += [(f"cornell:zoo-{model}-bf16", "cornell", hidden, band, payload,
+          dict(model=model, dtype="bfloat16"))
+         for model, (band, payload, hidden) in cs.BASELINE_BF16_BANDS.items()]
 
 
 def main(only) -> int:
@@ -57,7 +62,8 @@ def main(only) -> int:
                 continue
             try:
                 if "model" in kw:
-                    cs.run_baseline_cli(name, kw["model"], root, tmp, 10, hidden, band, payload)
+                    cs.run_baseline_cli(name, kw["model"], root, tmp, 10, hidden, band, payload,
+                                        dtype=kw.get("dtype", "float32"))
                 else:
                     cs.run_protocol_cli(name, root, tmp, 10, hidden, band, payload, **kw)
             except Exception:

@@ -82,14 +82,16 @@ SIGNATURES = {
     "pathnet_row_gather_bwd": [_P, _P, _P, _I, _I, _P],
     # tbl, idx, out, n, D, stream
     "pathnet_lane_gather": [_P, _P, _P, _I, _I, _P],
-    # S1: h, w (null: weight 1), ptr, perm, col, out, n, F, heads, stream
-    "pathnet_spmm": [_P] * 6 + [_I] * 3 + [_P],
-    # S2: g, h, src, dst, out, E, F, heads, stream
-    "pathnet_edge_dot": [_P] * 5 + [_I] * 3 + [_P],
-    # S3: s, ptr, perm, out, n, heads, stream
-    "pathnet_segment_softmax": [_P] * 4 + [_I] * 2 + [_P],
-    # S4: a, da, ptr, perm, ds, n, heads, stream
-    "pathnet_segment_softmax_bwd": [_P] * 5 + [_I] * 2 + [_P],
+    # S1: h, w (null: weight 1), ptr, perm, col, out, n, F, heads, types
+    # (bit 0: h bf16, 1: w bf16, 2: out bf16), stream
+    "pathnet_spmm": [_P] * 6 + [_I] * 4 + [_P],
+    # S2: g, h, src, dst, out, E, F, heads, types (bit 0: h bf16, 1: g and
+    # out bf16), stream
+    "pathnet_edge_dot": [_P] * 5 + [_I] * 4 + [_P],
+    # S3: s, ptr, perm, out, n, heads, bf16, stream
+    "pathnet_segment_softmax": [_P] * 4 + [_I] * 3 + [_P],
+    # S4: a, da, ptr, perm, ds, n, heads, bf16, stream
+    "pathnet_segment_softmax_bwd": [_P] * 5 + [_I] * 3 + [_P],
     # stream: an empty kernel, the launch floor
     "pathnet_empty_launch": [_P],
 }

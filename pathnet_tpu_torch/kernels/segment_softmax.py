@@ -10,26 +10,39 @@ thread a (row, head), the row's edges in CSR order (the max, the sum of
 exponentials, the quotients), so every sum has one fixed order and no
 atomics. Bound on the H100: bytes, the scores (S4: ``a`` and ``da``) read
 once and the output written once, with the CSR, over 3.35 TB/s.
+
+The bf16 instances take and give bf16 scores. S3 rounds where XLA rounds
+JAX's bf16 ``segment_softmax`` on the CPU: the max is exact, ``s - max``
+and its ``exp`` are each rounded to bf16, the denominator is a bf16 sum
+rounded after each add in edge order, clamped at bf16's 1e-16, and the
+quotient is rounded (``exp`` may differ from XLA's by an f32 ulp, so an
+output may differ by a bf16 ulp). S4 is the analytic VJP in f32 on the bf16
+``a`` and ``da``, rounded once to bf16; JAX differentiates the softmax op by
+op, rounding at each, so S4 stays within a tolerance of JAX, not its bits.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
-from .spmm import csr_rows
+from .spmm import BF16, csr_rows, per_add_rows
 
 
 def segment_softmax_plain(s: torch.Tensor, ptr: torch.Tensor, perm: torch.Tensor
                           ) -> torch.Tensor:
     """Plain PyTorch version of :func:`segment_softmax` (``scatter_reduce``
-    "amax", ``exp``, ``index_add_`` in CSR order)."""
+    "amax", ``exp``, ``index_add_`` in CSR order; bf16: each op rounded,
+    the denominator by :func:`~.spmm.per_add_rows`)."""
     n, heads = ptr.shape[0] - 1, s.shape[1]
     rows, edges = csr_rows(ptr), perm.long()
     se = s.index_select(0, edges)
     smax = s.new_full((n, heads), -torch.inf).scatter_reduce(
         0, rows[:, None].expand(-1, heads), se, "amax")
     ex = torch.exp(se - smax.index_select(0, rows))
-    denom = s.new_zeros((n, heads)).index_add_(0, rows, ex)
+    if s.dtype == BF16:
+        denom = per_add_rows(ex, ptr)
+    else:
+        denom = s.new_zeros((n, heads)).index_add_(0, rows, ex)
     out = torch.empty_like(s)
     out[edges] = ex / denom.index_select(0, rows).clamp(min=1e-16)
     return out
@@ -37,13 +50,14 @@ def segment_softmax_plain(s: torch.Tensor, ptr: torch.Tensor, perm: torch.Tensor
 
 def segment_softmax_bwd_plain(a: torch.Tensor, da: torch.Tensor, ptr: torch.Tensor,
                               perm: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`segment_softmax_bwd`."""
+    """Plain PyTorch version of :func:`segment_softmax_bwd` (bf16: in f32,
+    rounded once)."""
     n, heads = ptr.shape[0] - 1, a.shape[1]
     rows, edges = csr_rows(ptr), perm.long()
-    ae, dae = a.index_select(0, edges), da.index_select(0, edges)
-    dot = a.new_zeros((n, heads)).index_add_(0, rows, ae * dae)
+    ae, dae = a.index_select(0, edges).float(), da.index_select(0, edges).float()
+    dot = ae.new_zeros((n, heads)).index_add_(0, rows, ae * dae)
     ds = torch.empty_like(a)
-    ds[edges] = ae * (dae - dot.index_select(0, rows))
+    ds[edges] = (ae * (dae - dot.index_select(0, rows))).to(a.dtype)
     return ds
 
 
@@ -53,15 +67,18 @@ def _check(t: torch.Tensor, name: str, ptr: torch.Tensor, perm: torch.Tensor,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {dev}")
     build.require(perm, "perm", torch.int32, (None,), dev)
-    build.require(t, name, torch.float32, (perm.shape[0], None), dev)
+    if t.dtype not in (torch.float32, BF16):
+        raise TypeError(f"{what}: {name} must be torch.float32 or torch.bfloat16, got {t.dtype}")
+    build.require(t, name, t.dtype, (perm.shape[0], None), dev)
     build.require(ptr, "ptr", torch.int32, (None,), dev)
     return dev
 
 
 def segment_softmax(s: torch.Tensor, ptr: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """``float32 [E, heads]``: the softmax of the scores ``s`` float32 ``[E,
-    heads]`` over each destination row of the CSR (``ptr`` int32 ``[n + 1]``,
-    ``perm`` int32 ``[E]``, every edge in one row), per head."""
+    """``[E, heads]``: the softmax of the scores ``s`` (float32 or bfloat16
+    ``[E, heads]``, the output's dtype) over each destination row of the
+    CSR (``ptr`` int32 ``[n + 1]``, ``perm`` int32 ``[E]``, every edge in one
+    row), per head."""
     dev = _check(s, "s", ptr, perm, "segment_softmax")
     if dev.type == "cpu":
         return segment_softmax_plain(s, ptr, perm)
@@ -69,7 +86,7 @@ def segment_softmax(s: torch.Tensor, ptr: torch.Tensor, perm: torch.Tensor) -> t
     with torch.cuda.device(dev):
         rc = build.library().pathnet_segment_softmax(
             s.data_ptr(), ptr.data_ptr(), perm.data_ptr(), out.data_ptr(), ptr.shape[0] - 1,
-            s.shape[1], build.stream_ptr(s))
+            s.shape[1], int(s.dtype == BF16), build.stream_ptr(s))
     build.check(rc, "segment_softmax")
     segment_softmax.launches += 1
     return out
@@ -77,18 +94,18 @@ def segment_softmax(s: torch.Tensor, ptr: torch.Tensor, perm: torch.Tensor) -> t
 
 def segment_softmax_bwd(a: torch.Tensor, da: torch.Tensor, ptr: torch.Tensor,
                         perm: torch.Tensor) -> torch.Tensor:
-    """``float32 [E, heads]``: the scores' gradient from the softmax ``a`` and
-    its gradient ``da`` (both float32 ``[E, heads]``) on the CSR of
-    :func:`segment_softmax`."""
+    """``[E, heads]``: the scores' gradient from the softmax ``a`` and its
+    gradient ``da`` (both float32 or both bfloat16 ``[E, heads]``, the
+    output's dtype) on the CSR of :func:`segment_softmax`."""
     dev = _check(a, "a", ptr, perm, "segment_softmax_bwd")
-    build.require(da, "da", torch.float32, tuple(a.shape), dev)
+    build.require(da, "da", a.dtype, tuple(a.shape), dev)
     if dev.type == "cpu":
         return segment_softmax_bwd_plain(a, da, ptr, perm)
     ds = torch.empty_like(a)
     with torch.cuda.device(dev):
         rc = build.library().pathnet_segment_softmax_bwd(
             a.data_ptr(), da.data_ptr(), ptr.data_ptr(), perm.data_ptr(), ds.data_ptr(),
-            ptr.shape[0] - 1, a.shape[1], build.stream_ptr(a))
+            ptr.shape[0] - 1, a.shape[1], int(a.dtype == BF16), build.stream_ptr(a))
     build.check(rc, "segment_softmax_bwd")
     segment_softmax_bwd.launches += 1
     return ds

@@ -13,6 +13,13 @@ is ``x[src]`` or ``x[dst]`` whose backward sums the edge rows by node with
 S1 (``index_select``'s backward would add them with atomics on the card), so
 a seeded round is bit-reproducible there. :class:`BatchNorm` is JAX's
 ``BatchNormCtx`` as a module: the running statistics are buffers.
+
+Under bf16 compute each op takes the kernel instance of its operands'
+dtypes, as JAX promotes them: ``spmm`` of a bf16 ``h`` with the graph's f32
+weights is S1 with bf16 rows and an f32 output, and its input gradient the
+per-add bf16 S1 of f32 terms; bf16 messages with bf16 weights (GAT) are the
+all-bf16 S1, their weights' gradient the bf16 S2; a bf16 softmax is the bf16
+S3 and S4; a gather of bf16 rows sums its gradient with the bf16 S1.
 """
 from __future__ import annotations
 
@@ -108,9 +115,10 @@ class _Spmm(torch.autograd.Function):
         g = g.contiguous()
         dh = dw = None
         if ctx.needs_input_grad[0]:
-            dh = k_spmm(g, w, eg.src_ptr, eg.src_perm, eg.src_col)
+            # a bf16 h under f32 weights: each f32 term rounded, a bf16 sum
+            dh = k_spmm(g, w, eg.src_ptr, eg.src_perm, eg.src_col, out_dtype=h.dtype)
         if ctx.needs_input_grad[1]:
-            dw = k_edge_dot(g, h, eg.src, eg.dst, w.shape[1])
+            dw = k_edge_dot(g, h, eg.src, eg.dst, w.shape[1]).to(w.dtype)
         return dh, dw, None
 
 
@@ -179,6 +187,13 @@ class BatchNorm(nn.Module):
     ``ops.py:85-91``) and advances ``running_mean`` and ``running_var``
     (momentum 0.1, unbiased variance); eval mode normalizes with them. The
     parameters keep JAX's names, ``scale`` and ``bias``.
+
+    ``cast`` gives the parameters in the compute dtype (bf16: rounded
+    copies). The statistics and the normalization are f32, on f32 copies of
+    the cast parameters, and the output takes ``h``'s dtype, as
+    ``BatchNormCtx`` does; ``stateless`` with a bf16 ``h`` normalizes as
+    JAX's stateless ``batch_norm`` (``ops.py:85-91``) does instead, op by op
+    in bf16 (the running statistics still advance from the f32 ones).
     """
 
     def __init__(self, dim: int, momentum: float = 0.1, eps: float = 1e-5):
@@ -189,10 +204,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
-    def forward(self, h: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, train: bool, cast=None, stateless: bool = False
+                ) -> torch.Tensor:
+        scale, bias = self.scale, self.bias
+        if cast is not None:
+            scale, bias = cast(scale), cast(bias)
+        h32 = h.float()
         if train:
-            mu = h.mean(dim=0)
-            var = h.var(dim=0, unbiased=False)
+            mu = h32.mean(dim=0)
+            var = h32.var(dim=0, unbiased=False)
             with torch.no_grad():
                 rows = h.shape[0]
                 m = self.momentum
@@ -201,4 +221,15 @@ class BatchNorm(nn.Module):
                                        + m * (var * (rows / max(rows - 1, 1))))
         else:
             mu, var = self.running_mean, self.running_var
-        return (h - mu) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+        if stateless and h.dtype == torch.bfloat16:
+            mu = h.mean(dim=0, keepdim=True)
+            var = h.var(dim=0, unbiased=False, keepdim=True)
+            return (h - mu) * torch.rsqrt(var + weak(self.eps, h)) * scale + bias
+        out = (h32 - mu) * torch.rsqrt(var + self.eps) * scale.float() + bias.float()
+        return out.to(h.dtype)
+
+
+def weak(c: float, like: torch.Tensor) -> float:
+    """A Python scalar as JAX's weak type takes it beside ``like``: rounded
+    to bf16 for a bf16 tensor (0.3 becomes 0.30078125), else as it is."""
+    return float(torch.tensor(c, dtype=torch.bfloat16)) if like.dtype == torch.bfloat16 else c

@@ -10,7 +10,19 @@ bounds (torch-default ``U(+-1/sqrt(fan_in))`` linears, ``U(+-1/sqrt(hdim))``
 attention vectors, GPRGNN's fixed ``gamma``). The message passing runs on
 kernels S1-S4 through :mod:`.ops`; the linears, batch norms, activations and
 concatenations are plain torch, as JAX leaves them to XLA outside any
-kernel. f32 only: ``compute_dtype="bfloat16"`` is ROADMAP §1 item 15.
+kernel.
+
+``compute_dtype="bfloat16"`` is JAX's bf16 forward (``zoo.py:270-287``): each
+call casts ``X`` and every parameter to bf16 (the master parameters and the
+running statistics stay f32, and the gradients come back f32), and every op
+then follows JAX's promotion, op by op: the graphs' weights stay f32, so a
+``spmm`` of bf16 rows gives f32 and what follows it computes in f32 on the
+bf16-rounded weights; a bf16 product is rounded, then its bias add
+(:func:`_linear`); a Python scalar beside a bf16 tensor is rounded to bf16
+(:func:`~.ops.weak`); the logits come back f32. The port matches XLA's
+arithmetic op by op, as JAX runs ``baseline_forward`` eagerly; under
+``jit`` XLA may skip the rounding of a bf16 result that only feeds an f32
+op (its excess precision), which the port does not follow.
 """
 from __future__ import annotations
 
@@ -27,7 +39,7 @@ from torch import nn
 from ...data.graph import Graph
 from ...device import resolve_device
 from ...nn.init import torch_linear_init_, uniform_
-from .ops import BatchNorm, EdgeGraph, gather_edges, segment_softmax, spmm
+from .ops import BatchNorm, EdgeGraph, gather_edges, segment_softmax, spmm, weak
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,12 +59,10 @@ class BaselineSpec:
 
     def check_ported(self) -> None:
         """Raise ``ValueError`` for a name or choice the JAX package does not
-        know, ``NotImplementedError`` for bf16 (not ported yet)."""
+        know."""
         if self.name not in BASELINES + EXTRA_MODELS:
             raise ValueError(f"unknown baseline {self.name}")
-        if self.compute_dtype == "bfloat16":
-            raise NotImplementedError("bf16 baselines are not ported yet (ROADMAP §1 item 15)")
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype={self.compute_dtype!r}")
         if not 0.0 <= self.dropout < 1.0:
             raise ValueError(f"dropout={self.dropout} must lie in [0, 1)")
@@ -208,7 +218,11 @@ class _Dropout:
         m = self.masks(i, tuple(x.shape), x.device)
         if tuple(m.shape) != tuple(x.shape):
             raise ValueError(f"dropout call {i}: mask {tuple(m.shape)}, input {tuple(x.shape)}")
-        return torch.where(m.to(x.device, torch.bool), x / self.keep, 0.0)
+        # JAX's x / keep: keep rounded to bf16 beside a bf16 x, the quotient
+        # rounded once
+        q = (x / self.keep if x.dtype == torch.float32
+             else (x.float() / weak(self.keep, x)).to(x.dtype))
+        return torch.where(m.to(x.device, torch.bool), q, 0.0)
 
 
 class Baseline(nn.Module):
@@ -256,42 +270,50 @@ class Baseline(nn.Module):
 
     def forward(self, X: torch.Tensor, graphs: Dict[str, EdgeGraph], train: bool = False,
                 masks: Optional[MaskSource] = None) -> torch.Tensor:
-        """Logits ``[n, out_dim]`` (``zoo.py:290-507``).
+        """Logits ``[n, out_dim]``, float32 (``zoo.py:270-507``).
 
         ``train`` applies the dropouts (keep masks from ``masks`` in JAX's
         ``_drop`` call order; without them, none), normalizes with the batch
         statistics and advances the batch norms' running statistics; eval
         mode normalizes with them. ``train=True`` without masks gives JAX's
-        stateless ``baseline_forward``: batch statistics, no dropout.
+        stateless ``baseline_forward``: batch statistics, no dropout (and
+        under bf16 its batch norm in bf16, :class:`~.ops.BatchNorm`).
         """
         spec, nm = self.spec, self.spec.name
+        bf16 = spec.compute_dtype == "bfloat16"
+        cast = (lambda t: t.to(torch.bfloat16)) if bf16 else (lambda t: t)
         drop = _Dropout(spec.dropout, train, masks)
+        stateless = train and masks is None
+
+        def lin(m, x):
+            return _linear(cast(m.weight), cast(m.bias), x)
 
         def bn(i, h):
-            return self.bns[i](h, train)
+            return self.bns[i](h, train, cast, stateless)
 
-        h = X
+        h = cast(X)
         if nm in ("mlp", "gcn"):
             eg = graphs.get("sym")
-            for i, lin in enumerate(self.lins[:-1]):
-                h = lin(h) if nm == "mlp" else spmm(eg, lin(h))
+            for i, m in enumerate(self.lins[:-1]):
+                h = lin(m, h) if nm == "mlp" else spmm(eg, lin(m, h))
                 h = drop(torch.relu(bn(i, h)))
-            h = self.lins[-1](h)
-            return h if nm == "mlp" else spmm(eg, h)
+            h = lin(self.lins[-1], h)
+            out = h if nm == "mlp" else spmm(eg, h)
 
-        if nm in ("gat", "gatjk"):
+        elif nm in ("gat", "gatjk"):
             eg = graphs["raw"]
             L = len(self.lins)
             xs = []
             for i in range(L):
                 att = self.att[i]
                 nheads, hdim = att["a_src"].shape
-                z = self.lins[i](h).reshape(-1, nheads, hdim)
-                s_src = (z * att["a_src"]).sum(-1)
-                s_dst = (z * att["a_dst"]).sum(-1)
-                scores = F.leaky_relu(gather_edges(eg, s_src, "src")
-                                      + gather_edges(eg, s_dst, "dst"), 0.2)
-                alpha = segment_softmax(eg, scores)
+                z = lin(self.lins[i], h).reshape(-1, nheads, hdim)
+                # JAX's einsum: a dot product in f32, rounded once
+                s_src = (z.float() * cast(att["a_src"]).float()).sum(-1).to(z.dtype)
+                s_dst = (z.float() * cast(att["a_dst"]).float()).sum(-1).to(z.dtype)
+                x = gather_edges(eg, s_src, "src") + gather_edges(eg, s_dst, "dst")
+                # JAX's leaky_relu: where(x >= 0, x, slope * x)
+                alpha = segment_softmax(eg, torch.where(x >= 0, x, x * weak(0.2, x)))
                 if nm == "gat":
                     alpha = drop(alpha)
                 h = spmm(eg, z, alpha).reshape(eg.n, nheads * hdim)
@@ -305,89 +327,90 @@ class Baseline(nn.Module):
                     xs.append(h)
             # max jumping knowledge (Mixhop models.py:422 jk_type='max');
             # amax splits a tie's gradient as JAX's max does
-            return h if nm == "gat" else self.out(torch.amax(torch.stack(xs), dim=0))
+            out = h if nm == "gat" else lin(self.out, torch.amax(torch.stack(xs), dim=0))
 
-        if nm in ("sage", "sage1"):
+        elif nm in ("sage", "sage1"):
             eg = graphs["mean" if nm == "sage" else "mean_sl"]
             L = len(self.lin_l)
             for i in range(L):
                 agg = spmm(eg, h)                     # mean over neighbors(+self)
-                h = self.lin_l[i](agg) + self.lin_r[i](h)
+                h = lin(self.lin_l[i], agg) + lin(self.lin_r[i], h)
                 if i < L - 1:
                     h = drop(torch.relu(bn(i, h)))
-            return h
+            out = h
 
-        if nm == "gin":
+        elif nm == "gin":
             eg = graphs["raw"]
+            eps = cast(self.eps)
             for i, mlp in enumerate(self.mlps):
-                agg = spmm(eg, h) + (1.0 + self.eps[i]) * h
-                h = mlp["l2"](torch.relu(mlp["l1"](agg)))
+                agg = spmm(eg, h) + (1.0 + eps[i]) * h
+                h = lin(mlp["l2"], torch.relu(lin(mlp["l1"], agg)))
                 h = torch.relu(bn(i, h))
-            return self.out(drop(h))
+            out = lin(self.out, drop(h))
 
-        if nm == "sgc":
+        elif nm == "sgc":
             for _ in range(spec.k_hops):
                 h = spmm(graphs["sym"], h)
-            return self.lin(h)
+            out = lin(self.lin, h)
 
-        if nm == "sgcmem":
+        elif nm == "sgcmem":
             # SGCMem: the linear first (F -> C), then the propagations
-            h = self.lin(h)
+            h = lin(self.lin, h)
             for _ in range(spec.k_hops):
                 h = spmm(graphs["sym"], h)
-            return h
+            out = h
 
-        if nm == "fagcn":
+        elif nm == "fagcn":
             egs = graphs["symnl"]
-            h = drop(torch.relu(getattr(self, "in")(drop(h))))
+            h = drop(torch.relu(lin(getattr(self, "in"), drop(h))))
             h0 = h
             for att in self.att:
                 cat = torch.cat([gather_edges(egs, h, "src"), gather_edges(egs, h, "dst")], -1)
-                alpha = torch.tanh(att(cat))[:, 0]
-                h = spec.eps * h0 + spmm(egs, h, alpha * egs.w)
-            return self.out(h)
+                alpha = torch.tanh(lin(att, cat))[:, 0]
+                h = h0 * weak(spec.eps, h0) + spmm(egs, h, alpha * egs.w)
+            out = lin(self.out, h)
 
-        if nm == "h2gcn":
+        elif nm == "h2gcn":
             h1, h2 = graphs["h1"], graphs["h2"]
-            h = torch.relu(self.embed(h))
+            h = torch.relu(lin(self.embed, h))
             feats = [h]
             cur = h
             for _ in range(spec.num_layers):
                 cur = torch.cat([spmm(h1, cur), spmm(h2, cur)], -1)
                 feats.append(cur)
-            return self.out(drop(torch.cat(feats, -1)))
+            out = lin(self.out, drop(torch.cat(feats, -1)))
 
-        if nm == "mixhop":
+        elif nm == "mixhop":
             eg = graphs["sym"]
             for i, hop_lins in enumerate(self.hop_lins):
                 outs = []
                 z = h
-                for j, lin in enumerate(hop_lins):
-                    outs.append(lin(z))
+                for j, m in enumerate(hop_lins):
+                    outs.append(lin(m, z))
                     if j < len(hop_lins) - 1:
                         z = spmm(eg, z)
                 h = drop(torch.relu(bn(i, torch.cat(outs, -1))))
-            return self.out(h)
+            out = lin(self.out, h)
 
-        if nm == "link":
-            return spmm(graphs["raw"], self.w_nodes) + self.b
+        elif nm == "link":
+            out = spmm(graphs["raw"], cast(self.w_nodes)) + cast(self.b)
 
-        if nm == "gcnjk":
+        elif nm == "gcnjk":
             eg = graphs["sym"]
             outs = []
-            for i, lin in enumerate(self.lins):
-                h = drop(torch.relu(bn(i, spmm(eg, lin(h)))))
+            for i, m in enumerate(self.lins):
+                h = drop(torch.relu(bn(i, spmm(eg, lin(m, h)))))
                 outs.append(h)
-            return self.out(torch.cat(outs, -1))
+            out = lin(self.out, torch.cat(outs, -1))
 
-        if nm == "cheb":
+        elif nm == "cheb":
             # ChebConv K=2, λmax=2: T0 = x, T1 = L~x = -Â_sym x
             eg = graphs["symnl"]
-            h = self.c1[0](h) + self.c1[1](-spmm(eg, h))
+            h = lin(self.c1[0], h) + lin(self.c1[1], -spmm(eg, h))
             h = drop(torch.relu(h))
-            return self.c2[0](h) + self.c2[1](-spmm(eg, h))
+            out = lin(self.c2[0], h) + lin(self.c2[1], -spmm(eg, h))
 
-        if nm == "lp":
+        elif nm == "lp":
             # MultiLP: X is the one-hot train labels (zeros elsewhere); 50
             # α-iterations of k_hops propagations
             eg = graphs["symnl"]
@@ -395,21 +418,33 @@ class Baseline(nn.Module):
             for _ in range(50):
                 for _ in range(spec.k_hops):
                     res = spmm(eg, res)
-                res = spec.alpha * res + (1 - spec.alpha) * y0
-            return res + 0.0 * self.dummy[0]
+                res = spec.alpha * res + y0 * weak(1 - spec.alpha, y0)
+            out = res + 0.0 * cast(self.dummy)[0]
 
-        # gprgnn, appnp
-        eg = graphs["sym"]
-        h = drop(torch.relu(self.l1(drop(h))))
-        h = self.l2(h)
-        if nm == "appnp":
-            z = h
-            for _ in range(10):
-                z = (1 - spec.alpha) * spmm(eg, z) + spec.alpha * h
-            return z
-        z = self.gamma[0] * h
-        cur = h
-        for k in range(1, self.gamma.shape[0]):
-            cur = spmm(eg, cur)
-            z = z + self.gamma[k] * cur
-        return z
+        else:   # gprgnn, appnp
+            eg = graphs["sym"]
+            h = drop(torch.relu(lin(self.l1, drop(h))))
+            h = lin(self.l2, h)
+            if nm == "appnp":
+                z = h
+                for _ in range(10):
+                    z = (1 - spec.alpha) * spmm(eg, z) + h * weak(spec.alpha, h)
+            else:
+                gamma = cast(self.gamma)
+                z = gamma[0] * h
+                cur = h
+                for k in range(1, gamma.shape[0]):
+                    cur = spmm(eg, cur)
+                    z = z + gamma[k] * cur
+            out = z
+        return out.float()
+
+
+def _linear(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """JAX's ``x @ w + b`` (``zoo.py:249-250``) for torch's ``w [out, in]``,
+    under JAX's promotion: in f32 when either of ``x`` and ``w`` is f32 (the
+    other widened); both bf16, the product rounded to bf16, then the bias
+    add."""
+    if x.dtype == w.dtype == torch.bfloat16:
+        return x @ w.t() + b
+    return F.linear(x.float(), w.float(), b.float())

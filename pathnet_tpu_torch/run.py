@@ -5,11 +5,12 @@
 The same flags and defaults as ``python -m pathnet_tpu.run``, with
 ``--device`` in place of ``--platform`` (default: the CUDA card). Choices the
 port does not run yet raise ``NotImplementedError`` naming ROADMAP.md:
-``--mesh``, ``--shard-features`` and a baseline at ``--dtype bfloat16``.
+``--mesh`` and ``--shard-features``.
 ``--model <name>`` trains a model of the baseline zoo (``models/baselines``)
 full batch, as the JAX CLI's baseline branch does: one payload load a round,
 the seed ``--seed + round``, JAX's checkpoint key and the model's name in
-the result line.
+the result line; with ``--dtype bfloat16`` it computes as JAX's bf16 zoo
+does, through the bf16 instances of S1-S4 (key suffix ``.bfloat16``).
 ``-mk uniform`` walks the symmetrized graph with self-loops, uniformly, and
 skips MERW (RW-PathNet), as in the JAX CLI. The homophily datasets (cora, citeseer, pubmed) train the
 homo variant, as in the JAX CLI. ``--rnn gru`` and ``--rnn mlp`` run the GRU
@@ -133,9 +134,6 @@ def check_ported(args) -> None:
     if args.model != "pathnet" and args.model not in BASELINES + EXTRA_MODELS:
         raise ValueError(f"unknown baseline {args.model}")
     todo = []
-    if args.model != "pathnet" and args.dtype != "float32":
-        todo.append((f"--model {args.model} --dtype {args.dtype}",
-                     "bf16 baselines, ROADMAP §1 item 15"))
     if args.mesh:
         todo.append(("--mesh", "the multi-device layer, ROADMAP §1 item 11"))
     if args.shard_features:

@@ -234,11 +234,15 @@ def test_a_round_from_jaxs_init_equals_jaxs_round(small_graph, monkeypatch, name
 
 
 def test_specs_refuse_unknown_names_and_bf16():
+    """Unknown names and dtypes raise; bf16 is ported (the name stays from
+    when it was refused)."""
     with pytest.raises(ValueError, match="unknown baseline"):
         BaselineSpec(name="gcn2", feat_dim=4, hidden=4, out_dim=2).check_ported()
-    with pytest.raises(NotImplementedError, match="item 15"):
+    BaselineSpec(name="gcn", feat_dim=4, hidden=4, out_dim=2,
+                 compute_dtype="bfloat16").check_ported()
+    with pytest.raises(ValueError, match="compute_dtype"):
         BaselineSpec(name="gcn", feat_dim=4, hidden=4, out_dim=2,
-                     compute_dtype="bfloat16").check_ported()
+                     compute_dtype="float16").check_ported()
     with pytest.raises(ValueError, match="unknown baseline"):
         run.main(["-data", "cornell", "--model", "gcn2"])
 

@@ -215,12 +215,12 @@ def test_cli_takes_the_jax_flags():
     assert mine - theirs == {"--device"} and theirs - mine == {"--platform"}
 
 
-@pytest.mark.parametrize("argv", [["--model", "gcn", "--dtype", "bfloat16"], ["--mesh", "4"],
+@pytest.mark.parametrize("argv", [["--mesh", "4"],
                                   ["--shard-features"], ["--model", "gcn", "--mesh", "2"],
                                   ["--model", "gat", "--shard-features"],
                                   ["--mesh", "2", "--quirk-compat"]])
 def test_cli_refuses_unported_choices(argv):
-    # bf16 baselines and the multi-device layer; the baseline zoo runs at f32
+    # the multi-device layer
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run.main(["-data", "cornell", *argv])
 
