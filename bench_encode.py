@@ -20,7 +20,11 @@ JSON line:
   where the checkout has them;
 - ``k4_{bgp,nba}_{recompute,attn,bptt}_ms``: K4's three launches each alone
   (the forward recompute with its streams, the attention backward, the
-  BPTT), ``k4_*_contract_ms``, the wrapper's weight contractions alone, and
+  BPTT), ``k4_*_contract_ms``, the weight contractions alone (the kernel
+  ``pagg_contract`` where the checkout has it), ``k4_*_contract_plain_ms``,
+  their plain composition (``torch.matmul``, ``bmm``), and
+  ``k4_*_contract_{layout,copies,bmm,onehot,dw_ih,dw_hh,db}_ms``, that
+  composition's steps each alone (``chip_smoke.contraction_parts``), and
   ``k4_*_dhsum_ms``, the segment sum of the row gradients into ``dh`` (its
   grouping included), where the checkout has them; the segment sum's parts:
   ``k4_*_rownodes_ms`` (``row_nodes``, the rows' node ids), ``k4_*_segments_ms``
@@ -43,6 +47,8 @@ JSON line:
   above, ``k3_bgp_h32_encode_ms``, ``k4_bgp_h32_recompute_ms``, ...), at f32
   and (``..._h32_bf16_...``) at bf16: K3 and K4 at H = 32 (Electronics'
   width) on the same request and microbatch, seeded weights;
+- ``k4_bgp_mlp_ms`` and its launches' keys (``k4_bgp_mlp_recompute_ms``,
+  ...): K4 of the MLP encoder (``rnn="mlp"``) on the bgp microbatch;
 - ``k4_bgp_mean_ms``: K4 under the mean readout (``agg="mean"``) on the
   bgp microbatch, with ``k4_bgp_mean_attn_ms`` (its attention backward
   launch alone) and ``k4_bgp_mean_dhsum_ms`` (the segment sum of the rows
@@ -63,6 +69,12 @@ builds the kernels of both checkouts from nothing (one ``nvcc -c`` per
 source, as ``pathnet_tpu_torch.kernels.build`` does) and prints each
 kernel instance's registers and spill bytes from ``ptxas -v``, keyed by
 kernel and template arguments, with the instances that differ.
+
+    python3 bench_encode.py --contract      # pagg_contract's variants
+
+times ``pagg_contract`` at the bgp microbatch for each of
+``CONTRACT_VARIANTS`` (tile constants, and copies that leave a part out to
+show where the time goes), each built alone, and prints one JSON line.
 """
 from __future__ import annotations
 
@@ -158,25 +170,35 @@ def encode_times(K, tag, h, paths, dists, w, mask_args, out):
         out[f"k3_{tag}_readout_ms"] = graph_ms(lambda: K.readout(h, paths, hn, *w[6:]), 50)
 
 
-def k4_stage_times(K, tag, g, h, paths, dists, w, mask_args, out):
-    """K4's three launches, its weight contractions and, where the checkout
-    has it, the segment sum of its row gradients, each alone."""
+def k4_stage_times(K, tag, g, h, paths, dists, w, mask_args, out, cell="lstm"):
+    """K4's three launches, its weight contractions (and, where the checkout
+    has them, their plain composition and its steps, ``chip_smoke``'s
+    ``contraction_parts``) and, where the checkout has it, the segment sum
+    of its row gradients, each alone."""
     import torch
+    from chip_smoke import contraction_parts
     if not hasattr(K, "bptt"):
         return
     n = h.shape[0]
     enc = (h, paths, dists, *w[:6], *mask_args)
-    hn, xr, xin, hp, cs, gt = K.encode_walks_streams(*enc)
-    out[f"k4_{tag}_recompute_ms"] = graph_ms(lambda: K.encode_walks_streams(*enc), 5)
+    cellarg = {} if cell == "lstm" else {"cell": cell}
+    hn, xr, xin, hp, cs, gt = K.encode_walks_streams(*enc, **cellarg)
+    out[f"k4_{tag}_recompute_ms"] = graph_ms(lambda: K.encode_walks_streams(*enc, **cellarg), 5)
     dhn = K.attention_bwd(g, h, paths, hn, *w[6:])[0]
     out[f"k4_{tag}_attn_ms"] = graph_ms(lambda: K.attention_bwd(g, h, paths, hn, *w[6:]), 20)
     bargs = (dhn, paths, dists, w[0], w[2], w[3], cs, gt, *mask_args)
-    _, dg, dsel = K.bptt(*bargs)
+    _, dg, dsel = K.bptt(*bargs, **cellarg)
     # each replay writes over gt again: the times do not depend on the values
-    out[f"k4_{tag}_bptt_ms"] = graph_ms(lambda: K.bptt(*bargs), 5)
-    out[f"k4_{tag}_contract_ms"] = graph_ms(
-        lambda: K.contractions(xr, xin, hp, dsel, dg, dists), 5)
-    if hasattr(K, "segment_sum"):
+    out[f"k4_{tag}_bptt_ms"] = graph_ms(lambda: K.bptt(*bargs, **cellarg), 5)
+    con = (xr, xin, hp, dsel, dhn if cell == "mlp" else dg, dists) + (
+        (False, cell) if cellarg else ())
+    out[f"k4_{tag}_contract_ms"] = graph_ms(lambda: K.contractions(*con), 5)
+    if hasattr(K, "contractions_plain"):
+        out[f"k4_{tag}_contract_plain_ms"] = graph_ms(lambda: K.contractions_plain(*con), 5)
+    if hasattr(K, "row_nodes"):   # the checkout's streams are contraction_parts' layout
+        for k, fn in contraction_parts(*con).items():
+            out[f"k4_{tag}_contract_{k}_ms"] = graph_ms(fn, 5)
+    if hasattr(K, "segment_sum") and not cellarg:
         drow = K.bptt(*bargs)[0]
         dego = K.attention_bwd(g, h, paths, hn, *w[6:])[1]
         rows = torch.cat([drow.reshape(-1, drow.shape[-1]), dego])
@@ -186,6 +208,21 @@ def k4_stage_times(K, tag, g, h, paths, dists, w, mask_args, out):
         seg = importlib.import_module(K.segment_sum.__module__)
         out[f"k4_{tag}_segments_ms"] = graph_ms(lambda: seg.segments(nodes, n), 20)
         out[f"k4_{tag}_dhsum_kernels_us"] = kernel_us(lambda: K.segment_sum(rows, nodes, n))
+
+
+def mlp_times(K, X, C, paths, dists, m1, gout, out):
+    """K4 of the MLP encoder (``rnn="mlp"``) on the bgp microbatch with its
+    launches and contractions."""
+    import torch
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=64, out_dim=C, walk_len=4, dropout=0.7,
+                    rnn="mlp")
+    model = PathNet(spec, device=X.device, generator=torch.Generator().manual_seed(0))
+    h, w = model.encode_inputs(X)
+    out["k4_bgp_mlp_ms"] = graph_ms(
+        lambda: K.pagg_encode_bwd(gout, h, paths, dists, *w, m1, 0.3, cell="mlp"), 5)
+    k4_stage_times(K, "bgp_mlp", gout, h, paths, dists, w, (m1, 0.3), out, cell="mlp")
 
 
 def mean_times(K, g, h, paths, dists, w, mask_args, out):
@@ -387,6 +424,7 @@ def measure(root: str) -> dict:
     out["k4_bgp_ms"] = graph_ms(lambda: K.pagg_encode_bwd(gout, h, paths, dists, *w, m1, 0.3),
                                 5)
     k4_stage_times(K, "bgp", gout, h, paths, dists, w, (m1, 0.3), out)
+    mlp_times(K, X, C, paths, dists, m1, gout, out)
     mean_times(K, gout, h, paths, dists, w, (m1, 0.3), out)
     width_times(K, X, C, paths, dists, gen, out)
 
@@ -485,6 +523,88 @@ def profile_bgp_epochs(root: str) -> None:
                                     max_name_column_width=70))
 
 
+# pagg_contract's variants: its tile constants, and copies that leave a part
+# out (their sums are wrong on purpose) to show where its time goes
+_MMA3 = """          mma_tf32(sum[mt][nt], al[mt], bhi[nt][0], bhi[nt][1]);
+          mma_tf32(sum[mt][nt], ah[mt], blo[nt][0], blo[nt][1]);
+          mma_tf32(sum[mt][nt], ah[mt], bhi[nt][0], bhi[nt][1]);"""
+CONTRACT_VARIANTS = {
+    "as committed": {},
+    "WN 8, 1 block an SM": {"WN": "8", "MIN_BLOCKS": "1"},
+    "WN 2, 4 blocks an SM, 16 a launch": {"WN": "2", "MIN_BLOCKS": "4",
+                                          "TARGET_BLOCKS": "132 * 16"},
+    "no products": {_MMA3: "          sum[mt][nt][0] += __uint_as_float("
+                           "ah[mt][0] ^ bhi[nt][0] ^ al[mt][1] ^ blo[nt][1]);"},
+    "no fragments, splits or products": {"for (int k0 = 0; k0 < KC;": "for (int k0 = 0; k0 < 0;"},
+    "no staging copies": {"i < na + KC * pb;": "i < 0;"},
+    "no dwd job": {"add(xr, dsel, R, H, wl, true);": ""},
+}
+
+
+def contract_variants(root: str) -> dict:
+    """``pagg_contract`` at the bgp microbatch (LSTM and MLP streams of seeded
+    normals) per launch in a CUDA graph, for each of ``CONTRACT_VARIANTS``:
+    ``csrc/pagg_contract.cu`` with a constant set (``constexpr int NAME``)
+    or a line replaced, built alone with ``errors.cu`` in a temporary
+    directory; the real variants' error against the plain version in
+    float64 over each gradient's largest entry."""
+    import re
+    sys.path.insert(0, root)
+    import pathlib
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.kernels import build
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, wl, H = 8192 * 40, 4, 64
+    cases = {}
+    for cell in ("lstm", "mlp"):
+        r = lambda *s: torch.randn(s, generator=gen, device=dev)
+        dists = torch.randint(-1, wl + 1, (8192, 40, wl), generator=gen, device=dev,
+                              dtype=torch.int32)
+        cases[cell] = (r(wl, B, H), r(wl, B, H), r(B, H) if cell == "mlp" else r(wl, B, H),
+                       r(wl, B, H), r(B, H) if cell == "mlp" else r(wl, B, 4 * H), dists,
+                       False, cell)
+    want = {c: K.contractions_plain(*(t.double() if isinstance(t, torch.Tensor)
+                                      and t.is_floating_point() else t for t in a))
+            for c, a in cases.items()}
+    src = (build.CSRC / "pagg_contract.cu").read_text()
+    errors = build.CSRC / "errors.cu"
+    build.SIGNATURES = {k: v for k, v in build.SIGNATURES.items() if "contract" in k}
+    out = {"device": smi()}
+    for name, subs in CONTRACT_VARIANTS.items():
+        text = src
+        for key, val in subs.items():
+            if key.isidentifier():
+                text, n = re.subn(rf"constexpr int {key} = [^;]+;",
+                                  f"constexpr int {key} = {val};", text)
+            else:
+                n = text.count(key)
+                text = text.replace(key, val)
+            if n != 1:
+                raise SystemExit(f"bench_encode: {name}: {key!r} found {n} times")
+        d = pathlib.Path(tempfile.mkdtemp())
+        try:
+            shutil.copy(errors, d)
+            (d / "pagg_contract.cu").write_text(text)
+            build.CSRC, build._lib = d, None
+            _, report = build.build()
+            row = {"registers": sorted({int(m) for m in re.findall(
+                r"Used (\d+) registers", report)})}
+            for cell, a in cases.items():
+                row[f"{cell}_ms"] = graph_ms(lambda: K.contractions(*a), 10)
+                if not subs or all(k.isidentifier() for k in subs):
+                    got = K.contractions(*a)
+                    row[f"{cell}_err"] = max(
+                        float((x.double() - y).abs().max()) / float(y.abs().max())
+                        for x, y in zip(got, want[cell]) if y.numel())
+            out[name] = row
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ab", metavar="OTHER", help="root of the checkout to compare with")
@@ -492,8 +612,13 @@ def main(argv=None) -> int:
                     help="profile two bgp epochs instead (with --ab: OTHER, then this)")
     ap.add_argument("--regs", metavar="OTHER",
                     help="registers and spills of OTHER's kernels and this checkout's")
+    ap.add_argument("--contract", action="store_true",
+                    help="pagg_contract's variants (CONTRACT_VARIANTS) instead")
     ap.add_argument("--root", default=HERE, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.contract:
+        print(json.dumps(contract_variants(os.path.abspath(args.root))), flush=True)
+        return 0
     if args.regs is not None:
         compare_regs(os.path.abspath(args.regs))
         return 0

@@ -45,8 +45,15 @@ one card). Phases, each with a start and an end line:
    PyTorch calls ``index_select`` and ``index_add_`` as K5's library
    yardsticks and ``index_add_`` as ``segment_sum``'s (each library call
    timed as the kernel, per call in a CUDA graph, and eagerly), K3's two
-   launches each alone, and K4's three launches and the wrapper's weight
-   contractions each alone;
+   launches each alone, and K4's three launches and its weight
+   contractions each alone: the kernel ``pagg_contract`` beside the plain
+   composition it replaced and each step of that composition
+   (``contraction_parts``), ``pagg_contract`` timed as phase 2 times its
+   kernels with that composition as its library yardstick. Wherever K4's
+   launches are held against their plain stages (phases 5, 11-17),
+   ``pagg_contract`` is held on the plain stages' streams against its
+   plain version run in float64 (within 1e-4 of each gradient's largest
+   entry, two calls bit-equal);
 6. train: ``run_round`` on the bgp stand-in for 3 epochs (microbatch 8192,
    dropout 0.7, Adam, best-on-validation) with the launch counts of the path;
    then ``segment_sum`` and ``segments`` as in phase 5 on the rows of the
@@ -242,8 +249,8 @@ the bgp rehearsal holds each round's test accuracy within 3 std of its
 band, 70.30 +- 1.26 (``results/results.jsonl:96``).
 
 The line before the last is the kernels' JSON record (launches from phase 6,
-the training path, which runs ``walk_dists``, K3, K4, ``segment_sum`` and
-K5, and launches K1 and K2 no time: ``walk_dists`` replaces them there, as
+the training path, which runs ``walk_dists``, K3, K4 with ``pagg_contract``,
+``segment_sum`` and K5, and launches K1 and K2 no time: ``walk_dists`` replaces them there, as
 each one's ``note`` says; K6's from phase 8; the homo instances of K3 and
 K4, named ``... homo``, from phase 12's cora protocol; the bf16 instances,
 named ``... bf16``, from phase 13's bgp and cora protocols, each with an
@@ -286,6 +293,7 @@ BGP = os.path.join(ROOT, "data", "bench_cache", "bgp_standin_63977.npz")
 CORNELL = os.path.join(ROOT, "data", "edge_input", "cornell.in")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 NW, WL, HIDDEN, REQUEST, EPOCHS = 40, 4, 64, 8192, 3
 K3_TOL = 1e-4
@@ -295,7 +303,7 @@ KERNELS = ("cdf_walk", "membership_dists", "pagg_encode_fwd", "pagg_encode_bwd",
            "row_gather", "row_gather_bwd", "lane_gather", "segment_sum", "walk_dists",
            "khop_dists", "walk_khop_dists", "alias_walk", "alias_walk_dists",
            "alias_walk_khop_dists", "spmm", "edge_dot", "segment_softmax",
-           "segment_softmax_bwd")
+           "segment_softmax_bwd", "pagg_contract")
 # the sampler's launches: K1 or K8 alone, fused with K2, fused with K7
 WALK_KERNELS = ("cdf_walk", "walk_dists", "walk_khop_dists", "alias_walk", "alias_walk_dists",
                 "alias_walk_khop_dists")
@@ -310,7 +318,7 @@ NOTES = {name: f"0 launches on the main path: {fused} replaces it there; still t
                                    "k-hop distances of walks from elsewhere"))}
 # the kernels a request launches, and those a training step adds
 FORWARD_PATH = ("walk_dists", "pagg_encode_fwd", "row_gather")
-BACKWARD_PATH = ("pagg_encode_bwd", "segment_sum", "row_gather_bwd")
+BACKWARD_PATH = ("pagg_encode_bwd", "segment_sum", "row_gather_bwd", "pagg_contract")
 K4_GRADS = ("dh", "dwd", "dbd", "dw_ih", "dw_hh", "db_ih", "db_hh", "dattw", "dattb")
 MERW_TOL = 5e-5    # max abs against the stored bgp probs (f32 power iteration)
 PAYLOADS = ("cornell", "Nba", "texas", "chameleon")
@@ -717,7 +725,7 @@ def check_segment_sum(tag, paths, rows, n, rec, time_as=None, homo=False, agg="a
 
 
 def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None,
-          bf16=False):
+          bf16=False, ops_per_s=None):
     """Time a kernel per launch in a CUDA graph and per eager call, its plain
     version per eager call and (if given) the library call as the kernel,
     per call in a CUDA graph (its ``library_ms``) and eagerly; record them.
@@ -725,7 +733,8 @@ def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None,
     its ``library_ms``, marked ``library_eager``, to be set beside the
     wrapper's eager call (``call_ms``). ``bf16``: the bound at bf16's
     tensor-core rate, and beside it the f32 CUDA-core bound of the same
-    operations (``f32_bound_ms``)."""
+    operations (``f32_bound_ms``). ``ops_per_s``: the bound's rate of
+    operations, where it is neither."""
     import torch
 
     ms = graph_ms(kern_graph or kern, iters)
@@ -744,7 +753,7 @@ def timed(rec, name, kern, plain, b, o, iters=50, library=None, kern_graph=None,
             lib_text = (f"{lib_call:.4f} ms eager, beside the wrapper's eager "
                         f"{call_ms:.4f} ms (no CUDA graph capture: {str(e).splitlines()[0]})")
     rec[name]["call_ms"] = call_ms
-    bound_ms, bound_by = bound(b, o, BF16_OPS_PER_S if bf16 else F32_OPS_PER_S)
+    bound_ms, bound_by = bound(b, o, ops_per_s or (BF16_OPS_PER_S if bf16 else F32_OPS_PER_S))
     rec[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=lib_ms)
     f32_note = ""
@@ -774,12 +783,14 @@ def time_k3_stages(tag, h, paths, dists, w, mask_args=(None, 1.0), homo=False,
 
 
 def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_TOL,
-                    agg="attention", cell="lstm", ego_paths=None):
+                    agg="attention", cell="lstm", ego_paths=None, rec=None):
     """Each of K4's three launches against its plain stage, on the plain
     stage's inputs: every output within ``tol`` of its plain version's
     largest entry (``dattw``, ``dattb``, sums that cancel, of the ego rows'
     ``dh`` if larger; under mean and sum no ``dego`` and zero ``dattw``,
-    ``dattb``). Returns the row gradients that ``segment_sum`` adds
+    ``dattb``); then the weight contractions on the plain stages' streams
+    (:func:`check_contract`, recorded in ``rec``). Returns the row gradients
+    that ``segment_sum`` adds
     (hetero attention: the BPTT's and the ego rows'; else the BPTT's). The
     quirk: ``paths``, ``dists`` and ``mask`` in ``quirk_layout``'s layout,
     the attention backward on its ego nodes ``ego_paths``."""
@@ -806,7 +817,7 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_T
     want = K.encode_walks_streams_plain(*enc, cell=cell)
     hold("recompute", ("hn", "xr", "xin", "hp", "cs", "gt", "ego"),
          K.encode_walks_streams(*enc, cell), want)
-    hn, _, xin, hp, cs, gt = want[:6]
+    hn, xr, xin, hp, cs, gt = want[:6]
     ego = want[6] if homo else None
     att = agg in ("attention", "quirk")
     ap = paths if ego_paths is None else ego_paths
@@ -816,24 +827,138 @@ def check_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, tol=K4_T
         raise AssertionError(f"{tag}: K4's attention launch, dattw, dattb not zero under {agg}")
     hold("attention", ("dhn", "dego", "dattw", "dattb"), got, want,
          float(want[1 if att else 0].abs().max()))
-    dego = want[1]
-    bargs = (want[0], paths, dists, w[0], w[2], w[3], {"gru": hp, "mlp": None}.get(cell, cs))
+    dhn, dego = want[0], want[1]
+    bargs = (dhn, paths, dists, w[0], w[2], w[3], {"gru": hp, "mlp": None}.get(cell, cs))
     hargs = (xin, ego, dego) if homo else None
     want = K.bptt_plain(*bargs, gt, mask, keep, hargs, cell=cell)
     hold("bptt", ("drow", "dgates", "dsel"),
          K.bptt(*bargs, None if gt is None else gt.clone(), mask, keep, hargs, cell), want)
     say(f"  {tag}: K4's three launches each within {tol:.3g} of its plain stage (error "
         "over each plain max: " + ", ".join(parts) + ")")
+    check_contract(tag, (xr, xin, hp, want[2], dhn if cell == "mlp" else want[1], dists,
+                         homo, cell), rec)
     H = h.shape[1]
     drow = want[0].reshape(-1, H)
     return drow if dego is None or homo else torch.cat([drow, dego])   # the row gradients
 
 
+def check_contract(tag, con, rec=None, tol=K4_TOL):
+    """``pagg_contract`` on the streams ``con`` (``contractions``' arguments)
+    against its plain version run in float64: each gradient within ``tol``
+    of its largest entry, two calls bit-equal; the float32 plain version's
+    own error printed beside it (its ``torch.matmul`` sums 1.3 M rows in
+    another order). Recorded under ``pagg_contract`` in ``rec``."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+
+    got = K.contractions(*con)
+    again = K.contractions(*con)
+    want = K.contractions_plain(*(t.double() if isinstance(t, torch.Tensor)
+                                   and t.is_floating_point() else t for t in con))
+    plain = K.contractions_plain(*con)
+    torch.cuda.synchronize()
+    worst, parts = 0.0, []
+    for name, a, b, c, p in zip(("dwd", "dbd", "dw_ih", "dw_hh", "db"), got, want, again,
+                                plain):
+        if a.shape != b.shape:
+            raise AssertionError(f"{tag}: pagg_contract {name} of shape {tuple(a.shape)}, "
+                                 f"its plain version's {tuple(b.shape)}")
+        if not torch.equal(a, c):
+            raise AssertionError(f"{tag}: pagg_contract {name} differs between two calls")
+        if not b.numel():
+            continue
+        err = float((a.double() - b).abs().max())
+        top = float(b.abs().max())
+        if not err <= tol * top:
+            raise AssertionError(f"{tag}: pagg_contract {name} max abs err {err} beyond "
+                                 f"{tol} x {top}")
+        worst = max(worst, err)
+        parts.append(f"{name} {err / max(top, 1e-30):.1e} (f32 plain "
+                     f"{float((p.double() - b).abs().max()) / max(top, 1e-30):.1e})")
+    if rec is not None:
+        record_err(rec, "pagg_contract", worst)
+    say(f"  {tag}: pagg_contract within {tol:.3g} of its float64 plain version, two calls "
+        "bit-equal (error over each max: " + ", ".join(parts) + ")")
+
+
+def contraction_parts(xr, xin, hp, dsel, dg, dists, homo=False, cell="lstm", tile=4096):
+    """The steps of the plain weight contractions (``contractions_plain``,
+    the card path before ``pagg_contract``) as callables on the outputs of
+    the steps before them, to time each alone: ``layout``, the classes,
+    their ranks and each row's padded destination; ``copies``, the two
+    zero-filled buffers and their ``index_copy_``; ``bmm``, the tile
+    products; ``onehot``, the two one-hot class sums; ``dw_ih``, ``dw_hh``
+    and ``db`` (the MLP: ``m^T d h_n`` and its row sum, no ``dw_hh``). The
+    code is ``class_contractions``' and ``contractions_plain``'s, line by
+    line."""
+    import torch
+    from pathnet_tpu_torch.kernels.pagg_encode_bwd import _step_classes
+
+    wl, B, H = xr.shape
+    x, s = xr.view(-1, H), dsel.view(-1, H)
+    classes, R = wl, x.shape[0]
+    ntiles = R // tile + classes
+
+    def layout():
+        d = _step_classes(dists, homo).reshape(-1)
+        rank = (torch.arange(classes, device=d.device)[:, None] == d).cumsum(1)
+        padded = (rank[:, -1] + tile - 1) // tile * tile
+        ends = padded.cumsum(0)
+        return (ends - padded)[d] + rank.gather(0, d[None])[0] - 1, ends
+
+    dest, ends = layout()
+
+    def copies():
+        return (x.new_zeros((ntiles * tile, H)).index_copy_(0, dest, x),
+                s.new_zeros((ntiles * tile, H)).index_copy_(0, dest, s).view(ntiles, tile, H))
+
+    xp, sp = copies()
+
+    def bmm():
+        return torch.bmm(xp.view(ntiles, tile, H).transpose(1, 2), sp)
+
+    prod = bmm()
+
+    def onehot():
+        starts = torch.arange(ntiles, device=x.device) * tile
+        cls = torch.bucketize(starts, ends, right=True).clamp_(max=classes - 1)
+        oh = (torch.arange(classes, device=x.device)[:, None] == cls).to(x.dtype)
+        return (oh @ prod.view(ntiles, H * H)).view(classes, H, H), oh @ sp.sum(dim=1)
+
+    parts = {"layout": layout, "copies": copies, "bmm": bmm, "onehot": onehot}
+    if cell == "mlp":
+        parts.update(dw_ih=lambda: hp.t() @ dg, db=lambda: dg.sum(dim=0))
+    else:
+        g2 = dg.view(wl * B, 4 * H)
+        parts.update(dw_ih=lambda: xin.view(-1, H).t() @ g2,
+                     dw_hh=lambda: hp.view(-1, H).t() @ g2, db=lambda: g2.sum(dim=0))
+    return parts
+
+
+def contract_bounds(xr, xin, hp, dsel, dg, dists, homo=False, cell="lstm"):
+    """(bytes, operations) of ``pagg_contract`` on these streams: each stream
+    and ``dists`` read once, the gradients written once; the products' flops
+    three times (the 3xTF32 split), the row sums once."""
+    wl, B, H = xr.shape
+    G = dg.shape[-1]
+    rows = dg.numel() // G
+    mlp = cell == "mlp"
+    out = (wl * H * H + wl * H + H * G + G + (0 if mlp else H * G)) * 4
+    prods = 2 * wl * B * H * H + 2 * rows * H * G * (1 if mlp else 2)
+    return (nbytes(xr, dsel, hp, dg, dists, *(() if mlp else (xin,))) + out,
+            3 * prods + wl * B * H + rows * G)
+
+
 def time_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, agg="attention",
-                   cell="lstm"):
-    """Each of K4's three launches and the wrapper's weight contractions
-    alone, per launch in a CUDA graph; returns their ms by stage (the MLP's
-    contractions take ``d h_n`` for its gate gradients)."""
+                   cell="lstm", rec=None):
+    """Each of K4's three launches and the weight contractions alone, per
+    launch in a CUDA graph: the kernel ``pagg_contract`` beside the plain
+    composition it replaced (``torch.matmul``, ``bmm``), whose steps
+    (:func:`contraction_parts`) are each timed too; returns their ms by
+    stage (the MLP's contractions take ``d h_n`` for its gate gradients).
+    With ``rec``, ``pagg_contract`` is timed into it as ``timed`` does, the
+    plain composition in a CUDA graph its library yardstick, its bound at
+    the TF32 tensor cores' rate (:func:`contract_bounds`)."""
     from pathnet_tpu_torch import kernels as K
 
     enc = (h, paths, dists, *w[:6], mask, keep, homo, cell)
@@ -848,11 +973,21 @@ def time_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, agg="atte
     # each replay writes over gt again; the time does not depend on the values
     bptt_ms = graph_ms(lambda: K.bptt(*bargs), 5)
     dg = dhn if cell == "mlp" else dg
-    con_ms = graph_ms(lambda: K.contractions(xr, xin, hp, dsel, dg, dists, homo, cell), 5)
+    con = (xr, xin, hp, dsel, dg, dists, homo, cell)
+    con_ms = graph_ms(lambda: K.contractions(*con), 5)
+    plain_ms = graph_ms(lambda: K.contractions_plain(*con), 5)
+    parts = {k: graph_ms(fn, 5) for k, fn in contraction_parts(*con).items()}
+    if rec is not None:
+        timed(rec, "pagg_contract", lambda: K.contractions(*con),
+              lambda: K.contractions_plain(*con), *contract_bounds(*con), 20,
+              library=lambda: K.contractions_plain(*con), ops_per_s=TF32_OPS_PER_S)
     say(f"  {tag}: K4's forward recompute {rec_ms:.4f} ms, attention backward "
-        f"{att_ms:.4f} ms, BPTT {bptt_ms:.4f} ms, weight contractions {con_ms:.4f} ms "
-        "(torch.matmul, bmm), each per launch in a CUDA graph")
-    return {"recompute": rec_ms, "attention": att_ms, "bptt": bptt_ms, "contractions": con_ms}
+        f"{att_ms:.4f} ms, BPTT {bptt_ms:.4f} ms, weight contractions (pagg_contract) "
+        f"{con_ms:.4f} ms beside their plain composition {plain_ms:.4f} ms (torch.matmul, "
+        "bmm; its steps " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + " ms), each per launch in a CUDA graph")
+    return {"recompute": rec_ms, "attention": att_ms, "bptt": bptt_ms, "contractions": con_ms,
+            "contractions_plain": plain_ms, **{f"plain_{k}": v for k, v in parts.items()}}
 
 
 def record_err(rec, name, err):
@@ -1026,7 +1161,7 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False
         sp, sd, ego_paths, perm = quirk_layout(paths, dists)
         sm = m1[:, perm].contiguous()
     rows = check_k4_stages(tag, g, h, sp, sd, w, sm, keep, homo, tol, ego_paths=ego_paths,
-                           **choice)
+                           rec=rec, **choice)
     check_segment_sum(tag, sp, rows, h.shape[0], rec,
                       homo_name("segment_sum", homo) if time_segment else None, homo,
                       choice["agg"], ego_paths)
@@ -1078,7 +1213,7 @@ def check_training_kernels(ps, model, X, idx, u, gen, rec):
     timed(rec, "pagg_encode_bwd", lambda: K.pagg_encode_bwd(*bwd_args),
           lambda: K.pagg_encode_bwd_plain(*bwd_args), b4, o4, 5)
     rec["pagg_encode_bwd"]["stages"] = time_k4_stages("pagg_encode_bwd", g, h, paths, dists,
-                                                      w, m1, keep)
+                                                      w, m1, keep, rec=rec)
     timed(rec, "row_gather", lambda: K.row_gather(h, idx),
           lambda: K.row_gather_plain(h, idx), b5, 0.0, 50,
           library=lambda: torch.index_select(h, 0, idx_l))
@@ -1367,7 +1502,8 @@ def run_protocol_cli(name, root, tmp, rounds, hidden, band, payload=None, dtype=
     idle = ("lane_gather", "membership_dists", "khop_dists",
             *(k for k in WALK_KERNELS if k != walk))
     if not (counts[walk] == epochs and counts["pagg_encode_bwd"] == counts["segment_sum"]
-            == counts["row_gather_bwd"] == ktr * epochs and counts["row_gather"] == fwd
+            == counts["row_gather_bwd"] == counts["pagg_contract"] == ktr * epochs
+            and counts["row_gather"] == fwd
             and (ktr + kva) * epochs <= fwd <= (ktr + kva + kte) * epochs
             and not any(counts[k] for k in idle)):
         raise AssertionError(f"{name} protocol launch counts {counts}: {epochs} epochs make "
@@ -3137,6 +3273,9 @@ def main() -> int:
                             "pathnet_tpu/models/baselines/ops.py:76"),
         "segment_softmax_bwd": ("pathnet_tpu_torch/csrc/segment_softmax.cu",
                                 "pathnet_tpu/models/baselines/ops.py:76 (its VJP)"),
+        "pagg_contract": ("pathnet_tpu_torch/csrc/pagg_contract.cu",
+                          "pathnet_tpu/models/pagg.py:235 (its VJP in the weights: :150, :185, "
+                          "pathnet_tpu/nn/cells.py:22, :49)"),
     }
     meta.update({name: meta[name.split()[0]] for name in BASELINE_BF16_KERNELS})
     meta.update({homo_name(n, True): meta[n] for n in HOMO_KERNELS})
@@ -3220,6 +3359,11 @@ def main() -> int:
                       ("segment_softmax_bwd bf16", "S4 on bf16 a and da, f32 inside, "
                        "rounded once", "at 8 heads"))})
     notes["edge_dot bf16 rows"] += "; library n/a: no torch call takes f32 g with bf16 h"
+    notes["pagg_contract"] = (
+        "K4's weight contractions (dwd, dbd, dw_ih, dw_hh, db) from its streams, one count a "
+        "K4 call in every instance; timed at the bgp microbatch, f32 LSTM; its bound at 3 x "
+        "the function's flops on the TF32 tensor cores (3xTF32) or its bytes; library_ms the "
+        "plain composition it replaced (torch.matmul, bmm, padded index_copy_) in a graph")
     notes["segment_softmax_bwd bf16"] += "; library n/a: torch has no sparse softmax VJP call"
 
     with Phase("0 device"):
@@ -3363,7 +3507,7 @@ def main() -> int:
                   "row_gather_bwd": EPOCHS * chunks[0], "lane_gather": 0, "khop_dists": 0,
                   "walk_khop_dists": 0, "alias_walk": 0, "alias_walk_dists": 0,
                   "alias_walk_khop_dists": 0, "spmm": 0, "edge_dot": 0, "segment_softmax": 0,
-                  "segment_softmax_bwd": 0}
+                  "segment_softmax_bwd": 0, "pagg_contract": EPOCHS * chunks[0]}
         say(f"  launches: {counts} ({improved} epochs improved on validation)")
         if counts != expect:
             raise AssertionError(f"training launch counts {counts}, the path makes {expect}")

@@ -11,7 +11,8 @@
 | K8 + K2 ``alias_walk_dists`` | ``kernels/walk_dists.py`` | K8's walk and K2 in one launch (the sampler's path with the alias tables at ``walk_len <= 4``) |
 | K8 + K7 ``alias_walk_khop_dists`` | ``kernels/khop_dists.py`` | K8's walk and K7 in one launch (the alias tables past ``walk_len`` 4) |
 | K3 ``pagg_encode_fwd`` | ``kernels/pagg_encode.py`` | ``models/pagg.py:235-307`` encode + readout (serving, and training with a dropout mask; hetero and homo, ``homo=True``; the LSTM or the GRU, ``cell``; the attention, mean or sum readout, ``agg``); two launches (``encode_walks``, ``readout``) behind one wrapper |
-| K4 ``pagg_encode_bwd`` | ``kernels/pagg_encode_bwd.py`` | the VJP of ``models/pagg.py:235-307`` with the gather VJP ``:83-93``; three launches (``encode_walks_streams``, ``attention_bwd``, ``bptt``) behind one wrapper, then the weight ``contractions``; every variant, cell and readout of K3 |
+| K4 ``pagg_encode_bwd`` | ``kernels/pagg_encode_bwd.py`` | the VJP of ``models/pagg.py:235-307`` with the gather VJP ``:83-93``; three launches (``encode_walks_streams``, ``attention_bwd``, ``bptt``) behind one wrapper, then the weight ``contractions`` (``pagg_contract``); every variant, cell and readout of K3 |
+| ``pagg_contract`` | ``kernels/pagg_encode_bwd.py`` | the weight part of that VJP: ``_dist_select``'s (``pagg.py:150-176``), the cells' (``nn/cells.py:22,49``) and the MLP head's (``pagg.py:185-186``) weight gradients from K4's streams (K4's ``contractions``) |
 | ``segment_sum`` | ``kernels/segment_sum.py`` | the scatter-add of the gather VJP, ``models/pagg.py:83-93``: K4's row gradients into ``dh`` in a fixed order |
 | K5 ``row_gather``, ``row_gather_bwd`` | ``kernels/row_gather.py`` | ``scripts/pallas_gather_probe.py:68``, the ``gather_fn`` of ``models/pagg.py:209,309`` |
 | K6 ``lane_gather`` | ``kernels/lane_gather.py`` | ``scripts/pallas_gather_probe.py:68``, body ``lane_gather_axis1`` ``:45-50`` (the gather probe only) |
@@ -32,8 +33,8 @@ from .pagg_encode import (encode_tile, encode_walks, encode_walks_plain,
                           pagg_encode_fwd, pagg_encode_fwd_plain, readout,
                           readout_plain)
 from .pagg_encode_bwd import (attention_bwd, attention_bwd_plain, bptt, bptt_plain,
-                              contractions, encode_walks_streams,
-                              encode_walks_streams_plain, pagg_encode_bwd,
+                              contractions, contractions_plain, encode_walks_streams,
+                              encode_walks_streams_plain, pagg_contract, pagg_encode_bwd,
                               pagg_encode_bwd_plain, row_nodes)
 from .row_gather import (row_gather, row_gather_bwd, row_gather_bwd_plain,
                          row_gather_plain)
@@ -47,7 +48,7 @@ from .walk_dists import (alias_walk_dists, alias_walk_dists_plain, sorted_rows, 
 WRAPPERS = (cdf_walk, membership_dists, pagg_encode_fwd, pagg_encode_bwd,
             row_gather, row_gather_bwd, lane_gather, segment_sum, walk_dists, khop_dists,
             walk_khop_dists, alias_walk, alias_walk_dists, alias_walk_khop_dists, spmm, edge_dot,
-            segment_softmax, segment_softmax_bwd)
+            segment_softmax, segment_softmax_bwd, pagg_contract)
 
 
 def reset_launch_counts() -> None:
@@ -66,7 +67,8 @@ __all__ = ["cdf_walk", "cdf_walk_plain", "membership_dists",
            "lane_gather", "lane_gather_plain", "encode_walks", "encode_walks_plain",
            "readout", "readout_plain", "encode_tile", "encode_walks_streams",
            "encode_walks_streams_plain", "attention_bwd", "attention_bwd_plain",
-           "bptt", "bptt_plain", "contractions", "row_nodes", "segment_sum",
+           "bptt", "bptt_plain", "contractions", "contractions_plain", "pagg_contract",
+           "row_nodes", "segment_sum",
            "segment_sum_plain", "walk_dists", "walk_dists_plain", "sorted_rows",
            "KhopTables", "khop_dists", "khop_dists_plain", "walk_khop_dists",
            "walk_khop_dists_plain", "alias_walk", "alias_walk_plain", "alias_walk_dists",

@@ -70,6 +70,11 @@ SIGNATURES = {
     # dhn, dists, wd_t, w_t, cs (the GRU: hp), gt, mask, keep, xin, ego, dego,
     # dsel, drow, T, nw, wl, H, bf16, cell, stream
     "pathnet_pagg_bptt": [_P] * 7 + [_F] + [_P] * 5 + [_I] * 6 + [_P],
+    # K4's weight contractions: xr, dsel, xin, hp, dg, dists, part, out, B, wl,
+    # H, homo, mlp, vec16, stream
+    "pathnet_pagg_contract": [_P] * 8 + [_I] * 6 + [_P],
+    # B, wl, H, mlp: the floats of its scratch (returns a long long)
+    "pathnet_pagg_contract_scratch": [_I] * 4,
     # rows, index, ints, units, offsets, part, out, R, n, H, stream
     "pathnet_segment_sum": [_P] * 7 + [_I] * 3 + [_P],
     # index, ints, units, offsets, R, n, stream
@@ -96,7 +101,8 @@ SIGNATURES = {
     "pathnet_empty_launch": [_P],
 }
 
-RESTYPES = {"pathnet_segment_scratch": ctypes.c_longlong}
+RESTYPES = {"pathnet_segment_scratch": ctypes.c_longlong,
+            "pathnet_pagg_contract_scratch": ctypes.c_longlong}
 
 _lib: Optional[ctypes.CDLL] = None
 

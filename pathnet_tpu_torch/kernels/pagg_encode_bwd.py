@@ -73,8 +73,8 @@ plain version returns zeros in them, so the two agree after
 H]``, and no ``cs`` or ``gt``; 3. has no recurrence: one product ``d s = (d
 h_n W^T) / wl`` a tile, the same for every step, then each step's dropout,
 homo ReLU and distance select as above. The contractions give ``dW = m^T d
-h_n`` and ``db = sum d h_n`` (``torch.matmul``, as JAX leaves that product to
-XLA); ``w_hh`` and ``b_hh`` are empty and so are their gradients.
+h_n`` and ``db = sum d h_n`` over the walks; ``w_hh`` and ``b_hh`` are empty
+and so are their gradients.
 
 **quirk_compat** (``agg="quirk"``, hetero, f32): the wrapper runs the hetero
 launches on :func:`~pathnet_tpu_torch.kernels.pagg_encode.quirk_layout`'s
@@ -114,16 +114,17 @@ inputs, so one input gives one result, bit for bit, on every run: a seeded
 round on the card is reproducible (``tests/test_torch_reproducible.py``).
 
 The weight gradients are contractions of the streams over all rows
-(:func:`contractions`), left to ``torch.matmul`` as the JAX package leaves
-them to XLA dots; the class-grouped ones sum their tiles per class with a
-one-hot product, not ``index_add_``. Memory held during the call: the
-streams, 9 ``H`` floats per walk step (3.0 GB for one 8192-target bgp
-microbatch, nw = 40, wl = 4, H = 64); the row gradients, ``H`` floats per
-walk step and per walk (0.42 GB there); the two scratches ``h_n`` and
-``d h_n``, ``[T * nw, H]`` each (84 MB each there); and 2 ``H`` floats a walk
-step more (0.67 GB) while :func:`class_contractions` regroups ``xr`` and
-``dsel`` by distance class. Homo holds ``ego`` and ``d ego`` (84 MB each
-there) in place of the ego rows' gradients. All are freed on return.
+(:func:`contractions`, the kernel :func:`pagg_contract`: split-K tiles on
+the TF32 tensor cores that read each stream in place, their partial sums
+added in a fixed order; its plain version :func:`contractions_plain` is
+``torch.matmul`` and ``bmm`` over padded copies regrouped by class). Memory
+held during the call: the streams, 9 ``H`` floats per walk step (3.0 GB for
+one 8192-target bgp microbatch, nw = 40, wl = 4, H = 64); the row
+gradients, ``H`` floats per walk step and per walk (0.42 GB there); the two
+scratches ``h_n`` and ``d h_n``, ``[T * nw, H]`` each (84 MB each there); and
+the contractions' partial sums (35 MB there). Homo holds ``ego`` and ``d
+ego`` (84 MB each there) in place of the ego rows' gradients. All are freed
+on return.
 
 :func:`encode_walks_streams`, :func:`attention_bwd` and :func:`bptt` launch
 each stage alone (for timing and tests; they count no launch), beside plain
@@ -390,11 +391,10 @@ def class_contractions(x: torch.Tensor, s: torch.Tensor, d: torch.Tensor,
     return dw, onehot @ sp.sum(dim=1)
 
 
-def contractions(xr, xin, hp, dsel, dgates, dists, homo=False, cell="lstm") -> Grads:
-    """The weight gradients from the streams: ``(dwd, dbd, dw_ih, dw_hh, db)``,
-    ``db`` being both LSTM biases' gradient. The MLP: ``hp`` its mean input
-    ``m`` and ``dgates`` its ``d h_n`` ``[T * nw, H]``, giving ``dw_ih = m^T d
-    h_n``, an empty ``dw_hh [H, 0]`` and ``db = sum d h_n``."""
+def contractions_plain(xr, xin, hp, dsel, dgates, dists, homo=False, cell="lstm") -> Grads:
+    """Plain version of :func:`pagg_contract`: ``torch.matmul`` and ``bmm``
+    over the streams, the class-grouped sums through
+    :func:`class_contractions`' padded copies."""
     wl, B, H = xr.shape
     dwd, dbd = class_contractions(xr.view(-1, H), dsel.view(-1, H),
                                   _step_classes(dists, homo).reshape(-1), wl)
@@ -404,6 +404,69 @@ def contractions(xr, xin, hp, dsel, dgates, dists, homo=False, cell="lstm") -> G
     dw_ih = xin.view(-1, H).t() @ dg
     dw_hh = hp.view(-1, H).t() @ dg
     return dwd, dbd, dw_ih, dw_hh, dg.sum(dim=0)
+
+
+def pagg_contract(xr, xin, hp, dsel, dgates, dists, homo=False, cell="lstm") -> Grads:
+    """The weight gradients from the streams: ``(dwd, dbd, dw_ih, dw_hh, db)``,
+    ``db`` being both LSTM biases' gradient. ``xr``, ``xin``, ``hp``,
+    ``dsel`` ``[wl, T * nw, H]`` and ``dgates`` ``[wl, T * nw, 4H]`` f32
+    (every K4 instance keeps f32 streams), ``dists`` int32 ``[T, nw, wl]``.
+    The MLP: ``hp`` its mean input ``m`` and ``dgates`` its ``d h_n`` ``[T *
+    nw, H]`` (``xin`` unread), giving ``dw_ih = m^T d h_n``, an empty
+    ``dw_hh [H, 0]`` and ``db = sum d h_n``.
+
+    On the card the hand-written kernel ``csrc/pagg_contract.cu`` (two
+    launches, one count a call) reads each stream in place: split-K tiles
+    on the TF32 tensor cores with the 3xTF32 split, each split's partial
+    sums added in split order by a second launch (no atomics: one input
+    gives one result, bit for bit). Its scratch is the splits' partial sums,
+    35 MB at the bgp microbatch (8192 targets, nw = 40, wl = 4, H = 64). On
+    the CPU, :func:`contractions_plain`."""
+    check_choices(cell=cell)
+    mlp = cell == "mlp"
+    dev = xr.device
+    f32 = torch.float32
+    build.require(xr, "xr", f32, (None, None, None), dev)
+    wl, B, H = xr.shape
+    build.require(dists, "dists", torch.int32, (None, None, wl), dev)
+    if dists.shape[0] * dists.shape[1] != B:
+        raise ValueError(f"dists: {tuple(dists.shape)} walks, the streams {B}")
+    build.require(dsel, "dsel", f32, (wl, B, H), dev)
+    if mlp:
+        build.require(hp, "hp", f32, (B, H), dev)
+        build.require(dgates, "dgates", f32, (B, H), dev)
+    else:
+        build.require(xin, "xin", f32, (wl, B, H), dev)
+        build.require(hp, "hp", f32, (wl, B, H), dev)
+        build.require(dgates, "dgates", f32, (wl, B, 4 * H), dev)
+    if dev.type == "cpu":
+        return contractions_plain(xr, xin, hp, dsel, dgates, dists, homo, cell)
+    _require_device(dev, "pagg_contract")
+    if H > 1024:
+        raise ValueError(f"pagg_contract: hidden {H} > 1024 is not supported")
+    lib = build.library()
+    part = torch.empty(lib.pathnet_pagg_contract_scratch(B, wl, H, int(mlp)), dtype=f32,
+                       device=dev)
+    G = H if mlp else 4 * H
+    sizes = [wl * H * H, wl * H, H * G, G] + ([] if mlp else [H * G])
+    out = torch.empty(sum(sizes), dtype=f32, device=dev)
+    streams = (xr, dsel, hp, dgates) if mlp else (xr, dsel, xin, hp, dgates)
+    vec16 = H % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in streams)
+    with torch.cuda.device(dev):
+        rc = lib.pathnet_pagg_contract(
+            xr.data_ptr(), dsel.data_ptr(), None if mlp else xin.data_ptr(), hp.data_ptr(),
+            dgates.data_ptr(), dists.data_ptr(), part.data_ptr(), out.data_ptr(), B, wl, H,
+            int(homo), int(mlp), int(vec16), build.stream_ptr(xr))
+    build.check(rc, "pagg_contract")
+    pagg_contract.launches += 1
+    dwd, dbd, dw_ih, db, *hh = out.split(sizes)
+    dw_hh = out.new_zeros((H, 0)) if mlp else hh[0].view(H, G)
+    return dwd.view(wl, H, H), dbd.view(wl, H), dw_ih.view(H, G), dw_hh, db
+
+
+pagg_contract.launches = 0
+# K4's name for its weight contractions
+contractions = pagg_contract
 
 
 def _require_device(dev: torch.device, what: str) -> None:

@@ -73,7 +73,7 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
                                  "khop_dists": 0, "walk_khop_dists": 0, "alias_walk": 0,
                                  "alias_walk_dists": 0, "alias_walk_khop_dists": 0,
                                  "spmm": 0, "edge_dot": 0, "segment_softmax": 0,
-                                 "segment_softmax_bwd": 0}
+                                 "segment_softmax_bwd": 0, "pagg_contract": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -452,7 +452,7 @@ def test_predict_on_card_counts_launches_and_matches_host(cuda):
                                  "khop_dists": 0, "walk_khop_dists": 0, "alias_walk": 0,
                                  "alias_walk_dists": 0, "alias_walk_khop_dists": 0,
                                  "spmm": 0, "edge_dot": 0, "segment_softmax": 0,
-                                 "segment_softmax_bwd": 0}
+                                 "segment_softmax_bwd": 0, "pagg_contract": 0}
     want = predict(m_host, torch.from_numpy(X), PathSampler.build(g, 40, 4, device="cpu"),
                    num_ensemble=3, u=u)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
