@@ -70,11 +70,17 @@ source, as ``pathnet_tpu_torch.kernels.build`` does) and prints each
 kernel instance's registers and spill bytes from ``ptxas -v``, keyed by
 kernel and template arguments, with the instances that differ.
 
-    python3 bench_encode.py --contract      # pagg_contract's variants
+    python3 bench_encode.py --contract [--ab OTHER]   # pagg_contract's variants
 
 times ``pagg_contract`` at the bgp microbatch for each of
-``CONTRACT_VARIANTS`` (tile constants, and copies that leave a part out to
-show where the time goes), each built alone, and prints one JSON line.
+``CONTRACT_VARIANTS`` (the kernel as committed, and copies that leave a part
+out to show where the time goes), each built alone, with each instance's
+registers and spills, and prints one JSON line. With ``--ab OTHER`` it first
+times OTHER's and this checkout's kernel (each built alone) at each of
+``CONTRACT_SHAPES`` in turns (OTHER, this, this, OTHER), beside the plain
+version and the bound, on streams 4 bytes off a 16-byte boundary too, with
+three cornell epochs and the host time of an eager call at cornell's shape
+(``contract_times``), one JSON line a turn.
 """
 from __future__ import annotations
 
@@ -389,7 +395,6 @@ def measure(root: str) -> dict:
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.config import TrainConfig
     from pathnet_tpu_torch.data import Graph
-    from pathnet_tpu_torch.data.registry import load_dataset
     from pathnet_tpu_torch.data.splits import get_whole_mask
     from pathnet_tpu_torch.models import PaggSpec, PathNet, draw_dropout_masks
     from pathnet_tpu_torch.sample import PathSampler
@@ -443,14 +448,7 @@ def measure(root: str) -> dict:
     out["bgp_epoch_ms"] = float(np.median(res.epoch_seconds[1:])) * 1e3
     bf16_times(K, X, y, z, ps, spec, idx, order, paths, dists, m1, gout, gen, C, out)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        os.makedirs(os.path.join(tmp, "edge_input"))
-        for f in glob.glob(os.path.join(HERE, "data", "edge_input", "Nba*.in")):
-            shutil.copy(f, os.path.join(tmp, "edge_input"))
-        shutil.copy(os.path.join(HERE, "data", "edge_input", "cornell.in"),
-                    os.path.join(tmp, "edge_input"))
-        gn, train, val, test, sd = load_dataset("Nba", tmp, 0)
-        gc, trc, vac, tec, sdc = load_dataset("cornell", tmp, 0)
+    (gn, train, val, test, sd), cornell = datasets("Nba", "cornell")
     psn = PathSampler.build(gn, 40, 4, device=dev)
     Xn = torch.from_numpy(np.array(gn.features, np.float32)).to(dev)
     specn = PaggSpec(feat_dim=Xn.shape[1], hidden=256, out_dim=sd.num_classes, walk_len=4,
@@ -470,14 +468,7 @@ def measure(root: str) -> dict:
                     sd.num_classes, seed=0, track_history=True)
     out["nba_epoch_ms"] = float(np.median(res.epoch_seconds[1:])) * 1e3
 
-    psc = PathSampler.build(gc, 40, 4, device=dev)
-    Xc = torch.from_numpy(np.array(gc.features, np.float32)).to(dev)
-    yc = torch.from_numpy(np.array(gc.labels, np.int64)).to(dev)
-    specc = PaggSpec(feat_dim=Xc.shape[1], hidden=64, out_dim=sdc.num_classes, walk_len=4,
-                     dropout=0.7)
-    res = run_round(Xc, yc, psc, specc, TrainConfig(epochs=100), trc, vac, tec,
-                    sdc.num_classes, seed=0, track_history=True)
-    out["cornell_epoch_ms"] = float(np.median(res.epoch_seconds[1:])) * 1e3
+    out["cornell_epoch_ms"], psc = cornell_epoch(cornell, dev)
 
     def every_node(p):
         return torch.arange(p.sampler.n, dtype=torch.int32, device=dev)
@@ -486,6 +477,39 @@ def measure(root: str) -> dict:
                    "cornell": (psc, every_node(psc)), "nba": (psn, every_node(psn))},
                gen, out)
     return out
+
+
+def datasets(*names):
+    """``load_dataset(name, root, 0)`` of each of ``names``, from a temporary
+    data root that holds a copy of their ``data/edge_input`` files."""
+    from pathnet_tpu_torch.data.registry import load_dataset
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "edge_input"))
+        for name in names:
+            for f in glob.glob(os.path.join(HERE, "data", "edge_input", f"{name}*.in")):
+                shutil.copy(f, os.path.join(tmp, "edge_input"))
+        return [load_dataset(name, tmp, 0) for name in names]
+
+
+def cornell_epoch(cornell, dev):
+    """Median host ms of the epochs after the first of a 100-epoch cornell
+    round (H = 64, full batch as in its protocol), and its sampler;
+    ``cornell`` is ``load_dataset``'s result."""
+    import torch
+    from pathnet_tpu_torch.config import TrainConfig
+    from pathnet_tpu_torch.models import PaggSpec
+    from pathnet_tpu_torch.sample import PathSampler
+    from pathnet_tpu_torch.train import run_round
+
+    g, train, val, test, sd = cornell
+    ps = PathSampler.build(g, 40, 4, device=dev)
+    X = torch.from_numpy(np.array(g.features, np.float32)).to(dev)
+    y = torch.from_numpy(np.array(g.labels, np.int64)).to(dev)
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=64, out_dim=sd.num_classes, walk_len=4,
+                    dropout=0.7)
+    res = run_round(X, y, ps, spec, TrainConfig(epochs=100), train, val, test,
+                    sd.num_classes, seed=0, track_history=True)
+    return float(np.median(res.epoch_seconds[1:])) * 1e3, ps
 
 
 def profile_bgp_epochs(root: str) -> None:
@@ -523,85 +547,184 @@ def profile_bgp_epochs(root: str) -> None:
                                     max_name_column_width=70))
 
 
-# pagg_contract's variants: its tile constants, and copies that leave a part
-# out (their sums are wrong on purpose) to show where its time goes
-_MMA3 = """          mma_tf32(sum[mt][nt], al[mt], bhi[nt][0], bhi[nt][1]);
-          mma_tf32(sum[mt][nt], ah[mt], blo[nt][0], blo[nt][1]);
-          mma_tf32(sum[mt][nt], ah[mt], bhi[nt][0], bhi[nt][1]);"""
+# pagg_contract's variants: the kernel as committed (checked against the
+# plain version), then copies that leave one part out (their sums are wrong
+# on purpose) to show where its time goes; each a set of text substitutions.
+# (Its tile constants were swept once; PERF.md §6 has the times.)
+_WGMMA3 = """              wgmma<NU>(fresh, alo[jj], desc_sw128(hi_plane + off), j > 0);
+              wgmma<NU>(fresh, ahi[jj], desc_sw128(lo_plane + off), 1);
+              wgmma<NU>(fresh, ahi[jj], desc_sw128(hi_plane + off), 1);"""
 CONTRACT_VARIANTS = {
     "as committed": {},
-    "WN 8, 1 block an SM": {"WN": "8", "MIN_BLOCKS": "1"},
-    "WN 2, 4 blocks an SM, 16 a launch": {"WN": "2", "MIN_BLOCKS": "4",
-                                          "TARGET_BLOCKS": "132 * 16"},
-    "no products": {_MMA3: "          sum[mt][nt][0] += __uint_as_float("
-                           "ah[mt][0] ^ bhi[nt][0] ^ al[mt][1] ^ blo[nt][1]);"},
-    "no fragments, splits or products": {"for (int k0 = 0; k0 < KC;": "for (int k0 = 0; k0 < 0;"},
-    "no staging copies": {"i < na + KC * pb;": "i < 0;"},
-    "no dwd job": {"add(xr, dsel, R, H, wl, true);": ""},
+    "no TMA copies": {"mbar_expect_tx(full, copied * BOX_BYTES);": "mbar_expect_tx(full, 0);",
+                      "            if (bst[i] >= 0)\n              tma_load(":
+                      "            if (0)\n              tma_load("},
+    "no hi/lo transposing pass": {"it < (kpad / 4) << tb_log;": "it < 0;"},
+    "no products": {_WGMMA3: ""},
+    "no class sort (each class over every row)": {
+        "  return Cfg::SORT && G.classes > 0;": "  return false;"},
+    "no distance reads (classes from the row)": {
+        "d = L.dists[b * L.wl + (L.homo ? t : L.wl - 1 - t)];": "d = (int)(b % L.wl);"},
+    "no dwd job": {"Group d = make_group(1, 0, -1, R, H, H,": "Group d = make_group(1, 0, -1, 0, H, H,"},
 }
+
+# pagg_contract's shapes for --contract: (targets, nw, wl, H, cell, homo),
+# seeded normal streams and distances; the bgp microbatch, Nba's 193 train
+# targets at H = 256, H = 32 (Electronics' width), cora's 2,708 targets
+# (homo) and cornell's 183
+CONTRACT_SHAPES = {"bgp": (8192, 40, 4, 64, "lstm", False),
+                   "bgp_mlp": (8192, 40, 4, 64, "mlp", False),
+                   "nba": (193, 40, 4, 256, "lstm", False),
+                   "bgp_h32": (8192, 40, 4, 32, "lstm", False),
+                   "cora_homo": (2708, 40, 4, 64, "lstm", True),
+                   "cornell": (183, 40, 4, 64, "lstm", False)}
+
+
+def contract_streams(shape, dev, gen):
+    """``contractions``' arguments at ``shape``, seeded normals and distances
+    in ``[-1, wl]`` (some clipped)."""
+    import torch
+    T, nw, wl, H, cell, homo = shape
+    B = T * nw
+    r = lambda *s: torch.randn(s, generator=gen, device=dev)
+    dists = torch.randint(-1, wl + 1, (T, nw, wl), generator=gen, device=dev,
+                          dtype=torch.int32)
+    mlp = cell == "mlp"
+    return (r(wl, B, H), r(wl, B, H), r(B, H) if mlp else r(wl, B, H), r(wl, B, H),
+            r(B, H) if mlp else r(wl, B, 4 * H), dists, homo, cell)
+
+
+def contract_only(build, text=None) -> str:
+    """Point ``build`` at a temporary directory that holds ``errors.cu`` and
+    ``pagg_contract.cu`` (``text`` in its place, if given) alone, bind only
+    the contraction's entries, build; returns nvcc's report."""
+    import pathlib
+    csrc = pathlib.Path(build.__file__).resolve().parents[1] / "csrc"
+    d = pathlib.Path(tempfile.mkdtemp())
+    shutil.copy(csrc / "errors.cu", d)
+    (d / "pagg_contract.cu").write_text(text if text is not None else
+                                        (csrc / "pagg_contract.cu").read_text())
+    build.SIGNATURES = {k: v for k, v in build.SIGNATURES.items() if "contract" in k}
+    build.CSRC, build._lib = d, None
+    try:
+        shutil.rmtree(build.library_path().parent, ignore_errors=True)   # a report each time
+        report = build.build()[1]
+        build.library()   # loaded while its sources are there
+        return report
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def offset_streams(args):
+    """``args``' float streams as views that start 4 bytes past a 16-byte
+    boundary (no tensor map describes them), with equal values."""
+    out = []
+    for t in args:
+        if hasattr(t, "is_floating_point") and t.is_floating_point():
+            buf = t.new_zeros(t.numel() + 1)
+            buf[1:] = t.reshape(-1)
+            t = buf[1:].view(t.shape)
+        out.append(t)
+    return out
+
+
+def contract_times(root: str) -> dict:
+    """``pagg_contract`` of ``root``'s checkout at each of ``CONTRACT_SHAPES``,
+    per launch in a CUDA graph, beside its plain version
+    (``contractions_plain``) and its bound (``chip_smoke.contract_bounds``:
+    bytes at 3.35 TB/s or 3 x the flops at TF32's 495 TFLOP/s); at the bgp
+    microbatch and Nba also on streams 4 bytes off a 16-byte boundary
+    (``{tag}_offset_ms``: the 4-byte copies, where the checkout has two
+    stagings), at the bgp microbatch cuBLAS's full-f32 dense products ``xin^T
+    dg`` and ``hp^T dg`` alone (context: no one call computes the function),
+    at cornell the eager call's host time (``cornell_call_host_us``, 200
+    calls queued) and its time with the device's (``cornell_call_us``).
+    First, with every kernel built, three 100-epoch cornell rounds
+    (``cornell_epoch_ms``, :func:`cornell_epoch`); then the contraction's
+    kernel is built alone."""
+    sys.path.insert(0, root)
+    import torch
+    from chip_smoke import contract_bounds
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    out = {"root": root, "device": smi()}
+    cornell = datasets("cornell")[0]
+    out["cornell_epoch_ms"] = [cornell_epoch(cornell, dev)[0] for _ in range(3)]
+    contract_only(build)
+    for tag, shape in CONTRACT_SHAPES.items():
+        a = contract_streams(shape, dev, torch.Generator(device=dev).manual_seed(0))
+        nbytes, ops = contract_bounds(*a)
+        out[f"{tag}_ms"] = graph_ms(lambda: K.contractions(*a), 10)
+        out[f"{tag}_plain_ms"] = graph_ms(lambda: K.contractions_plain(*a), 5)
+        out[f"{tag}_bound_ms"] = max(nbytes / 3.35e12, ops / 495e12) * 1e3
+        if tag in ("bgp", "nba"):
+            moved = offset_streams(a)
+            out[f"{tag}_offset_ms"] = graph_ms(lambda: K.contractions(*moved), 10)
+            del moved
+        if tag == "cornell":
+            for _ in range(20):
+                K.contractions(*a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                K.contractions(*a)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            out["cornell_call_host_us"] = (t1 - t0) / 200 * 1e6
+            out["cornell_call_us"] = (time.perf_counter() - t0) / 200 * 1e6
+        if tag == "bgp":
+            H = shape[3]
+            x, hp, dg = a[1].view(-1, H), a[2].view(-1, H), a[4].view(-1, 4 * H)
+            out["bgp_cublas_dense_ms"] = graph_ms(lambda: (x.t() @ dg, hp.t() @ dg), 5)
+        del a
+        torch.cuda.empty_cache()
+    return out
 
 
 def contract_variants(root: str) -> dict:
     """``pagg_contract`` at the bgp microbatch (LSTM and MLP streams of seeded
     normals) per launch in a CUDA graph, for each of ``CONTRACT_VARIANTS``:
-    ``csrc/pagg_contract.cu`` with a constant set (``constexpr int NAME``)
-    or a line replaced, built alone with ``errors.cu`` in a temporary
-    directory; the real variants' error against the plain version in
+    ``csrc/pagg_contract.cu`` with its text replaced, built alone with
+    ``errors.cu``; each instance's registers and spill bytes from ``ptxas``;
+    the kernel as committed also its error against the plain version in
     float64 over each gradient's largest entry."""
-    import re
     sys.path.insert(0, root)
-    import pathlib
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.kernels import build
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    B, wl, H = 8192 * 40, 4, 64
-    cases = {}
-    for cell in ("lstm", "mlp"):
-        r = lambda *s: torch.randn(s, generator=gen, device=dev)
-        dists = torch.randint(-1, wl + 1, (8192, 40, wl), generator=gen, device=dev,
-                              dtype=torch.int32)
-        cases[cell] = (r(wl, B, H), r(wl, B, H), r(B, H) if cell == "mlp" else r(wl, B, H),
-                       r(wl, B, H), r(B, H) if cell == "mlp" else r(wl, B, 4 * H), dists,
-                       False, cell)
+    cases = {c: contract_streams(CONTRACT_SHAPES[c], dev,
+                                 torch.Generator(device=dev).manual_seed(0))
+             for c in ("bgp", "bgp_mlp")}
     want = {c: K.contractions_plain(*(t.double() if isinstance(t, torch.Tensor)
                                       and t.is_floating_point() else t for t in a))
             for c, a in cases.items()}
     src = (build.CSRC / "pagg_contract.cu").read_text()
-    errors = build.CSRC / "errors.cu"
-    build.SIGNATURES = {k: v for k, v in build.SIGNATURES.items() if "contract" in k}
-    out = {"device": smi()}
+    texts = {}   # every variant's source, checked before any is built
     for name, subs in CONTRACT_VARIANTS.items():
         text = src
         for key, val in subs.items():
-            if key.isidentifier():
-                text, n = re.subn(rf"constexpr int {key} = [^;]+;",
-                                  f"constexpr int {key} = {val};", text)
-            else:
-                n = text.count(key)
-                text = text.replace(key, val)
-            if n != 1:
-                raise SystemExit(f"bench_encode: {name}: {key!r} found {n} times")
-        d = pathlib.Path(tempfile.mkdtemp())
-        try:
-            shutil.copy(errors, d)
-            (d / "pagg_contract.cu").write_text(text)
-            build.CSRC, build._lib = d, None
-            _, report = build.build()
-            row = {"registers": sorted({int(m) for m in re.findall(
-                r"Used (\d+) registers", report)})}
-            for cell, a in cases.items():
-                row[f"{cell}_ms"] = graph_ms(lambda: K.contractions(*a), 10)
-                if not subs or all(k.isidentifier() for k in subs):
-                    got = K.contractions(*a)
-                    row[f"{cell}_err"] = max(
-                        float((x.double() - y).abs().max()) / float(y.abs().max())
-                        for x, y in zip(got, want[cell]) if y.numel())
-            out[name] = row
-        finally:
-            shutil.rmtree(d, ignore_errors=True)
+            if text.count(key) != 1:
+                raise SystemExit(f"bench_encode: {name}: {key!r} found {text.count(key)} times")
+            text = text.replace(key, val)
+        texts[name] = text
+    out = {"device": smi()}
+    for name, subs in CONTRACT_VARIANTS.items():
+        # {instance: [registers, spill store bytes, spill load bytes]}
+        row = {"regs": {k: list(v) for k, v in kernel_regs(contract_only(build, texts[name])).items()
+                        if k.startswith("contract_kernel")}}
+        for cell, a in cases.items():
+            row[f"{cell}_ms"] = graph_ms(lambda: K.contractions(*a), 10)
+            if not subs:
+                got = K.contractions(*a)
+                row[f"{cell}_err"] = max(
+                    float((x.double() - y).abs().max()) / float(y.abs().max())
+                    for x, y in zip(got, want[cell]) if y.numel())
+        out[name] = row
     return out
 
 
@@ -613,20 +736,32 @@ def main(argv=None) -> int:
     ap.add_argument("--regs", metavar="OTHER",
                     help="registers and spills of OTHER's kernels and this checkout's")
     ap.add_argument("--contract", action="store_true",
-                    help="pagg_contract's variants (CONTRACT_VARIANTS) instead")
-    ap.add_argument("--root", default=HERE, help=argparse.SUPPRESS)
+                    help="pagg_contract's variants (CONTRACT_VARIANTS) instead; with --ab, "
+                         "first OTHER's and this kernel's times in turns")
+    ap.add_argument("--root", help=argparse.SUPPRESS)   # a turn's checkout
     args = ap.parse_args(argv)
+    root = os.path.abspath(args.root or HERE)
+    if args.contract and args.root is not None:   # one turn of --contract --ab
+        print(json.dumps(contract_times(root)), flush=True)
+        return 0
+    if args.contract and args.ab is not None:
+        other = os.path.abspath(args.ab)
+        for root in (other, HERE, HERE, other):
+            r = subprocess.run([sys.executable, os.path.abspath(__file__), "--contract",
+                                "--root", root], cwd=root, timeout=900)
+            if r.returncode != 0:
+                return r.returncode
     if args.contract:
-        print(json.dumps(contract_variants(os.path.abspath(args.root))), flush=True)
+        print(json.dumps(contract_variants(HERE)), flush=True)
         return 0
     if args.regs is not None:
         compare_regs(os.path.abspath(args.regs))
         return 0
     if args.profile and args.ab is None:
-        profile_bgp_epochs(os.path.abspath(args.root))
+        profile_bgp_epochs(root)
         return 0
     if args.ab is None:
-        print(json.dumps(measure(os.path.abspath(args.root))), flush=True)
+        print(json.dumps(measure(root)), flush=True)
         return 0
     if args.profile:
         for root in (os.path.abspath(args.ab), HERE):

@@ -956,9 +956,10 @@ def time_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, agg="atte
     composition it replaced (``torch.matmul``, ``bmm``), whose steps
     (:func:`contraction_parts`) are each timed too; returns their ms by
     stage (the MLP's contractions take ``d h_n`` for its gate gradients).
-    With ``rec``, ``pagg_contract`` is timed into it as ``timed`` does, the
-    plain composition in a CUDA graph its library yardstick, its bound at
-    the TF32 tensor cores' rate (:func:`contract_bounds`)."""
+    With ``rec``, ``pagg_contract`` is timed into it as ``timed`` does, its
+    bound at the TF32 tensor cores' rate (:func:`contract_bounds`), no
+    library call (no one PyTorch call computes the function; the plain
+    composition's time in a graph is printed beside it)."""
     from pathnet_tpu_torch import kernels as K
 
     enc = (h, paths, dists, *w[:6], mask, keep, homo, cell)
@@ -980,7 +981,7 @@ def time_k4_stages(tag, g, h, paths, dists, w, mask, keep, homo=False, agg="atte
     if rec is not None:
         timed(rec, "pagg_contract", lambda: K.contractions(*con),
               lambda: K.contractions_plain(*con), *contract_bounds(*con), 20,
-              library=lambda: K.contractions_plain(*con), ops_per_s=TF32_OPS_PER_S)
+              ops_per_s=TF32_OPS_PER_S)
     say(f"  {tag}: K4's forward recompute {rec_ms:.4f} ms, attention backward "
         f"{att_ms:.4f} ms, BPTT {bptt_ms:.4f} ms, weight contractions (pagg_contract) "
         f"{con_ms:.4f} ms beside their plain composition {plain_ms:.4f} ms (torch.matmul, "
@@ -3362,8 +3363,9 @@ def main() -> int:
     notes["pagg_contract"] = (
         "K4's weight contractions (dwd, dbd, dw_ih, dw_hh, db) from its streams, one count a "
         "K4 call in every instance; timed at the bgp microbatch, f32 LSTM; its bound at 3 x "
-        "the function's flops on the TF32 tensor cores (3xTF32) or its bytes; library_ms the "
-        "plain composition it replaced (torch.matmul, bmm, padded index_copy_) in a graph")
+        "the function's flops on the TF32 tensor cores (3xTF32) or its bytes; library n/a: no "
+        "one torch call computes it (the plain composition, torch.matmul and bmm over padded "
+        "index_copy_, is printed beside it in a graph)")
     notes["segment_softmax_bwd bf16"] += "; library n/a: torch has no sparse softmax VJP call"
 
     with Phase("0 device"):

@@ -33,7 +33,8 @@ from .pagg_encode import (encode_tile, encode_walks, encode_walks_plain,
                           pagg_encode_fwd, pagg_encode_fwd_plain, readout,
                           readout_plain)
 from .pagg_encode_bwd import (attention_bwd, attention_bwd_plain, bptt, bptt_plain,
-                              contractions, contractions_plain, encode_walks_streams,
+                              contract_route, contractions, contractions_plain,
+                              encode_walks_streams,
                               encode_walks_streams_plain, pagg_contract, pagg_encode_bwd,
                               pagg_encode_bwd_plain, row_nodes)
 from .row_gather import (row_gather, row_gather_bwd, row_gather_bwd_plain,
@@ -67,7 +68,8 @@ __all__ = ["cdf_walk", "cdf_walk_plain", "membership_dists",
            "lane_gather", "lane_gather_plain", "encode_walks", "encode_walks_plain",
            "readout", "readout_plain", "encode_tile", "encode_walks_streams",
            "encode_walks_streams_plain", "attention_bwd", "attention_bwd_plain",
-           "bptt", "bptt_plain", "contractions", "contractions_plain", "pagg_contract",
+           "bptt", "bptt_plain", "contract_route", "contractions", "contractions_plain",
+           "pagg_contract",
            "row_nodes", "segment_sum",
            "segment_sum_plain", "walk_dists", "walk_dists_plain", "sorted_rows",
            "KhopTables", "khop_dists", "khop_dists_plain", "walk_khop_dists",

@@ -71,7 +71,7 @@ SIGNATURES = {
     # dsel, drow, T, nw, wl, H, bf16, cell, stream
     "pathnet_pagg_bptt": [_P] * 7 + [_F] + [_P] * 5 + [_I] * 6 + [_P],
     # K4's weight contractions: xr, dsel, xin, hp, dg, dists, part, out, B, wl,
-    # H, homo, mlp, vec16, stream
+    # H, homo, mlp, tma (TMA copies, else 4-byte cp.async), stream
     "pathnet_pagg_contract": [_P] * 8 + [_I] * 6 + [_P],
     # B, wl, H, mlp: the floats of its scratch (returns a long long)
     "pathnet_pagg_contract_scratch": [_I] * 4,

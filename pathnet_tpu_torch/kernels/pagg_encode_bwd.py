@@ -114,15 +114,16 @@ inputs, so one input gives one result, bit for bit, on every run: a seeded
 round on the card is reproducible (``tests/test_torch_reproducible.py``).
 
 The weight gradients are contractions of the streams over all rows
-(:func:`contractions`, the kernel :func:`pagg_contract`: split-K tiles on
-the TF32 tensor cores that read each stream in place, their partial sums
-added in a fixed order; its plain version :func:`contractions_plain` is
+(:func:`contractions`, the kernel :func:`pagg_contract`: tiles of the
+weights over ranges of rows, staged by TMA and multiplied with ``wgmma`` on
+the TF32 tensor cores, their partial sums added in a fixed order; its plain
+version :func:`contractions_plain` is
 ``torch.matmul`` and ``bmm`` over padded copies regrouped by class). Memory
 held during the call: the streams, 9 ``H`` floats per walk step (3.0 GB for
 one 8192-target bgp microbatch, nw = 40, wl = 4, H = 64); the row
 gradients, ``H`` floats per walk step and per walk (0.42 GB there); the two
 scratches ``h_n`` and ``d h_n``, ``[T * nw, H]`` each (84 MB each there); and
-the contractions' partial sums (35 MB there). Homo holds ``ego`` and ``d
+the contractions' partial sums (17.5 MB there). Homo holds ``ego`` and ``d
 ego`` (84 MB each there) in place of the ego rows' gradients. All are freed
 on return.
 
@@ -406,6 +407,16 @@ def contractions_plain(xr, xin, hp, dsel, dgates, dists, homo=False, cell="lstm"
     return dwd, dbd, dw_ih, dw_hh, dg.sum(dim=0)
 
 
+def contract_route(H: int, *streams: torch.Tensor) -> str:
+    """How :func:`pagg_contract`'s kernel stages ``streams`` (``[rows, H]``
+    or ``[rows, 4H]`` f32, row-major): ``"tma"`` where a tensor map can
+    describe every one (each starts at a 16-byte boundary and a row is a
+    multiple of 16 bytes, ``H % 4 == 0``), else ``"cp.async"`` (4-byte copies
+    into the same layout)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in streams)
+    return "tma" if H % 4 == 0 and aligned else "cp.async"
+
+
 def pagg_contract(xr, xin, hp, dsel, dgates, dists, homo=False, cell="lstm") -> Grads:
     """The weight gradients from the streams: ``(dwd, dbd, dw_ih, dw_hh, db)``,
     ``db`` being both LSTM biases' gradient. ``xr``, ``xin``, ``hp``,
@@ -415,13 +426,15 @@ def pagg_contract(xr, xin, hp, dsel, dgates, dists, homo=False, cell="lstm") -> 
     nw, H]`` (``xin`` unread), giving ``dw_ih = m^T d h_n``, an empty
     ``dw_hh [H, 0]`` and ``db = sum d h_n``.
 
-    On the card the hand-written kernel ``csrc/pagg_contract.cu`` (two
-    launches, one count a call) reads each stream in place: split-K tiles
-    on the TF32 tensor cores with the 3xTF32 split, each split's partial
-    sums added in split order by a second launch (no atomics: one input
-    gives one result, bit for bit). Its scratch is the splits' partial sums,
-    35 MB at the bgp microbatch (8192 targets, nw = 40, wl = 4, H = 64). On
-    the CPU, :func:`contractions_plain`."""
+    On the card the hand-written kernel ``csrc/pagg_contract.cu`` (three
+    launches, one count a call) stages each split's rows of each stream once
+    (TMA, or 4-byte ``cp.async`` where :func:`contract_route` says so) and
+    multiplies on the TF32 tensor cores with ``wgmma`` and the 3xTF32 split,
+    ``dwd``'s rows sorted by class a stage; the last launch adds the splits'
+    partial sums in split order (no atomics: one input gives one result, bit
+    for bit). Its scratch is those partial sums, 17.5 MB at the bgp
+    microbatch (8192 targets, nw = 40, wl = 4, H = 64). On the CPU,
+    :func:`contractions_plain`."""
     check_choices(cell=cell)
     mlp = cell == "mlp"
     dev = xr.device
@@ -451,12 +464,12 @@ def pagg_contract(xr, xin, hp, dsel, dgates, dists, homo=False, cell="lstm") -> 
     sizes = [wl * H * H, wl * H, H * G, G] + ([] if mlp else [H * G])
     out = torch.empty(sum(sizes), dtype=f32, device=dev)
     streams = (xr, dsel, hp, dgates) if mlp else (xr, dsel, xin, hp, dgates)
-    vec16 = H % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in streams)
+    tma = contract_route(H, *streams) == "tma"
     with torch.cuda.device(dev):
         rc = lib.pathnet_pagg_contract(
             xr.data_ptr(), dsel.data_ptr(), None if mlp else xin.data_ptr(), hp.data_ptr(),
             dgates.data_ptr(), dists.data_ptr(), part.data_ptr(), out.data_ptr(), B, wl, H,
-            int(homo), int(mlp), int(vec16), build.stream_ptr(xr))
+            int(homo), int(mlp), int(tma), build.stream_ptr(xr))
     build.check(rc, "pagg_contract")
     pagg_contract.launches += 1
     dwd, dbd, dw_ih, db, *hh = out.split(sizes)

@@ -4,7 +4,7 @@
 On the host the wrapper takes its plain version, ``contractions_plain``. It
 is held against ``jax.vjp`` of the JAX package's encode block (``_dist_select``
 and ``_encode`` with the readout of ``pagg_forward``) in the weights, for
-every cell, both variants and walk lengths 4 and 5, and against an
+every cell, both variants and walk lengths 4, 5 and 7, and against an
 independent float64 sum per distance class. On a card (tests marked
 ``gpu``) the kernel is held against the plain version and two calls must be
 bit-equal; those tests import no JAX, so they run where JAX is absent:
@@ -140,7 +140,7 @@ def jax_encode(params, h, paths, dists, mask, keep, homo, cell):
     return jnp.sum(jax.nn.softmax(jax.nn.leaky_relu(score), axis=1) * h_n, axis=1)
 
 
-@pytest.mark.parametrize("wl", [4, 5])
+@pytest.mark.parametrize("wl", [4, 5, 7])
 @pytest.mark.parametrize("homo", [False, True])
 @pytest.mark.parametrize("cell", ["lstm", "gru", "mlp"])
 def test_plain_contractions_match_jax_param_vjp(cell, homo, wl):
@@ -204,9 +204,42 @@ def test_plain_contractions_match_jax_param_vjp(cell, homo, wl):
                                    err_msg=name)
 
 
+def offset_views(args, floats=1):
+    """``args``' float streams as contiguous views that start ``floats``
+    floats into a buffer of their own (4 bytes past a 16-byte boundary for
+    ``floats = 1``), with equal values."""
+    out = []
+    for t in args:
+        if t.is_floating_point():
+            buf = t.new_zeros(t.numel() + floats)
+            buf[floats:] = t.reshape(-1)
+            t = buf[floats:].view(t.shape)
+        out.append(t)
+    return out
+
+
+@pytest.mark.parametrize("H, floats, route", [(64, 0, "tma"), (24, 0, "tma"), (18, 0, "cp.async"),
+                                              (64, 1, "cp.async"), (64, 2, "cp.async"),
+                                              (64, 4, "tma")])
+def test_contract_route_follows_row_bytes_and_alignment(H, floats, route):
+    """The kernel's staging is chosen from the shapes and the pointers: TMA
+    where every stream starts at a 16-byte boundary and a row is a multiple
+    of 16 bytes (H % 4 == 0), 4-byte cp.async otherwise; any stream decides."""
+    args = streams(3, 5, 4, H, "lstm")
+    xr, xin, hp, dsel, dg, _ = args
+    base = [t for t in (xr, dsel, xin, hp, dg) if t.data_ptr() % 16 == 0]
+    assert len(base) == 5   # torch's allocations are aligned
+    moved = offset_views([xr, dsel, xin, hp, dg], floats) if floats else [xr, dsel, xin, hp, dg]
+    assert all(a.equal(b) and a.is_contiguous() for a, b in zip(moved, base))
+    assert K.contract_route(H, *moved) == route
+    assert K.contract_route(H, moved[0], *base[1:]) == route   # one stream decides
+    assert K.contract_route(H) == ("tma" if H % 4 == 0 else "cp.async")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(8192, 40, 4, 64), (183, 40, 5, 64), (193, 40, 4, 256),
-                                   (37, 7, 5, 24), (50, 3, 4, 18)])
+                                   (37, 7, 5, 24), (50, 3, 4, 18), (8192, 40, 4, 32),
+                                   (37, 7, 6, 64), (37, 7, 7, 24), (40, 10, 11, 32)])
 @pytest.mark.parametrize("homo", [False, True])
 @pytest.mark.parametrize("cell", ["lstm", "mlp"])
 def test_kernel_matches_plain_and_is_bit_equal_on_the_card(cuda, cell, homo, shape):
@@ -214,7 +247,9 @@ def test_kernel_matches_plain_and_is_bit_equal_on_the_card(cuda, cell, homo, sha
     streams (the GRU's contraction is the LSTM's): each gradient within
     1e-5 of its largest plain entry, class 2 of the small shapes empty
     (exact zeros), two calls bit-equal; H = 18 takes the 4-byte copies and
-    ragged tiles."""
+    ragged tiles, H = 32 (the Electronics band's width) runs at the bgp
+    microbatch's rows; wl = 6, 7 and 11 take the classes in chunks of at
+    most five (two and three chunks)."""
     T, nw, wl, H = shape
     args = streams(T, nw, wl, H, cell, seed=H, device=cuda,
                    empty_class=2 if T < 100 else None)
@@ -232,3 +267,28 @@ def test_kernel_matches_plain_and_is_bit_equal_on_the_card(cuda, cell, homo, sha
             assert float((a.double() - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
     if T < 100:
         assert not got[0][2].any() and not got[1][2].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["lstm", "mlp"])
+def test_kernel_on_unaligned_streams_takes_the_4_byte_copies(cuda, cell):
+    """Streams that start 4 bytes past a 16-byte boundary (views into a
+    buffer), which no tensor map describes: the wrapper routes them to the
+    4-byte ``cp.async`` staging, held to the same 1e-5 of the float64 plain
+    version and bit-equal on two calls and to the aligned streams' result."""
+    args = streams(257, 40, 4, 64, cell, seed=7, device=cuda)
+    moved = offset_views(args)
+    present = moved[:4] + [moved[4]] if cell != "mlp" else [moved[0], moved[2], moved[3], moved[4]]
+    assert K.contract_route(64, *present) == "cp.async"
+    got = K.pagg_contract(*moved, False, cell)
+    again = K.pagg_contract(*moved, False, cell)
+    aligned = K.pagg_contract(*args, False, cell)
+    want = K.contractions_plain(*(t.double() if t.is_floating_point() else t for t in args),
+                                False, cell)
+    torch.cuda.synchronize()
+    for name, a, b, c, d in zip(NAMES, got, want, again, aligned):
+        assert torch.equal(a, c), name
+        if b.numel():
+            assert float((a.double() - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
+            # the two stagings land the same values in the same layout
+            assert torch.equal(a, d), name
