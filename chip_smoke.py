@@ -241,7 +241,32 @@ one card). Phases, each with a start and an end line:
     within 3 std of their bands (``BASELINE_BF16_BANDS``, the JAX CLI's own
     host runs) and ``--model fagcn --dtype bfloat16``, counting each bf16
     instance's launches by its C entry's type argument
-    (:class:`InstanceCounts`).
+    (:class:`InstanceCounts`);
+20. host utilities and runners: every kernel of the hetero f32 path
+    (``walk_dists``, K3 with and without the keep mask, K4 and its three
+    launches, ``pagg_contract``, ``segment_sum``, K5) against its plain
+    version at wl = 2 and 3 on one 8192-target bgp microbatch (timed, the
+    records ``... wl2`` and ``... wl3``) and on every cornell node at full
+    width, and under the sum readout on the path-pattern graph's 80 uniform
+    walks a node (2,000 nodes, wl = 2 and 3; wl = 3 timed, the records
+    ``... sum nw80``), phase 5's tolerances; ``merw/extras`` on cora on the
+    card (f32) against the host (f64) within ``EXTRAS_TOL``; ``init_rw`` on
+    cornell and cora on the card against the host (records equal,
+    probabilities within ``INIT_RW_TOL``); ``utils.trace`` around one
+    ``row_gather`` launch, its Chrome trace holding that kernel's event; the
+    runners of
+    ``pathnet_tpu_torch.experiments`` cut for time: the walk-length ablation
+    on cornell (1 x ``ABLATION_EPOCHS`` a length, above chance, its
+    wl = 2 and 3 rounds' launches the records'), the path-pattern ablation
+    (1 x ``PATTERN_EPOCHS`` a length, above chance), the cornell comparison
+    column (1 x ``COMPARISON_EPOCHS``, all 18 columns, each whose JAX mean
+    is well above chance above chance), the protocol sweep
+    over texas and wisconsin (1 x 1000 each within 3 std of their bands);
+    then pubmed (homo, microbatch 8192), Dblp and Electronics (H = 32, bf16,
+    microbatch 8192), one round each within 3 std of their bands, pubmed's
+    and Electronics' K3 and K4 first held on one microbatch at that
+    configuration (:func:`check_band_kernels`; Electronics' flipped
+    attention scores counted).
 
 The protocol phases gate on their band when they run 10 rounds of 1000
 epochs, and on accuracy above chance when a rehearsal cuts them shorter;
@@ -266,7 +291,9 @@ mlp``, ``... mlp homo``), bf16 GRU instances (``... gru bf16``) and quirk
 readout and backward (``... quirk``) from its cornell and cora protocols;
 S1-S4 from phase 18's cornell ``--model gat`` round; their bf16 instances,
 named ``... bf16 ...``, from phase 19's cornell bf16 rounds, each with an
-``f32_ms`` beside it);
+``f32_ms`` beside it; phase 20's instances at wl = 2 and 3 (``... wl2``,
+``... wl3``) from its cornell ablation rounds at those lengths, and under the
+sum readout at nw = 80 (``... sum nw80``) from its pattern round at wl = 3);
 the last is ``{"ok": true, "device": {...}}``. Any failure exits non-zero and
 prints no result. Without a CUDA card, or outside a checkout, it exits
 non-zero.
@@ -461,6 +488,35 @@ BF16_SUM_ULPS = 8   # a library's bf16 sum (f32 accumulation) beside a per-add o
 # other way moves what follows by a bf16 ulp (measured: GAT-JK 6.0e-2 at
 # cornell's full width, every other model 7.6e-3 or less)
 BF16_HOST_TOL = 2.0 ** -3
+# phase 20: the new shapes of the walk-length ablation (wl = 2, 3) and of the
+# path-pattern task (80 uniform walks, the sum readout), each kernel's
+# instance a record of its own (``instance_name``)
+SHORT_WLS = (2, 3)
+PATTERN_NW, PATTERN_WL, PATTERN_N = 80, 3, 2000
+WL_KERNELS = ("walk_dists", "pagg_encode_fwd", "pagg_encode_bwd", "pagg_contract",
+              "segment_sum")
+PATTERN_KERNELS = WL_KERNELS[1:]
+EXTRAS_TOL = 1e-4      # merw/extras on the card (f32) against the host's f64
+INIT_RW_TOL = 5e-5     # init_rw's probabilities, card against host
+# the runners at a depth cut for time (their 10 x 1000 run in full_protocols.py)
+ABLATION_EPOCHS, PATTERN_EPOCHS, COMPARISON_EPOCHS = 300, 200, 100
+# the cornell columns whose JAX mean (results/comparison_cornell.json, 10 x
+# 1000) is near chance (1/5): link 0.276, lp 0.249; every other column's is
+# 0.53 or more, so at 1 x COMPARISON_EPOCHS each of those must beat chance
+COMPARISON_NEAR_CHANCE = ("link", "lp")
+TEXAS_BAND = (0.7945946097373963, 0.07171081340583227)       # :108
+WISCONSIN_BAND = (0.779999977350235, 0.06572669863009666)    # :110
+SWEEP_BANDS = {"texas": (TEXAS_BAND, "d652c615"), "wisconsin": (WISCONSIN_BAND, "2951ae86")}
+# item 14's larger bands, one round each in phase 20 and 10 x 1000 in
+# full_protocols.py: (dataset, H, band, payload, dtype, microbatch)
+PUBMED_BAND = (0.9040832221508026, 0.003600605275611917)       # :61
+DBLP_BAND = (0.725084662437439, 0.004791932623111868)          # :92
+ELECTRONICS_BAND = (0.6670053005218506, 0.005268764335488223)  # :100
+BAND_PROTOCOLS = (("pubmed", HIDDEN, PUBMED_BAND, "0c262124", "float32", BGP_MICROBATCH),
+                  ("Dblp", HIDDEN, DBLP_BAND, "bf54585a", "float32", None),
+                  ("Electronics", 32, ELECTRONICS_BAND, "e45d6452", "bfloat16", BGP_MICROBATCH))
+# the new instances each band's kernels are held at (check_band_kernels)
+BAND_KERNEL_CHECKS = ("pubmed", "Electronics")
 
 def walk_kernel(wl: int) -> str:
     """The sampler's launch at walk length ``wl``: the membership backend's
@@ -1077,7 +1133,7 @@ def encode_bounds(h, paths, dists, m1, agg, g, w, cell="lstm"):
 
 
 def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False,
-                         kink=False):
+                         kink=False, names=None):
     """K3 without and with a keep mask, K4 and the segment sum of K4's row
     gradients against their plain versions on the targets ``idx`` (the
     segment sum timed when ``time_segment``), in ``model``'s variant (a homo
@@ -1091,7 +1147,8 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False
     branch, moving ``dattw``, ``dattb`` and that walk's rows of ``dh`` by
     its whole ``d score`` (``dattb`` 0.078 of a 1.83 scale at the bgp
     microbatch, PR 19's call 3); the walks whose score changes sign are
-    counted and printed."""
+    counted and printed. ``names``: the records of K3 and K4 by kernel, in
+    place of the instance's own."""
     import torch
     from pathnet_tpu_torch import kernels as K
     from pathnet_tpu_torch.models import draw_dropout_masks
@@ -1106,9 +1163,10 @@ def check_encode_kernels(tag, ps, model, X, idx, u, gen, rec, time_segment=False
     # under "... quirk"); the mean and sum readouts' branches record their
     # own launches' errors (check_choice_kernels); instances without a
     # record are checked alone
-    names = {k: k + " quirk" if choice["agg"] == "quirk"
-             else homo_name(k, homo, bf16, choice["cell"]) if choice["agg"] == "attention"
-             else None for k in ("pagg_encode_fwd", "pagg_encode_bwd")}
+    names = names or {k: k + " quirk" if choice["agg"] == "quirk"
+                      else homo_name(k, homo, bf16, choice["cell"])
+                      if choice["agg"] == "attention" else None
+                      for k in ("pagg_encode_fwd", "pagg_encode_bwd")}
     names = {k: v if v in rec else None for k, v in names.items()}
     keep = 1.0 - model.spec.dropout
     m1, _ = draw_dropout_masks(model.spec, T, nw, gen, X.device)
@@ -1635,6 +1693,44 @@ def check_homo_kernels(root, dev, gen, rec):
     step_card_vs_host("cora", spec, dev, (ps, ps_host), (X, X.cpu()), idx, y)
     rounds_bit_equal("cora homo", X, y.to(dev), ps, (train, val, test), C,
                      TrainConfig(epochs=30), spec)
+
+
+def check_band_kernels(name, root, dev, gen, rec, hidden, dtype="float32"):
+    """K3 (without and with the keep mask), K4 with its three launches,
+    ``pagg_contract`` and ``segment_sum`` against their plain versions on
+    the first ``BGP_MICROBATCH`` train targets of a band's dataset, at the
+    band's configuration (its variant, H and dtype, the per-component MERW
+    the protocol runs): pubmed's homo instances on a microbatched graph,
+    Electronics' bf16 instances at H = 32 (held on the kernel's own
+    recompute, with the count of walks whose attention score flips across
+    the leaky ReLU printed: ``check_encode_kernels``' ``kink``)."""
+    import torch
+    from pathnet_tpu_torch.data.registry import load_dataset
+    from pathnet_tpu_torch.merw import merw_graph_per_component
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+    from pathnet_tpu_torch.sample import PathSampler
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+
+    t0 = time.perf_counter()
+    g, train, _, _, spec_d = load_dataset(name, root, 0)
+    t1 = time.perf_counter()
+    if not (g.prob < 1.0).any():
+        g = merw_graph_per_component(g, device=dev)
+    ps = PathSampler.build(g, NW, WL, device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    X = torch.from_numpy(np.array(g.features, np.float32)).to(dev)
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=hidden, out_dim=spec_d.num_classes, walk_len=WL,
+                    dropout=0.7, variant="homo" if spec_d.variant == "homo" else "hetero",
+                    compute_dtype=dtype)
+    model = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(7))
+    idx = torch.from_numpy(np.flatnonzero(train)[:BGP_MICROBATCH].astype(np.int32)).to(dev)
+    say(f"  {name}: n={g.n}, F={X.shape[1]}, D={ps.sampler.max_deg}, payload made or read in "
+        f"{t1 - t0:.1f} s, MERW and the sampler in {t2 - t1:.1f} s; {spec.variant}, H = "
+        f"{hidden}, {dtype}, {idx.shape[0]} targets")
+    u = draw_uniforms(WL, idx.shape[0] * NW, gen, dev)
+    check_encode_kernels(f"{name} microbatch", ps, model, X, idx, u, gen, rec,
+                         kink=dtype != "float32")
 
 
 def check_bf16_kernels(root, dev, gen, rec, X, ps, idx, u, C):
@@ -3212,6 +3308,354 @@ def run_bf16_baselines(root, tmp):
     return launches
 
 
+def instance_name(name, wl=None, nw=None, agg=None):
+    """The record of a kernel's instance at one of phase 20's shapes:
+    ``"pagg_encode_fwd wl2"``, ``"pagg_encode_bwd sum nw80"``."""
+    return (name + (f" {agg}" if agg else "") + (f" nw{nw}" if nw else "")
+            + (f" wl{wl}" if wl else ""))
+
+
+def check_instance(tag, ps, model, X, idx, gen, sub, rec, timed_=False):
+    """``walk_dists`` (exact against K1 then K2's plain versions), then
+    :func:`check_encode_kernels` (K3 without and with a keep mask, K4 with
+    its three launches, ``pagg_contract``, ``segment_sum``) and K5 against
+    their plain versions on the walks of the targets ``idx`` at the
+    sampler's nw and wl and the model's readout (hetero, f32; phases 2 and
+    5's tolerances). The errors go into ``sub``, a record a kernel of this
+    instance (K5's into ``rec``); with ``timed_`` each kernel of ``sub`` is
+    timed as phase 5 times its kernels."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.sample.walk import draw_uniforms
+
+    smp = ps.sampler
+    T, nw, wl = idx.shape[0], ps.num_walks, ps.walk_len
+    u = draw_uniforms(wl, T * nw, gen, X.device)
+    walk_args = (smp.nbr, smp.cdf, smp.deg, smp.srt, idx, u, nw)
+    check_walk_dists(tag, smp, idx, u, nw, K.walk_dists_plain(*walk_args), sub)
+    paths, dists, h, w, m1, keep, out, g, bwd_args = check_encode_kernels(
+        tag, ps, model, X, idx, u, gen, sub, time_segment=timed_,
+        names={k: k for k in ("pagg_encode_fwd", "pagg_encode_bwd")})
+    if not torch.equal(K.row_gather(h, idx), K.row_gather_plain(h, idx)):
+        raise AssertionError(f"{tag}: row_gather differs from its plain version")
+    d5 = K.row_gather_bwd(g, idx, h.shape[0])
+    d5_p = K.row_gather_bwd_plain(g, idx, h.shape[0])
+    err5 = float((d5 - d5_p).abs().max())
+    if not err5 <= K5_BWD_TOL * float(d5_p.abs().max()):
+        raise AssertionError(f"{tag}: row_gather_bwd max abs err {err5}")
+    record_err(rec, "row_gather", 0.0)
+    record_err(rec, "row_gather_bwd", err5)
+    say(f"  {tag}: walk_dists exact, row_gather exact, row_gather_bwd {err5:.3e} within "
+        f"{K5_BWD_TOL} x max (T={T}, nw={nw}, wl={wl}, D={smp.max_deg}, {model.agg})")
+    if not timed_:
+        return
+    agg = model.agg
+    # walk_dists: both tables, deg, starts, u in; walks and distances out;
+    # K1's compares and K2's on this data (k2_ops)
+    timed(sub, "walk_dists", lambda: K.walk_dists(*walk_args),
+          lambda: K.walk_dists_plain(*walk_args),
+          nbytes(smp.nbr, smp.cdf, smp.deg, idx, u, paths, dists),
+          T * nw * (wl - 1) * smp.max_deg + k2_ops(smp.deg, idx, paths, dists), 50)
+    b3, o3, b4, o4 = encode_bounds(h, paths, dists, m1, out, g, w)
+    timed(sub, "pagg_encode_fwd", lambda: K.pagg_encode_fwd(h, paths, dists, *w, m1, keep,
+                                                            False, agg=agg),
+          lambda: K.pagg_encode_fwd_plain(h, paths, dists, *w, m1, keep, False, agg=agg),
+          b3, o3, 20)
+    timed(sub, "pagg_encode_bwd", lambda: K.pagg_encode_bwd(*bwd_args, agg=agg),
+          lambda: K.pagg_encode_bwd_plain(*bwd_args, agg=agg), b4, o4, 5)
+    sub["pagg_encode_bwd"]["stages"] = time_k4_stages(tag, g, h, paths, dists, w, m1, keep,
+                                                      agg=agg, rec=sub)
+
+
+def check_new_shapes(dev, gen, rec, z, X, C, order, gc, Xc):
+    """Phase 20's kernels at the runners' new shapes: every kernel of the
+    hetero f32 path (:func:`check_instance`) at wl = 2 and 3 on one
+    8192-target bgp microbatch (timed, the records ``... wl2``, ``...
+    wl3``) and at cornell's full width (every node, F = 1703), then K3 and
+    K4 under the sum readout on the path-pattern graph's 80 uniform walks a
+    node, every node, at wl = 2 and 3 (wl = 3 timed, the records ``... sum
+    nw80``)."""
+    import torch
+    from pathnet_tpu_torch.data import Graph
+    from pathnet_tpu_torch.experiments.ablation_pattern import pattern_graph
+    from pathnet_tpu_torch.models import PaggSpec, PathNet
+    from pathnet_tpu_torch.sample import PathSampler
+
+    bg = Graph(n=int(z["n"]), src=z["src"], dst=z["dst"], prob=z["prob"], name="bgp_standin")
+    idx = torch.from_numpy(order[:REQUEST].astype(np.int32)).to(dev)
+    allc = torch.arange(gc.n, dtype=torch.int32, device=dev)
+    for wl in SHORT_WLS:
+        sub = {k: {} for k in WL_KERNELS}
+        for tag, g, Xg, out_dim, ix, timed_ in (("bgp microbatch", bg, X, C, idx, True),
+                                                ("cornell", gc, Xc, 5, allc, False)):
+            ps = PathSampler.build(g, NW, wl, device=dev)
+            spec = PaggSpec(feat_dim=Xg.shape[1], hidden=HIDDEN, out_dim=out_dim, walk_len=wl,
+                            dropout=0.7)
+            model = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(wl))
+            check_instance(f"{tag}, wl = {wl}", ps, model, Xg, ix, gen, sub, rec, timed_)
+        for k in WL_KERNELS:
+            rec[instance_name(k, wl)] = sub[k]
+    gp, Cp = pattern_graph(PATTERN_N)
+    Xp = torch.from_numpy(gp.features).to(dev)
+    allp = torch.arange(gp.n, dtype=torch.int32, device=dev)
+    for wl in SHORT_WLS:
+        sub = {k: {} for k in WL_KERNELS}
+        ps = PathSampler.build(gp, PATTERN_NW, wl, kind="uniform", device=dev)
+        spec = PaggSpec(feat_dim=8, hidden=HIDDEN, out_dim=Cp, walk_len=wl, agg="sum",
+                        dropout=0.3)
+        model = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(wl))
+        check_instance(f"pattern graph, nw = {PATTERN_NW}, sum, wl = {wl}", ps, model, Xp,
+                       allp, gen, sub, rec, wl == PATTERN_WL)
+        if wl == PATTERN_WL:
+            for k in PATTERN_KERNELS:
+                rec[instance_name(k, nw=PATTERN_NW, agg="sum")] = sub[k]
+
+
+def outside_largest_component(n, src, dst):
+    """Of each node, whether it lies outside the largest connected component
+    of the records ``src``, ``dst``."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    a = sp.csr_matrix((np.ones(len(src)), (src, dst)), shape=(n, n))
+    _, lab = connected_components(a, directed=False)
+    return lab != np.bincount(lab).argmax()
+
+
+def largest_component(g):
+    """The subgraph of ``g``'s largest connected component, relabelled."""
+    from pathnet_tpu_torch.data import Graph
+
+    keep = ~outside_largest_component(g.n, g.src, g.dst)
+    new = np.cumsum(keep) - 1
+    sel = keep[g.src] & keep[g.dst]
+    return Graph(n=int(keep.sum()), src=new[g.src[sel]].astype(np.int32),
+                 dst=new[g.dst[sel]].astype(np.int32), prob=np.ones(int(sel.sum())))
+
+
+def check_host_utils(root, tmp, dev):
+    """Phase 20 (b): ``merw/extras`` on cora (n = 2,708) on the card in f32
+    against the host in f64 (``EXTRAS_TOL`` absolute; ``merw_simrank`` on
+    the largest component, 2,485 nodes: one global eigenvector has no
+    meaning on the 77 minor components, where psi underflows), then
+    ``init_rw`` on cornell and cora on the card and on the host, each into
+    its own directory, read back with ``read_edge_input``: the header and
+    records equal, the probabilities within ``INIT_RW_TOL`` where both are
+    finite, a NaN (psi underflowed to 0, as in the JAX package and the
+    reference) only outside the largest component."""
+    import torch
+    from pathnet_tpu_torch import init_rw
+    from pathnet_tpu_torch.data import read_edge_input
+    from pathnet_tpu_torch.data.registry import load_structure
+    from pathnet_tpu_torch.merw import extras
+
+    gc = load_structure("cora", root)
+    lcc = largest_component(gc)
+    parts = []
+    for fn, g in (("compute_grw", gc), ("basic_simrank", gc), ("merw_simrank", lcc)):
+        t0 = time.perf_counter()
+        card = getattr(extras, fn)(g, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = getattr(extras, fn)(g, device="cpu", dtype=torch.float64)
+        host_secs = time.perf_counter() - t0
+        card, host = (card, host) if isinstance(card, tuple) else ((card,), (host,))
+        if fn == "compute_grw":
+            card += (extras.p_distance(card[0]),)
+            host += (extras.p_distance(host[0]),)
+        for a, b in zip(card, host):
+            err = float((a.double().cpu() - b).abs().max())
+            if not err <= EXTRAS_TOL:
+                raise AssertionError(f"merw extras {fn} on cora: card against host max abs err "
+                                     f"{err} beyond {EXTRAS_TOL}")
+            parts.append(f"{fn} {err:.2e}")
+        say(f"  {fn} on {'cora' if g is gc else 'cora largest component'} (n = {g.n}): "
+            f"card {secs:.3f} s (f32), host {host_secs:.3f} s (f64)")
+    say(f"  merw extras card (f32) against host (f64), max abs err: {', '.join(parts)} "
+        f"(p_distance of compute_grw's P) within {EXTRAS_TOL}")
+    for name in ("cornell", "cora"):
+        got = []
+        for i, where in enumerate((str(dev), "cpu")):
+            path, = init_rw.main(["-data", name, "--data-root", root, "--out",
+                                  os.path.join(tmp, f"init_rw_{i}"), "--device", where])
+            got.append(read_edge_input(path))
+        (n, src, dst, p), (hn, hsrc, hdst, hp) = got
+        if not (n == hn and np.array_equal(src, hsrc) and np.array_equal(dst, hdst)):
+            raise AssertionError(f"init_rw {name}: the card's records differ from the host's")
+        both = np.isfinite(p) & np.isfinite(hp)
+        err = float(np.abs(p[both] - hp[both]).max())
+        outside = outside_largest_component(n, src, dst)
+        nan_ok = all(outside[src[np.isnan(q)]].all() and not np.isinf(q).any() for q in (p, hp))
+        if not (err <= INIT_RW_TOL and nan_ok):
+            raise AssertionError(f"init_rw {name}: probabilities card against host max abs err "
+                                 f"{err} (tolerance {INIT_RW_TOL}), NaN only outside the largest "
+                                 f"component: {nan_ok}")
+        say(f"  init_rw {name}: {len(src)} records equal, probabilities within {err:.2e} of "
+            f"the host's ({int(both.sum())} finite in both; NaN card {int(np.isnan(p).sum())}, "
+            f"host {int(np.isnan(hp).sum())}, all outside the largest component)")
+
+
+def check_trace(tmp, dev):
+    """Phase 20 (b): ``utils.trace`` on the card records CUDA activity: one
+    ``row_gather`` launch inside it (the kernel built and warm before) leaves
+    exactly one ``row_gather_kernel`` event of the ``kernel`` category in the
+    Chrome trace it writes."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.utils import trace
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    tbl = torch.randn(512, 128, device=dev, generator=g)
+    idx = torch.randint(0, 512, (512,), device=dev, generator=g, dtype=torch.int32)
+    K.row_gather(tbl, idx)
+    torch.cuda.synchronize()
+    log_dir = os.path.join(tmp, "trace")
+    with trace(log_dir):
+        K.row_gather(tbl, idx)
+    files = [f for f in os.listdir(log_dir) if f.startswith("trace_") and f.endswith(".json")]
+    if len(files) != 1:
+        raise AssertionError(f"utils.trace wrote {files} into {log_dir}")
+    with open(os.path.join(log_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    ours = [k for k in kernels if "row_gather_kernel" in k]
+    if len(ours) != 1:
+        raise AssertionError(f"utils.trace on the card: {len(ours)} row_gather_kernel events for "
+                             f"one launch; kernel events {kernels[:10]}")
+    say(f"  utils.trace: {len(events)} events, kernel events {len(kernels)}, one of "
+        f"row_gather_kernel ({ours[0][:60]})")
+
+
+def run_runners(root, tmp, dev, rec):
+    """Phase 20 (c): each experiment runner on the card at a depth cut for
+    time, its artifact read back: the walk-length ablation on cornell
+    (1 x ``ABLATION_EPOCHS`` a length, each above chance),
+    the path-pattern ablation (one round of ``PATTERN_EPOCHS`` a length,
+    above chance), the cornell comparison column (one round of
+    ``COMPARISON_EPOCHS`` of every column, complete) and the protocol sweep
+    over texas and wisconsin (one round x ``PROTOCOL_EPOCHS`` each, within 3
+    std of their bands, on the bands' payloads). Each protocol's launches
+    are counted from 0 (``run_protocol`` and ``run_round`` wrapped for it):
+    the wl = 2 and 3 rounds' into the ``... wl2``, ``... wl3`` records, the
+    pattern's wl = 3 round's into the ``... sum nw80`` ones."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch import train
+    from pathnet_tpu_torch.data.registry import DATASETS, payload_fingerprint
+    from pathnet_tpu_torch.experiments import (ablation_length, ablation_pattern,
+                                               comparison_table, protocol_all)
+
+    out = os.path.join(tmp, "runners")
+    common = ["--data-root", root, "--results-dir", out]
+
+    def counted(fn, key, counts):
+        def wrapper(*a, **kw):
+            K.reset_launch_counts()
+            result = fn(*a, **kw)
+            torch.cuda.synchronize()
+            counts[key(a, kw)] = K.launch_counts()
+            return result
+        return wrapper
+
+    def read(name):
+        with open(os.path.join(out, name)) as f:
+            return json.load(f)
+
+    def walks_launched(tag, counts, wl, epochs, backward):
+        walk = walk_kernel(wl)
+        if not (counts[walk] == epochs and counts["pagg_encode_bwd"] == counts["pagg_contract"]
+                == counts["segment_sum"] == counts["row_gather_bwd"] == backward
+                and counts["pagg_encode_fwd"] >= 2 * epochs):
+            raise AssertionError(f"{tag}: launch counts {counts}: {epochs} epochs make one "
+                                 f"{walk} launch each and {backward} backward launches")
+
+    counts = {}
+    run_protocol = train.run_protocol
+    train.run_protocol = counted(run_protocol, lambda a, kw: kw["walk_len"], counts)
+    t0 = time.perf_counter()
+    try:
+        rows = ablation_length.main(["cornell", "1", str(ABLATION_EPOCHS)] + common)
+    finally:
+        train.run_protocol = run_protocol
+    art = read("ablation_length_cornell.json")
+    chance = 1.0 / DATASETS["cornell"].num_classes
+    if not (sorted(rows) == [2, 3, 4, 5] and art["platform"] == dev.type
+            and art["payload"] == payload_fingerprint(DATASETS["cornell"])
+            and all(m > chance for m, _ in rows.values())):
+        raise AssertionError(f"ablation_length: {art}")
+    for wl in rows:
+        walks_launched(f"ablation_length wl = {wl}", counts[wl], wl, ABLATION_EPOCHS,
+                       ABLATION_EPOCHS)
+    for wl in SHORT_WLS:
+        for k in WL_KERNELS:
+            rec[instance_name(k, wl)]["launches"] = counts[wl][k]
+    say(f"  ablation_length cornell (1 x {ABLATION_EPOCHS} a length): "
+        + ", ".join(f"wl {wl} {m:.4f}" for wl, (m, _) in sorted(rows.items()))
+        + f"; {time.perf_counter() - t0:.1f} s")
+
+    counts = {}
+    run_round = train.run_round
+    train.run_round = counted(run_round, lambda a, kw: a[3].walk_len, counts)
+    t0 = time.perf_counter()
+    try:
+        art = ablation_pattern.main(["--rounds", "1", "--epochs", str(PATTERN_EPOCHS)] + common)
+    finally:
+        train.run_round = run_round
+    chance = 1.0 / art["num_classes"]
+    accs = {int(wl): v["mean"] for wl, v in art["lengths"].items()}
+    if not (sorted(accs) == [2, 3, 4, 5] and art["num_walks"] == PATTERN_NW
+            and all(a > chance for a in accs.values())):
+        raise AssertionError(f"ablation_pattern: {art}")
+    for wl in accs:
+        # the sum readout of uniform walks: one train chunk, so one backward an epoch
+        walks_launched(f"ablation_pattern wl = {wl}", counts[wl], wl, PATTERN_EPOCHS,
+                       PATTERN_EPOCHS)
+    for k in PATTERN_KERNELS:
+        rec[instance_name(k, nw=PATTERN_NW, agg="sum")]["launches"] = counts[PATTERN_WL][k]
+    say(f"  ablation_pattern (n = {art['n']}, nw = {PATTERN_NW}, sum, 1 x {PATTERN_EPOCHS} a "
+        "length): " + ", ".join(f"wl {wl} {a:.4f}" for wl, a in sorted(accs.items()))
+        + f" ({art['num_classes']} classes); {time.perf_counter() - t0:.1f} s")
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        col = comparison_table.main(["cornell", "1", str(COMPARISON_EPOCHS)] + common)
+    except SystemExit as e:
+        raise AssertionError(f"comparison_table exited with {e.code}: a column is missing")
+    torch.cuda.synchronize()
+    zoo = {k: v for k, v in K.launch_counts().items() if k in BASELINE_KERNELS}
+    art = read("comparison_cornell.json")
+    chance = 1.0 / DATASETS["cornell"].num_classes
+    low = {m: a for m, (a, _) in col.items()
+           if not (a > chance or m in COMPARISON_NEAR_CHANCE and 0.0 <= a <= 1.0)}
+    if not (len(col) == len(art["accuracy"]) == 18 and not any(zoo[k] == 0 for k in zoo)
+            and {"PathNet", "mlp"} <= set(col) and not low):
+        raise AssertionError(f"comparison_table: {art}, launches {zoo}, at or below chance "
+                             f"{chance}: {low}")
+    say(f"  comparison_table cornell (1 x {COMPARISON_EPOCHS}), complete: "
+        + ", ".join(f"{m} {a:.4f}" for m, (a, _) in col.items())
+        + f"; S1-S4 launches {zoo}; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    status = protocol_all.main(list(SWEEP_BANDS) + ["--rounds", "1", "--epochs",
+                                                    str(PROTOCOL_EPOCHS)] + common)
+    if not all(status[name]["ok"] for name in SWEEP_BANDS):
+        raise AssertionError(f"protocol_all: {status}")
+    with open(os.path.join(out, "results.jsonl")) as f:
+        sweep = {r["name"]: r for r in map(json.loads, f) if r["name"] in SWEEP_BANDS}
+    for name, (band, payload) in SWEEP_BANDS.items():
+        r = sweep[name]
+        acc = r["metrics"]["accuracy"]["mean"]
+        if not (r["config"]["payload"] == payload and abs(acc - band[0]) <= 3 * band[1]):
+            raise AssertionError(f"protocol_all {name}: accuracy {acc} on payload "
+                                 f"{r['config']['payload']}, band {band} on {payload}")
+        say(f"  protocol_all {name} (1 x {PROTOCOL_EPOCHS}, H = {r['config']['hidden_size']}): "
+            f"acc {acc:.4f}, within 3 std of the JAX band {band[0]:.4f} +- {band[1]:.4f}; "
+            f"{status[name]['seconds']:.1f} s")
+    say(f"  protocol_all: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1185, exit=True)
     import torch
@@ -3367,6 +3811,20 @@ def main() -> int:
         "one torch call computes it (the plain composition, torch.matmul and bmm over padded "
         "index_copy_, is printed beside it in a graph)")
     notes["segment_softmax_bwd bf16"] += "; library n/a: torch has no sparse softmax VJP call"
+    for wl in SHORT_WLS:
+        for k in WL_KERNELS:
+            meta[instance_name(k, wl)] = meta[k]
+            notes[instance_name(k, wl)] = (
+                f"{k} at walk length {wl} (the walk-length ablation), timed at the bgp "
+                f"microbatch (8192 targets, H = 64) and held at cornell's full width too; "
+                f"launches from phase 20's ablation_length cornell round at wl = {wl}")
+    for k in PATTERN_KERNELS:
+        name = instance_name(k, nw=PATTERN_NW, agg="sum")
+        meta[name] = meta[k]
+        notes[name] = (f"{k} under the sum readout (AGG = SUM) on {PATTERN_NW} uniform walks a "
+                       f"node at wl = {PATTERN_WL}, the path-pattern graph's {PATTERN_N} nodes "
+                       "(H = 64); launches from phase 20's ablation_pattern round at wl = "
+                       f"{PATTERN_WL}")
 
     with Phase("0 device"):
         kind = torch.cuda.get_device_name(0)
@@ -3694,6 +4152,21 @@ def main() -> int:
             launches = run_bf16_baselines(root, tmp)
             for name in BASELINE_BF16_KERNELS:
                 rec[name]["launches"] = launches[name]
+
+        with Phase(f"20 host utilities and runners: kernels at wl = {SHORT_WLS} (bgp, cornell) "
+                   f"and nw = {PATTERN_NW} sum (the pattern graph), merw extras and init_rw "
+                   f"(cora, cornell), utils.trace, ablation_length, ablation_pattern, comparison_table, "
+                   f"protocol_all ({', '.join(SWEEP_BANDS)}), "
+                   f"{', '.join(b[0] for b in BAND_PROTOCOLS)} 1 x {PROTOCOL_EPOCHS} each"):
+            check_new_shapes(dev, gen, rec, z, X, C, order, gc, Xc)
+            check_host_utils(root, tmp, dev)
+            check_trace(tmp, dev)
+            run_runners(root, tmp, dev, rec)
+            for name, hidden, band, payload, dtype, mb in BAND_PROTOCOLS:
+                if name in BAND_KERNEL_CHECKS:
+                    check_band_kernels(name, root, dev, gen, rec, hidden, dtype)
+                run_protocol_cli(name, root, tmp, 1, hidden, band, payload, dtype, mb,
+                                 round_band=True)
 
     say(smi)
     say(json.dumps({"kernels": [

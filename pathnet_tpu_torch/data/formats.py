@@ -1,18 +1,19 @@
-"""File readers (port of ``pathnet_tpu/data/formats.py:34-54,138-294``), numpy only.
+"""File readers and writers (port of ``pathnet_tpu/data/formats.py``), numpy only.
 
 - **edge-input** ``.in`` text: header ``n m``, then one ``u v p`` line per
   directed edge record (reference: edge_input/cornell.in, written by
   preprocess/init_rw.py:81-86). ``p`` is the MERW transition probability
   P[u, v]; files may hold self-loops and duplicate records.
+- **path text** dumps of the reference C++ samplers (gen_merw.cpp:182-207):
+  one line a walk, ``[v0, ..., v_{L-1}, d0, ..., d_{L-1}]`` with ``d_i`` the
+  0-based truncated-BFS hop distance of ``v_i`` from ``v0``; lines are
+  epoch-major, node-major, walk-minor.
 - **npy triples** ``{x,y,edge_index}.npy`` under ``other_data/<name>/``
   (reference: data_loader.py:122-140).
 - **Geom-GCN** text files ``out1_graph_edges.txt`` and
   ``out1_node_feature_label.txt`` (reference: dataset.py:601-680).
 - **Planetoid pickles** ``ind.<name>.{x,y,tx,ty,allx,ally,graph,test.index}``
   (reference: dataset.py:197-307).
-
-The path-text dumps and ``write_edge_input`` of the JAX module are still to
-be ported (ROADMAP §1 item 12).
 """
 from __future__ import annotations
 
@@ -43,6 +44,78 @@ def read_edge_input(path: str) -> Tuple[int, np.ndarray, np.ndarray, np.ndarray]
     if hi >= n or min(src.min(initial=0), dst.min(initial=0)) < 0:
         raise ValueError(f"{path}: node id {hi} out of range for declared n={n}")
     return n, src, dst, prob
+
+
+def write_edge_input(path: str, n: int, src: np.ndarray, dst: np.ndarray,
+                     prob: np.ndarray) -> None:
+    """Write an edge-input file in the reference layout (init_rw.py:81-86)."""
+    with open(path, "w") as f:
+        f.write(f"{n} {len(src)}\n")
+        for u, v, p in zip(src, dst, prob):
+            f.write(f"{int(u)} {int(v)} {float(p)}\n")
+
+
+# ---------------------------------------------------------------------------
+# reference path-text dumps (for golden-parity tests and interop)
+# ---------------------------------------------------------------------------
+
+# '[' -> space, ']' -> ',' : turns the whole dump into one comma-separated
+# number stream (a line's trailing ']' provides the separator to the next)
+_PATH_TRANS = str.maketrans({"[": " ", "]": ","})
+
+
+def parse_path_file(path: str, walk_len: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Parse a reference sampler dump into ``(nodes, dists)`` int32 arrays.
+
+    Shapes are ``[num_lines, walk_len]`` each; the caller reshapes to
+    ``(epochs, n, num_walks, walk_len)`` (the reference reshapes at
+    PathNet_run.py:310-313). Uniform dumps parse as one comma-separated
+    number stream; anything else takes the line-by-line path, which names
+    the first malformed line.
+    """
+    with open(path, "r") as f:
+        txt = f.read()
+    if txt:
+        stream = txt.translate(_PATH_TRANS).strip(", \n\t")
+        try:
+            flat = np.array(stream.split(","), dtype=np.int64)
+        except ValueError:
+            flat = np.zeros(1, np.int64)  # odd size -> line path
+    else:
+        flat = np.zeros(0, np.int64)
+    if flat.size % (2 * walk_len) == 0 and flat.size > 0:
+        rec = flat.reshape(-1, 2 * walk_len)
+        return (rec[:, :walk_len].astype(np.int32),
+                rec[:, walk_len:].astype(np.int32))
+    nodes, dists = [], []
+    for lineno, line in enumerate(txt.splitlines(), 1):
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            vals = [int(tok) for tok in line[1:-1].split(",")]
+        except ValueError as e:
+            raise ValueError(
+                f"{path}:{lineno}: malformed path record {line[:60]!r} "
+                f"({e})") from None
+        if len(vals) != 2 * walk_len:
+            raise ValueError(
+                f"{path}:{lineno}: record has {len(vals)} fields, expected "
+                f"{2 * walk_len} (walk_len={walk_len}; grammar "
+                f"gen_merw.cpp:188-206)")
+        nodes.append(vals[:walk_len])
+        dists.append(vals[walk_len:])
+    return np.asarray(nodes, np.int32), np.asarray(dists, np.int32)
+
+
+def write_path_file(path: str, nodes: np.ndarray, dists: np.ndarray) -> None:
+    """Write walks in the reference text layout (one line per walk)."""
+    nodes = nodes.reshape(-1, nodes.shape[-1])
+    dists = dists.reshape(-1, dists.shape[-1])
+    with open(path, "w") as f:
+        for nv, dv in zip(nodes, dists):
+            f.write("[" + ", ".join(str(int(x)) for x in nv) + ", "
+                    + ", ".join(str(int(x)) for x in dv) + "]\n")
 
 
 # ---------------------------------------------------------------------------

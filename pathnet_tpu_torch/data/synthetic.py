@@ -1,5 +1,5 @@
 """Synthetic payload stand-ins and SBM structures (port of
-``pathnet_tpu/data/synthetic.py:26-575``), host numpy.
+``pathnet_tpu/data/synthetic.py``), host numpy.
 
 - ``attach_synthetic_payload`` — deterministic label/feature stand-ins for a
   real edge structure (cornell, Nba), so the protocol runs on the true graphs.
@@ -7,10 +7,10 @@
   (texas, wisconsin, chameleon, bgp, ...).
 
 The code is the JAX module's, in its order: every ``default_rng`` stream is
-drawn as there (``:40,129,165,276,379,547``), so a payload made here equals
-the JAX package's array for array. ``csbm_graph``, ``path_pattern_labels``
-and ``synthetic_labels`` serve the experiment scripts and wait for them
-(ROADMAP §1 item 13).
+drawn as there (``:40,129,165,276,379,547,597``), so a payload made here
+equals the JAX package's array for array. ``csbm_graph``,
+``path_pattern_labels`` and ``synthetic_labels`` serve the experiment
+runners (``pathnet_tpu_torch/experiments``).
 """
 from __future__ import annotations
 
@@ -571,3 +571,70 @@ def synthetic_graph(n: int, avg_deg: float, num_classes: int = 5,
                                             pattern_balance=pattern_balance)
     return Graph(n=n, src=src, dst=dst, prob=np.ones(len(src)),
                  features=x, labels=y_obs, name=f"sbm_n{n}")
+
+
+def synthetic_labels(g: Graph, num_classes: int, homophily: float = 0.5,
+                     seed: int = 0, rounds: int = 3) -> np.ndarray:
+    """Deprecated alias for :func:`compat_labels` (round-1 majority-vote
+    generator; kept for import compatibility)."""
+    return compat_labels(g, num_classes, homophily, seed=seed)
+
+
+def csbm_graph(n: int, d: float, lam: float, mu: float, feat_dim: int,
+               seed: int = 0) -> Graph:
+    """Contextual SBM generator (reference: GPRGNN/cSBM_dataset.py).
+
+    Two balanced classes y in {+-1}; edges drawn with intra-class probability
+    ``(d + lam*sqrt(d))/n`` and inter-class ``(d - lam*sqrt(d))/n``;
+    features ``x = sqrt(mu/n)*y*u + Z/sqrt(f)`` with a shared random spike
+    ``u``.  ``lam`` controls graph signal, ``mu`` feature signal — the
+    phase-diagram knobs of the cSBM paper.
+    """
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 2, size=n)
+    sq = np.sqrt(d)
+    p_in = min(1.0, max(0.0, (d + lam * sq) / n))
+    p_out = min(1.0, max(0.0, (d - lam * sq) / n))
+    # sample edges blockwise via expected counts (sparse Bernoulli approx)
+    m_target = int(n * d)
+    u = rng.integers(0, n, size=3 * m_target)
+    v = rng.integers(0, n, size=3 * m_target)
+    same = y[u] == y[v]
+    keep = np.where(same, rng.random(len(u)) < p_in * n / d / 3,
+                    rng.random(len(u)) < p_out * n / d / 3)
+    u, v = u[keep], v[keep]
+    src = np.concatenate([u, v]).astype(np.int32)
+    dst = np.concatenate([v, u]).astype(np.int32)
+    spike = rng.normal(size=feat_dim) / np.sqrt(feat_dim)
+    z = rng.normal(size=(n, feat_dim)) / np.sqrt(feat_dim)
+    x = (np.sqrt(mu / n) * np.where(y == 1, 1.0, -1.0)[:, None] * spike[None]
+         + z).astype(np.float32)
+    return Graph(n=n, src=src, dst=dst, prob=np.ones(len(src)), features=x,
+                 labels=y.astype(np.int64), name=f"csbm_n{n}")
+
+
+def path_pattern_labels(g: Graph, walk_len: int = 3, num_patterns: int = 16,
+                        ) -> np.ndarray:
+    """Paper's synthetic path-pattern labels (gen_cora_syn.cpp semantics).
+
+    For every node, enumerate all directed walks of ``walk_len`` steps, map
+    each walk to the bitmask of parity features (node_index & 1) along it,
+    and label the node with the most frequent bitmask. An explicit DFS stack
+    in place of the reference's recursion; revisits count as in the
+    reference DFS (which marks nothing visited).
+    """
+    adj = [g.dst[g.src == u] for u in range(g.n)]
+    labels = np.zeros(g.n, np.int64)
+    for s in range(g.n):
+        counts = np.zeros(num_patterns, np.int64)
+        # stack of (node, depth, mask): DFS over all walks, no visited set
+        stack = [(s, 0, s & 1)]
+        while stack:
+            u, depth, mask = stack.pop()
+            if depth == walk_len:
+                counts[mask % num_patterns] += 1
+                continue
+            for w in adj[u]:
+                stack.append((int(w), depth + 1, (mask << 1) | (int(w) & 1)))
+        labels[s] = counts.argmax()
+    return labels

@@ -1,4 +1,4 @@
-"""Input validation (port of ``pathnet_tpu/data/validate.py:22-88``).
+"""Input validation (port of ``pathnet_tpu/data/validate.py``).
 
 The JAX package's numpy checks, copied so the port imports nothing of it.
 
@@ -70,3 +70,21 @@ def validate_masks(name: str, n: int, *masks) -> None:
         total += m.astype(np.int32)
     if (total > 1).any():
         _fail(name, "train/val/test masks overlap")
+
+
+def validate_path_tensor(name: str, nodes: np.ndarray, dists: np.ndarray,
+                         n: int, walk_len: int) -> None:
+    """An ingested path dump (``formats.parse_path_file``) must index real
+    nodes and carry hop distances in [0, walk_len-1] (record grammar:
+    SURVEY.md §2.1, gen_merw.cpp:188-206).
+    """
+    if nodes.shape != dists.shape or nodes.shape[-1] != walk_len:
+        _fail(name, f"paths {nodes.shape} vs dists {dists.shape}, "
+                    f"want trailing dim {walk_len}")
+    if nodes.size == 0:
+        _fail(name, "empty path tensor")
+    if int(nodes.min()) < 0 or int(nodes.max()) >= n:
+        _fail(name, f"path node id {int(nodes.min())}/{int(nodes.max())} "
+                    f"outside [0, {n})")
+    if int(dists.min()) < 0 or int(dists.max()) >= walk_len:
+        _fail(name, f"hop distance outside [0, {walk_len})")

@@ -3,7 +3,8 @@
 Every C entry point takes ``void*`` for each pointer and for the stream, and
 returns ``cudaGetLastError()`` after its launch. The build lands in
 ``build/pathnet_tpu_torch/<hash of the sources, headers and flags>/lib.so`` at
-the root of the checkout. One ``nvcc -c`` per source runs at the same time,
+the root of the checkout (``BUILD_ROOT``; ``utils.enable_compilation_cache``
+moves it). One ``nvcc -c`` per source runs at the same time,
 then one ``nvcc -shared`` links the objects, all in a fresh temporary
 directory that is renamed into place only when the build succeeded: no lock
 file exists, and a half-written build is never reused. Nothing is built when
@@ -29,7 +30,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pathnet_tpu_torch"
+DEFAULT_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "pathnet_tpu_torch"
+# moved by ``utils.enable_compilation_cache``
+BUILD_ROOT = DEFAULT_BUILD_ROOT
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 TIMEOUT_S = 300
 
