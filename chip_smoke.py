@@ -2,7 +2,8 @@
 """Serve and train PathNet with the PyTorch/CUDA port on one CUDA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (no arguments,
-one card). Phases, each with a start and an end line:
+one card; ``--cards N`` instead runs phase 21's step on ``N`` cards, see
+:func:`check_cards`). Phases, each with a start and an end line:
 
 0. device: the card's name, ``nvidia-smi`` name and power limit, versions;
 1. build: ``nvcc`` compiles ``pathnet_tpu_torch/csrc/*.cu`` (one process per
@@ -266,7 +267,22 @@ one card). Phases, each with a start and an end line:
     microbatch 8192), one round each within 3 std of their bands, pubmed's
     and Electronics' K3 and K4 first held on one microbatch at that
     configuration (:func:`check_band_kernels`; Electronics' flipped
-    attention scores counted).
+    attention scores counted);
+21. the multi-device layer (``pathnet_tpu_torch/parallel``,
+    :func:`check_mesh`; the ranks load the library phase 1 built and build
+    nothing): one NCCL rank on the card at the bgp stand-in's full width,
+    the sharded step (walks, loss, Adam, validation) with row-sharded X
+    through the ``gspmd``, ``ring`` and ``sparse`` exchanges against the
+    one-process step on the same parameters, walks and masks (loss within
+    1e-5, gradients within atol 1e-5 + rtol 1e-4), ``make_sharded_predict``
+    on an 8192-target request against ``predict``, every kernel of the
+    sharded path launched (counts from 0 around the steps and the request)
+    and each held against its plain version on the inputs the ring
+    exchange gave it, each step and request timed; then two gloo ranks on
+    the one card (staged through host memory) on cornell at full width:
+    one step per exchange against each rank's own one-process step, and a
+    seeded ``MESH_ROUND_EPOCHS``-epoch round with row-sharded X run twice,
+    bit-equal, its test accuracy within 3 std of the cornell band.
 
 The protocol phases gate on their band when they run 10 rounds of 1000
 epochs, and on accuracy above chance when a rehearsal cuts them shorter;
@@ -517,6 +533,25 @@ BAND_PROTOCOLS = (("pubmed", HIDDEN, PUBMED_BAND, "0c262124", "float32", BGP_MIC
                   ("Electronics", 32, ELECTRONICS_BAND, "e45d6452", "bfloat16", BGP_MICROBATCH))
 # the new instances each band's kernels are held at (check_band_kernels)
 BAND_KERNEL_CHECKS = ("pubmed", "Electronics")
+
+# phase 21: the multi-device layer (pathnet_tpu_torch/parallel)
+EXCHANGES = ("gspmd", "ring", "sparse")
+STEP_ATOL, STEP_RTOL, LOSS_TOL = 1e-5, 1e-4, 1e-5   # the CPU tests' tolerances
+MESH_ROUND_EPOCHS = 400
+CARDS_CLI_EPOCHS = 300      # check_cards' cornell round through the CLI
+RANK_TIMEOUT_S = 420
+SHARDED_PATH = ("walk_dists", "pagg_encode_fwd", "pagg_encode_bwd", "pagg_contract",
+                "segment_sum", "row_gather", "row_gather_bwd")
+# each wrapper's call sites on the sharded path: (record, module, attribute)
+TAPS = (("walk_dists", "pathnet_tpu_torch.sample.walk", "walk_dists"),
+        ("pagg_encode_fwd", "pathnet_tpu_torch.models.pagg", "pagg_encode_fwd"),
+        ("pagg_encode_bwd", "pathnet_tpu_torch.models.pagg", "pagg_encode_bwd"),
+        ("pagg_contract", "pathnet_tpu_torch.kernels.pagg_encode_bwd", "contractions"),
+        ("segment_sum", "pathnet_tpu_torch.kernels.pagg_encode_bwd", "segment_sum"),
+        ("segment_sum", "pathnet_tpu_torch.parallel.ring", "segment_sum"),
+        ("row_gather", "pathnet_tpu_torch.models.pagg", "row_gather"),
+        ("row_gather", "pathnet_tpu_torch.parallel.ring", "row_gather"),
+        ("row_gather_bwd", "pathnet_tpu_torch.models.pagg", "row_gather_bwd"))
 
 def walk_kernel(wl: int) -> str:
     """The sampler's launch at walk length ``wl``: the membership backend's
@@ -3656,6 +3691,465 @@ def run_runners(root, tmp, dev, rec):
     say(f"  protocol_all: {time.perf_counter() - t0:.1f} s")
 
 
+def _copies(out):
+    """A wrapper's result copied (autograd may hand views of it to ``.grad``,
+    which the step then divides in place)."""
+    if isinstance(out, tuple):
+        return tuple(_copies(t) for t in out)
+    return out.detach().clone() if hasattr(out, "detach") else out
+
+
+class Taps:
+    """Record the first call at each of ``TAPS``' call sites while the
+    context is open: the wrapper's bound arguments (copied) and its result."""
+
+    def __enter__(self):
+        import importlib
+        import inspect
+
+        import torch
+
+        self.calls, self._undo = {}, []
+        for name, module, attr in TAPS:
+            mod = importlib.import_module(module)
+            real = getattr(mod, attr)
+
+            def tap(*args, _real=real, _site=(name, module), **kwargs):
+                out = _real(*args, **kwargs)
+                if _site not in self.calls:
+                    # copies: some arguments are parameters that Adam moves later
+                    bound = inspect.signature(_real).bind(*args, **kwargs)
+                    for k, v in bound.arguments.items():
+                        if isinstance(v, torch.Tensor):
+                            bound.arguments[k] = v.detach().clone()
+                    self.calls[_site] = (bound, _copies(out))
+                return out
+
+            setattr(mod, attr, tap)
+            self._undo.append((mod, attr, real))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, real in self._undo:
+            setattr(mod, attr, real)
+        return False
+
+
+def hold_taps(tag, calls):
+    """Each recorded call's result against its plain version on the same
+    arguments, at the tolerances of phases 2 and 5: ``walk_dists`` and
+    ``row_gather`` exact, K3 within atol = rtol = K3_TOL, K4 as
+    ``check_k4``, ``pagg_contract`` as ``check_contract``, ``segment_sum``
+    within SEGMENT_TOL and ``row_gather_bwd`` within K5_BWD_TOL of the plain
+    float64 maximum. Returns the max abs error by kernel."""
+    import inspect
+
+    import torch
+    from pathnet_tpu_torch import kernels as K
+
+    plains = {"walk_dists": K.walk_dists_plain, "pagg_encode_fwd": K.pagg_encode_fwd_plain,
+              "pagg_encode_bwd": K.pagg_encode_bwd_plain,
+              "pagg_contract": K.contractions_plain, "segment_sum": K.segment_sum_plain,
+              "row_gather": K.row_gather_plain, "row_gather_bwd": K.row_gather_bwd_plain}
+    errs = {}
+    for (name, module), (bound, out) in sorted(calls.items()):
+        site = f"{tag}, {name} from {module.rsplit('.', 1)[-1]}"
+        plain = plains[name]
+        kw = {k: v for k, v in bound.arguments.items()
+              if k in inspect.signature(plain).parameters}
+        if name == "pagg_contract":
+            check_contract(site, list(bound.args))
+            continue
+        if name in ("segment_sum", "row_gather_bwd"):
+            kw = {k: (v.double() if isinstance(v, torch.Tensor) and v.is_floating_point()
+                      else v) for k, v in kw.items()}
+        want = plain(**kw)
+        torch.cuda.synchronize()
+        if name == "walk_dists":
+            ok, err = all(torch.equal(a, b) for a, b in zip(out, want)), 0.0
+        elif name == "row_gather":
+            ok, err = torch.equal(out, want), 0.0
+        elif name == "pagg_encode_fwd":
+            ok, err = k3_close(out, want, False), float((out - want).abs().max())
+        elif name == "pagg_encode_bwd":
+            ok, err = True, check_k4(site, out, want)
+        else:
+            tol = SEGMENT_TOL if name == "segment_sum" else K5_BWD_TOL
+            err = float((out.double() - want).abs().max())
+            ok = err <= tol * float(want.abs().max())
+        if not ok:
+            raise AssertionError(f"{site}: differs from its plain version (max abs err {err})")
+        errs[name] = max(errs.get(name, 0.0), err)
+        shapes = ", ".join(f"{k} {tuple(v.shape)}" for k, v in bound.arguments.items()
+                           if isinstance(v, torch.Tensor) and v.dim() and v.numel() > 4096)
+        say(f"  {site}: against its plain version, max abs err {err:.3e} ({shapes})")
+    return errs
+
+
+def one_process_step(model, X, y, ps, tr, va, u, masks, lr=0.005, weight_decay=0.0005):
+    """The port's one-process step on the sharded step's batch, walks and
+    masks: loss, summed gradients, validation accuracy after Adam."""
+    import torch
+    from pathnet_tpu_torch.parallel.mesh import walk_starts
+    from pathnet_tpu_torch.train.trainer import make_optimizer, weighted_ce
+
+    opt = make_optimizer(model.parameters(), lr, weight_decay)
+    walk = lambda starts: walk_starts(ps, u, starts)
+    paths, dists = walk(tr)
+    model.zero_grad(set_to_none=True)
+    logits = model(X, paths, dists, tr, train=True, masks=masks)
+    loss = weighted_ce(logits, y[tr.long()], torch.ones(tr.shape[0], device=X.device))
+    (loss / tr.shape[0]).backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    opt.step()
+    vp, vd = walk(va)
+    with torch.no_grad():
+        acc = float((model(X, vp, vd, va).argmax(-1) == y[va.long()]).float().mean())
+    return loss.item() / tr.shape[0], grads, acc
+
+
+def compare_step(tag, res, want):
+    """A sharded step's loss and gradients against the one-process step's."""
+    loss, grads, _ = want
+    if not abs(res.loss - loss) <= LOSS_TOL:
+        raise AssertionError(f"{tag}: loss {res.loss} against the one-process {loss}")
+    worst = 0.0
+    for k, g in grads.items():
+        d = (res.grads[k] - g).abs()
+        if not bool((d <= STEP_ATOL + STEP_RTOL * g.abs()).all()):
+            raise AssertionError(f"{tag}: gradient {k} differs by {float(d.max())}")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def step_ms(fn, reps=3):
+    """Median host ms of ``fn`` (ending in a synchronize) after a warm call,
+    with the peak device memory of the last call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def bgp_rank_setup(dev):
+    """The bgp stand-in on the rank's card: the graph, sampler, X, y and a
+    model at full width with a seeded dropout."""
+    import torch
+    from pathnet_tpu_torch.data import Graph
+    from pathnet_tpu_torch.kernels import build
+    from pathnet_tpu_torch.models import PaggSpec
+    from pathnet_tpu_torch.sample import PathSampler
+
+    if not build.library_path().is_file():
+        raise AssertionError("a rank found no built kernel library: ranks build nothing")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    z = np.load(BGP)
+    g = Graph(n=int(z["n"]), src=z["src"], dst=z["dst"], prob=z["prob"], name="bgp_standin")
+    ps = PathSampler.build(g, NW, WL, device=dev)
+    X = torch.from_numpy(z["x"]).to(dev)
+    y = torch.from_numpy(z["y"].astype(np.int64)).to(dev)
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=HIDDEN, out_dim=int(z["y"].max()) + 1,
+                    walk_len=WL, dropout=0.7)
+    return g, ps, X, y, spec
+
+
+def mesh_nccl_rank(grid):
+    """Phase 21, one NCCL rank on the card at the bgp stand-in's full width:
+    the sharded step through each exchange with row-sharded X against the
+    one-process step, ``make_sharded_predict`` against ``predict``, the
+    sharded path's launches, and each kernel of it held against its plain
+    version on the inputs the ring exchange gave it."""
+    import torch
+    import torch.distributed as dist
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.models import PathNet, draw_dropout_masks
+    from pathnet_tpu_torch.parallel import shard_rows, sharded_train_step
+    from pathnet_tpu_torch.train import make_sharded_predict, predict
+
+    dev = grid.device
+    g, ps, X, y, spec = bgp_rank_setup(dev)
+    say(f"  rank {grid.rank}: {grid.backend} on {dev} ({torch.cuda.get_device_name(dev)}), "
+        f"grid {grid.data} x {grid.model}")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    order = torch.from_numpy(np.random.default_rng(21).permutation(g.n).astype(np.int32)).to(dev)
+    tr, va = order[:REQUEST], order[REQUEST:2 * REQUEST]
+    u = ps.draw_uniforms(g.n * NW, gen)
+    masks = draw_dropout_masks(spec, REQUEST, NW, gen, dev)
+    init = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(0)).state_dict()
+
+    def fresh():
+        m = PathNet(spec, device=dev)
+        m.load_state_dict(init)
+        return m
+
+    ones = torch.ones(1, device=dev)
+    dist.all_reduce(ones)    # NCCL itself runs: a world of one rank skips the layer's calls
+    if float(ones) != grid.world:
+        raise AssertionError(f"NCCL all_reduce gave {float(ones)}")
+    Xb = shard_rows(X, grid.data_axis)
+    want = one_process_step(fresh(), X, y, ps, tr, va, u, masks)
+    m1 = fresh()
+    torch.cuda.empty_cache()
+    out = {"one_ms": step_ms(lambda: one_process_step(m1, X, y, ps, tr, va, u, masks))}
+    K.reset_launch_counts()
+    with Taps() as taps:
+        for ex in ("ring",) + tuple(e for e in EXCHANGES if e != "ring"):
+            step = sharded_train_step(grid, fresh(), spec.out_dim, shard_features=True,
+                                      exchange=ex)
+            res = step(Xb, y, ps, tr, va, u, masks)
+            out[ex] = compare_step(f"sharded step, {ex}", res, want)
+        fn = make_sharded_predict(grid)
+        ureq = ps.draw_uniforms(REQUEST * NW, gen)[None]
+        logp = fn(fresh(), Xb, ps, va, u=ureq)
+        torch.cuda.synchronize()
+    counts = K.launch_counts()
+    missing = [k for k in SHARDED_PATH if not counts[k]]
+    if missing:
+        raise AssertionError(f"the sharded path launched no {missing}: {counts}")
+    logp_one = predict(fresh(), X, ps, idx=va, u=ureq)
+    perr = float((logp - logp_one).abs().max())
+    if not torch.isfinite(logp).all() or perr > LOSS_TOL:
+        raise AssertionError(f"make_sharded_predict differs from predict by {perr}")
+    out["errs"] = hold_taps("sharded (ring, one rank)", taps.calls)
+    del taps, logp, logp_one       # the copies the holds read: not in the peaks below
+    torch.cuda.empty_cache()
+    for ex in EXCHANGES:
+        st = sharded_train_step(grid, fresh(), spec.out_dim, shard_features=True, exchange=ex)
+        out[f"{ex}_ms"] = step_ms(lambda: st(Xb, y, ps, tr, va, u, masks))
+    out["predict_ms"] = step_ms(lambda: fn(m1, Xb, ps, va, u=ureq))
+    out["plain_predict_ms"] = step_ms(lambda: predict(m1, X, ps, idx=va, u=ureq))
+    out.update(counts=counts, predict_err=perr, loss=want[0])
+    return out
+
+
+def mesh_gloo_rank(grid, root):
+    """Phase 21, two gloo ranks on one card (staged through the host), on
+    cornell at full width: one sharded step per exchange against this rank's
+    own one-process step, then one seeded round with row-sharded X twice."""
+    import torch
+    from pathnet_tpu_torch import kernels as K
+    from pathnet_tpu_torch.config import TrainConfig
+    from pathnet_tpu_torch.data.registry import load_dataset
+    from pathnet_tpu_torch.kernels import build
+    from pathnet_tpu_torch.models import PaggSpec, PathNet, draw_dropout_masks
+    from pathnet_tpu_torch.parallel import shard_rows, sharded_train_step
+    from pathnet_tpu_torch.sample import PathSampler
+    from pathnet_tpu_torch.train import run_round
+    from pathnet_tpu_torch.train.trainer import epoch_uniforms
+
+    if not build.library_path().is_file():
+        raise AssertionError("a rank found no built kernel library: ranks build nothing")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = grid.device
+    g, trm, vam, tem, _ = load_dataset("cornell", root, 0)
+    ps = PathSampler.build(g, NW, WL, device=dev)
+    X = torch.from_numpy(np.array(g.features, np.float32)).to(dev)
+    y = torch.from_numpy(np.array(g.labels, np.int64)).to(dev)
+    spec = PaggSpec(feat_dim=X.shape[1], hidden=HIDDEN, out_dim=5, walk_len=WL, dropout=0.7)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    even = lambda m: torch.from_numpy(np.flatnonzero(m)[:int(m.sum()) // 2 * 2]
+                                      .astype(np.int32)).to(dev)
+    tr, va = even(trm), even(vam)
+    u = epoch_uniforms(ps, 0, 0)
+    masks = draw_dropout_masks(spec, tr.shape[0], NW, gen, dev)
+    init = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(1)).state_dict()
+
+    def fresh():
+        m = PathNet(spec, device=dev)
+        m.load_state_dict(init)
+        return m
+
+    want = one_process_step(fresh(), X, y, ps, tr, va, u, masks)
+    out = {}
+    for ex in EXCHANGES:
+        step = sharded_train_step(grid, fresh(), 5, shard_features=True, exchange=ex)
+        out[ex] = compare_step(f"rank {grid.rank}, cornell step, {ex}",
+                               step(shard_rows(X, grid.data_axis), y, ps, tr, va, u, masks),
+                               want)
+    cfg = TrainConfig(epochs=MESH_ROUND_EPOCHS)
+    runs = []
+    for i in range(2):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_round(X, y, ps, spec, cfg, trm, vam, tem, 5, seed=0, track_history=True,
+                        mesh=grid, shard_features=True)
+        torch.cuda.synchronize()
+        runs.append((res, time.perf_counter() - t0, K.launch_counts()))
+    (a, ta, counts), (b, tb, _) = runs
+    same = (np.array_equal(a.history, b.history) and np.array_equal(a.losses, b.losses)
+            and a.metrics == b.metrics)
+    out.update(same=same, metrics=a.metrics, best_val=a.best_val_acc, seconds=(ta, tb),
+               counts=counts, final_loss=float(a.losses[-1]))
+    return out
+
+
+def check_mesh(root):
+    """Phase 21: the multi-device layer on the card (parts 1 and 2)."""
+    import torch
+    from pathnet_tpu_torch.parallel import spawn
+
+    torch.cuda.empty_cache()    # the ranks share the card with this process
+
+    say("  part 1: one NCCL rank on cuda:0, the bgp stand-in at full width "
+        f"(H = {HIDDEN}, nw = {NW}, wl = {WL}, {REQUEST}-target step and request)")
+    r = spawn(mesh_nccl_rank, 1, device="cuda", timeout_s=RANK_TIMEOUT_S)[0]
+    say(f"  sharded path launches: {r['counts']}")
+    say(f"  loss {r['loss']:.6f}; gradients within atol {STEP_ATOL} + rtol {STEP_RTOL} of "
+        "the one-process step's, max abs diff " + ", ".join(
+            f"{ex} {r[ex]:.3e}" for ex in EXCHANGES))
+    say(f"  step ms (host clock, median of 3; peak MiB): one-process {r['one_ms'][0]:.2f} "
+        f"({r['one_ms'][1]:.0f}), " + ", ".join(
+            f"{ex} {r[ex + '_ms'][0]:.2f} ({r[ex + '_ms'][1]:.0f})" for ex in EXCHANGES))
+    say(f"  make_sharded_predict, {REQUEST} targets: {r['predict_ms'][0]:.2f} ms "
+        f"({r['predict_ms'][1]:.0f} MiB) against predict {r['plain_predict_ms'][0]:.2f} ms "
+        f"({r['plain_predict_ms'][1]:.0f} MiB); max abs diff of the log-probs "
+        f"{r['predict_err']:.3e}")
+    say("  part 2: two gloo ranks on cuda:0, staged through host memory; cornell at full "
+        f"width, {MESH_ROUND_EPOCHS}-epoch rounds with row-sharded X")
+    rs = spawn(mesh_gloo_rank, 2, device="cuda", backend="gloo", timeout_s=RANK_TIMEOUT_S,
+               args=(root,))
+    for i, q in enumerate(rs):
+        say(f"  rank {i}: step gradients within tolerance of its one-process step, max abs "
+            "diff " + ", ".join(f"{ex} {q[ex]:.3e}" for ex in EXCHANGES)
+            + f"; rounds {q['seconds'][0]:.1f} s and {q['seconds'][1]:.1f} s, "
+            f"bit-equal {q['same']}, best val {q['best_val']:.4f}, test acc "
+            f"{q['metrics']['accuracy']:.4f}, launches {q['counts']}")
+        if not q["same"]:
+            raise AssertionError(f"rank {i}: two seeded rounds differ")
+        missing = [k for k in SHARDED_PATH if not q["counts"][k]]
+        if missing:
+            raise AssertionError(f"rank {i}: the round launched no {missing}")
+    if rs[0]["metrics"] != rs[1]["metrics"]:
+        raise AssertionError("the two ranks ended the round with different metrics")
+    acc = rs[0]["metrics"]["accuracy"]
+    mean, std = CORNELL_BAND
+    if not abs(acc - mean) <= 3 * std:
+        raise AssertionError(f"cornell round on two ranks: test acc {acc:.4f} outside "
+                             f"{mean:.4f} +- 3 x {std:.4f}")
+    say(f"  cornell test acc {acc:.4f} within {mean:.4f} +- 3 x {std:.4f}")
+    return r["errs"]
+
+
+def cards_rank(grid):
+    """One NCCL rank of :func:`check_cards`: the steps and the request."""
+    import torch
+    from pathnet_tpu_torch.models import PathNet, draw_dropout_masks
+    from pathnet_tpu_torch.parallel import shard_rows, sharded_train_step
+    from pathnet_tpu_torch.parallel.comm import regrid
+    from pathnet_tpu_torch.train import make_sharded_predict, predict
+
+    dev = grid.device
+    g, ps, X, y, spec = bgp_rank_setup(dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    order = torch.from_numpy(np.random.default_rng(21).permutation(g.n).astype(np.int32)).to(dev)
+    tr, va = order[:REQUEST], order[REQUEST:2 * REQUEST]
+    u = ps.draw_uniforms(g.n * NW, gen)
+    masks = draw_dropout_masks(spec, REQUEST, NW, gen, dev)
+    init = PathNet(spec, device=dev, generator=torch.Generator().manual_seed(0)).state_dict()
+
+    def fresh():
+        m = PathNet(spec, device=dev)
+        m.load_state_dict(init)
+        return m
+
+    want = one_process_step(fresh(), X, y, ps, tr, va, u, masks)
+    m1 = fresh()
+    out = {"one_ms": step_ms(lambda: one_process_step(m1, X, y, ps, tr, va, u, masks))}
+    runs = [(grid, ex, True, False) for ex in EXCHANGES] + [(grid, "gspmd", False, False)]
+    if grid.world % 2 == 0:
+        g2 = regrid(grid, grid.world // 2, 2)
+        runs += [(g2, "gspmd", True, True), (g2, "sparse", True, True)]
+    for gr, ex, sf, sp in runs:
+        st = sharded_train_step(gr, fresh(), spec.out_dim, shard_features=sf, exchange=ex,
+                                shard_params=sp)
+        Xr = shard_rows(X, gr.data_axis) if sf else X
+        key = f"{gr.data}x{gr.model} {ex}{' X' if sf else ''}{' P' if sp else ''}"
+        err = compare_step(key, st(Xr, y, ps, tr, va, u, masks), want)
+        out[key] = (err, step_ms(lambda: st(Xr, y, ps, tr, va, u, masks)))
+    fn = make_sharded_predict(grid)
+    ureq = ps.draw_uniforms(REQUEST * NW, gen)[None]
+    Xb = shard_rows(X, grid.data_axis)
+    err = float((fn(m1, Xb, ps, va, u=ureq) - predict(m1, X, ps, idx=va, u=ureq)).abs().max())
+    if not err <= LOSS_TOL:
+        raise AssertionError(f"make_sharded_predict differs from predict by {err}")
+    out.update(predict_err=err, predict_ms=step_ms(lambda: fn(m1, Xb, ps, va, u=ureq)),
+               plain_predict_ms=step_ms(lambda: predict(m1, X, ps, idx=va, u=ureq)))
+    return out
+
+
+def check_cards(n: int) -> int:
+    """Phase 21's sharded step on ``n`` cards, NCCL between them, one card a
+    rank (``python3 chip_smoke.py --cards N``), the bgp stand-in at full
+    width and phase 21's draws and masks:
+
+    - the sharded step on an ``n x 1`` grid through each exchange with
+      row-sharded X and through ``gspmd`` with X replicated, and (even
+      ``n``) on an ``n/2 x 2`` grid with the parameters sharded over the
+      model axis, each against the one-process step every rank also runs on
+      its own card (loss within 1e-5, gradients within atol 1e-5 + rtol
+      1e-4), each timed (host clock after a synchronize, median of 3) with
+      its peak device memory. The model axis splits only the optimizer's
+      state and update (``parallel/mesh.py``): its ranks each run the whole
+      forward and backward of their data share;
+    - ``make_sharded_predict`` against ``predict`` on one request (within
+      1e-5), both timed;
+    - the CLI's ``--mesh n --shard-features`` on cornell, one round of
+      ``CARDS_CLI_EPOCHS`` epochs, its test accuracy within 3 std of the
+      cornell band.
+
+    Each rank's numbers are printed as one JSON line and written with the
+    CLI's output under ``chiprun_out/chip_smoke_cards.log``. Returns 1 on
+    any failure."""
+    import torch
+    from pathnet_tpu_torch.kernels import build
+    from pathnet_tpu_torch.parallel import spawn
+
+    if torch.cuda.device_count() < n:
+        print(f"chip_smoke: {n} ranks need {n} CUDA cards, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        return 1
+    log_path = os.path.join(ROOT, "chiprun_out", "chip_smoke_cards.log")
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    with open(log_path, "w") as log:
+        def note(msg):
+            say(msg)
+            log.write(msg + "\n")
+
+        note(nvidia_smi_line())
+        t0 = time.time()
+        build.build()
+        note(f"build {time.time() - t0:.1f} s")
+        t0 = time.time()
+        for i, r in enumerate(spawn(cards_rank, n, device="cuda", timeout_s=900)):
+            note(f"rank {i}: " + json.dumps(r))
+        note(f"{n} ranks {time.time() - t0:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.time()
+            r = subprocess.run([sys.executable, "-m", "pathnet_tpu_torch.run", "-data", "cornell",
+                                "--mesh", str(n), "--shard-features", "-e",
+                                str(CARDS_CLI_EPOCHS), "-r", "1", "-pr", os.path.join(tmp, "data"),
+                                "--results-dir", os.path.join(tmp, "res"), "--ckpt-dir",
+                                os.path.join(tmp, "ck")],
+                               capture_output=True, text=True, timeout=900, cwd=ROOT)
+            note(r.stdout + r.stderr)
+            note(f"CLI --mesh {n} --shard-features: rc {r.returncode}, {time.time() - t0:.1f} s")
+            if r.returncode:
+                return 1
+            with open(os.path.join(tmp, "res", "results.jsonl")) as f:
+                acc = json.loads(f.readlines()[-1])["metrics"]["accuracy"]["mean"]
+        mean, std = CORNELL_BAND
+        note(f"cornell test acc {acc:.4f} (band {mean:.4f} +- 3 x {std:.4f})")
+        return 0 if abs(acc - mean) <= 3 * std else 1
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1185, exit=True)
     import torch
@@ -4168,6 +4662,13 @@ def main() -> int:
                 run_protocol_cli(name, root, tmp, 1, hidden, band, payload, dtype, mb,
                                  round_band=True)
 
+        with Phase(f"21 the multi-device layer: one NCCL rank (bgp stand-in: the sharded "
+                   f"step through {', '.join(EXCHANGES)}, make_sharded_predict, the kernels "
+                   f"on sharded inputs), two gloo ranks on one card (cornell steps, two "
+                   f"seeded {MESH_ROUND_EPOCHS}-epoch rounds)"):
+            for name, err in check_mesh(root).items():
+                record_err(rec, name, err)
+
     say(smi)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0],
@@ -4188,7 +4689,14 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        rc = main()
+        if sys.argv[1:2] == ["--cards"]:
+            rc = check_cards(int(sys.argv[2]))
+        elif sys.argv[1:]:
+            print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--cards N or none)",
+                  file=sys.stderr)
+            rc = 2
+        else:
+            rc = main()
     except Exception:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr, flush=True)

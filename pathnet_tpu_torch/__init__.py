@@ -19,6 +19,9 @@ find:
   parameter conversion from the JAX package's pytree.
 - ``pathnet_tpu_torch.train``   — training (``run_round``, ``run_protocol``,
   checkpoints, results) and serving (``predict``, ``evaluate``).
+- ``pathnet_tpu_torch.parallel`` — the multi-device layer: ranks and
+  collectives over ``torch.distributed``, the ring and sparse feature
+  exchanges, data- and model-parallel steps, the CPU dry run.
 - ``pathnet_tpu_torch.run``     — the training CLI.
 - ``pathnet_tpu_torch.init_rw`` — the MERW edge-input writer CLI.
 - ``pathnet_tpu_torch.experiments`` — the runners of the paper's tables: the

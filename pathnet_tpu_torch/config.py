@@ -74,7 +74,8 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Multi-device layout (not ported yet; ROADMAP §1 item 11)."""
+    """Multi-device layout: the CLI runs ``data_axis * model_axis`` ranks, as
+    the JAX CLI sizes its mesh (``pathnet_tpu/run.py:106-107``)."""
 
     data_axis: int = 1           # node/path-partition parallel degree
     model_axis: int = 1          # hidden-dim parallel degree

@@ -356,7 +356,8 @@ def load_dataset(name: str, data_root: str = "data", round_i: int = 0,
                                              pattern_balance=spec.pattern_balance)
             try:
                 os.makedirs(os.path.dirname(disk_cache), exist_ok=True)
-                tmp = disk_cache + ".tmp.npz"
+                # a name of this process's own: ranks may make it at once
+                tmp = f"{disk_cache}.{os.getpid()}.tmp.npz"
                 np.savez(tmp, n=g.n, src=g.src, dst=g.dst, prob=g.prob,
                          x=g.features, y=g.labels)
                 os.replace(tmp, disk_cache)

@@ -47,6 +47,13 @@ projects the bf16 rows, ``hb = round(round(X_bf16 @ W0_bf16) + b0_bf16)``
 Each cast is an autograd op, so each cast parameter gets the gradient of
 the bf16 path, as JAX's does through ``astype``.
 
+With ``X`` row-sharded over ranks (``parallel/``), ``forward`` takes this
+rank's block of ``X`` and a ``FeatureExchange`` (JAX's ``gather_fn``): ``h``
+and K3's table are projected on the block, and the rows K3 and K5 read come
+through the exchange (the whole table all-gathered, or the walks' and ego
+rows gathered, which K3 then reads as a table of its own with the ids
+``arange``).
+
 Parameters keep the reference's ``state_dict`` names (``fc0``, ``nets.k``,
 ``LSTM.*_l0`` or ``GRU.*_l0``, ``attw``, ``fc2``; the MLP, which the
 reference lacks, ``MLP.weight`` and ``MLP.bias``), so
@@ -280,7 +287,7 @@ class PathNet(nn.Module):
 
     def forward(self, X: torch.Tensor, paths: torch.Tensor, dists: torch.Tensor,
                 ego_idx: torch.Tensor, train: bool = False,
-                masks: Optional[Masks] = None) -> torch.Tensor:
+                masks: Optional[Masks] = None, exchange=None) -> torch.Tensor:
         """Logits ``[T, out_dim]`` of targets ``ego_idx [T]`` from their walks
         ``paths`` and hop distances ``dists`` (``int32 [T, nw, wl]``); ``X`` is
         the full feature matrix ``[n, F]``.
@@ -288,23 +295,35 @@ class PathNet(nn.Module):
         ``train=False`` serves (no gradient, no dropout). ``train=True`` builds
         the autograd graph; ``masks`` (from :func:`draw_dropout_masks`) apply
         both dropouts, and None trains without dropout.
+
+        ``exchange`` (a :class:`~pathnet_tpu_torch.parallel.mesh.FeatureExchange`,
+        JAX's ``gather_fn``) takes ``X`` as this rank's row block: the table
+        and ``h`` are projected on the block and the rows K3 and K5 read come
+        through the exchange.
         """
         ego_idx = ego_idx.to(torch.int32).contiguous()
         if not train:
             with torch.no_grad():
-                h, weights = self._encode_inputs(X)
-                table, weights = self._k3_inputs(X, h, weights)
+                h, table, weights, paths, ego_idx = self._tables(X, paths, ego_idx, exchange)
                 h_agg = pagg_encode_fwd(table, paths, dists, *weights, homo=self.homo,
                                         agg=self.agg, cell=self.spec.rnn)
                 out = torch.cat([row_gather(h, ego_idx), h_agg], dim=-1)
                 return F.linear(out, self.fc2.weight, self.fc2.bias)
         keep = 1.0 - self.spec.dropout
         m1, m2 = masks if masks is not None else (None, None)
-        h, weights = self._encode_inputs(X)
-        table, weights = self._k3_inputs(X, h, weights)
+        h, table, weights, paths, ego_idx = self._tables(X, paths, ego_idx, exchange)
         h_agg = PaggEncode.apply(table, paths, dists, m1, keep, self.homo, self.agg,
                                  self.spec.rnn, *weights)
         out = torch.cat([RowGather.apply(h, ego_idx), h_agg], dim=-1)
         if m2 is not None:
             out = torch.where(m2.bool(), out / keep, 0.0)
         return F.linear(out, self.fc2.weight, self.fc2.bias)
+
+    def _tables(self, X, paths, ego_idx, exchange):
+        """``(h, table, weights, paths, ego_idx)`` for K5 and K3, through
+        ``exchange`` when ``X`` is a row block."""
+        h, weights = self._encode_inputs(X)
+        table, weights = self._k3_inputs(X, h, weights)
+        if exchange is not None:
+            table, h, paths, ego_idx = exchange.tables(table, h, paths, ego_idx)
+        return h, table, weights, paths, ego_idx

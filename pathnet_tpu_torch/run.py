@@ -3,9 +3,14 @@
     python -m pathnet_tpu_torch.run -data cornell [--device cpu]
 
 The same flags and defaults as ``python -m pathnet_tpu.run``, with
-``--device`` in place of ``--platform`` (default: the CUDA card). Choices the
-port does not run yet raise ``NotImplementedError`` naming ROADMAP.md:
-``--mesh`` and ``--shard-features``.
+``--device`` in place of ``--platform`` (default: the CUDA card).
+``--mesh N`` runs PathNet's rounds on ``N`` ranks that this command spawns
+(``parallel.comm.spawn``): NCCL on the cards, one card a rank, or gloo with
+``--device cpu``; ``--shard-features`` row-shards ``X`` over them, the rows
+of other ranks coming through an all-gather (JAX's GSPMD exchange). A
+config file's ``mesh.data_axis x mesh.model_axis`` sets ``--mesh`` as in
+JAX. ``--mesh`` with a baseline ``--model`` raises ``NotImplementedError``
+naming ROADMAP.md (the baseline trainer's mesh branch is not ported yet).
 ``--model <name>`` trains a model of the baseline zoo (``models/baselines``)
 full batch, as the JAX CLI's baseline branch does: one payload load a round,
 the seed ``--seed + round``, JAX's checkpoint key and the model's name in
@@ -133,14 +138,10 @@ def check_ported(args) -> None:
 
     if args.model != "pathnet" and args.model not in BASELINES + EXTRA_MODELS:
         raise ValueError(f"unknown baseline {args.model}")
-    todo = []
-    if args.mesh:
-        todo.append(("--mesh", "the multi-device layer, ROADMAP §1 item 11"))
-    if args.shard_features:
-        todo.append(("--shard-features", "the multi-device layer, ROADMAP §1 item 11"))
-    if todo:
-        what, where = todo[0]
-        raise NotImplementedError(f"{what} is not ported yet ({where})")
+    if args.model != "pathnet" and args.mesh:
+        raise NotImplementedError(
+            f"--mesh with --model {args.model} is not ported yet (the baseline trainer's "
+            "mesh branch, ROADMAP §1 item 11)")
 
 
 def baseline_checkpoint_name(args, fingerprint: str) -> str:
@@ -191,6 +192,36 @@ def run_baselines(args, cfg):
     return aggregate_rounds(results)
 
 
+def train_config(args):
+    from .config import TrainConfig
+
+    return TrainConfig(lr=args.learning_rate, weight_decay=args.weight_decay,
+                       epochs=args.epoch, rounds=args.round, seed=args.seed,
+                       scan_epochs=not args.no_scan, microbatch=args.microbatch,
+                       scan_chunk=args.scan_chunk or None)
+
+
+def protocol_kwargs(args) -> dict:
+    """``run_protocol``'s arguments from the flags (but ``cfg`` and the
+    device)."""
+    return dict(data_root=args.data_root, num_walks=args.num_of_walks,
+                walk_len=args.walk_length, hidden=args.hidden_size, kind=args.marker,
+                rnn=args.rnn, agg=args.agg, quirk_compat=args.quirk_compat,
+                dropout=args.dropout, compute_dtype=args.dtype, remat=args.remat,
+                ckpt_dir=args.ckpt_dir if args.resume else None)
+
+
+def run_mesh_rank(grid, flags: dict):
+    """One rank of ``--mesh``: the protocol on the grid; rank 0 returns the
+    aggregate (and alone saves rounds), the others None."""
+    args = argparse.Namespace(**flags)
+    from .train import run_protocol
+
+    agg, _ = run_protocol(args.data_name, cfg=train_config(args), mesh=grid,
+                          shard_features=args.shard_features, **protocol_kwargs(args))
+    return agg if grid.rank == 0 else None
+
+
 def main(argv=None):
     """Run the protocol the flags describe; returns the mean/std of the five
     test metrics over the rounds."""
@@ -206,28 +237,25 @@ def main(argv=None):
     args = parser.parse_args(av)
     check_ported(args)
 
-    from .config import TrainConfig
     from .data.registry import DATASETS, payload_fingerprint
-    from .train import run_protocol
     from .train.results import append_results
 
-    cfg = TrainConfig(lr=args.learning_rate, weight_decay=args.weight_decay,
-                      epochs=args.epoch, rounds=args.round, seed=args.seed,
-                      scan_epochs=not args.no_scan, microbatch=args.microbatch,
-                      scan_chunk=args.scan_chunk or None)
+    cfg = train_config(args)
     name = args.data_name
     if args.new_data_root:
         args.data_root = args.new_data_root
     t0 = time.time()
     print(f"{name}: {vars(args)}")
-    if args.model == "pathnet":
-        agg, _ = run_protocol(
-            name, data_root=args.data_root, cfg=cfg,
-            num_walks=args.num_of_walks, walk_len=args.walk_length,
-            hidden=args.hidden_size, kind=args.marker, rnn=args.rnn,
-            agg=args.agg, quirk_compat=args.quirk_compat,
-            dropout=args.dropout, compute_dtype=args.dtype, remat=args.remat,
-            ckpt_dir=args.ckpt_dir if args.resume else None, device=args.device)
+    if args.model == "pathnet" and args.mesh:
+        from .parallel import spawn
+
+        agg = spawn(run_mesh_rank, args.mesh, device=args.device, args=(vars(args),),
+                    timeout_s=None)[0]
+        mode = args.model_mode
+    elif args.model == "pathnet":
+        from .train import run_protocol
+
+        agg, _ = run_protocol(name, cfg=cfg, device=args.device, **protocol_kwargs(args))
         mode = args.model_mode
     else:
         agg = run_baselines(args, cfg)

@@ -1,5 +1,5 @@
-from .inference import evaluate, predict
+from .inference import evaluate, make_sharded_predict, predict
 from .trainer import RoundResult, make_optimizer, run_protocol, run_round
 
-__all__ = ["predict", "evaluate", "RoundResult", "make_optimizer", "run_round",
-           "run_protocol"]
+__all__ = ["predict", "make_sharded_predict", "evaluate", "RoundResult", "make_optimizer",
+           "run_round", "run_protocol"]

@@ -1,4 +1,5 @@
-"""Serving: ``predict`` and ``evaluate`` (port of ``pathnet_tpu/train/inference.py:22-49,81-89``).
+"""Serving: ``predict``, ``make_sharded_predict`` and ``evaluate`` (port of
+``pathnet_tpu/train/inference.py``).
 
 Walks are sampled only for the requested nodes and resampled per call;
 ``num_ensemble > 1`` averages the class probabilities of independent walk
@@ -7,7 +8,8 @@ path runs the sampler's one launch (K1's walks with K2's hop distances,
 ``walk_dists``, at ``walk_len <= 4``; with K7's, ``walk_khop_dists``, past
 it; with the alias tables K8's walks, ``alias_walk_dists`` and
 ``alias_walk_khop_dists``), then K3 (encode) and K5 (the ego rows), once
-each.
+each. :func:`make_sharded_predict` serves with ``X`` row-sharded over the
+ranks of a grid, the rows coming through the sparse exchange.
 """
 from __future__ import annotations
 
@@ -32,12 +34,14 @@ def _as_index(idx, n: int, device: torch.device) -> torch.Tensor:
 @torch.no_grad()
 def predict(model: PathNet, X: torch.Tensor, ps: PathSampler,
             generator: Optional[torch.Generator] = None, idx=None,
-            num_ensemble: int = 1, u: Optional[torch.Tensor] = None) -> torch.Tensor:
+            num_ensemble: int = 1, u: Optional[torch.Tensor] = None,
+            exchange=None) -> torch.Tensor:
     """Class log-probabilities ``[len(idx), C]`` (default: every node).
 
     The walks' uniforms come from ``generator`` (a generator on the sampler's
     device), or from ``u [num_ensemble, *ps.uniform_shape(len(idx) * nw)]``
     (``[num_ensemble, wl - 1, len(idx) * nw]`` with the CDF tables).
+    ``exchange`` (JAX's ``gather_fn``) takes ``X`` as a rank's row block.
     """
     if num_ensemble < 1:
         raise ValueError("num_ensemble must be >= 1")
@@ -56,8 +60,31 @@ def predict(model: PathNet, X: torch.Tensor, ps: PathSampler,
     logps = []
     for e in range(num_ensemble):
         paths, dists = ps.sample(idx, u=u[e])
-        logps.append(torch.log_softmax(model(X, paths, dists, idx), dim=-1))
+        logps.append(torch.log_softmax(model(X, paths, dists, idx, exchange=exchange),
+                                       dim=-1))
     return torch.logsumexp(torch.stack(logps), dim=0) - math.log(num_ensemble)
+
+
+def make_sharded_predict(grid, num_ensemble: int = 1):
+    """Serving with graph-partitioned features (JAX's ``:50-78``): ``X`` stays
+    row-sharded over the grid's data axis (each rank holds its block,
+    ``parallel.mesh.shard_rows``), the request is the same on every rank, and
+    the walk rows come through the ownership-keyed sparse exchange (an
+    all-reduce of each rank's owned rows: communication grows with the
+    request, not with n). Returns ``fn(model, X_block, ps, idx,
+    generator=None, u=None) -> log-probs``, the same on every rank; each
+    rank's ``generator`` must draw what the others' draw."""
+    from ..parallel.mesh import FeatureExchange
+
+    exchange = FeatureExchange(grid, "sparse_replicated")
+
+    def fn(model: PathNet, X: torch.Tensor, ps: PathSampler, idx,
+           generator: Optional[torch.Generator] = None,
+           u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return predict(model, X, ps, generator, idx, num_ensemble=num_ensemble, u=u,
+                       exchange=exchange)
+
+    return fn
 
 
 @torch.no_grad()

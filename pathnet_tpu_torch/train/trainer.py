@@ -23,6 +23,11 @@ an order fixed by the paths; ``tests/test_torch_reproducible.py``). Philox
 and threefry streams differ, so rounds are compared with the JAX package by
 distribution only.
 
+With ``mesh`` (a rank grid of ``parallel``) every rank runs the same round
+on its share of each chunk (the ``axis`` of :func:`chunked_grads` and
+:func:`chunked_cm`), as JAX's round runs under a mesh; one process is the
+grid of one rank.
+
 Optimizer semantics match ``optax.chain(add_decayed_weights, scale_by_adam,
 scale(-lr))``: ``torch.optim.Adam(lr, weight_decay)``, additive L2 before the
 moment update, not AdamW.
@@ -40,11 +45,14 @@ import torch.nn.functional as F
 from ..config import TrainConfig
 from ..models.pagg import PaggSpec, PathNet, draw_dropout_masks
 from ..nn.metrics import classification_metrics, confusion_matrix
+from ..parallel.comm import SINGLE, Axis, all_reduce
+from ..parallel.mesh import FeatureExchange, shard_rows, share, share_masks, sum_grads, walk_starts
 from ..rng import STREAM_DROPOUT, STREAM_INIT, STREAM_WALKS, make_generator, stream_seed
 from ..sample.walk import PathSampler
 
 __all__ = ["RoundResult", "STREAM_INIT", "STREAM_WALKS", "STREAM_DROPOUT", "stream_seed",
            "make_generator", "make_optimizer", "chunk_index", "chunked_grads", "chunked_cm",
+           "epoch_uniforms", "rank_starts", "epoch_walks",
            "run_round", "checkpoint_name", "run_protocol"]
 
 
@@ -90,7 +98,7 @@ def chunk_index(mask: np.ndarray, microbatch: Optional[int],
             max(float(wc.sum()), 1.0))
 
 
-def _weighted_ce(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def weighted_ce(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Sum of ``w * CE``; labels of zero-weight (padding) rows may be -1."""
     logp = F.log_softmax(logits, dim=-1)
     ce = -logp.gather(1, y.long().clamp(min=0)[:, None])[:, 0]
@@ -100,26 +108,35 @@ def _weighted_ce(logits: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torc
 def chunked_grads(model: PathNet, X: torch.Tensor, y: torch.Tensor,
                   paths: torch.Tensor, dists: torch.Tensor, idx_chunks: torch.Tensor,
                   w_chunks: torch.Tensor, total: float,
-                  dropout_gen=None) -> torch.Tensor:
+                  dropout_gen=None, axis: Axis = SINGLE, exchange=None) -> torch.Tensor:
     """Set every parameter's ``.grad`` to the full-batch gradient of the mean
     CE over the weighted rows, accumulated over microbatches (trainer.py:87-112):
     each chunk's weighted CE sum is back-propagated, and the summed gradients
     are divided by ``total``. ``dropout_gen(i)`` gives chunk ``i``'s dropout
-    generator (None: no dropout). Returns the loss (a 0-d tensor)."""
+    generator (None: no dropout). Returns the loss (a 0-d tensor).
+
+    On a data ``axis`` of several ranks each chunk is split across them
+    (``parallel.mesh.share``; the chunk's dropout masks drawn whole and
+    sliced the same way), and the gradients and the loss are summed over
+    the axis once, after the chunk loop. ``X`` is this rank's row block when
+    an ``exchange`` (``parallel.mesh.FeatureExchange``) reaches the rest."""
     model.zero_grad(set_to_none=True)
     nw = paths.shape[1]
+    width = idx_chunks.shape[1]
     loss = torch.zeros((), device=X.device)
     for i in range(idx_chunks.shape[0]):
-        idx_c = idx_chunks[i]
+        idx_c, w_c = share(idx_chunks[i], w_chunks[i], axis)
         rows = idx_c.long()
         masks = None
         if dropout_gen is not None:
-            masks = draw_dropout_masks(model.spec, idx_c.shape[0], nw,
-                                       dropout_gen(i), X.device)
-        logits = model(X, paths[rows], dists[rows], idx_c, train=True, masks=masks)
-        part = _weighted_ce(logits, y[rows], w_chunks[i])
+            masks = share_masks(draw_dropout_masks(model.spec, width, nw, dropout_gen(i),
+                                                   X.device), width, axis)
+        logits = model(X, paths[rows], dists[rows], idx_c, train=True, masks=masks,
+                       exchange=exchange)
+        part = weighted_ce(logits, y[rows], w_c)
         part.backward()
         loss += part.detach()
+    loss = sum_grads(model, loss, axis)
     for p in model.parameters():
         p.grad /= total
     return loss / total
@@ -128,21 +145,62 @@ def chunked_grads(model: PathNet, X: torch.Tensor, y: torch.Tensor,
 @torch.no_grad()
 def chunked_cm(model: PathNet, X: torch.Tensor, y: torch.Tensor,
                paths: torch.Tensor, dists: torch.Tensor, idx_chunks: torch.Tensor,
-               w_chunks: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """Weighted confusion matrix of the serving forward over the chunks."""
+               w_chunks: torch.Tensor, num_classes: int, axis: Axis = SINGLE,
+               exchange=None) -> torch.Tensor:
+    """Weighted confusion matrix of the serving forward over the chunks,
+    split and summed over the data ``axis`` as in :func:`chunked_grads`:
+    every rank holds the same matrix."""
     cm = torch.zeros((num_classes, num_classes), device=X.device)
     for i in range(idx_chunks.shape[0]):
-        idx_c = idx_chunks[i]
+        idx_c, w_c = share(idx_chunks[i], w_chunks[i], axis)
         rows = idx_c.long()
-        pred = model(X, paths[rows], dists[rows], idx_c).argmax(dim=-1)
-        cm += confusion_matrix(y[rows], pred, num_classes, weights=w_chunks[i])
-    return cm
+        pred = model(X, paths[rows], dists[rows], idx_c, exchange=exchange).argmax(dim=-1)
+        cm += confusion_matrix(y[rows], pred, num_classes, weights=w_c)
+    return all_reduce(cm, axis)
+
+
+def epoch_uniforms(ps: PathSampler, seed: int, epoch: int) -> torch.Tensor:
+    """The whole epoch's walk draws for every node, those
+    ``ps.sample_epoch(seed, epoch)`` takes."""
+    return ps.draw_uniforms(ps.sampler.n * ps.num_walks,
+                            make_generator(seed, epoch, STREAM_WALKS, device=ps.device))
+
+
+def rank_starts(chunks, axis: Axis) -> Optional[torch.Tensor]:
+    """The nodes this rank walks an epoch: those of its shares of the
+    ``chunk_index`` sets ``chunks``, sorted, once each; None (every node)
+    on one rank."""
+    if axis.size == 1:
+        return None
+    return torch.unique(torch.cat([share(ic[i], wc[i], axis)[0]
+                                   for ic, wc, _ in chunks for i in range(ic.shape[0])]))
+
+
+def epoch_walks(ps: PathSampler, seed: int, epoch: int,
+                starts: Optional[torch.Tensor] = None):
+    """The epoch's ``(paths, dists)``, a row a node:
+    ``ps.sample_epoch(seed, epoch)``, of which only the rows of ``starts``
+    are walked when given (on their columns of the epoch's whole draws, so
+    bit for bit; the other rows are 0)."""
+    if starts is None:
+        return ps.sample_epoch(seed, epoch)
+    paths, dists = walk_starts(ps, epoch_uniforms(ps, seed, epoch), starts)
+    rows = starts.long()
+    full = []
+    for t in (paths, dists):
+        if t is not None:
+            f = t.new_zeros((ps.sampler.n, *t.shape[1:]))
+            f[rows] = t
+            t = f
+        full.append(t)
+    return tuple(full)
 
 
 def run_round(X: torch.Tensor, y: torch.Tensor, ps: PathSampler, spec: PaggSpec,
               cfg: TrainConfig, train_mask: np.ndarray, val_mask: np.ndarray,
               test_mask: np.ndarray, num_classes: int, seed: int = 0,
-              track_history: bool = False, keep_params: bool = False) -> RoundResult:
+              track_history: bool = False, keep_params: bool = False,
+              mesh=None, shard_features: bool = False) -> RoundResult:
     """One full round on ``ps.device``: init -> epochs -> best-on-val test metrics.
 
     ``X [n, F]`` and ``y [n]`` lie on the sampler's device. With
@@ -150,6 +208,17 @@ def run_round(X: torch.Tensor, y: torch.Tensor, ps: PathSampler, spec: PaggSpec,
     train loss and host-clock seconds; with ``keep_params`` the best epoch's
     ``state_dict`` (the init params when validation accuracy never rises
     above 0, as in JAX).
+
+    ``mesh`` (this rank's :class:`~pathnet_tpu_torch.parallel.comm.Grid`;
+    every rank calls ``run_round`` alike) runs the round over the grid's data
+    axis (JAX's ``trainer.py:228-257``): each chunk split across the ranks,
+    each rank walking its shares' starts on the epoch's whole draws and
+    slicing the chunk's dropout masks, so its walks and masks are the
+    one-process round's; the gradients summed once a step; the validation
+    and test confusion matrices summed before the host reads them, so every
+    rank takes the same best-on-validation branch. ``shard_features`` keeps
+    only this rank's row block of ``X`` and all-gathers the projected table
+    (the ``gspmd`` exchange, as JAX's trainer).
     """
     dev = ps.device
     model = PathNet(spec, device=dev, generator=make_generator(seed, 0, STREAM_INIT))
@@ -157,6 +226,12 @@ def run_round(X: torch.Tensor, y: torch.Tensor, ps: PathSampler, spec: PaggSpec,
     tr = chunk_index(train_mask, cfg.microbatch, dev)
     va = chunk_index(val_mask, cfg.microbatch, dev)
     te = chunk_index(test_mask, cfg.microbatch, dev)
+    axis = SINGLE if mesh is None else mesh.data_axis
+    fx = None
+    if mesh is not None and shard_features:
+        fx = FeatureExchange(mesh, "gspmd")
+        X = shard_rows(X, axis)
+    starts = rank_starts((tr, va, te), axis)
     best_val = 0.0
     best_cm = torch.zeros((num_classes, num_classes), device=dev)
     # as JAX's carry: a round whose validation accuracy never rises keeps
@@ -166,19 +241,21 @@ def run_round(X: torch.Tensor, y: torch.Tensor, ps: PathSampler, spec: PaggSpec,
     hist, losses, secs = [], [], []
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()
-        paths, dists = ps.sample_epoch(seed, epoch)
+        paths, dists = epoch_walks(ps, seed, epoch, starts)
         dropout_gen = None
         if spec.dropout > 0.0:
             dropout_gen = lambda i: make_generator(seed, epoch, STREAM_DROPOUT, i,
                                                    device=dev)
         loss = chunked_grads(model, X, y, paths, dists, tr[0], tr[1], tr[2],
-                             dropout_gen)
+                             dropout_gen, axis, fx)
+        cm = lambda c: chunked_cm(model, X, y, paths, dists, c[0], c[1], num_classes,
+                                  axis, fx)
         opt.step()
-        val_cm = chunked_cm(model, X, y, paths, dists, va[0], va[1], num_classes)
+        val_cm = cm(va)
         val_acc = float(val_cm.diagonal().sum() / val_cm.sum().clamp(min=1.0))
         if val_acc > best_val:
             best_val = val_acc
-            best_cm = chunked_cm(model, X, y, paths, dists, te[0], te[1], num_classes)
+            best_cm = cm(te)
             if keep_params:
                 best_params = {k: v.detach().clone()
                                for k, v in model.state_dict().items()}
@@ -218,6 +295,7 @@ def run_protocol(name: str, data_root: str = "data",
                  verbose: bool = True, compute_dtype: str = "float32",
                  remat: str = "auto",
                  device: Optional[Union[str, torch.device]] = None,
+                 mesh=None, shard_features: bool = False,
                  ) -> Tuple[Dict[str, Tuple[float, float]], list]:
     """The multi-round protocol (trainer.py:347-434; PathNet_run.py:406-485).
 
@@ -228,6 +306,11 @@ def run_protocol(name: str, data_root: str = "data",
     results)``. With ``ckpt_dir`` each round's best params and metrics are
     saved under the JAX package's checkpoint key, and rounds already saved
     are skipped. ``remat`` is accepted and has no effect (K4 recomputes).
+
+    ``mesh`` (this rank's grid; every rank calls ``run_protocol`` alike) runs
+    each round with :func:`run_round`'s ``mesh`` and ``shard_features`` (the
+    ``gspmd`` exchange, as JAX's trainer) on the grid's device; only rank 0
+    prints and saves rounds.
     """
     from ..data.registry import DATASETS, load_dataset, payload_fingerprint
     from ..device import resolve_device
@@ -247,7 +330,9 @@ def run_protocol(name: str, data_root: str = "data",
     ckpt_name = checkpoint_name(name, payload_fingerprint(spec_d), cfg, hidden,
                                 num_walks, walk_len, dropout, kind, rnn, agg,
                                 compute_dtype, quirk_compat)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    lead = mesh is None or mesh.rank == 0
+    verbose = verbose and lead
     results = []
     ps = None
     for round_i in range(rounds):
@@ -276,9 +361,11 @@ def run_protocol(name: str, data_root: str = "data",
         t_round = time.time()
         res = run_round(X, y, ps, spec, cfg, train_mask, val_mask, test_mask,
                         spec_d.num_classes, seed=cfg.seed + round_i,
-                        keep_params=ckpt_dir is not None)
+                        keep_params=ckpt_dir is not None, mesh=mesh,
+                        shard_features=shard_features)
         if ckpt_dir is not None:
-            save_round(ckpt_dir, ckpt_name, round_i, res)
+            if lead:
+                save_round(ckpt_dir, ckpt_name, round_i, res)
             res.best_params = None
         if verbose:
             print(f"round {round_i}: val={res.best_val_acc:.4f} "

@@ -215,12 +215,13 @@ def test_cli_takes_the_jax_flags():
     assert mine - theirs == {"--device"} and theirs - mine == {"--platform"}
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "4"],
-                                  ["--shard-features"], ["--model", "gcn", "--mesh", "2"],
-                                  ["--model", "gat", "--shard-features"],
-                                  ["--mesh", "2", "--quirk-compat"]])
+@pytest.mark.parametrize("argv", [["--model", "mlp", "--mesh", "4"],
+                                  ["--model", "sage", "--mesh", "2", "--shard-features"],
+                                  ["--model", "gcn", "--mesh", "2"],
+                                  ["--model", "gat", "--mesh", "2", "--device", "cpu"],
+                                  ["--model", "lp", "--mesh", "1", "--quirk-compat"]])
 def test_cli_refuses_unported_choices(argv):
-    # the multi-device layer
+    # the baseline trainer's mesh branch (PathNet's --mesh is ported)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run.main(["-data", "cornell", *argv])
 
